@@ -1,0 +1,19 @@
+"""visiondk-tpu-torch: the PyTorch/CUDA port of ``visiondk_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference; this package mirrors its module layout
+(``models/``, ``engine/``, ``ops/``, ``config/``) so each counterpart is easy
+to find. Plain tensor code is PyTorch; every Pallas kernel of the JAX package
+becomes a kernel written by hand for ``sm_90a`` under ``csrc/``, built at first
+use (``ops/_build.py``) and bound with ctypes.
+
+Slice ported so far: the ViT serving path (``engine.steps.make_eval_step`` and
+``make_embed_step``), whose attention core is the CUDA kernel
+``ops.attention.fused_qkv_attention``.
+
+Importing this package loads torch, numpy and the standard library only: no
+JAX, no Triton, and no kernel is built until a CUDA tensor reaches one.
+"""
+
+from visiondk_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

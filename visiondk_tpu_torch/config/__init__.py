@@ -1,0 +1,3 @@
+from visiondk_tpu_torch.config.checks import canonical_model_name
+
+__all__ = ["canonical_model_name"]

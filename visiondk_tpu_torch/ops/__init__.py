@@ -1,0 +1,3 @@
+from visiondk_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+
+__all__ = ["fused_qkv_attention", "fused_qkv_attention_plain"]
