@@ -8,42 +8,89 @@ Phases, one line or more each; any failure raises and exits non-zero:
 1. device  — needs CUDA (exits non-zero without it); prints the card's name
              and power limit as nvidia-smi reports them; TF32 off for the
              f32 comparisons.
-2. build   — compiles the fused QKV attention kernel from
-             visiondk_tpu_torch/csrc/ with nvcc for sm_90a into
-             visiondk_tpu_torch/_build/.
-3. kernel  — the kernel against its plain PyTorch version at the ViT-B/16
-             shape and at smaller odd shapes, f32 (max |err| ≤ 1e-4) and bf16
-             (≤ 1.6e-2, about two bf16 ulps at |o| ≈ 1); times both at the
-             ViT-B/16 shape with CUDA events.
+2. build   — compiles the two kernel libraries of visiondk_tpu_torch/csrc/
+             (forward with optional P stash; both backwards) with nvcc for
+             sm_90a into visiondk_tpu_torch/_build/, in parallel, and prints
+             ptxas' register and spill lines.
+3. kernel  — each of the four kernels against its plain PyTorch version on
+             the same inputs, at the ViT-B/16 shape and at smaller odd shapes
+             (N=37 with a key mask, ViT-B/8's N=785, head dim 80), f32 and
+             bf16: the no-stash forward (O), the stash forward (O bit-equal to
+             the no-stash kernel's, and P), the backward from P (both sides
+             fed the kernel's stash) and the recompute backward (dqkv).
+             Tolerances: O max |err| ≤ 1e-4 f32 / 1.6e-2 bf16 (about two bf16
+             ulps at |o| ≈ 1); P ≤ 1e-5 f32 / 2**-8 bf16 (one bf16 ulp at
+             p ≤ 1); dqkv |err| ≤ tol · max(1, |plain|) with the O tolerances
+             (both sides compute in f32 from the same inputs and round the
+             result). Times each kernel and its plain version at the ViT-B/16
+             shape with CUDA events, in the order plain, kernel, kernel, plain.
 4. slice   — the serving path at full ViT-B/16 width: the classification model
              of configs/classification/pet_synth.yaml and the 128-d embedding
              model, seeded weights, bf16, batches of 128 seeded uint8
              224×224 images through make_eval_step and make_embed_step. The
-             kernel must launch exactly 12 times per forward, and logits and
-             embeddings must match the same models on the plain attention
-             path (per-row cosine ≥ 0.999). Prints images/s of both paths.
-             The same models in f32 must also agree on the argmax of ≥ 99% of
-             rows (in bf16 the argmax agreement is printed: the two paths
-             round at different places, and at random init a few percent of
-             rows have near-tied top-2 logits).
+             no-stash kernel must launch exactly 12 times per forward (and no
+             other kernel), and logits and embeddings must match the same
+             models on the plain attention path (per-row cosine ≥ 0.999).
+             Prints images/s of both paths. The same models in f32 must also
+             agree on the argmax of ≥ 99% of rows.
+5. train   — the training path: the pet_synth model at full width and depth,
+             bf16 compute with f32 parameters, bs 128 seeded uint8 images and
+             int labels, make_train_step with CE (label smoothing 0.05) and the
+             optimizer build_tx makes of the pet_synth hyp: (SGD, wd 5e-4,
+             momentum 0.8 → 0.937, cosine_with_warm from lr 0.01, clip 10),
+             with STEPS_PER_EPOCH = 2 so that the warm-up ends inside the run,
+             and the EMA. Five steps: each must launch exactly 12 stash
+             forwards and 12 backwards from P (and nothing else) and give a
+             finite loss; after the first, every parameter has a finite
+             gradient and every qkv.weight gradient is non-zero. Two more
+             steps with VDK_ATTN_NO_PCACHE=1: 12 no-stash forwards and 12
+             recompute backwards each. The kernel path against the plain
+             attention path from the same weights and batch, one step: in f32
+             (bs 32) the loss within 1e-5 relative, and every gradient and
+             every update (θ₁ − θ₀) within 1e-3 of its tensor's largest
+             entry, max-abs, plus one f32 spacing of θ for the update (the
+             paths differ only in f32 summation order;
+             the key bias's gradient is zero in exact arithmetic, so a
+             relative bar would not hold on it, and the max-abs bar compares
+             it by absolute size); in bf16 (bs 128) the agreement is printed.
+             Prints images/s of both paths (order kernel, plain, plain,
+             kernel) and torch.cuda.max_memory_allocated.
 
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels, with each
+kernel's launches counted on the main paths (the bf16 serving run and the
+bf16 train runs, counts set to 0 before each and read after); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step
+from visiondk_tpu_torch.engine.state import create_train_state
+from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step, make_train_step
+from visiondk_tpu_torch.engine.trainer import build_tx
+from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import get_model
 from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
-from visiondk_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+from visiondk_tpu_torch.ops.attention import (
+    KERNELS,
+    fused_qkv_attention_bwd_from_p,
+    fused_qkv_attention_bwd_from_p_plain,
+    fused_qkv_attention_bwd_recompute,
+    fused_qkv_attention_bwd_recompute_plain,
+    fused_qkv_attention_fwd,
+    fused_qkv_attention_fwd_stash,
+    fused_qkv_attention_fwd_stash_plain,
+    fused_qkv_attention_plain,
+)
 
 # the `model:` section of configs/classification/pet_synth.yaml
 PET_SYNTH_MODEL = {
@@ -52,15 +99,46 @@ PET_SYNTH_MODEL = {
     "backbone_freeze": False, "bn_freeze": False, "bn_freeze_affine": False,
     "attention_pool": False,
 }
+# the optimizer fields of its `hyp:` section
+PET_SYNTH_HYP = {
+    "epochs": 6, "lr0": 0.01, "lrf_ratio": None, "momentum": 0.937, "weight_decay": 0.0005,
+    "warmup_momentum": 0.8, "warm_ep": 1, "optimizer": ["sgd", False], "scheduler": "cosine_with_warm",
+}
+LABEL_SMOOTH = 0.05
+STEPS_PER_EPOCH = 2
 # the embedding model of bench.py: ViT-B/16 backbone, 128-d neck, no head
 EMBED_MODEL = {"task": "cbir", "backbone": {"vit_base_patch16_224": {"feat_dim": 128, "image_size": 224}}}
 
 BATCH = 128
-DEPTH = 12  # ViT-B/16 blocks, one kernel launch each per forward
+IMG = PET_SYNTH_MODEL["image_size"]
+F32_TRAIN_BATCH = 32
+DEPTH = 12  # ViT-B/16 blocks, one attention forward and backward each
 N_BATCHES = 3
+TRAIN_STEPS = 5
+NO_PCACHE_STEPS = 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 MIN_COSINE = 0.999
 MIN_ARGMAX_AGREEMENT = 0.99
+F32_LOSS_RTOL = 1e-5
+F32_TENSOR_TOL = 1e-3  # max |kernel − plain| over a tensor, relative to its largest |plain| entry
+
+NAMES = {
+    fused_qkv_attention_fwd: "fused_qkv_attention_fwd",
+    fused_qkv_attention_fwd_stash: "fused_qkv_attention_fwd_stash",
+    fused_qkv_attention_bwd_from_p: "fused_qkv_attention_bwd_from_p",
+    fused_qkv_attention_bwd_recompute: "fused_qkv_attention_bwd_recompute",
+}
+SOURCES = {
+    fused_qkv_attention_fwd: ("visiondk_tpu_torch/csrc/fused_qkv_attention.cu",
+                              "visiondk_tpu/ops/pallas/attention.py:198"),
+    fused_qkv_attention_fwd_stash: ("visiondk_tpu_torch/csrc/fused_qkv_attention.cu",
+                                    "visiondk_tpu/ops/pallas/attention.py:436"),
+    fused_qkv_attention_bwd_from_p: ("visiondk_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+                                     "visiondk_tpu/ops/pallas/attention.py:323"),
+    fused_qkv_attention_bwd_recompute: ("visiondk_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+                                        "visiondk_tpu/ops/pallas/attention.py:263"),
+}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -82,6 +160,16 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: k.launches for k in KERNELS}
+
+
 def phase_device() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
@@ -98,15 +186,31 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
-    built = _build.build("fused_qkv_attention")
-    print(f"[build] {built.path.relative_to(_build.BUILD_DIR.parent.parent)} in "
-          f"{built.seconds:.2f} s: {' '.join(built.command)}")
-    for line in built.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    names = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, started together
+        built = list(pool.map(_build.build, names))
+    for b in built:
+        print(f"[build] {b.path.relative_to(_build.BUILD_DIR.parent.parent)} in "
+              f"{b.seconds:.2f} s: {' '.join(b.command)}")
+        function = ""
+        for line in b.ptxas_log.splitlines():
+            found = re.search(r"Compiling entry function '([^']+)'", line)
+            if found:
+                function = found.group(1)  # mangled: kernel name, dtype, head-dim bucket, variant
+            elif "registers" in line or "spill" in line:
+                print(f"[build] ptxas: {function}: {line.split(':', 1)[-1].strip()}")
+
+
+def max_err(out: torch.Tensor, ref: torch.Tensor, scaled: bool = False) -> float:
+    diff = (out.float() - ref.float()).abs()
+    if scaled:
+        diff = diff / ref.float().abs().clamp_min(1.0)
+    return diff.max().item()
 
 
 def phase_kernel(dev: torch.device) -> dict:
+    """Every kernel against its plain version; returns, per kernel, its max
+    error and times (ms) at the ViT-B/16 bf16 shape."""
     gen = torch.Generator(device=dev).manual_seed(0)
     # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape, the
     # JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens, and
@@ -120,26 +224,70 @@ def phase_kernel(dev: torch.device) -> dict:
     summary = {}
     for name, b, n, h, d, n_valid in cases:
         for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name} B={b} N={n} H={h} d={d} n_valid={n_valid} {str(dtype).replace('torch.', '')}"
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
-            out = fused_qkv_attention(qkv, h, n_valid)
-            ref = fused_qkv_attention_plain(qkv, h, n_valid)
-            torch.cuda.synchronize()
+            dout = torch.randn((b, n, h * d), generator=gen, device=dev).to(dtype)
             rows = n if n_valid is None else n_valid
-            err = (out[:, :rows].float() - ref[:, :rows].float()).abs().max().item()
-            check(bool(torch.isfinite(out[:, :rows]).all()), f"{name} {dtype}: non-finite output")
-            check(err <= TOL[dtype], f"{name} {dtype}: max |kernel - plain| {err} > {TOL[dtype]}")
-            line = (f"[kernel] {name} B={b} N={n} H={h} d={d} n_valid={n_valid} {dtype}: "
-                    f"max|err| {err:.3e} (tol {TOL[dtype]})")
-            if name == "vit_b16":
-                plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, h), iters=20)
-                ms = cuda_ms(lambda: fused_qkv_attention(qkv, h), iters=20)
-                ms2 = cuda_ms(lambda: fused_qkv_attention(qkv, h), iters=20)
-                plain_ms2 = cuda_ms(lambda: fused_qkv_attention_plain(qkv, h), iters=20)
-                line += (f" | kernel {ms:.4f}, {ms2:.4f} ms | plain {plain_ms:.4f}, "
-                         f"{plain_ms2:.4f} ms (order plain, kernel, kernel, plain)")
-                summary[dtype] = {"max_abs_err": err, "ms": (ms + ms2) / 2,
-                                  "plain_ms": (plain_ms + plain_ms2) / 2}
-            print(line)
+            tol = TOL[dtype]
+
+            out = fused_qkv_attention_fwd(qkv, h, n_valid)
+            ref = fused_qkv_attention_plain(qkv, h, n_valid)
+            o_s, p_s = fused_qkv_attention_fwd_stash(qkv, h, n_valid)
+            o_r, p_r = fused_qkv_attention_fwd_stash_plain(qkv, h, n_valid)
+            g_p = fused_qkv_attention_bwd_from_p(qkv, p_s, dout, h)
+            g_p_ref = fused_qkv_attention_bwd_from_p_plain(qkv, p_s, dout, h)
+            g_r = fused_qkv_attention_bwd_recompute(qkv, dout, h, n_valid)
+            g_r_ref = fused_qkv_attention_bwd_recompute_plain(qkv, dout, h, n_valid)
+            torch.cuda.synchronize()
+
+            errs = {
+                fused_qkv_attention_fwd: max_err(out[:, :rows], ref[:, :rows]),
+                fused_qkv_attention_fwd_stash: max(max_err(o_s[:, :rows], o_r[:, :rows]), max_err(p_s, p_r)),
+                fused_qkv_attention_bwd_from_p: max_err(g_p, g_p_ref, scaled=True),
+                fused_qkv_attention_bwd_recompute: max_err(g_r, g_r_ref, scaled=True),
+            }
+            for t, what in ((out, "O"), (p_s, "P"), (g_p, "dqkv from P"), (g_r, "dqkv recompute")):
+                check(bool(torch.isfinite(t[:, :rows] if what == "O" else t).all()), f"{tag}: non-finite {what}")
+            check(torch.equal(o_s, out), f"{tag}: the stash forward's O differs from the no-stash kernel's")
+            p_err = max_err(p_s, p_r)
+            check(p_err <= P_TOL[dtype], f"{tag}: P max |kernel - plain| {p_err} > {P_TOL[dtype]}")
+            if n_valid is not None:
+                check(not bool(p_s[..., n_valid:].any()), f"{tag}: P is not 0 at masked keys")
+            for k, err in errs.items():
+                check(err <= tol, f"{tag}: {NAMES[k]} error {err} > {tol}")
+            print(f"[kernel] {tag}: max|err| fwd {errs[fused_qkv_attention_fwd]:.3e}, "
+                  f"stash O/P {max_err(o_s[:, :rows], o_r[:, :rows]):.3e}/{p_err:.3e} (O bit-equal to fwd), "
+                  f"bwd_from_p {errs[fused_qkv_attention_bwd_from_p]:.3e}, "
+                  f"bwd_recompute {errs[fused_qkv_attention_bwd_recompute]:.3e} "
+                  f"(tol {tol}, P {P_TOL[dtype]:.3e}; dqkv scaled by max(1, |plain|))")
+
+            if name != "vit_b16":
+                continue
+            timed = {
+                fused_qkv_attention_fwd: (lambda: fused_qkv_attention_fwd(qkv, h),
+                                          lambda: fused_qkv_attention_plain(qkv, h)),
+                fused_qkv_attention_fwd_stash: (lambda: fused_qkv_attention_fwd_stash(qkv, h),
+                                                lambda: fused_qkv_attention_fwd_stash_plain(qkv, h)),
+                fused_qkv_attention_bwd_from_p: (
+                    lambda: fused_qkv_attention_bwd_from_p(qkv, p_s, dout, h),
+                    lambda: fused_qkv_attention_bwd_from_p_plain(qkv, p_s, dout, h)),
+                fused_qkv_attention_bwd_recompute: (
+                    lambda: fused_qkv_attention_bwd_recompute(qkv, dout, h),
+                    lambda: fused_qkv_attention_bwd_recompute_plain(qkv, dout, h)),
+            }
+            if dtype == torch.float32:
+                timed = {fused_qkv_attention_fwd: timed[fused_qkv_attention_fwd]}  # in f32 only the serving forward
+            for k, (kern, plain) in timed.items():
+                p1 = cuda_ms(plain, iters=10)
+                k1 = cuda_ms(kern, iters=10)
+                k2 = cuda_ms(kern, iters=10)
+                p2 = cuda_ms(plain, iters=10)
+                print(f"[kernel] {tag} {NAMES[k]}: kernel {k1:.4f}, {k2:.4f} ms | plain {p1:.4f}, "
+                      f"{p2:.4f} ms (order plain, kernel, kernel, plain)")
+                if dtype == torch.bfloat16:
+                    summary[k] = {"max_abs_err": errs[k], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+            del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref, timed
+            torch.cuda.empty_cache()
     return summary
 
 
@@ -166,26 +314,26 @@ def build_models(dtype: torch.dtype, dev: torch.device):
     return cls_model, emb_model
 
 
-def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> int:
+def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> dict:
     """Eval and embed steps on every batch through the kernel (counted), then
     on the plain attention path; checks shapes, finiteness, launch counts
-    and agreement. Returns the kernel launches of the counted run."""
+    and agreement. Returns the launch counts of the counted run."""
     name = str(dtype).replace("torch.", "")
     eval_step = make_eval_step(cls_model, StepConfig())
     embed_step = make_embed_step(emb_model, StepConfig())
 
-    fused_qkv_attention.launches = 0
+    reset_counts()
     logits = [eval_step(b) for b in batches]
-    torch.cuda.synchronize()
-    eval_launches = fused_qkv_attention.launches
+    eval_launches = read_counts()[fused_qkv_attention_fwd]
     feats = [embed_step(b) for b in batches]
-    torch.cuda.synchronize()
-    launches = fused_qkv_attention.launches
-    embed_launches = launches - eval_launches
+    counts = read_counts()
+    embed_launches = counts[fused_qkv_attention_fwd] - eval_launches
     print(f"[slice] {name}: kernel launches eval {eval_launches}, embed {embed_launches} "
           f"over {len(batches)} batches each (want {DEPTH} per forward)")
     check(eval_launches == DEPTH * len(batches), f"eval launched the kernel {eval_launches} times")
     check(embed_launches == DEPTH * len(batches), f"embed launched the kernel {embed_launches} times")
+    check(all(v == 0 for k, v in counts.items() if k is not fused_qkv_attention_fwd),
+          f"serving launched a training kernel: {counts}")
 
     set_fused(cls_model, False)
     set_fused(emb_model, False)
@@ -194,7 +342,7 @@ def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> int:
     torch.cuda.synchronize()
     set_fused(cls_model, True)
     set_fused(emb_model, True)
-    check(fused_qkv_attention.launches == launches, "the plain path launched the kernel")
+    check(read_counts() == counts, "the plain path launched a kernel")
 
     for tag, outs, refs, width in (("logits", logits, logits_ref, 35), ("embeddings", feats, feats_ref, 128)):
         out, ref = torch.cat(outs), torch.cat(refs)
@@ -221,13 +369,13 @@ def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> int:
         print(line)
     norms = torch.linalg.vector_norm(torch.cat(feats), dim=1)
     check(bool(((norms - 1).abs() < 1e-3).all()), "embeddings are not unit-norm")
-    return launches
+    return counts
 
 
-def phase_slice(dev: torch.device) -> int:
+def phase_slice(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     batches = [
-        {"image": torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev, dtype=torch.uint8)}
+        {"image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8)}
         for _ in range(N_BATCHES)
     ]
     t0 = time.perf_counter()
@@ -237,7 +385,7 @@ def phase_slice(dev: torch.device) -> int:
           f"bf16, seeded weights, in {time.perf_counter() - t0:.1f} s")
 
     # the main path, counted: bf16 serving
-    launches = compare_paths(cls_model, emb_model, batches, torch.bfloat16)
+    counts = compare_paths(cls_model, emb_model, batches, torch.bfloat16)
 
     # throughput, interleaved: kernel, plain, plain, kernel
     steps = (("eval", make_eval_step(cls_model, StepConfig()), cls_model),
@@ -256,7 +404,175 @@ def phase_slice(dev: torch.device) -> int:
 
     # the same check in f32, where the two paths differ only in f32 rounding
     compare_paths(*build_models(torch.float32, dev), batches, torch.float32)
-    return launches
+    return counts
+
+
+# ---------------------------------------------------------------- train
+
+
+def build_trainer(dtype: torch.dtype, dev: torch.device, fused: bool = True):
+    """The pet_synth model (seed 0), its train state and step."""
+    model = get_model(PET_SYNTH_MODEL, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+    set_fused(model, fused)
+    tx = build_tx(PET_SYNTH_HYP, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=PET_SYNTH_MODEL)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), StepConfig(),
+                           torch.Generator().manual_seed(1))
+    return model, state, step
+
+
+def snapshot(model: torch.nn.Module):
+    """(parameters, gradients), cloned, by name."""
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return params, grads
+
+
+def compare_one_step(dtype: torch.dtype, dev: torch.device, batch: dict, kernel_side=None) -> None:
+    """One step from the same weights and batch on the kernel path and on the
+    plain attention path: loss, every gradient, every update θ₁ − θ₀."""
+    name = str(dtype).replace("torch.", "")
+    theta0 = {n: p.detach().clone() for n, p in get_model(
+        PET_SYNTH_MODEL, dtype=dtype, generator=torch.Generator().manual_seed(0)).named_parameters()}
+    sides = {}
+    for fused in (True, False):
+        if fused and kernel_side is not None:
+            sides[fused] = kernel_side
+            continue
+        model, state, step = build_trainer(dtype, dev, fused)
+        loss = step(state, batch)["loss"].item()
+        sides[fused] = (loss, *snapshot(model))
+        del model, state, step
+        torch.cuda.empty_cache()
+    (lk, pk, gk), (lp, pp, gp) = sides[True], sides[False]
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = {"grad": (0.0, ""), "update": (0.0, "")}
+    min_cos = {"grad": (1.0, ""), "update": (1.0, "")}
+    key_bias = {"max_abs_kernel": 0.0, "max_abs_plain": 0.0, "max_abs_diff": 0.0}
+    for n in gp:
+        update = (pp[n] - theta0[n].to(dev)).float()
+        # θ₁ = θ₀ + Δ rounds to θ's f32 spacing, which can be near Δ's own
+        # size, so the post-step parameters may differ by one spacing more
+        spacing = torch.finfo(torch.float32).eps * pp[n].float().abs().max().item()
+        pairs = {"grad": (gk[n].float(), gp[n].float(), gp[n].float().abs().max().item(), 0.0),
+                 "update": ((pk[n] - theta0[n].to(dev)).float(), update, update.abs().max().item(), spacing)}
+        for what, (a, b, scale, slack) in pairs.items():
+            ratio = max((a - b).abs().max().item() - slack, 0.0) / max(scale, 1e-30)
+            if ratio > worst[what][0]:
+                worst[what] = (ratio, n)
+            if n.endswith("attn.qkv.bias"):
+                # the key bias's gradient is zero in exact arithmetic: compare that
+                # slice by absolute size, the q and v slices by cosine
+                c = a.shape[0] // 3
+                if what == "grad":
+                    ka, kp = a[c:2 * c], b[c:2 * c]
+                    key_bias["max_abs_kernel"] = max(key_bias["max_abs_kernel"], ka.abs().max().item())
+                    key_bias["max_abs_plain"] = max(key_bias["max_abs_plain"], kp.abs().max().item())
+                    key_bias["max_abs_diff"] = max(key_bias["max_abs_diff"], (ka - kp).abs().max().item())
+                a, b = torch.cat([a[:c], a[2 * c:]]), torch.cat([b[:c], b[2 * c:]])
+            cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+            if cos < min_cos[what][0]:
+                min_cos[what] = (cos, n)
+    print(f"[train] {name} kernel vs plain path, one step, bs {batch['label'].shape[0]}: loss {lk:.6f} vs "
+          f"{lp:.6f} (rel {loss_rel:.3e}); worst max|diff|/max|plain| gradient {worst['grad'][0]:.3e} "
+          f"({worst['grad'][1]}), update {worst['update'][0]:.3e} ({worst['update'][1]}); min cosine "
+          f"gradient {min_cos['grad'][0]:.6f} ({min_cos['grad'][1]}), update {min_cos['update'][0]:.6f} "
+          f"({min_cos['update'][1]}), key-bias slices excluded from the cosines; key-bias gradient slice: "
+          f"max|kernel| {key_bias['max_abs_kernel']:.3e}, max|plain| {key_bias['max_abs_plain']:.3e}, "
+          f"max|diff| {key_bias['max_abs_diff']:.3e}")
+    if dtype == torch.float32:
+        check(loss_rel <= F32_LOSS_RTOL, f"f32 loss differs by {loss_rel} relative > {F32_LOSS_RTOL}")
+        for what in ("grad", "update"):
+            check(worst[what][0] <= F32_TENSOR_TOL,
+                  f"f32 {what} of {worst[what][1]} differs by {worst[what][0]} of its max > {F32_TENSOR_TOL}")
+
+
+def train_rate(model, state, step, batch: dict, fused: bool, steps: int = 5):
+    set_fused(model, fused)
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, batch)
+    torch.cuda.synchronize()
+    rate = steps * BATCH / (time.perf_counter() - t0)
+    return rate, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_train(dev: torch.device) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {
+        "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "label": torch.randint(0, PET_SYNTH_MODEL["num_classes"], (BATCH,), generator=gen, device=dev),
+    }
+    t0 = time.perf_counter()
+    model, state, step = build_trainer(torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    print(f"[train] built {PET_SYNTH_MODEL['name']} (35 classes, depth {DEPTH}, width 768), bf16 compute, "
+          f"f32 parameters, SGD + clip + EMA from the pet_synth hyp, steps_per_epoch {STEPS_PER_EPOCH}, "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    # the main path, counted step by step: bf16 training with the P stash
+    totals = {k: 0 for k in KERNELS}
+    want = {fused_qkv_attention_fwd: 0, fused_qkv_attention_fwd_stash: DEPTH,
+            fused_qkv_attention_bwd_from_p: DEPTH, fused_qkv_attention_bwd_recompute: 0}
+    losses, first = [], None
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        loss = step(state, batch)["loss"]
+        counts = read_counts()
+        check(counts == want, f"train step {i}: launches {[(NAMES[k], v) for k, v in counts.items()]}")
+        totals = {k: totals[k] + counts[k] for k in KERNELS}
+        losses.append(loss.item())
+        check(torch.isfinite(loss).item(), f"train step {i}: loss {losses[-1]}")
+        if i == 0:
+            bad = [n for n, p in model.named_parameters() if p.grad is None or not torch.isfinite(p.grad).all()]
+            check(not bad, f"parameters without a finite gradient: {bad[:5]}")
+            zero = [n for n, p in model.named_parameters() if n.endswith("attn.qkv.weight")
+                    and not p.grad.abs().sum().item() > 0]
+            check(not zero, f"qkv.weight gradients that are zero: {zero}")
+            print(f"[train] step 0: all {sum(1 for _ in model.parameters())} parameters have finite "
+                  f"gradients; all {DEPTH} qkv.weight gradients are non-zero")
+            first = (losses[0], *snapshot(model))
+    lr = state.optimizer.optimizer.param_groups[0]["lr"]
+    print(f"[train] bf16 bs {BATCH}, {TRAIN_STEPS} steps: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"launches per step: {DEPTH} stash forwards, {DEPTH} backwards from P, nothing else; "
+          f"lr at the last step {lr:.6f}")
+
+    os.environ["VDK_ATTN_NO_PCACHE"] = "1"
+    want = {fused_qkv_attention_fwd: DEPTH, fused_qkv_attention_fwd_stash: 0,
+            fused_qkv_attention_bwd_from_p: 0, fused_qkv_attention_bwd_recompute: DEPTH}
+    for i in range(NO_PCACHE_STEPS):
+        reset_counts()
+        loss = step(state, batch)["loss"]
+        counts = read_counts()
+        check(counts == want, f"no-pcache step {i}: launches {[(NAMES[k], v) for k, v in counts.items()]}")
+        totals = {k: totals[k] + counts[k] for k in KERNELS}
+        check(torch.isfinite(loss).item(), f"no-pcache step {i}: loss {loss.item()}")
+    os.environ.pop("VDK_ATTN_NO_PCACHE")
+    print(f"[train] VDK_ATTN_NO_PCACHE=1, {NO_PCACHE_STEPS} steps: finite losses; launches per step: "
+          f"{DEPTH} no-stash forwards, {DEPTH} recompute backwards, nothing else")
+
+    # throughput and memory, interleaved: kernel, plain, plain, kernel
+    rates = {True: [], False: []}
+    for fused in (True, False, False, True):
+        rates[fused].append(train_rate(model, state, step, batch, fused))
+    set_fused(model, True)
+    (k1, km1), (k2, km2) = rates[True]
+    (p1, pm1), (p2, pm2) = rates[False]
+    print(f"[train] bf16 bs {BATCH} images/s: kernel path {k1:.1f}, {k2:.1f} | plain path {p1:.1f}, {p2:.1f} "
+          f"(order kernel, plain, plain, kernel); max_memory_allocated kernel path {km1:.2f}, {km2:.2f} GiB, "
+          f"plain path {pm1:.2f}, {pm2:.2f} GiB")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # kernel path vs plain path from the same weights and batch
+    compare_one_step(torch.bfloat16, dev, batch, kernel_side=first)
+    small = {k: v[:F32_TRAIN_BATCH] for k, v in batch.items()}
+    compare_one_step(torch.float32, dev, small)
+    return totals
 
 
 def main() -> None:
@@ -265,18 +581,18 @@ def main() -> None:
     torch.cuda.set_device(dev)
     phase_build()
     kern = phase_kernel(dev)
-    launches = phase_slice(dev)
-    main_path = kern[torch.bfloat16]
-    print(json.dumps({"kernels": [{
-        "name": "fused_qkv_attention",
-        "route": "cuda",
-        "source": "visiondk_tpu_torch/csrc/fused_qkv_attention.cu",
-        "replaces": "visiondk_tpu/ops/pallas/attention.py:198",
-        "launches": launches,
-        "max_abs_err": main_path["max_abs_err"],
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-    }]}))
+    serving = phase_slice(dev)
+    training = phase_train(dev)
+    print(f"[launches] serving: {serving[fused_qkv_attention_fwd]} no-stash forwards; training: "
+          + ", ".join(f"{NAMES[k]} {v}" for k, v in training.items()))
+    kernels = []
+    for k in KERNELS:
+        source, replaces = SOURCES[k]
+        launches = serving[k] + training[k]
+        check(launches > 0, f"{NAMES[k]} was not launched on the main path")
+        kernels.append({"name": NAMES[k], "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, **kern[k]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -19,7 +19,9 @@ from visiondk_tpu.ops.pallas import force_interpret
 from visiondk_tpu.ops.pallas import fused_qkv_attention as jax_fused_qkv_attention
 from visiondk_tpu_torch.models.convert import load_jax_params
 from visiondk_tpu_torch.models.layers import Attention
-from visiondk_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+from visiondk_tpu_torch.ops.attention import (
+    fused_qkv_attention, fused_qkv_attention_fwd, fused_qkv_attention_plain,
+)
 
 B, N, H, D = 2, 37, 4, 32  # N deliberately unaligned
 C = H * D
@@ -73,10 +75,10 @@ def test_masked_keys_do_not_reach_valid_rows():
 
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
     qkv = torch.from_numpy(_qkv(3))
-    before = fused_qkv_attention.launches
+    before = fused_qkv_attention_fwd.launches
     out = fused_qkv_attention(qkv, H, n_valid=30)
     np.testing.assert_array_equal(out.numpy(), fused_qkv_attention_plain(qkv, H, 30).numpy())
-    assert fused_qkv_attention.launches == before
+    assert fused_qkv_attention_fwd.launches == before
 
 
 @pytest.mark.parametrize(

@@ -15,7 +15,9 @@ REPO = Path(__file__).resolve().parent.parent
 _PROBE = """
 import sys
 import visiondk_tpu_torch, visiondk_tpu_torch.models, visiondk_tpu_torch.engine.steps
-import visiondk_tpu_torch.ops.attention
+import visiondk_tpu_torch.ops.attention, visiondk_tpu_torch.losses, visiondk_tpu_torch.models.ema
+import visiondk_tpu_torch.engine.optim, visiondk_tpu_torch.engine.schedules
+import visiondk_tpu_torch.engine.state, visiondk_tpu_torch.engine.trainer
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "triton", "visiondk_tpu")
                 if m in sys.modules)

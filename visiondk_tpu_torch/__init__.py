@@ -6,9 +6,14 @@ to find. Plain tensor code is PyTorch; every Pallas kernel of the JAX package
 becomes a kernel written by hand for ``sm_90a`` under ``csrc/``, built at first
 use (``ops/_build.py``) and bound with ctypes.
 
-Slice ported so far: the ViT serving path (``engine.steps.make_eval_step`` and
-``make_embed_step``), whose attention core is the CUDA kernel
-``ops.attention.fused_qkv_attention``.
+Slices ported so far: the ViT serving path (``engine.steps.make_eval_step`` and
+``make_embed_step``) and the single-label classification train step
+(``engine.steps.make_train_step`` with ``losses``, ``engine.optim``,
+``engine.schedules``, ``models.ema``, ``engine.state`` and
+``engine.trainer.build_tx``). Their attention core is
+``ops.attention.fused_qkv_attention``: four CUDA kernels (the forward with and
+without the probability stash, the backward from the stash and the
+recompute backward) behind one autograd Function.
 
 Importing this package loads torch, numpy and the standard library only: no
 JAX, no Triton, and no kernel is built until a CUDA tensor reaches one.

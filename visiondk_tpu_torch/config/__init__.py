@@ -1,3 +1,3 @@
-from visiondk_tpu_torch.config.checks import canonical_model_name
+from visiondk_tpu_torch.config.checks import canonical_model_name, normalize_accumulate
 
-__all__ = ["canonical_model_name"]
+__all__ = ["canonical_model_name", "normalize_accumulate"]

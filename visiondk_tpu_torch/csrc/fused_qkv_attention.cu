@@ -1,8 +1,11 @@
-// Fused QKV attention, forward: [B, N, 3C] -> [B, N, C], for Hopper (sm_90a).
+// Fused QKV attention, forward: [B, N, 3C] -> [B, N, C], for Hopper (sm_90a),
+// with an optional stash of the probabilities P [B, H, N, N] for the backward.
 //
 // Replaces the Pallas TPU kernel visiondk_tpu/ops/pallas/attention.py::
-// _fused_fwd_kernel as launched by _fused_attention_padded (the no-stash
-// forward of fused_qkv_attention). It keeps that kernel's layout contract:
+// _fused_fwd_kernel in both of its launches: by _fused_attention_padded (the
+// no-stash forward of fused_qkv_attention) and by _fused_vjp_fwd (the
+// training forward, which also writes p_ref). It keeps that kernel's layout
+// contract:
 // q, k and v are read by strides straight out of the packed QKV-projection
 // buffer (row stride 3C; q at column h*d, k at C + h*d, v at 2C + h*d) and O
 // is written at column h*d of a [B, N, C] output, so no [B, H, N, D]
@@ -14,6 +17,10 @@
 //   P = exp2(S - rowmax) * (1 / rowsum), rounded to the input dtype
 //   O = P . v, accumulated in f32, rounded to the input dtype
 // Rows >= n_valid hold finite values that callers never read.
+// With the stash (kStash), P[b, h, :N, :N] is written exactly as pass 2 forms
+// it: the rounded value that multiplies V, 0 for masked keys. The stash only
+// adds stores, so O is bit-for-bit the no-stash kernel's. The JAX kernel pads
+// P to a multiple of 8 rows and columns; this one writes N x N.
 //
 // Softmax scheme: two passes over the key tiles. Pass 1 finds each row's max
 // and sum of exp2; pass 2 recomputes the scores, forms the normalised P,
@@ -28,8 +35,11 @@
 // elementwise softmax work would bound it, as it did on the TPU. This first
 // version runs the products on CUDA cores out of shared memory (one fma and
 // about one shared-memory load per multiply-add) and computes the scores
-// twice, so those products bound it here. What the design does: scores and
-// probabilities never leave the SM (no [B, H, N, N] tensor in device memory);
+// twice, so those products bound it here; the stash adds B*H*N^2 stores
+// (119 MB in bf16 at ViT-B/16, bs 128), written a tile row at a time from
+// shared memory so that neighbouring threads store neighbouring keys. What
+// the design does: without the stash, scores and probabilities never leave
+// the SM (no [B, H, N, N] tensor in device memory);
 // scale*log2(e) is folded into the [N, d] q tile once instead of into the
 // N^2 scores; exp2 and a reciprocal multiply replace exp and division; shared
 // memory is sized by the tile, not by N, so any N works (ViT-B/8 has 785
@@ -114,10 +124,11 @@ __device__ __forceinline__ void tile_scores(const float* qs, const float* ks, in
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kStash>
 __global__ void __launch_bounds__(kThreads)
-    fused_qkv_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
-                                   int heads, int d, int n_valid, float q_mul) {
+    fused_qkv_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                                   T* __restrict__ p_out, int n, int heads, int d, int n_valid,
+                                   float q_mul) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + Smem<DP>::kQ;
@@ -197,6 +208,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const int kn = min(kBlockN, n - k0);
+    if (kStash) {
+      // P[b, h, m0 + rr, k0 + cc] for the tile's real rows and keys
+      T* p_tile = p_out + ((static_cast<int64_t>(b) * heads + h) * n + m0) * n + k0;
+      for (int idx = threadIdx.x; idx < kBlockM * kBlockN; idx += kThreads) {
+        const int rr = idx / kBlockN;
+        const int cc = idx - rr * kBlockN;
+        if (m0 + rr < n && cc < kn) {
+          p_tile[static_cast<int64_t>(rr) * n + cc] = from_float<T>(ps[rr * (kBlockN + 1) + cc]);
+        }
+      }
+    }
     for (int cc = 0; cc < kn; ++cc) {
       const float p = ps[r * (kBlockN + 1) + cc];
       const float* vrow = vs + cc * DP;
@@ -216,37 +238,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* qkv, void* out, int b, int n, int heads, int d, int n_valid,
-                   float q_mul, cudaStream_t stream) {
-  auto kernel = fused_qkv_attention_fwd_kernel<T, DP>;
+template <typename T, int DP, bool kStash>
+cudaError_t launch(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
+                   int n_valid, float q_mul, cudaStream_t stream) {
+  auto kernel = fused_qkv_attention_fwd_kernel<T, DP, kStash>;
   constexpr size_t bytes = Smem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kBlockM - 1) / kBlockM, heads, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), n,
-                                            heads, d, n_valid, q_mul);
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
+                                            static_cast<T*>(p), n, heads, d, n_valid, q_mul);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(const void* qkv, void* out, int b, int n, int heads, int d,
+template <typename T, bool kStash>
+cudaError_t dispatch_dim(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
                          int n_valid, float q_mul, cudaStream_t stream) {
-  if (d <= 32) return launch<T, 32>(qkv, out, b, n, heads, d, n_valid, q_mul, stream);
-  if (d <= 64) return launch<T, 64>(qkv, out, b, n, heads, d, n_valid, q_mul, stream);
-  return launch<T, 128>(qkv, out, b, n, heads, d, n_valid, q_mul, stream);
+  if (d <= 32) return launch<T, 32, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+  if (d <= 64) return launch<T, 64, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+  return launch<T, 128, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_stash(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
+                           int n_valid, float q_mul, cudaStream_t stream) {
+  if (p != nullptr) return dispatch_dim<T, true>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+  return dispatch_dim<T, false>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
 }
 
 }  // namespace
 
 // qkv: [b, n, 3 * heads * head_dim] contiguous, out: [b, n, heads * head_dim]
-// contiguous, both of `dtype` (0: float32, 1: bfloat16), on the current
-// device. q_mul = head_dim**-0.5 * log2(e). Returns the CUDA error code of
-// the launch (0 on success).
-extern "C" int vdk_fused_qkv_attention_fwd(const void* qkv, void* out, int b, int n, int heads,
-                                           int head_dim, int n_valid, float q_mul, int dtype,
-                                           void* stream) {
+// contiguous, p: [b, heads, n, n] contiguous or NULL (no stash), all of
+// `dtype` (0: float32, 1: bfloat16), on the current device. q_mul =
+// head_dim**-0.5 * log2(e). Returns the CUDA error code of the launch (0 on
+// success).
+extern "C" int vdk_fused_qkv_attention_fwd(const void* qkv, void* out, void* p, int b, int n,
+                                           int heads, int head_dim, int n_valid, float q_mul,
+                                           int dtype, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || heads < 1 || heads > 65535 || head_dim < 1 ||
       head_dim > 128 || n_valid < 1 || n_valid > n) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -255,10 +285,10 @@ extern "C" int vdk_fused_qkv_attention_fwd(const void* qkv, void* out, int b, in
   switch (dtype) {
     case 0:
       return static_cast<int>(
-          dispatch_dim<float>(qkv, out, b, n, heads, head_dim, n_valid, q_mul, s));
+          dispatch_stash<float>(qkv, out, p, b, n, heads, head_dim, n_valid, q_mul, s));
     case 1:
-      return static_cast<int>(
-          dispatch_dim<__nv_bfloat16>(qkv, out, b, n, heads, head_dim, n_valid, q_mul, s));
+      return static_cast<int>(dispatch_stash<__nv_bfloat16>(qkv, out, p, b, n, heads, head_dim,
+                                                            n_valid, q_mul, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -90,6 +90,15 @@ def _sources(model: nn.Module) -> Dict[str, Tuple[str, str, Callable]]:
     return out
 
 
+def param_paths(model: nn.Module) -> Dict[str, str]:
+    """Port parameter name → the flax path of its counterpart in the JAX
+    ``params`` tree (``backbone.blocks.0.attn.qkv.weight`` →
+    ``backbone/block0/attn/qkv/kernel``). The optimizer labels parameters
+    by these paths, as the JAX optimizer labels its tree."""
+    names = {n for n, _ in model.named_parameters()}
+    return {k: path for k, (t, path, _) in _sources(model).items() if t == "params" and k in names}
+
+
 def state_dict_from_jax(model: nn.Module, tree: Tree) -> Dict[str, torch.Tensor]:
     """The port state dict of ``model`` filled from a JAX tree (see module doc)."""
     target = model.state_dict()

@@ -95,9 +95,11 @@ class Attention(nn.Module):
     """Multi-head self-attention over the QKV projection's [B, N, 3C] layout.
 
     With ``use_fused``, no active attention dropout and head_dim ≤ 128 it calls
-    ``fused_qkv_attention``: the CUDA kernel for a CUDA tensor, its plain
-    version for a CPU tensor. Otherwise it calls the plain version, which also
-    applies the attention dropout. Keys ≥ ``n_valid`` are masked."""
+    ``fused_qkv_attention``, which is differentiable on every device: in
+    training its autograd Function runs the P-stash forward and a backward
+    kernel (CUDA tensor) or their plain versions (CPU tensor). Otherwise it
+    calls the plain forward, differentiated by autograd, which also applies
+    the attention dropout. Keys ≥ ``n_valid`` are masked."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, dtype: torch.dtype = torch.float32,

@@ -13,6 +13,7 @@ source is rebuilt and a stale library is never loaded. The compiler's
 
 Nothing is built at import time: the CPU tests import every module, and this
 machine may have no ``nvcc``. A failed build raises; there is no fallback.
+Two libraries may build at once from two threads (one lock per name).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class Built:
 
 
 _loaded: Dict[str, Built] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -70,7 +72,9 @@ def _nvcc() -> str:
 
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (or reuse the build of the same source) and load it."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"

@@ -2,26 +2,46 @@
 
 ``fused_qkv_attention(qkv [B, N, 3C], heads, n_valid)`` → ``[B, N, C]`` reads
 q, k and v out of the packed QKV-projection buffer and writes O straight
-into ``[B, N, C]``: no ``[B, H, N, D]`` transposes. On a CUDA tensor it
-launches the hand-written kernel ``csrc/fused_qkv_attention.cu`` (or
-raises); on a CPU tensor it runs ``fused_qkv_attention_plain``, the same
-math in PyTorch. Only the forward is ported: training's probability-stashing
-forward and the two backward kernels come with the training slice.
+into ``[B, N, C]``: no ``[B, H, N, D]`` transposes. It is differentiable,
+as the JAX op is (``jax.custom_vjp``, ``attention.py:514``): with grad mode
+on and ``qkv.requires_grad`` it runs the autograd Function
+``FusedQKVAttention``, whose forward stashes the probabilities P for the
+backward, or, with ``VDK_ATTN_NO_PCACHE=1`` (read at each call, as the JAX
+package's ``_p_cache_enabled`` reads it), saves only qkv and recomputes P in
+the backward. Without grad it runs the no-stash forward.
+
+Four kernels, each behind a wrapper with its own launch count
+(``<wrapper>.launches``, counted only where the kernel is launched):
+
+- ``fused_qkv_attention_fwd``: no-stash forward (``csrc/fused_qkv_attention.cu``);
+- ``fused_qkv_attention_fwd_stash``: the same kernel, also writing P;
+- ``fused_qkv_attention_bwd_from_p``: backward from the stashed P
+  (``csrc/fused_qkv_attention_bwd.cu``);
+- ``fused_qkv_attention_bwd_recompute``: backward that recomputes P in f32.
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs the kernel's plain PyTorch version (``*_plain``), which has the
+reference kernel's arithmetic. So the Function runs the same hand-derived
+backward on both devices. The plain versions compute in f32, or in f64 for
+f64 inputs (which ``torch.autograd.gradcheck`` uses on the CPU).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from visiondk_tpu_torch.ops import _build
 
 _NEG_INF = -1e30  # the reference's key mask value
 _LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL = "fused_qkv_attention"
+_FWD_LIB = "fused_qkv_attention"
+_BWD_LIB = "fused_qkv_attention_bwd"
 
 
 def _head_dim(qkv: torch.Tensor, heads: int) -> int:
@@ -40,87 +60,321 @@ def _check_n_valid(n: int, n_valid: Optional[int]) -> int:
     return n_valid
 
 
+def _p_cache_enabled() -> bool:
+    """Stash the forward's probabilities for the backward (the JAX package's
+    switch, ``attention.py:427``): off with ``VDK_ATTN_NO_PCACHE=1``."""
+    return os.environ.get("VDK_ATTN_NO_PCACHE", "0") != "1"
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _split_heads(qkv: torch.Tensor, heads: int):
+    b, n, w = qkv.shape
+    return qkv.reshape(b, n, 3, heads, w // (3 * heads)).permute(2, 0, 3, 1, 4)  # q, k, v [B, H, N, D]
+
+
+def _probs(q2: torch.Tensor, k: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """P = exp2(S − rowmax) · (1 / rowsum) of the log2-domain scores S = q2·kᵀ,
+    keys ≥ ``n_valid`` at −1e30 (``attention.py:229-253``), unrounded."""
+    s = torch.matmul(q2, k.transpose(-1, -2))
+    if n_valid < s.shape[-1]:
+        s[..., n_valid:] = _NEG_INF
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    return e * (1.0 / e.sum(dim=-1, keepdim=True))
+
+
+def _forward_plain(qkv: torch.Tensor, heads: int, n_valid: Optional[int], dropout_p: float = 0.0):
+    d = _head_dim(qkv, heads)
+    b, n, _ = qkv.shape
+    n_valid = _check_n_valid(n, n_valid)
+    acc = _acc(qkv.dtype)
+    q, k, v = _split_heads(qkv, heads)
+    p = _probs(q.to(acc) * (d**-0.5 * _LOG2E), k.to(acc), n_valid).to(qkv.dtype)
+    p_used = torch.nn.functional.dropout(p, dropout_p, training=True) if dropout_p > 0.0 else p
+    o = torch.matmul(p_used, v)  # [B, H, N, D]
+    return o.transpose(1, 2).reshape(b, n, heads * d), p
+
+
 def fused_qkv_attention_plain(
     qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None, dropout_p: float = 0.0
 ) -> torch.Tensor:
-    """The kernel's math in PyTorch, on any device, with the reference
+    """The no-stash forward in PyTorch, on any device, with the reference
     kernel's arithmetic (``attention.py:229-253``): log2-domain scores in f32
     with scale·log2(e) folded into q (q, k upcast), keys ≥ ``n_valid`` set to
     −1e30, P = exp2(S − rowmax) · (1 / rowsum) in f32, cast to the input dtype
     before P·V. ``dropout_p`` drops probabilities after that cast (the module's
-    training path; the kernel has no dropout)."""
+    training path; the kernel has no dropout). Differentiable by autograd."""
+    return _forward_plain(qkv, heads, n_valid, dropout_p)[0]
+
+
+def fused_qkv_attention_fwd_stash_plain(
+    qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, P): ``fused_qkv_attention_plain`` and the probabilities it
+    multiplied V with, [B, H, N, N] in the input dtype (0 at masked keys)."""
+    return _forward_plain(qkv, heads, n_valid)
+
+
+def _grads_to_qkv(dq, dk, dv, dtype: torch.dtype) -> torch.Tensor:
+    b, h, n, d = dq.shape
+    return torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(b, n, 3 * h * d).to(dtype)
+
+
+def _bwd_core(p, dout, v, k_dq, q_dk):
+    """dV = Pᵀ·dO, dP = dO·Vᵀ, δ = rowsum(P∘dP), dS = P∘(dP − δ),
+    dQ = dS·k_dq, dK = dSᵀ·q_dk (``attention.py:301-315, 349-364``)."""
+    dv = torch.matmul(p.transpose(-1, -2), dout)
+    dp = torch.matmul(dout, v.transpose(-1, -2))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    return torch.matmul(ds, k_dq), torch.matmul(ds.transpose(-1, -2), q_dk), dv
+
+
+def fused_qkv_attention_bwd_from_p_plain(
+    qkv: torch.Tensor, p: torch.Tensor, dout: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """dqkv [B, N, 3C] from the stashed P, as ``_fused_bwd_from_p_kernel``
+    (``attention.py:323-369``): every operand upcast to f32, the key mask
+    implicit in P, dQ = dS·(k·scale), dK = dSᵀ·(q·scale)."""
+    d = _head_dim(qkv, heads)
+    b, n, _ = qkv.shape
+    acc = _acc(qkv.dtype)
+    scale = d**-0.5
+    q, k, v = (t.to(acc) for t in _split_heads(qkv, heads))
+    do = dout.reshape(b, n, heads, d).transpose(1, 2).to(acc)
+    dq, dk, dv = _bwd_core(p.to(acc), do, v, k * scale, q * scale)
+    return _grads_to_qkv(dq, dk, dv, qkv.dtype)
+
+
+def fused_qkv_attention_bwd_recompute_plain(
+    qkv: torch.Tensor, dout: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> torch.Tensor:
+    """dqkv [B, N, 3C] with P recomputed, as ``_fused_bwd_kernel``
+    (``attention.py:263-320``): P in f32 and not rounded, dQ = dS·(k·scale),
+    dK = (dSᵀ·q2) / log2(e) with q2 = q·scale·log2(e)."""
     d = _head_dim(qkv, heads)
     b, n, _ = qkv.shape
     n_valid = _check_n_valid(n, n_valid)
-    c = heads * d
-    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)  # each [B, H, N, D]
-    s = torch.matmul(q.float() * (d**-0.5 * _LOG2E), k.float().transpose(-1, -2))
-    if n_valid < n:
-        s[..., n_valid:] = _NEG_INF
-    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(qkv.dtype)
-    if dropout_p > 0.0:
-        p = torch.nn.functional.dropout(p, dropout_p, training=True)
-    o = torch.matmul(p, v)  # [B, H, N, D]
-    return o.transpose(1, 2).reshape(b, n, c)
+    acc = _acc(qkv.dtype)
+    scale = d**-0.5
+    q, k, v = (t.to(acc) for t in _split_heads(qkv, heads))
+    do = dout.reshape(b, n, heads, d).transpose(1, 2).to(acc)
+    q2 = q * (scale * _LOG2E)
+    dq, dk, dv = _bwd_core(_probs(q2, k, n_valid), do, v, k * scale, q2)
+    return _grads_to_qkv(dq, dk * (1.0 / _LOG2E), dv, qkv.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.build(_KERNEL).lib
-    fn = lib.vdk_fused_qkv_attention_fwd
+# ---------------------------------------------------------------- kernel wrappers
+
+
+def _runs_kernel(qkv: torch.Tensor, heads: int, op: str) -> bool:
+    """True for a CUDA tensor the kernels take, False for a CPU tensor (the
+    plain version runs); raises for anything else."""
+    if qkv.device.type == "cpu":
+        return False
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu tensors, got {qkv.device}")
+    d = qkv.shape[-1] // (3 * heads)
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op} kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if d > 128:
+        raise ValueError(f"{op} kernel takes head_dim <= 128, got {d}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{op} kernel needs a contiguous qkv")
+    if not 1 <= qkv.shape[0] <= 65535 or heads > 65535:
+        raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={qkv.shape[0]}, heads={heads}")
+    return True
+
+
+def _check_operand(t: torch.Tensor, like: torch.Tensor, shape, what: str) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != like.dtype or t.device != like.device:
+        raise TypeError(f"{what} must be {like.dtype} on {like.device}, got {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _lib(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    lib = _build.build(name).lib
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,  # qkv, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b n heads d n_valid
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # q_mul, dtype, stream
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.vdk_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vdk_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_qkv_attention(
-    qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None
-) -> torch.Tensor:
-    """Attention straight from the QKV projection: [B, N, 3C] → [B, N, C].
+_I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]  # qkv out p | b n heads d n_valid | q_mul dtype stream
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P,  # qkv p dout dqkv delta row_m row_il
+             _I, _I, _I, _I, _I, _F, _F, _F, _I, _P]  # b n heads d n_valid | q_mul scale inv_log2e | dtype stream
 
-    ``n_valid < N`` masks the trailing key columns; output rows ≥ ``n_valid``
-    are finite values that callers never read. A CUDA tensor (float32 or
-    bfloat16, contiguous, head_dim ≤ 128) launches the CUDA kernel, built at
-    first use, and counts the launch in ``fused_qkv_attention.launches``; a
-    CPU tensor runs ``fused_qkv_attention_plain``. Anything else raises.
-    """
-    d = _head_dim(qkv, heads)
-    b, n, _ = qkv.shape
-    n_valid = _check_n_valid(n, n_valid)
-    if qkv.device.type == "cpu":
-        return fused_qkv_attention_plain(qkv, heads, n_valid)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_attention runs on cuda or cpu tensors, got {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_qkv_attention kernel takes float32 or bfloat16, got {qkv.dtype}")
-    if d > 128:
-        raise ValueError(f"fused_qkv_attention kernel takes head_dim <= 128, got {d}")
-    if not qkv.is_contiguous():
-        raise ValueError("fused_qkv_attention kernel needs a contiguous qkv")
-    if not 1 <= b <= 65535 or heads > 65535:
-        raise ValueError(f"fused_qkv_attention kernel takes 1 <= B, heads <= 65535: B={b}, heads={heads}")
+
+def _check_err(lib: ctypes.CDLL, err: int, op: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{op} kernel launch failed: {lib.vdk_cuda_error_string(err).decode()} (cuda error {err})"
+        )
+
+
+def _launch_fwd(qkv: torch.Tensor, heads: int, n_valid: int, stash: bool):
+    b, n, w = qkv.shape
+    d = w // (3 * heads)
     out = torch.empty((b, n, heads * d), dtype=qkv.dtype, device=qkv.device)
-    lib = _lib()
+    p = torch.empty((b, heads, n, n), dtype=qkv.dtype, device=qkv.device) if stash else None
+    lib = _lib(_FWD_LIB, "vdk_fused_qkv_attention_fwd", _FWD_ARGS)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_qkv_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), b, n, heads, d, n_valid,
-            d**-0.5 * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
+            qkv.data_ptr(), out.data_ptr(), None if p is None else p.data_ptr(),
+            b, n, heads, d, n_valid, d**-0.5 * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_qkv_attention kernel launch failed: "
-            f"{lib.vdk_cuda_error_string(err).decode()} (cuda error {err})"
+    _check_err(lib, err, "fused_qkv_attention forward")
+    return out, p
+
+
+def _launch_bwd(qkv: torch.Tensor, p: Optional[torch.Tensor], dout: torch.Tensor, heads: int,
+                n_valid: int) -> torch.Tensor:
+    b, n, w = qkv.shape
+    d = w // (3 * heads)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3 if p is None else 1, b, heads, n), dtype=torch.float32, device=qkv.device)
+    delta = stats[0]
+    row_m, row_il = (stats[1].data_ptr(), stats[2].data_ptr()) if p is None else (None, None)
+    lib = _lib(_BWD_LIB, "vdk_fused_qkv_attention_bwd", _BWD_ARGS)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.vdk_fused_qkv_attention_bwd(
+            qkv.data_ptr(), None if p is None else p.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            delta.data_ptr(), row_m, row_il, b, n, heads, d, n_valid,
+            d**-0.5 * _LOG2E, d**-0.5, 1.0 / _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
         )
-    fused_qkv_attention.launches += 1
+    _check_err(lib, err, "fused_qkv_attention backward")
+    return dqkv
+
+
+def fused_qkv_attention_fwd(
+    qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> torch.Tensor:
+    """No-stash forward: [B, N, 3C] → [B, N, C]. ``n_valid < N`` masks the
+    trailing key columns; output rows ≥ ``n_valid`` are finite values that
+    callers never read. A CUDA tensor (float32 or bfloat16, contiguous,
+    head_dim ≤ 128) launches the kernel, built at first use; a CPU tensor runs
+    ``fused_qkv_attention_plain``. Anything else raises."""
+    _head_dim(qkv, heads)
+    n_valid = _check_n_valid(qkv.shape[1], n_valid)
+    if not _runs_kernel(qkv, heads, "fused_qkv_attention_fwd"):
+        return fused_qkv_attention_plain(qkv, heads, n_valid)
+    out, _ = _launch_fwd(qkv, heads, n_valid, stash=False)
+    fused_qkv_attention_fwd.launches += 1
     return out
 
 
-fused_qkv_attention.launches = 0
+def fused_qkv_attention_fwd_stash(
+    qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (O [B, N, C], P [B, H, N, N]) in the input dtype. O
+    is bit-for-bit ``fused_qkv_attention_fwd``'s; P is the rounded value that
+    multiplied V, 0 at masked keys. Same devices and checks."""
+    _head_dim(qkv, heads)
+    n_valid = _check_n_valid(qkv.shape[1], n_valid)
+    if not _runs_kernel(qkv, heads, "fused_qkv_attention_fwd_stash"):
+        return fused_qkv_attention_fwd_stash_plain(qkv, heads, n_valid)
+    out, p = _launch_fwd(qkv, heads, n_valid, stash=True)
+    fused_qkv_attention_fwd_stash.launches += 1
+    return out, p
+
+
+def fused_qkv_attention_bwd_from_p(
+    qkv: torch.Tensor, p: torch.Tensor, dout: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """dqkv [B, N, 3C] from qkv, the forward's stash P [B, H, N, N] and dO
+    [B, N, C], all of qkv's dtype and contiguous. Same devices and checks."""
+    d = _head_dim(qkv, heads)
+    b, n, _ = qkv.shape
+    _check_operand(p, qkv, (b, heads, n, n), "P")
+    _check_operand(dout, qkv, (b, n, heads * d), "dO")
+    if not _runs_kernel(qkv, heads, "fused_qkv_attention_bwd_from_p"):
+        return fused_qkv_attention_bwd_from_p_plain(qkv, p, dout, heads)
+    dqkv = _launch_bwd(qkv, p, dout, heads, n)
+    fused_qkv_attention_bwd_from_p.launches += 1
+    return dqkv
+
+
+def fused_qkv_attention_bwd_recompute(
+    qkv: torch.Tensor, dout: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> torch.Tensor:
+    """dqkv [B, N, 3C] from qkv and dO [B, N, C], with P recomputed in f32.
+    Same devices and checks."""
+    d = _head_dim(qkv, heads)
+    b, n, _ = qkv.shape
+    n_valid = _check_n_valid(n, n_valid)
+    _check_operand(dout, qkv, (b, n, heads * d), "dO")
+    if not _runs_kernel(qkv, heads, "fused_qkv_attention_bwd_recompute"):
+        return fused_qkv_attention_bwd_recompute_plain(qkv, dout, heads, n_valid)
+    dqkv = _launch_bwd(qkv, None, dout, heads, n_valid)
+    fused_qkv_attention_bwd_recompute.launches += 1
+    return dqkv
+
+
+KERNELS = (
+    fused_qkv_attention_fwd,
+    fused_qkv_attention_fwd_stash,
+    fused_qkv_attention_bwd_from_p,
+    fused_qkv_attention_bwd_recompute,
+)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+# ---------------------------------------------------------------- the op
+
+
+class FusedQKVAttention(torch.autograd.Function):
+    """The counterpart of ``_fused_attention_padded.defvjp(_fused_vjp_fwd,
+    _fused_vjp_bwd)``: forward with the P stash (or none, with
+    ``VDK_ATTN_NO_PCACHE=1``), backward from P (or recomputing it). Its
+    backward is not itself differentiable."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int, n_valid: int) -> torch.Tensor:
+        if _p_cache_enabled():
+            out, p = fused_qkv_attention_fwd_stash(qkv, heads, n_valid)
+            ctx.save_for_backward(qkv, p)
+        else:
+            out = fused_qkv_attention_fwd(qkv, heads, n_valid)
+            ctx.save_for_backward(qkv)
+        ctx.heads, ctx.n_valid = heads, n_valid
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout: torch.Tensor):
+        qkv, *stash = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
+        if stash:
+            dqkv = fused_qkv_attention_bwd_from_p(qkv, stash[0], dout, ctx.heads)
+        else:
+            dqkv = fused_qkv_attention_bwd_recompute(qkv, dout, ctx.heads, ctx.n_valid)
+        return dqkv, None, None
+
+
+def fused_qkv_attention(
+    qkv: torch.Tensor, heads: int, n_valid: Optional[int] = None
+) -> torch.Tensor:
+    """Attention straight from the QKV projection: [B, N, 3C] → [B, N, C],
+    differentiable. With grad mode on and ``qkv.requires_grad`` it runs
+    ``FusedQKVAttention``; otherwise ``fused_qkv_attention_fwd``. Kernels on a
+    CUDA tensor, their plain versions on a CPU tensor (see module doc)."""
+    _head_dim(qkv, heads)
+    n_valid = _check_n_valid(qkv.shape[1], n_valid)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return FusedQKVAttention.apply(qkv, heads, n_valid)
+    return fused_qkv_attention_fwd(qkv, heads, n_valid)
