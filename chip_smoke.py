@@ -8,10 +8,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
 1. device  — needs CUDA (exits non-zero without it); prints the card's name
              and power limit as nvidia-smi reports them; TF32 off for the
              f32 comparisons.
-2. build   — compiles the two kernel libraries of visiondk_tpu_torch/csrc/
-             (forward with optional P stash; both backwards) with nvcc for
-             sm_90a into visiondk_tpu_torch/_build/, in parallel, and prints
-             ptxas' register and spill lines.
+2. build   — compiles the four kernel libraries of visiondk_tpu_torch/csrc/
+             (fused QKV attention: forward with optional P stash, both
+             backwards; fused window attention: the same two) with nvcc for
+             sm_90a into visiondk_tpu_torch/_build/, one nvcc each, all in
+             parallel, and prints ptxas' register and spill lines.
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80), f32 and
@@ -33,6 +34,19 @@ Phases, one line or more each; any failure raises and exits non-zero:
              models on the plain attention path (per-row cosine ≥ 0.999).
              Prints images/s of both paths. The same models in f32 must also
              agree on the argmax of ≥ 99% of rows.
+3w. window kernel — each of the four window-attention kernels against its
+             plain version, f32 and bf16, at the Swin-B (bs 80) stage shapes
+             (stage 0: 56×56, 4 heads, unshifted and shifted; stage 2: 14×14,
+             16 heads, shifted; stage 3: 7×7, 32 heads, one window) and at odd
+             shapes (the JAX kernel test's B=4, 8×8, ws 4, 2 heads, shift 2;
+             ws 8 with head dim 64 and scale 1.0, SwinV2's call). O, P and dqkv
+             are held to phase 3's bars; the stash forward's O must be
+             bit-equal to the no-stash kernel's; dbias (f32 in both dtypes)
+             within 1e-4 · max(1, max |plain|): both sides sum the same f32
+             terms over up to 5120 windows in another order. A repeated
+             backward from P must return bit-identical dbias. Times all four
+             kernels and their plain versions at the stage-0 (unshifted) and
+             stage-2 bf16 shapes, in the order plain, kernel, kernel, plain.
 5. train   — the training path: the pet_synth model at full width and depth,
              bf16 compute with f32 parameters, bs 128 seeded uint8 images and
              int labels, make_train_step with CE (label smoothing 0.05) and the
@@ -56,14 +70,32 @@ Phases, one line or more each; any failure raises and exits non-zero:
              Prints images/s of both paths (order kernel, plain, plain,
              kernel) and torch.cuda.max_memory_allocated.
 
-The line before the last is a JSON summary of the kernels, with each
-kernel's launches counted on the main paths (the bf16 serving run and the
-bf16 train runs, counts set to 0 before each and read after); the last line
-is {"ok": true, "device": {...}}.
+6. swin serving, 7. swin train — phases 4 and 5 for Swin-B
+             (swin_base_patch4_window7_224), the reference's default recipe:
+             the `model:` section of configs/classification/pet.yaml (35
+             classes, 224²) and the embedding model of configs/faceX/cbir.yaml
+             (Swin-B backbone, 128-d neck; its margin head is not ported),
+             seeded weights. Serving: bs 128 through make_eval_step and
+             make_embed_step, exactly 24 window-attention forwards per forward
+             and no other kernel, the same bars. Training: pet.yaml's hyp (SGD
+             lr0 0.006, momentum 0.8 → 0.937, wd 5e-4, cosine_with_warm, clip
+             10), CE with label smoothing 0.05 and the EMA, bs 80 (its batch);
+             3 steps of 24 stash forwards + 24 backwards from P, 2 steps of
+             24 + 24 recompute with VDK_ATTN_NO_PCACHE=1; every qkv.weight and
+             relative_position_bias_table gradient non-zero after the first;
+             the one-step f32 comparison at bs 16 with phase 5's bars.
+
+The line before the last is a JSON summary of the eight kernels, with each
+kernel's launches counted on the main paths (the bf16 serving runs and the
+bf16 train runs of both models, counts set to 0 before each and read
+after), and times at the ViT-B/16 bf16 shape (fused QKV attention) or the
+Swin-B stage-0 bf16 shape (window attention); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -78,10 +110,12 @@ from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_ev
 from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import get_model
+from visiondk_tpu_torch.models.backbones.swin import WindowAttention, window_region_ids
 from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
+from visiondk_tpu_torch.ops import window_attention as wattn
 from visiondk_tpu_torch.ops.attention import (
-    KERNELS,
+    KERNELS as QKV_KERNELS,
     fused_qkv_attention_bwd_from_p,
     fused_qkv_attention_bwd_from_p_plain,
     fused_qkv_attention_bwd_recompute,
@@ -91,6 +125,14 @@ from visiondk_tpu_torch.ops.attention import (
     fused_qkv_attention_fwd_stash_plain,
     fused_qkv_attention_plain,
 )
+from visiondk_tpu_torch.ops.window_attention import (
+    fused_window_attention_bwd_from_p,
+    fused_window_attention_bwd_recompute,
+    fused_window_attention_fwd,
+    fused_window_attention_fwd_stash,
+)
+
+KERNELS = QKV_KERNELS + wattn.KERNELS
 
 # the `model:` section of configs/classification/pet_synth.yaml
 PET_SYNTH_MODEL = {
@@ -108,6 +150,14 @@ LABEL_SMOOTH = 0.05
 STEPS_PER_EPOCH = 2
 # the embedding model of bench.py: ViT-B/16 backbone, 128-d neck, no head
 EMBED_MODEL = {"task": "cbir", "backbone": {"vit_base_patch16_224": {"feat_dim": 128, "image_size": 224}}}
+# the `model:` section of configs/classification/pet.yaml: Swin-B, the reference's default recipe
+PET_MODEL = {**PET_SYNTH_MODEL, "name": "swin_base_patch4_window7_224"}
+# the optimizer fields of its `hyp:` section
+PET_HYP = {**PET_SYNTH_HYP, "epochs": 15, "lr0": 0.006}
+# the embedding model of configs/faceX/cbir.yaml: Swin-B backbone, 128-d neck (its
+# arcface head trains the embedding and is not ported)
+CBIR_EMBED_MODEL = {"task": "cbir", "backbone": {
+    "swin_base_patch4_window7_224": {"pretrained": False, "image_size": 224, "feat_dim": 128}}}
 
 BATCH = 128
 IMG = PET_SYNTH_MODEL["image_size"]
@@ -118,17 +168,48 @@ TRAIN_STEPS = 5
 NO_PCACHE_STEPS = 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
+DBIAS_TOL = 1e-4  # max |kernel − plain| over dbias, relative to max(1, its largest |plain| entry)
 MIN_COSINE = 0.999
 MIN_ARGMAX_AGREEMENT = 0.99
 F32_LOSS_RTOL = 1e-5
 F32_TENSOR_TOL = 1e-3  # max |kernel − plain| over a tensor, relative to its largest |plain| entry
 
-NAMES = {
-    fused_qkv_attention_fwd: "fused_qkv_attention_fwd",
-    fused_qkv_attention_fwd_stash: "fused_qkv_attention_fwd_stash",
-    fused_qkv_attention_bwd_from_p: "fused_qkv_attention_bwd_from_p",
-    fused_qkv_attention_bwd_recompute: "fused_qkv_attention_bwd_recompute",
-}
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    """A model the run serves and trains, and the four kernels of its attention."""
+
+    tag: str                 # prefix of the serving phase's lines; the train phase's is train_tag
+    train_tag: str
+    model: dict              # the classification `model:` section
+    embed_model: dict        # the embedding model
+    hyp: dict                # the optimizer fields of the `hyp:` section
+    train_batch: int
+    f32_train_batch: int
+    train_steps: int
+    depth: int               # attention blocks: launches of each kernel per forward or step
+    kernels: tuple           # (forward, stash forward, backward from P, recompute backward)
+    nonzero_grads: tuple     # parameter-name suffixes whose gradients must be non-zero after a step
+
+
+VIT = Recipe("slice", "train", PET_SYNTH_MODEL, EMBED_MODEL, PET_SYNTH_HYP, BATCH, F32_TRAIN_BATCH,
+             TRAIN_STEPS, DEPTH, QKV_KERNELS, ("attn.qkv.weight",))
+SWIN = Recipe("swin serving", "swin train", PET_MODEL, CBIR_EMBED_MODEL, PET_HYP, 80, 16, 3, 24,
+              wattn.KERNELS, ("attn.qkv.weight", "attn.relative_position_bias_table"))
+
+# (name, B, H=W, heads, C, ws, shift, scale, timed): Swin-B at bs 80, stage by
+# stage (18 of its 24 blocks run at stage 2), the JAX kernel test's shape, and
+# SwinV2's window 8 with scale 1.0 at head dim 64
+WINDOW_CASES = [
+    ("swin_b_stage0", 80, 56, 4, 128, 7, 0, None, True),
+    ("swin_b_stage0_shifted", 80, 56, 4, 128, 7, 3, None, False),
+    ("swin_b_stage2_shifted", 80, 14, 16, 512, 7, 3, None, True),
+    ("swin_b_stage3", 80, 7, 32, 1024, 7, 0, None, False),
+    ("jax_test", 4, 8, 2, 32, 4, 2, None, False),
+    ("ws8_scale1", 4, 16, 2, 128, 8, 4, 1.0, False),
+]
+
+NAMES = {k: k.__name__ for k in KERNELS}
 SOURCES = {
     fused_qkv_attention_fwd: ("visiondk_tpu_torch/csrc/fused_qkv_attention.cu",
                               "visiondk_tpu/ops/pallas/attention.py:198"),
@@ -138,6 +219,14 @@ SOURCES = {
                                      "visiondk_tpu/ops/pallas/attention.py:323"),
     fused_qkv_attention_bwd_recompute: ("visiondk_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
                                         "visiondk_tpu/ops/pallas/attention.py:263"),
+    fused_window_attention_fwd: ("visiondk_tpu_torch/csrc/fused_window_attention.cu",
+                                 "visiondk_tpu/ops/pallas/window_attention.py:246"),
+    fused_window_attention_fwd_stash: ("visiondk_tpu_torch/csrc/fused_window_attention.cu",
+                                       "visiondk_tpu/ops/pallas/window_attention.py:500"),
+    fused_window_attention_bwd_from_p: ("visiondk_tpu_torch/csrc/fused_window_attention_bwd.cu",
+                                        "visiondk_tpu/ops/pallas/window_attention.py:350"),
+    fused_window_attention_bwd_recompute: ("visiondk_tpu_torch/csrc/fused_window_attention_bwd.cu",
+                                           "visiondk_tpu/ops/pallas/window_attention.py:293"),
 }
 
 
@@ -170,6 +259,11 @@ def read_counts() -> dict:
     return {k: k.launches for k in KERNELS}
 
 
+def only(launches: dict) -> dict:
+    """Expected counts: ``launches`` for the kernels named, 0 for every other."""
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
 def phase_device() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
@@ -186,7 +280,8 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
-    names = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+    names = ("fused_qkv_attention", "fused_qkv_attention_bwd",
+             "fused_window_attention", "fused_window_attention_bwd")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, started together
         built = list(pool.map(_build.build, names))
     for b in built:
@@ -291,14 +386,91 @@ def phase_kernel(dev: torch.device) -> dict:
     return summary
 
 
+def phase_window_kernel(dev: torch.device) -> dict:
+    """Every window-attention kernel against its plain version; returns, per
+    kernel, its max error and times (ms) at the Swin-B stage-0 bf16 shape."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    kf, ks, kb, kr = wattn.KERNELS
+    summary = {}
+    for name, b, hw, h, c, ws, shift, scale, timed in WINDOW_CASES:
+        n = ws * ws
+        ids = (torch.from_numpy(window_region_ids(hw, hw, ws, shift)).to(dev) if shift else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = (f"{name} B={b} {hw}x{hw} heads={h} C={c} ws={ws} shift={shift} scale={scale} "
+                   f"{str(dtype).replace('torch.', '')}")
+            qkv = torch.randn((b, hw, hw, 3 * c), generator=gen, device=dev).to(dtype)
+            dout = torch.randn((b, hw, hw, c), generator=gen, device=dev).to(dtype)
+            bias = 0.5 * torch.randn((h, n, n), generator=gen, device=dev)
+            tol = TOL[dtype]
+
+            out = kf(qkv, bias, ids, h, scale)
+            ref = wattn.fused_window_attention_plain(qkv, bias, ids, h, scale)
+            o_s, p_s = ks(qkv, bias, ids, h, scale)
+            o_r, p_r = wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale)
+            g_p, db_p = kb(qkv, p_s, dout, h, scale)
+            g_p_ref, db_p_ref = wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale)
+            g_r, db_r = kr(qkv, bias, ids, dout, h, scale)
+            g_r_ref, db_r_ref = wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale)
+            _, db_p2 = kb(qkv, p_s, dout, h, scale)
+            torch.cuda.synchronize()
+
+            for t, what in ((out, "O"), (p_s, "P"), (g_p, "dqkv from P"), (db_p, "dbias from P"),
+                            (g_r, "dqkv recompute"), (db_r, "dbias recompute")):
+                check(bool(torch.isfinite(t).all()), f"{tag}: non-finite {what}")
+            check(torch.equal(o_s, out), f"{tag}: the stash forward's O differs from the no-stash kernel's")
+            check(torch.equal(db_p, db_p2), f"{tag}: a repeated backward from P gave other dbias bits")
+            check(db_p.dtype == db_r.dtype == torch.float32, f"{tag}: dbias is not f32")
+            p_err = max_err(p_s, p_r)
+            dbias_err = {kb: max_err(db_p, db_p_ref) / max(1.0, db_p_ref.abs().max().item()),
+                         kr: max_err(db_r, db_r_ref) / max(1.0, db_r_ref.abs().max().item())}
+            errs = {kf: max_err(out, ref), ks: max(max_err(o_s, o_r), p_err),
+                    kb: max_err(g_p, g_p_ref, scaled=True), kr: max_err(g_r, g_r_ref, scaled=True)}
+            check(p_err <= P_TOL[dtype], f"{tag}: P max |kernel - plain| {p_err} > {P_TOL[dtype]}")
+            for k, err in errs.items():
+                check(err <= tol, f"{tag}: {NAMES[k]} error {err} > {tol}")
+            for k, err in dbias_err.items():
+                check(err <= DBIAS_TOL, f"{tag}: {NAMES[k]} dbias error {err} of max(1, |plain|) > {DBIAS_TOL}")
+            print(f"[window kernel] {tag}: max|err| fwd {errs[kf]:.3e}, stash O/P "
+                  f"{max_err(o_s, o_r):.3e}/{p_err:.3e} (O bit-equal to fwd), bwd_from_p dqkv "
+                  f"{errs[kb]:.3e} dbias {dbias_err[kb]:.3e} (bit-identical on repeat), bwd_recompute "
+                  f"dqkv {errs[kr]:.3e} dbias {dbias_err[kr]:.3e}, max|dbias| {db_p_ref.abs().max().item():.3e} "
+                  f"(tol {tol}, P {P_TOL[dtype]:.3e}, dbias {DBIAS_TOL} of max(1, |plain|); dqkv scaled by "
+                  f"max(1, |plain|))")
+
+            if timed and dtype == torch.bfloat16:
+                calls = {
+                    kf: (lambda: kf(qkv, bias, ids, h, scale),
+                         lambda: wattn.fused_window_attention_plain(qkv, bias, ids, h, scale)),
+                    ks: (lambda: ks(qkv, bias, ids, h, scale),
+                         lambda: wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale)),
+                    kb: (lambda: kb(qkv, p_s, dout, h, scale),
+                         lambda: wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale)),
+                    kr: (lambda: kr(qkv, bias, ids, dout, h, scale),
+                         lambda: wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale)),
+                }
+                for k, (kern, plain) in calls.items():
+                    p1 = cuda_ms(plain, iters=10)
+                    k1 = cuda_ms(kern, iters=10)
+                    k2 = cuda_ms(kern, iters=10)
+                    p2 = cuda_ms(plain, iters=10)
+                    print(f"[window kernel] {tag} {NAMES[k]}: kernel {k1:.4f}, {k2:.4f} ms | plain {p1:.4f}, "
+                          f"{p2:.4f} ms (order plain, kernel, kernel, plain)")
+                    if name == "swin_b_stage0":
+                        summary[k] = {"max_abs_err": errs[k], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+                del calls
+            del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref
+            torch.cuda.empty_cache()
+    return summary
+
+
 def set_fused(model: torch.nn.Module, on: bool) -> None:
     for m in model.modules():
-        if isinstance(m, Attention):
+        if isinstance(m, (Attention, WindowAttention)):
             m.use_fused = on
 
 
 def images_per_s(step, batch: dict, iters: int = 10) -> float:
-    return BATCH / (cuda_ms(lambda: step(batch), iters=iters, warmup=2) / 1000.0)
+    return batch["image"].shape[0] / (cuda_ms(lambda: step(batch), iters=iters, warmup=2) / 1000.0)
 
 
 def row_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -306,34 +478,33 @@ def row_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
 
 
-def build_models(dtype: torch.dtype, dev: torch.device):
-    cls_model = get_model(PET_SYNTH_MODEL, dtype=dtype, device=dev,
-                          generator=torch.Generator().manual_seed(0))
-    emb_model = get_model(EMBED_MODEL, dtype=dtype, device=dev,
-                          generator=torch.Generator().manual_seed(1))
+def build_models(recipe: Recipe, dtype: torch.dtype, dev: torch.device):
+    cls_model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+    emb_model = get_model(recipe.embed_model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(1))
     return cls_model, emb_model
 
 
-def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> dict:
+def compare_paths(recipe: Recipe, cls_model, emb_model, batches, dtype: torch.dtype) -> dict:
     """Eval and embed steps on every batch through the kernel (counted), then
     on the plain attention path; checks shapes, finiteness, launch counts
     and agreement. Returns the launch counts of the counted run."""
     name = str(dtype).replace("torch.", "")
+    fwd, depth = recipe.kernels[0], recipe.depth
     eval_step = make_eval_step(cls_model, StepConfig())
     embed_step = make_embed_step(emb_model, StepConfig())
 
     reset_counts()
     logits = [eval_step(b) for b in batches]
-    eval_launches = read_counts()[fused_qkv_attention_fwd]
+    eval_launches = read_counts()[fwd]
     feats = [embed_step(b) for b in batches]
     counts = read_counts()
-    embed_launches = counts[fused_qkv_attention_fwd] - eval_launches
-    print(f"[slice] {name}: kernel launches eval {eval_launches}, embed {embed_launches} "
-          f"over {len(batches)} batches each (want {DEPTH} per forward)")
-    check(eval_launches == DEPTH * len(batches), f"eval launched the kernel {eval_launches} times")
-    check(embed_launches == DEPTH * len(batches), f"embed launched the kernel {embed_launches} times")
-    check(all(v == 0 for k, v in counts.items() if k is not fused_qkv_attention_fwd),
-          f"serving launched a training kernel: {counts}")
+    embed_launches = counts[fwd] - eval_launches
+    print(f"[{recipe.tag}] {name}: kernel launches eval {eval_launches}, embed {embed_launches} "
+          f"over {len(batches)} batches each (want {depth} per forward)")
+    check(eval_launches == depth * len(batches), f"eval launched the kernel {eval_launches} times")
+    check(embed_launches == depth * len(batches), f"embed launched the kernel {embed_launches} times")
+    check(all(v == 0 for k, v in counts.items() if k is not fwd),
+          f"serving launched another kernel: {[(NAMES[k], v) for k, v in counts.items()]}")
 
     set_fused(cls_model, False)
     set_fused(emb_model, False)
@@ -344,13 +515,15 @@ def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> dict:
     set_fused(emb_model, True)
     check(read_counts() == counts, "the plain path launched a kernel")
 
-    for tag, outs, refs, width in (("logits", logits, logits_ref, 35), ("embeddings", feats, feats_ref, 128)):
+    (feat_dim,) = {v["feat_dim"] for v in recipe.embed_model["backbone"].values()}
+    for tag, outs, refs, width in (("logits", logits, logits_ref, recipe.model["num_classes"]),
+                                   ("embeddings", feats, feats_ref, feat_dim)):
         out, ref = torch.cat(outs), torch.cat(refs)
         check(out.shape == (BATCH * len(batches), width) and out.dtype == torch.float32,
               f"{tag}: shape {tuple(out.shape)} dtype {out.dtype}")
         check(bool(torch.isfinite(out).all()), f"{tag}: non-finite values")
         cos = row_cosine(out, ref).min().item()
-        line = (f"[slice] {name} {tag} kernel vs plain path: min row cosine {cos:.6f} "
+        line = (f"[{recipe.tag}] {name} {tag} kernel vs plain path: min row cosine {cos:.6f} "
                 f"(want >= {MIN_COSINE}), max |diff| {(out - ref).abs().max().item():.3e}")
         check(cos >= MIN_COSINE, f"{name} {tag}: min row cosine {cos} < {MIN_COSINE}")
         if tag == "logits":
@@ -372,20 +545,20 @@ def compare_paths(cls_model, emb_model, batches, dtype: torch.dtype) -> dict:
     return counts
 
 
-def phase_slice(dev: torch.device) -> dict:
+def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     batches = [
         {"image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8)}
         for _ in range(N_BATCHES)
     ]
     t0 = time.perf_counter()
-    cls_model, emb_model = build_models(torch.bfloat16, dev)
+    cls_model, emb_model = build_models(recipe, torch.bfloat16, dev)
     torch.cuda.synchronize()
-    print(f"[slice] built {PET_SYNTH_MODEL['name']} (35 classes) and the 128-d embedding model, "
-          f"bf16, seeded weights, in {time.perf_counter() - t0:.1f} s")
+    print(f"[{recipe.tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes) and the "
+          f"128-d embedding model, bf16, seeded weights, in {time.perf_counter() - t0:.1f} s")
 
     # the main path, counted: bf16 serving
-    counts = compare_paths(cls_model, emb_model, batches, torch.bfloat16)
+    counts = compare_paths(recipe, cls_model, emb_model, batches, torch.bfloat16)
 
     # throughput, interleaved: kernel, plain, plain, kernel
     steps = (("eval", make_eval_step(cls_model, StepConfig()), cls_model),
@@ -397,24 +570,25 @@ def phase_slice(dev: torch.device) -> dict:
             rates[fused].append(images_per_s(step, batches[0]))
         set_fused(model, True)
         k, p = rates[True], rates[False]
-        print(f"[slice] {tag} bs {BATCH} bf16 images/s: kernel path {k[0]:.1f}, {k[1]:.1f} | "
+        print(f"[{recipe.tag}] {tag} bs {BATCH} bf16 images/s: kernel path {k[0]:.1f}, {k[1]:.1f} | "
               f"plain path {p[0]:.1f}, {p[1]:.1f} (order kernel, plain, plain, kernel)")
     del cls_model, emb_model, steps, model, step
     torch.cuda.empty_cache()
 
     # the same check in f32, where the two paths differ only in f32 rounding
-    compare_paths(*build_models(torch.float32, dev), batches, torch.float32)
+    compare_paths(recipe, *build_models(recipe, torch.float32, dev), batches, torch.float32)
+    torch.cuda.empty_cache()
     return counts
 
 
 # ---------------------------------------------------------------- train
 
 
-def build_trainer(dtype: torch.dtype, dev: torch.device, fused: bool = True):
-    """The pet_synth model (seed 0), its train state and step."""
-    model = get_model(PET_SYNTH_MODEL, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, fused: bool = True):
+    """The recipe's model (seed 0), its train state and step."""
+    model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
     set_fused(model, fused)
-    tx = build_tx(PET_SYNTH_HYP, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=PET_SYNTH_MODEL)
+    tx = build_tx(recipe.hyp, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=recipe.model)
     state = create_train_state(model, tx)
     step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), StepConfig(),
                            torch.Generator().manual_seed(1))
@@ -428,18 +602,19 @@ def snapshot(model: torch.nn.Module):
     return params, grads
 
 
-def compare_one_step(dtype: torch.dtype, dev: torch.device, batch: dict, kernel_side=None) -> None:
+def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batch: dict,
+                     kernel_side=None) -> None:
     """One step from the same weights and batch on the kernel path and on the
     plain attention path: loss, every gradient, every update θ₁ − θ₀."""
     name = str(dtype).replace("torch.", "")
     theta0 = {n: p.detach().clone() for n, p in get_model(
-        PET_SYNTH_MODEL, dtype=dtype, generator=torch.Generator().manual_seed(0)).named_parameters()}
+        recipe.model, dtype=dtype, generator=torch.Generator().manual_seed(0)).named_parameters()}
     sides = {}
     for fused in (True, False):
         if fused and kernel_side is not None:
             sides[fused] = kernel_side
             continue
-        model, state, step = build_trainer(dtype, dev, fused)
+        model, state, step = build_trainer(recipe, dtype, dev, fused)
         loss = step(state, batch)["loss"].item()
         sides[fused] = (loss, *snapshot(model))
         del model, state, step
@@ -473,8 +648,8 @@ def compare_one_step(dtype: torch.dtype, dev: torch.device, batch: dict, kernel_
             cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
             if cos < min_cos[what][0]:
                 min_cos[what] = (cos, n)
-    print(f"[train] {name} kernel vs plain path, one step, bs {batch['label'].shape[0]}: loss {lk:.6f} vs "
-          f"{lp:.6f} (rel {loss_rel:.3e}); worst max|diff|/max|plain| gradient {worst['grad'][0]:.3e} "
+    print(f"[{recipe.train_tag}] {name} kernel vs plain path, one step, bs {batch['label'].shape[0]}: loss "
+          f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}); worst max|diff|/max|plain| gradient {worst['grad'][0]:.3e} "
           f"({worst['grad'][1]}), update {worst['update'][0]:.3e} ({worst['update'][1]}); min cosine "
           f"gradient {min_cos['grad'][0]:.6f} ({min_cos['grad'][1]}), update {min_cos['update'][0]:.6f} "
           f"({min_cos['update'][1]}), key-bias slices excluded from the cosines; key-bias gradient slice: "
@@ -496,30 +671,31 @@ def train_rate(model, state, step, batch: dict, fused: bool, steps: int = 5):
     for _ in range(steps):
         step(state, batch)
     torch.cuda.synchronize()
-    rate = steps * BATCH / (time.perf_counter() - t0)
+    rate = steps * batch["label"].shape[0] / (time.perf_counter() - t0)
     return rate, torch.cuda.max_memory_allocated() / 2**30
 
 
-def phase_train(dev: torch.device) -> dict:
+def phase_train(dev: torch.device, recipe: Recipe) -> dict:
+    fwd, stash, bwd_p, bwd_r = recipe.kernels
+    depth, bs, tag = recipe.depth, recipe.train_batch, recipe.train_tag
     gen = torch.Generator(device=dev).manual_seed(3)
     batch = {
-        "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
-        "label": torch.randint(0, PET_SYNTH_MODEL["num_classes"], (BATCH,), generator=gen, device=dev),
+        "image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "label": torch.randint(0, recipe.model["num_classes"], (bs,), generator=gen, device=dev),
     }
     t0 = time.perf_counter()
-    model, state, step = build_trainer(torch.bfloat16, dev)
+    model, state, step = build_trainer(recipe, torch.bfloat16, dev)
     torch.cuda.synchronize()
-    print(f"[train] built {PET_SYNTH_MODEL['name']} (35 classes, depth {DEPTH}, width 768), bf16 compute, "
-          f"f32 parameters, SGD + clip + EMA from the pet_synth hyp, steps_per_epoch {STEPS_PER_EPOCH}, "
-          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes, {depth} attention "
+          f"blocks), bf16 compute, f32 parameters, SGD + clip + EMA from the hyp (lr0 {recipe.hyp['lr0']}), "
+          f"steps_per_epoch {STEPS_PER_EPOCH}, in {time.perf_counter() - t0:.1f} s")
 
     # the main path, counted step by step: bf16 training with the P stash
     totals = {k: 0 for k in KERNELS}
-    want = {fused_qkv_attention_fwd: 0, fused_qkv_attention_fwd_stash: DEPTH,
-            fused_qkv_attention_bwd_from_p: DEPTH, fused_qkv_attention_bwd_recompute: 0}
+    want = only({stash: depth, bwd_p: depth})
     losses, first = [], None
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
-    for i in range(TRAIN_STEPS):
+    for i in range(recipe.train_steps):
         reset_counts()
         loss = step(state, batch)["loss"]
         counts = read_counts()
@@ -530,20 +706,20 @@ def phase_train(dev: torch.device) -> dict:
         if i == 0:
             bad = [n for n, p in model.named_parameters() if p.grad is None or not torch.isfinite(p.grad).all()]
             check(not bad, f"parameters without a finite gradient: {bad[:5]}")
-            zero = [n for n, p in model.named_parameters() if n.endswith("attn.qkv.weight")
-                    and not p.grad.abs().sum().item() > 0]
-            check(not zero, f"qkv.weight gradients that are zero: {zero}")
-            print(f"[train] step 0: all {sum(1 for _ in model.parameters())} parameters have finite "
-                  f"gradients; all {DEPTH} qkv.weight gradients are non-zero")
+            for suffix in recipe.nonzero_grads:
+                named = [(n, p) for n, p in model.named_parameters() if n.endswith(suffix)]
+                zero = [n for n, p in named if not p.grad.abs().sum().item() > 0]
+                check(len(named) == depth and not zero, f"{suffix} gradients that are zero: {zero}")
+            print(f"[{tag}] step 0: all {sum(1 for _ in model.parameters())} parameters have finite "
+                  f"gradients; all {depth} {' and all '.join(recipe.nonzero_grads)} gradients are non-zero")
             first = (losses[0], *snapshot(model))
     lr = state.optimizer.optimizer.param_groups[0]["lr"]
-    print(f"[train] bf16 bs {BATCH}, {TRAIN_STEPS} steps: losses {', '.join(f'{x:.5f}' for x in losses)}; "
-          f"launches per step: {DEPTH} stash forwards, {DEPTH} backwards from P, nothing else; "
+    print(f"[{tag}] bf16 bs {bs}, {recipe.train_steps} steps: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"launches per step: {depth} stash forwards, {depth} backwards from P, nothing else; "
           f"lr at the last step {lr:.6f}")
 
     os.environ["VDK_ATTN_NO_PCACHE"] = "1"
-    want = {fused_qkv_attention_fwd: DEPTH, fused_qkv_attention_fwd_stash: 0,
-            fused_qkv_attention_bwd_from_p: 0, fused_qkv_attention_bwd_recompute: DEPTH}
+    want = only({fwd: depth, bwd_r: depth})
     for i in range(NO_PCACHE_STEPS):
         reset_counts()
         loss = step(state, batch)["loss"]
@@ -552,8 +728,8 @@ def phase_train(dev: torch.device) -> dict:
         totals = {k: totals[k] + counts[k] for k in KERNELS}
         check(torch.isfinite(loss).item(), f"no-pcache step {i}: loss {loss.item()}")
     os.environ.pop("VDK_ATTN_NO_PCACHE")
-    print(f"[train] VDK_ATTN_NO_PCACHE=1, {NO_PCACHE_STEPS} steps: finite losses; launches per step: "
-          f"{DEPTH} no-stash forwards, {DEPTH} recompute backwards, nothing else")
+    print(f"[{tag}] VDK_ATTN_NO_PCACHE=1, {NO_PCACHE_STEPS} steps: finite losses; launches per step: "
+          f"{depth} no-stash forwards, {depth} recompute backwards, nothing else")
 
     # throughput and memory, interleaved: kernel, plain, plain, kernel
     rates = {True: [], False: []}
@@ -562,16 +738,17 @@ def phase_train(dev: torch.device) -> dict:
     set_fused(model, True)
     (k1, km1), (k2, km2) = rates[True]
     (p1, pm1), (p2, pm2) = rates[False]
-    print(f"[train] bf16 bs {BATCH} images/s: kernel path {k1:.1f}, {k2:.1f} | plain path {p1:.1f}, {p2:.1f} "
+    print(f"[{tag}] bf16 bs {bs} images/s: kernel path {k1:.1f}, {k2:.1f} | plain path {p1:.1f}, {p2:.1f} "
           f"(order kernel, plain, plain, kernel); max_memory_allocated kernel path {km1:.2f}, {km2:.2f} GiB, "
           f"plain path {pm1:.2f}, {pm2:.2f} GiB")
     del model, state, step
     torch.cuda.empty_cache()
 
     # kernel path vs plain path from the same weights and batch
-    compare_one_step(torch.bfloat16, dev, batch, kernel_side=first)
-    small = {k: v[:F32_TRAIN_BATCH] for k, v in batch.items()}
-    compare_one_step(torch.float32, dev, small)
+    compare_one_step(recipe, torch.bfloat16, dev, batch, kernel_side=first)
+    small = {k: v[:recipe.f32_train_batch] for k, v in batch.items()}
+    compare_one_step(recipe, torch.float32, dev, small)
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -580,18 +757,20 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    kern = phase_kernel(dev)
-    serving = phase_slice(dev)
-    training = phase_train(dev)
-    print(f"[launches] serving: {serving[fused_qkv_attention_fwd]} no-stash forwards; training: "
-          + ", ".join(f"{NAMES[k]} {v}" for k, v in training.items()))
+    kern = {**phase_kernel(dev), **phase_window_kernel(dev)}
+    launches = {k: 0 for k in KERNELS}
+    for recipe in (VIT, SWIN):
+        serving = phase_slice(dev, recipe)
+        training = phase_train(dev, recipe)
+        print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
+              f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
+        launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
     kernels = []
     for k in KERNELS:
         source, replaces = SOURCES[k]
-        launches = serving[k] + training[k]
-        check(launches > 0, f"{NAMES[k]} was not launched on the main path")
+        check(launches[k] > 0, f"{NAMES[k]} was not launched on the main path")
         kernels.append({"name": NAMES[k], "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches, **kern[k]})
+                        "launches": launches[k], **kern[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

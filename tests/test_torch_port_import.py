@@ -18,6 +18,8 @@ import visiondk_tpu_torch, visiondk_tpu_torch.models, visiondk_tpu_torch.engine.
 import visiondk_tpu_torch.ops.attention, visiondk_tpu_torch.losses, visiondk_tpu_torch.models.ema
 import visiondk_tpu_torch.engine.optim, visiondk_tpu_torch.engine.schedules
 import visiondk_tpu_torch.engine.state, visiondk_tpu_torch.engine.trainer
+import visiondk_tpu_torch.ops.window_attention, visiondk_tpu_torch.models.backbones.swin
+import visiondk_tpu_torch.models.convert
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "triton", "visiondk_tpu")
                 if m in sys.modules)
@@ -71,8 +73,12 @@ def test_canonical_model_name_matches_jax(name, want):
 
 
 def test_vit_family_registered():
+    """The ported families are registered under the JAX names: ViT and Swin V1
+    (SwinV2's names start with ``swinv2_``)."""
     from visiondk_tpu.models.backbones import BACKBONES as JAX_BACKBONES
     from visiondk_tpu_torch.models import BACKBONES
 
-    vit = sorted(k for k in JAX_BACKBONES.keys() if k.startswith("vit_") and "port_test" not in k)
-    assert sorted(k for k in BACKBONES.keys() if "port_test" not in k) == vit
+    ported = sorted(k for k in JAX_BACKBONES.keys()
+                    if k.startswith(("vit_", "swin_")) and "port_test" not in k)
+    assert "swin_base_patch4_window7_224" in ported
+    assert sorted(k for k in BACKBONES.keys() if "port_test" not in k) == ported

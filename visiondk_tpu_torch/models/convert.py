@@ -12,8 +12,11 @@ follows the port module that owns each tensor:
   ``batch_stats`` ``mean``/``var``;
 - LayerScale gamma ← the flax param named after the module (``block{i}/ls1``);
 - any other parameter (``cls_token``, ``pos_embed``) ← the same name;
-- torch ``blocks.{i}`` ↔ flax ``block{i}``; ``backbone.``/``neck.`` ↔
-  ``backbone/``/``neck/``.
+- module paths, per family: ViT's torch ``blocks.{i}`` ↔ flax ``block{i}``;
+  under a ``SwinTransformer``, ``layers.{s}.blocks.{b}`` ↔ ``stage{s}_block{b}``,
+  ``layers.{s}.downsample`` ↔ ``merge{s}``, ``patch_embed.proj`` ↔
+  ``patch_embed`` (the flax Conv) and ``patch_embed.norm`` ↔ ``patch_norm``;
+  ``backbone.``/``neck.`` ↔ ``backbone/``/``neck/``.
 
 The bridge is strict both ways: a port tensor with no source, a source tensor
 nothing maps, or a shape that differs raises (a partial import would load
@@ -30,15 +33,40 @@ import numpy as np
 import torch
 from torch import nn
 
+from visiondk_tpu_torch.models.backbones.swin import SwinTransformer
 from visiondk_tpu_torch.models.layers import LayerScale
 
 Tree = Dict[str, Dict[str, np.ndarray]]
 
 _BLOCK = re.compile(r"(^|\.)blocks\.(\d+)(?=\.|$)")
+# module path relative to a family's root module → its flax name, rule by rule
+_FAMILY_RULES = {
+    SwinTransformer: (
+        (re.compile(r"^layers\.(\d+)\.blocks\.(\d+)(?=\.|$)"), r"stage\1_block\2"),
+        (re.compile(r"^layers\.(\d+)\.downsample(?=\.|$)"), r"merge\1"),
+        (re.compile(r"^patch_embed\.proj$"), "patch_embed"),
+        (re.compile(r"^patch_embed\.norm$"), "patch_norm"),
+    ),
+}
 
 
-def _flax_path(module_path: str) -> str:
-    return _BLOCK.sub(r"\1block\2", module_path).replace(".", "/")
+def _path_mapper(model: nn.Module) -> Callable[[str], str]:
+    """Port module path → flax path: a family's rules below its root module,
+    ViT's ``blocks.{i}`` rule everywhere else."""
+    roots = [(name, _FAMILY_RULES[type(m)]) for name, m in model.named_modules() if type(m) in _FAMILY_RULES]
+
+    def flax_path(module_path: str) -> str:
+        for root, rules in roots:
+            prefix = f"{root}." if root else ""
+            if module_path != root and not module_path.startswith(prefix):
+                continue
+            rel = "" if module_path == root else module_path[len(prefix):]
+            for pattern, repl in rules:
+                rel = pattern.sub(repl, rel)
+            return ".".join(p for p in (root, rel) if p).replace(".", "/")
+        return _BLOCK.sub(r"\1block\2", module_path).replace(".", "/")
+
+    return flax_path
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -56,8 +84,9 @@ def _conv(a: np.ndarray) -> np.ndarray:
 def _sources(model: nn.Module) -> Dict[str, Tuple[str, str, Callable]]:
     """Port state-dict key → (source tree, flax path, array transform)."""
     out: Dict[str, Tuple[str, str, Callable]] = {}
+    flax_path = _path_mapper(model)
     for mpath, m in model.named_modules():
-        fpath = _flax_path(mpath)
+        fpath = flax_path(mpath)
 
         def key(name: str) -> str:
             return f"{mpath}.{name}" if mpath else name
@@ -93,8 +122,9 @@ def _sources(model: nn.Module) -> Dict[str, Tuple[str, str, Callable]]:
 def param_paths(model: nn.Module) -> Dict[str, str]:
     """Port parameter name → the flax path of its counterpart in the JAX
     ``params`` tree (``backbone.blocks.0.attn.qkv.weight`` →
-    ``backbone/block0/attn/qkv/kernel``). The optimizer labels parameters
-    by these paths, as the JAX optimizer labels its tree."""
+    ``backbone/block0/attn/qkv/kernel``; ``layers.0.blocks.1.attn.qkv.weight``
+    of a bare Swin → ``stage0_block1/attn/qkv/kernel``). The optimizer labels
+    parameters by these paths, as the JAX optimizer labels its tree."""
     names = {n for n, _ in model.named_parameters()}
     return {k: path for k, (t, path, _) in _sources(model).items() if t == "params" and k in names}
 
@@ -137,10 +167,14 @@ def load_jax_params(model: nn.Module, tree: Tree) -> nn.Module:
 
 
 def load_converted(path: str) -> Tree:
-    """Read a ``{tree}::{path}`` npz (the JAX package's ``save_converted``)."""
+    """Read a ``{tree}::{path}`` npz (the JAX package's ``save_converted``).
+    Keys that start with ``__`` are not tensors of a tree (a golden fixture's
+    ``__input__`` and ``__logits__``) and are skipped."""
     out: Tree = {}
     with np.load(path) as data:
         for key in data.files:
+            if key.startswith("__"):
+                continue
             t, p = key.split("::", 1)
             out.setdefault(t, {})[p] = data[key]
     return out
