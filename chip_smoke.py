@@ -101,9 +101,11 @@ import os
 import re
 import subprocess
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 from visiondk_tpu_torch.engine.state import create_train_state
 from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step, make_train_step
@@ -115,7 +117,6 @@ from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
 from visiondk_tpu_torch.ops import window_attention as wattn
 from visiondk_tpu_torch.ops.attention import (
-    KERNELS as QKV_KERNELS,
     fused_qkv_attention_bwd_from_p,
     fused_qkv_attention_bwd_from_p_plain,
     fused_qkv_attention_bwd_recompute,
@@ -124,6 +125,11 @@ from visiondk_tpu_torch.ops.attention import (
     fused_qkv_attention_fwd_stash,
     fused_qkv_attention_fwd_stash_plain,
     fused_qkv_attention_plain,
+    vision_attention,
+    vision_attention_bwd,
+    vision_attention_bwd_plain,
+    vision_attention_fwd,
+    vision_attention_plain,
 )
 from visiondk_tpu_torch.ops.window_attention import (
     fused_window_attention_bwd_from_p,
@@ -132,7 +138,10 @@ from visiondk_tpu_torch.ops.window_attention import (
     fused_window_attention_fwd_stash,
 )
 
-KERNELS = QKV_KERNELS + wattn.KERNELS
+K1_KERNELS = (fused_qkv_attention_fwd, fused_qkv_attention_fwd_stash, fused_qkv_attention_bwd_from_p,
+              fused_qkv_attention_bwd_recompute)
+K3_KERNELS = (vision_attention_fwd, vision_attention_bwd)
+KERNELS = K1_KERNELS + wattn.KERNELS + K3_KERNELS
 
 # the `model:` section of configs/classification/pet_synth.yaml
 PET_SYNTH_MODEL = {
@@ -173,6 +182,10 @@ MIN_COSINE = 0.999
 MIN_ARGMAX_AGREEMENT = 0.99
 F32_LOSS_RTOL = 1e-5
 F32_TENSOR_TOL = 1e-3  # max |kernel − plain| over a tensor, relative to its largest |plain| entry
+# the H100 SXM's published rates (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# dense peak FLOP/s of the products (bf16 tensor cores; f32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,9 +206,19 @@ class Recipe:
 
 
 VIT = Recipe("slice", "train", PET_SYNTH_MODEL, EMBED_MODEL, PET_SYNTH_HYP, BATCH, F32_TRAIN_BATCH,
-             TRAIN_STEPS, DEPTH, QKV_KERNELS, ("attn.qkv.weight",))
+             TRAIN_STEPS, DEPTH, K1_KERNELS, ("attn.qkv.weight",))
 SWIN = Recipe("swin serving", "swin train", PET_MODEL, CBIR_EMBED_MODEL, PET_HYP, 80, 16, 3, 24,
               wattn.KERNELS, ("attn.qkv.weight", "attn.relative_position_bias_table"))
+
+# (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape (timed),
+# the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens, and
+# ViT-H/14's head_dim 80
+QKV_CASES = [
+    ("vit_b16", BATCH, 197, 12, 64, None),
+    ("unaligned", 8, 37, 4, 32, 29),
+    ("vit_b8", 4, 785, 12, 64, None),
+    ("hd80", 4, 257, 16, 80, 250),
+]
 
 # (name, B, H=W, heads, C, ws, shift, scale, timed): Swin-B at bs 80, stage by
 # stage (18 of its 24 blocks run at stage 2), the JAX kernel test's shape, and
@@ -227,6 +250,10 @@ SOURCES = {
                                         "visiondk_tpu/ops/pallas/window_attention.py:350"),
     fused_window_attention_bwd_recompute: ("visiondk_tpu_torch/csrc/fused_window_attention_bwd.cu",
                                            "visiondk_tpu/ops/pallas/window_attention.py:293"),
+    vision_attention_fwd: ("visiondk_tpu_torch/csrc/fused_qkv_attention.cu",
+                           "visiondk_tpu/ops/pallas/attention.py:55"),
+    vision_attention_bwd: ("visiondk_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+                           "visiondk_tpu/ops/pallas/attention.py:68"),
 }
 
 
@@ -247,6 +274,70 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take for a call: the larger of its bytes
+    (each input read once, each output written once) over the HBM rate and
+    its products' FLOPs over the dtype's peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def sdpa_backend(fn) -> str:
+    """Which of scaled_dot_product_attention's backends one call of ``fn``
+    ran, read from the names of the CUDA kernels the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA})
+    if not names:
+        return "not read (the profiler showed no CUDA kernel)"
+    joined = " ".join(names).lower()
+    label = next((b for key, b in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient")) if key in joined),
+                 "math")
+    return f"{label} [{', '.join(n[:70] for n in names[:4])}{' ...' if len(names) > 4 else ''}]"
+
+
+MATH_SDPA = "torch._scaled_dot_product_attention_math"
+
+
+def math_attention(q, k, v, attn_mask=None, scale=None, transpose_to=None):
+    """SDPA's math backend, the one PyTorch call that returns P beside O:
+    (O, P), O transposed and reshaped to ``transpose_to`` when given."""
+    o, p = torch._scaled_dot_product_attention_math(q, k, v, attn_mask=attn_mask, scale=scale)
+    return (o if transpose_to is None else o.transpose(1, 2).reshape(transpose_to)), p
+
+
+def time_row(tag: str, name: str, kern, plain, library=None, library_what: str = "") -> dict:
+    """Times (ms) of a kernel, its plain version and, where one PyTorch call
+    computes the same function, that call: CUDA-event means, in the order
+    plain, kernel, kernel, plain, then the library call twice."""
+    p1 = cuda_ms(plain, iters=10)
+    k1 = cuda_ms(kern, iters=10)
+    k2 = cuda_ms(kern, iters=10)
+    p2 = cuda_ms(plain, iters=10)
+    line = (f"{tag} {name}: kernel {k1:.4f}, {k2:.4f} ms | plain {p1:.4f}, {p2:.4f} ms "
+            f"(order plain, kernel, kernel, plain)")
+    lib_ms = None
+    if library is not None:
+        l1, l2 = cuda_ms(library, iters=10), cuda_ms(library, iters=10)
+        lib_ms = (l1 + l2) / 2
+        line += f" | library {l1:.4f}, {l2:.4f} ms: {library_what}, SDPA backend {sdpa_backend(library)}"
+    elif library_what:
+        line += f" | library: none ({library_what})"
+    print(line)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms}
+
+
+def heads_view(qkv: torch.Tensor, heads: int):
+    """q, k, v [B, H, N, D]: strided views of the packed [B, N, 3C] buffer."""
+    b, n, w = qkv.shape
+    return qkv.view(b, n, 3, heads, w // (3 * heads)).permute(2, 0, 3, 1, 4).unbind(0)
 
 
 def reset_counts() -> None:
@@ -307,17 +398,8 @@ def phase_kernel(dev: torch.device) -> dict:
     """Every kernel against its plain version; returns, per kernel, its max
     error and times (ms) at the ViT-B/16 bf16 shape."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape, the
-    # JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens, and
-    # ViT-H/14's head_dim 80
-    cases = [
-        ("vit_b16", BATCH, 197, 12, 64, None),
-        ("unaligned", 8, 37, 4, 32, 29),
-        ("vit_b8", 4, 785, 12, 64, None),
-        ("hd80", 4, 257, 16, 80, 250),
-    ]
     summary = {}
-    for name, b, n, h, d, n_valid in cases:
+    for name, b, n, h, d, n_valid in QKV_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"{name} B={b} N={n} H={h} d={d} n_valid={n_valid} {str(dtype).replace('torch.', '')}"
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
@@ -372,18 +454,79 @@ def phase_kernel(dev: torch.device) -> dict:
             }
             if dtype == torch.float32:
                 timed = {fused_qkv_attention_fwd: timed[fused_qkv_attention_fwd]}  # in f32 only the serving forward
+            # the library's yardsticks: SDPA on the strided q, k, v views of the
+            # packed buffer with the transpose-reshape to [B, N, C]; for the stash
+            # forward SDPA's math backend, the one call that also returns P; SDPA's
+            # backward from dO to dqkv (through the views) for both backwards
+            qkv_g = qkv.detach().requires_grad_(True)
+            o_lib = F.scaled_dot_product_attention(*heads_view(qkv_g, h)).transpose(1, 2).reshape(b, n, h * d)
+            sdpa_fwd = "SDPA on the strided q, k, v views of qkv + transpose-reshape to [B, N, C]"
+            sdpa_bwd = "SDPA's backward, dO -> dqkv through the views"
+            library = {
+                fused_qkv_attention_fwd: (
+                    lambda: F.scaled_dot_product_attention(*heads_view(qkv, h)).transpose(1, 2).reshape(b, n, h * d),
+                    sdpa_fwd),
+                fused_qkv_attention_fwd_stash: (
+                    lambda: math_attention(*heads_view(qkv, h), transpose_to=(b, n, h * d)),
+                    f"{MATH_SDPA} (O and P) on the strided views + transpose-reshape of O to [B, N, C]"),
+                fused_qkv_attention_bwd_from_p: (
+                    lambda: torch.autograd.grad(o_lib, qkv_g, dout, retain_graph=True), sdpa_bwd),
+                fused_qkv_attention_bwd_recompute: (
+                    lambda: torch.autograd.grad(o_lib, qkv_g, dout, retain_graph=True), sdpa_bwd),
+            }
+            e = qkv.element_size()
+            io_qkv, io_o, io_p = b * n * 3 * h * d * e, b * n * h * d * e, b * h * n * n * e
+            product = 2 * b * h * n * n * d  # FLOPs of one [N, N] x [N, d] product over every (b, h)
+            work = {  # (bytes, FLOPs): inputs read once, outputs written once; the products
+                fused_qkv_attention_fwd: (io_qkv + io_o, 2 * product),
+                fused_qkv_attention_fwd_stash: (io_qkv + io_o + io_p, 2 * product),
+                fused_qkv_attention_bwd_from_p: (io_qkv + io_p + io_o + io_qkv, 4 * product),
+                fused_qkv_attention_bwd_recompute: (io_qkv + io_o + io_qkv, 5 * product),
+            }
             for k, (kern, plain) in timed.items():
-                p1 = cuda_ms(plain, iters=10)
-                k1 = cuda_ms(kern, iters=10)
-                k2 = cuda_ms(kern, iters=10)
-                p2 = cuda_ms(plain, iters=10)
-                print(f"[kernel] {tag} {NAMES[k]}: kernel {k1:.4f}, {k2:.4f} ms | plain {p1:.4f}, "
-                      f"{p2:.4f} ms (order plain, kernel, kernel, plain)")
+                lib, lib_what = library[k] if dtype == torch.bfloat16 else (None, "")
+                times = time_row(f"[kernel] {tag}", NAMES[k], kern, plain, lib, lib_what)
                 if dtype == torch.bfloat16:
-                    summary[k] = {"max_abs_err": errs[k], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+                    summary[k] = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
+            del qkv_g, o_lib, library
             del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref, timed
             torch.cuda.empty_cache()
     return summary
+
+
+def window_library(qkv, bias, ids, dout, h: int, ws: int, scale):
+    """The library's yardsticks for the window kernels: SDPA with the float
+    bias (plus the shift-region mask, −100 across regions) on q, k, v and dO
+    partitioned into [B·nW, h, ws², d] beforehand; the partition and reverse
+    copies are left out of the time, so it is a lower bound on the library's.
+    The mask is broadcast over windows when unshifted, else materialised per
+    window. The stash forward's is SDPA's math backend, which returns P. The
+    backward gives dq, dk, dv; it does not compute dbias."""
+    b, n, d = qkv.shape[0], ws * ws, qkv.shape[-1] // (3 * h)
+
+    def windows(x: torch.Tensor, m: int):  # [B, H, W, m·h·d] -> m tensors [B·nW, h, ws², d]
+        win = wattn.window_partition(x, ws).reshape(-1, n, m, h, d)
+        return win.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+
+    q, k, v = windows(qkv, 3)
+    (do,) = windows(dout, 1)
+    mask = bias[None]
+    if ids is not None:
+        apart = ids[:, :, None] != ids[:, None, :]
+        mask = mask + torch.where(apart, -100.0, 0.0)[:, None]
+        mask = mask.expand(b, *mask.shape).reshape(-1, h, n, n)
+    mask = mask.to(qkv.dtype)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    kf, ks, kb, kr = wattn.KERNELS
+    fwd = (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+           "SDPA with the bias + shift mask on pre-partitioned [B*nW, h, ws^2, d]")
+    stash = (lambda: math_attention(q, k, v, attn_mask=mask, scale=scale),
+             f"{MATH_SDPA} (O and P) with the bias + shift mask on pre-partitioned [B*nW, h, ws^2, d]")
+    bwd = (lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
+           "SDPA's backward on pre-partitioned [B*nW, h, ws^2, d], dq, dk, dv (no dbias)")
+    note = "partition and reverse copies left out, a lower bound on the library's time"
+    return {kf: fwd, ks: stash, kb: bwd, kr: bwd}, note
 
 
 def phase_window_kernel(dev: torch.device) -> dict:
@@ -448,16 +591,26 @@ def phase_window_kernel(dev: torch.device) -> dict:
                     kr: (lambda: kr(qkv, bias, ids, dout, h, scale),
                          lambda: wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale)),
                 }
+                library, lib_note = window_library(qkv, bias, ids, dout, h, ws, scale)
+                d, n_win = c // h, b * (hw // ws) ** 2
+                e = qkv.element_size()
+                io_qkv, io_o = qkv.numel() * e, dout.numel() * e
+                io_p, io_bias = n_win * h * n * n * e, bias.numel() * 4
+                io_ids = 0 if ids is None else ids.numel() * 4
+                product = 2 * n_win * h * n * n * d
+                work = {
+                    kf: (io_qkv + io_bias + io_ids + io_o, 2 * product),
+                    ks: (io_qkv + io_bias + io_ids + io_o + io_p, 2 * product),
+                    kb: (io_qkv + io_p + io_o + io_qkv + io_bias, 4 * product),
+                    kr: (io_qkv + io_bias + io_ids + io_o + io_qkv + io_bias, 5 * product),
+                }
                 for k, (kern, plain) in calls.items():
-                    p1 = cuda_ms(plain, iters=10)
-                    k1 = cuda_ms(kern, iters=10)
-                    k2 = cuda_ms(kern, iters=10)
-                    p2 = cuda_ms(plain, iters=10)
-                    print(f"[window kernel] {tag} {NAMES[k]}: kernel {k1:.4f}, {k2:.4f} ms | plain {p1:.4f}, "
-                          f"{p2:.4f} ms (order plain, kernel, kernel, plain)")
+                    lib, lib_what = library[k]
+                    times = time_row(f"[window kernel] {tag}", NAMES[k], kern, plain, lib,
+                                     f"{lib_what}; {lib_note}" if lib is not None else lib_what)
                     if name == "swin_b_stage0":
-                        summary[k] = {"max_abs_err": errs[k], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-                del calls
+                        summary[k] = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
+                del calls, library
             del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref
             torch.cuda.empty_cache()
     return summary
@@ -467,6 +620,35 @@ def set_fused(model: torch.nn.Module, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, (Attention, WindowAttention)):
             m.use_fused = on
+
+
+def vision_attention_forward(self: Attention, x: torch.Tensor) -> torch.Tensor:
+    """``Attention.forward`` with its core on ``vision_attention``, as
+    benchmarks/attn_ab.py routes the JAX ViT: the [B, H, N, D] q, k, v views
+    of the QKV projection, O transposed back to [B, N, C] before proj."""
+    b, n, c = x.shape
+    if self.n_valid not in (None, n):
+        raise ValueError("vision_attention has no key mask")
+    q, k, v = heads_view(self.qkv(x), self.num_heads)
+    out = vision_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+    return self.proj_drop(self.proj(out))
+
+
+def set_vision(model: torch.nn.Module, on: bool) -> None:
+    """Route every ViT attention block's core through ``vision_attention``
+    (on), or give each block its own forward back (off)."""
+    for m in model.modules():
+        if isinstance(m, Attention):
+            if on:
+                m.forward = types.MethodType(vision_attention_forward, m)
+            else:
+                m.__dict__.pop("forward", None)
+
+
+# attention paths of a model: (name, how to set the model on it)
+KERNEL_PATH = ("kernel", lambda m: (set_vision(m, False), set_fused(m, True)))
+PLAIN_PATH = ("plain", lambda m: (set_vision(m, False), set_fused(m, False)))
+VISION_PATH = ("vision", lambda m: (set_fused(m, True), set_vision(m, True)))
 
 
 def images_per_s(step, batch: dict, iters: int = 10) -> float:
@@ -584,10 +766,10 @@ def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
 # ---------------------------------------------------------------- train
 
 
-def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, fused: bool = True):
-    """The recipe's model (seed 0), its train state and step."""
+def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, path=KERNEL_PATH):
+    """The recipe's model (seed 0) on an attention path, its train state and step."""
     model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
-    set_fused(model, fused)
+    path[1](model)
     tx = build_tx(recipe.hyp, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=recipe.model)
     state = create_train_state(model, tx)
     step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), StepConfig(),
@@ -603,23 +785,25 @@ def snapshot(model: torch.nn.Module):
 
 
 def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batch: dict,
-                     kernel_side=None) -> None:
-    """One step from the same weights and batch on the kernel path and on the
-    plain attention path: loss, every gradient, every update θ₁ − θ₀."""
+                     kernel_side=None, paths=(KERNEL_PATH, PLAIN_PATH), tag=None) -> None:
+    """One step from the same weights and batch on two attention paths (the
+    kernel path and the plain path unless told otherwise): loss, every
+    gradient, every update θ₁ − θ₀. ``kernel_side`` is the first path's
+    (loss, parameters, gradients) when already taken."""
     name = str(dtype).replace("torch.", "")
     theta0 = {n: p.detach().clone() for n, p in get_model(
-        recipe.model, dtype=dtype, generator=torch.Generator().manual_seed(0)).named_parameters()}
-    sides = {}
-    for fused in (True, False):
-        if fused and kernel_side is not None:
-            sides[fused] = kernel_side
+        recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0)).named_parameters()}
+    sides = []
+    for i, path in enumerate(paths):
+        if i == 0 and kernel_side is not None:
+            sides.append(kernel_side)
             continue
-        model, state, step = build_trainer(recipe, dtype, dev, fused)
+        model, state, step = build_trainer(recipe, dtype, dev, path)
         loss = step(state, batch)["loss"].item()
-        sides[fused] = (loss, *snapshot(model))
+        sides.append((loss, *snapshot(model)))
         del model, state, step
         torch.cuda.empty_cache()
-    (lk, pk, gk), (lp, pp, gp) = sides[True], sides[False]
+    (lk, pk, gk), (lp, pp, gp) = sides
     loss_rel = abs(lk - lp) / abs(lp)
     worst = {"grad": (0.0, ""), "update": (0.0, "")}
     min_cos = {"grad": (1.0, ""), "update": (1.0, "")}
@@ -648,7 +832,8 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
             cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
             if cos < min_cos[what][0]:
                 min_cos[what] = (cos, n)
-    print(f"[{recipe.train_tag}] {name} kernel vs plain path, one step, bs {batch['label'].shape[0]}: loss "
+    print(f"[{tag or recipe.train_tag}] {name} {paths[0][0]} vs {paths[1][0]} path, one step, "
+          f"bs {batch['label'].shape[0]}: loss "
           f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}); worst max|diff|/max|plain| gradient {worst['grad'][0]:.3e} "
           f"({worst['grad'][1]}), update {worst['update'][0]:.3e} ({worst['update'][1]}); min cosine "
           f"gradient {min_cos['grad'][0]:.6f} ({min_cos['grad'][1]}), update {min_cos['update'][0]:.6f} "
@@ -662,8 +847,8 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
                   f"f32 {what} of {worst[what][1]} differs by {worst[what][0]} of its max > {F32_TENSOR_TOL}")
 
 
-def train_rate(model, state, step, batch: dict, fused: bool, steps: int = 5):
-    set_fused(model, fused)
+def train_rate(model, state, step, batch: dict, path, steps: int = 5):
+    path[1](model)
     step(state, batch)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -732,12 +917,12 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
           f"{depth} no-stash forwards, {depth} recompute backwards, nothing else")
 
     # throughput and memory, interleaved: kernel, plain, plain, kernel
-    rates = {True: [], False: []}
-    for fused in (True, False, False, True):
-        rates[fused].append(train_rate(model, state, step, batch, fused))
+    rates = {KERNEL_PATH: [], PLAIN_PATH: []}
+    for path in (KERNEL_PATH, PLAIN_PATH, PLAIN_PATH, KERNEL_PATH):
+        rates[path].append(train_rate(model, state, step, batch, path))
     set_fused(model, True)
-    (k1, km1), (k2, km2) = rates[True]
-    (p1, pm1), (p2, pm2) = rates[False]
+    (k1, km1), (k2, km2) = rates[KERNEL_PATH]
+    (p1, pm1), (p2, pm2) = rates[PLAIN_PATH]
     print(f"[{tag}] bf16 bs {bs} images/s: kernel path {k1:.1f}, {k2:.1f} | plain path {p1:.1f}, {p2:.1f} "
           f"(order kernel, plain, plain, kernel); max_memory_allocated kernel path {km1:.2f}, {km2:.2f} GiB, "
           f"plain path {pm1:.2f}, {pm2:.2f} GiB")
@@ -752,12 +937,163 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------- vision_attention
+
+
+# (name, B, H, N, D, strided, timed): ViT-B/16 at bs 128 as contiguous
+# tensors and as the views of a packed qkv buffer that the vision path hands
+# over, the JAX kernel test's shape, ViT-B/8's 785 tokens, head dim 128
+VISION_CASES = [
+    ("vit_b16", BATCH, 12, 197, 64, False, False),
+    ("vit_b16_packed", BATCH, 12, 197, 64, True, True),
+    ("jax_test", 2, 3, 50, 32, False, False),
+    ("vit_b8_packed", 4, 12, 785, 64, True, False),
+    ("d128", 8, 8, 197, 128, False, False),
+]
+
+
+def phase_vision_kernel(dev: torch.device) -> dict:
+    """K3 and K3r against their plain versions; returns, per kernel, its max
+    error and times (ms) at the ViT-B/16 bf16 shape, strided as the vision
+    path gives it."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k3, k3r = K3_KERNELS
+    summary = {}
+    for name, b, h, n, d, strided, timed in VISION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name} B={b} H={h} N={n} D={d} {'strided' if strided else 'contiguous'} " \
+                  f"{str(dtype).replace('torch.', '')}"
+            if strided:  # q, k, v views of [B, N, 3C]; dO the [B, H, N, D] view of [B, N, C]
+                qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
+                q, k, v = heads_view(qkv, h)
+                dout = torch.randn((b, n, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+            else:
+                q, k, v, dout = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype) for _ in range(4))
+            tol = TOL[dtype]
+            out = vision_attention_fwd(q, k, v)
+            ref = vision_attention_plain(q, k, v)
+            grads = vision_attention_bwd(q, k, v, dout)
+            grads_ref = vision_attention_bwd_plain(q, k, v, dout)
+            torch.cuda.synchronize()
+            check(out.shape == q.shape and out.is_contiguous() and out.dtype == dtype, f"{tag}: O {out.shape}")
+            for t, what in ((out, "O"), *zip(grads, ("dq", "dk", "dv"))):
+                check(bool(torch.isfinite(t).all()), f"{tag}: non-finite {what}")
+            g_err = max(max_err(g, r, scaled=True) for g, r in zip(grads, grads_ref))
+            errs = {k3: max_err(out, ref), k3r: g_err}
+            for kk, err in errs.items():
+                check(err <= tol, f"{tag}: {NAMES[kk]} error {err} > {tol}")
+            line = (f"[vision kernel] {tag}: max|err| fwd {errs[k3]:.3e}, bwd dq/dk/dv "
+                    + "/".join(f"{max_err(g, r, scaled=True):.3e}" for g, r in zip(grads, grads_ref))
+                    + f" (tol {tol}; dq, dk, dv scaled by max(1, |plain|))")
+            if strided:  # the strides change where the kernels read, not what they compute
+                same = torch.equal(vision_attention_fwd(*(t.contiguous() for t in (q, k, v))), out) and all(
+                    torch.equal(g1, g2) for g1, g2 in zip(
+                        vision_attention_bwd(*(t.contiguous() for t in (q, k, v, dout))), grads))
+                check(same, f"{tag}: strided views and contiguous copies give other bits")
+                line += "; bit-equal to the kernels on contiguous copies"
+            print(line)
+
+            if timed and dtype == torch.bfloat16:
+                qkv_g = qkv.detach().requires_grad_(True)
+                views = heads_view(qkv_g, h)
+                o_lib = F.scaled_dot_product_attention(*views)
+                e, product = q.element_size(), 2 * b * h * n * n * d
+                io = b * h * n * d * e  # one [B, H, N, D] operand
+                calls = {
+                    k3: (lambda: vision_attention_fwd(q, k, v), lambda: vision_attention_plain(q, k, v),
+                         lambda: F.scaled_dot_product_attention(q, k, v), "SDPA on the same q, k, v views",
+                         (4 * io, 2 * product)),
+                    k3r: (lambda: vision_attention_bwd(q, k, v, dout),
+                          lambda: vision_attention_bwd_plain(q, k, v, dout),
+                          lambda: torch.autograd.grad(o_lib, views, dout, retain_graph=True),
+                          "SDPA's backward alone (torch.autograd.grad), dO -> dq, dk, dv", (7 * io, 5 * product)),
+                }
+                for kk, (kern, plain, lib, lib_what, work) in calls.items():
+                    times = time_row(f"[vision kernel] {tag}", NAMES[kk], kern, plain, lib, lib_what)
+                    summary[kk] = {"max_abs_err": errs[kk], **times, **bound(*work, dtype)}
+                del qkv_g, views, o_lib, calls
+            del q, k, v, dout, out, ref, grads, grads_ref
+            torch.cuda.empty_cache()
+    return summary
+
+
+def phase_vision_path(dev: torch.device) -> dict:
+    """The construction of benchmarks/attn_ab.py on the port: the pet_synth
+    ViT-B/16 with every block's attention core on vision_attention (K3 and
+    K3r), one bf16 train step and the eval forward at bs 128 (counted), then
+    the same weights on the K1 path: bars in f32 (bs 32), agreement printed
+    in bf16, images/s of both paths."""
+    tag, k3, k3r = "vision path", *K3_KERNELS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {
+        "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "label": torch.randint(0, VIT.model["num_classes"], (BATCH,), generator=gen, device=dev),
+    }
+    model, state, step = build_trainer(VIT, torch.bfloat16, dev, VISION_PATH)
+    eval_step = make_eval_step(model, StepConfig())
+
+    # the main path, counted: one train step, then the eval forward
+    reset_counts()
+    loss = step(state, batch)["loss"]
+    train_counts = read_counts()
+    check(train_counts == only({k3: DEPTH, k3r: DEPTH}),
+          f"vision train step launches {[(NAMES[k], v) for k, v in train_counts.items()]}")
+    check(torch.isfinite(loss).item(), f"vision train step: loss {loss.item()}")
+    first = (loss.item(), *snapshot(model))
+    bad = [n for n, g in first[2].items() if not torch.isfinite(g).all()]
+    check(not bad, f"vision path: parameters without a finite gradient: {bad[:5]}")
+    reset_counts()
+    logits = eval_step(batch)
+    eval_counts = read_counts()
+    check(eval_counts == only({k3: DEPTH}), f"vision eval launches {[(NAMES[k], v) for k, v in eval_counts.items()]}")
+    check(logits.shape == (BATCH, VIT.model["num_classes"]) and bool(torch.isfinite(logits).all()),
+          f"vision eval logits {tuple(logits.shape)}")
+    print(f"[{tag}] bf16 bs {BATCH}: the train step launched {DEPTH} K3 + {DEPTH} K3r and nothing else, "
+          f"loss {loss.item():.5f}, finite gradients; the eval forward launched {DEPTH} K3 and nothing else")
+    KERNEL_PATH[1](model)
+    logits_k1 = eval_step(batch)
+    print(f"[{tag}] bf16 eval logits, vision vs K1 path after the step: min row cosine "
+          f"{row_cosine(logits, logits_k1).min().item():.6f}, max |diff| {(logits - logits_k1).abs().max().item():.3e}")
+
+    # images/s, interleaved: K1 path, vision path, vision path, K1 path
+    rates = {KERNEL_PATH: [], VISION_PATH: []}
+    for path in (KERNEL_PATH, VISION_PATH, VISION_PATH, KERNEL_PATH):
+        rates[path].append(train_rate(model, state, step, batch, path)[0])
+    evals = {KERNEL_PATH: [], VISION_PATH: []}
+    for path in (KERNEL_PATH, VISION_PATH, VISION_PATH, KERNEL_PATH):
+        path[1](model)
+        evals[path].append(images_per_s(eval_step, batch))
+    print(f"[{tag}] bf16 bs {BATCH} images/s (order K1, vision, vision, K1): train vision path "
+          f"{rates[VISION_PATH][0]:.1f}, {rates[VISION_PATH][1]:.1f} | K1 path {rates[KERNEL_PATH][0]:.1f}, "
+          f"{rates[KERNEL_PATH][1]:.1f}; eval vision path {evals[VISION_PATH][0]:.1f}, {evals[VISION_PATH][1]:.1f} | "
+          f"K1 path {evals[KERNEL_PATH][0]:.1f}, {evals[KERNEL_PATH][1]:.1f}")
+    del model, state, step, eval_step
+    torch.cuda.empty_cache()
+
+    # the same weights on both paths: bf16 printed, f32 held to the bars
+    compare_one_step(VIT, torch.bfloat16, dev, batch, first, (VISION_PATH, KERNEL_PATH), tag)
+    small = {k: v[:F32_TRAIN_BATCH] for k, v in batch.items()}
+    compare_one_step(VIT, torch.float32, dev, small, None, (VISION_PATH, KERNEL_PATH), tag)
+    model = get_model(VIT.model, dtype=torch.float32, device=dev, generator=torch.Generator().manual_seed(0))
+    eval_step = make_eval_step(model, StepConfig())
+    VISION_PATH[1](model)
+    logits = eval_step(small)
+    KERNEL_PATH[1](model)
+    cos = row_cosine(logits, eval_step(small)).min().item()
+    print(f"[{tag}] f32 bs {F32_TRAIN_BATCH} eval logits, vision vs K1 path: min row cosine {cos:.6f} "
+          f"(want >= {MIN_COSINE})")
+    check(cos >= MIN_COSINE, f"f32 vision path logits: min row cosine {cos} < {MIN_COSINE}")
+    del model, eval_step
+    torch.cuda.empty_cache()
+    return {k: train_counts[k] + eval_counts[k] for k in KERNELS}
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    kern = {**phase_kernel(dev), **phase_window_kernel(dev)}
+    kern = {**phase_kernel(dev), **phase_window_kernel(dev), **phase_vision_kernel(dev)}
     launches = {k: 0 for k in KERNELS}
     for recipe in (VIT, SWIN):
         serving = phase_slice(dev, recipe)
@@ -765,12 +1101,25 @@ def main() -> None:
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
+    vision = phase_vision_path(dev)
+    print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
+    report(kern, {k: launches[k] + vision[k] for k in KERNELS})
+
+
+def report(kern: dict, launches: dict) -> None:
+    """Each kernel's bound line and the two JSON lines that end the run."""
     kernels = []
     for k in KERNELS:
         source, replaces = SOURCES[k]
         check(launches[k] > 0, f"{NAMES[k]} was not launched on the main path")
+        row = kern[k]
+        print(f"[bound] {NAMES[k]}: {row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP -> bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} (3.35 TB/s; 989 TFLOP/s bf16); kernel "
+              f"{row['ms']:.4f} ms = {row['bound_ms'] / row['ms']:.2%} of bound; plain {row['plain_ms']:.4f} ms; "
+              f"library {'none' if row['library_ms'] is None else format(row['library_ms'], '.4f') + ' ms'}")
         kernels.append({"name": NAMES[k], "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[k], **kern[k]})
+                        "launches": launches[k], **{key: row[key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

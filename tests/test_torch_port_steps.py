@@ -62,7 +62,7 @@ def _jax_and_port(cfg, embed):
             lambda v: (0.5 + rng.random(v.shape)).astype(np.float32), variables["batch_stats"]
         )
     tree = {t: _flatten(dict(v)) for t, v in variables.items()}
-    port = load_jax_params(get_model(cfg), tree)
+    port = load_jax_params(get_model(cfg, device="cpu"), tree)
     state = create_train_state(jax.tree_util.tree_map(jnp.asarray, variables), optax.sgd(0.0))
     return jmodel, state, port
 
@@ -104,7 +104,7 @@ def test_embed_step_matches_jax():
 
 def test_embed_step_keeps_a_zero_embedding_finite():
     cfg = {"task": "cbir", "backbone": {TINY: {"feat_dim": 16, "image_size": IMG}}}
-    port = get_model(cfg)
+    port = get_model(cfg, device="cpu")
     with torch.no_grad():
         port.neck.bn_out.weight.zero_()
         port.neck.bn_out.bias.zero_()

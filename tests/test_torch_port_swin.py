@@ -118,7 +118,7 @@ def test_tiny_swin_logits_match_jax(img):
     tree = _random_tree(variables, seed=img)
     x = _images(img, seed=1)
     ref = np.asarray(jmodel.apply(_jax_vars(tree), jnp.asarray(x), train=False))
-    port = load_jax_params(get_model(_cls_cfg(img)), tree)
+    port = load_jax_params(get_model(_cls_cfg(img), device="cpu"), tree)
     out = _port_out(port, x)
     assert out.shape == (3, 5) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
@@ -142,7 +142,7 @@ def test_embedding_model_matches_jax():
     tree = _random_tree(variables, seed=2)
     images = _images(seed=3)
     ref = np.asarray(jmodel.apply(_jax_vars(tree), jnp.asarray(images), train=False, method=jmodel.embed))
-    port = load_jax_params(get_model(_cbir_cfg()), tree)
+    port = load_jax_params(get_model(_cbir_cfg(), device="cpu"), tree)
     assert port.backbone.feature_shape == (16, 32)  # 8×8 → 4×4 tokens, 2·embed
     out = _port_out(port, images, method="embed")
     assert out.shape == (3, 16) and out.dtype == np.float32
@@ -154,7 +154,7 @@ def test_three_train_steps_match_jax():
     jmodel = jax_get_model(cfg)
     variables = jmodel.init(jax.random.key(1), jnp.zeros((1, 32, 32, 3)), train=False)
     params = _random_tree(variables, seed=6)["params"]
-    port = load_jax_params(get_model(cfg), {"params": params})
+    port = load_jax_params(get_model(cfg, device="cpu"), {"params": params})
     theta0 = {k: v.clone() for k, v in port.state_dict().items()}
 
     fake = SimpleNamespace(hyp_cfg=PET_HYP, opt_name="sgd", layer_wise=False, model_cfg={})
@@ -193,14 +193,14 @@ def test_convert_swin_reads_the_port_state_dict_back_strictly():
     jmodel = jax_get_model(_cls_cfg())
     variables = jmodel.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False)
     tree = _random_tree(variables, seed=4)
-    port = load_jax_params(get_model(_cls_cfg()), tree)
+    port = load_jax_params(get_model(_cls_cfg(), device="cpu"), tree)
     back = convert_swin(port.backbone.state_dict())  # strict: every port tensor maps
     want = {p[len("backbone/"):]: v for p, v in tree["params"].items()}
     assert sorted(back["params"]) == sorted(want)
     for p, v in want.items():
         np.testing.assert_array_equal(back["params"][p], v, err_msg=p)
     # and the converted tree loads back into a fresh port model, strictly
-    again = load_jax_params(get_model(_cls_cfg()), {"params": {f"backbone/{p}": v for p, v in back["params"].items()}})
+    again = load_jax_params(get_model(_cls_cfg(), device="cpu"), {"params": {f"backbone/{p}": v for p, v in back["params"].items()}})
     for key, value in port.state_dict().items():
         assert torch.equal(again.state_dict()[key], value), key
 
@@ -208,7 +208,7 @@ def test_convert_swin_reads_the_port_state_dict_back_strictly():
 def test_param_paths_are_the_jax_tree_and_label_by_its_top_level_keys():
     jmodel = jax_get_model(_cls_cfg())
     variables = jmodel.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False)
-    port = get_model(_cls_cfg())
+    port = get_model(_cls_cfg(), device="cpu")
     paths = param_paths(port)
     assert sorted(paths.values()) == sorted(_flatten(dict(variables["params"])))
     bare = param_paths(port.backbone)
@@ -235,11 +235,11 @@ def test_bridge_is_strict_both_ways_for_swin(what):
     if what == "missing":
         del tree["params"]["backbone/stage1_block1/attn/relative_position_bias_table"]
         with pytest.raises(KeyError, match="relative_position_bias_table"):
-            state_dict_from_jax(get_model(_cls_cfg()), tree)
+            state_dict_from_jax(get_model(_cls_cfg(), device="cpu"), tree)
     else:
         tree["params"]["backbone/merge1/norm/scale"] = np.ones(64, np.float32)  # a merge the port lacks
         with pytest.raises(ValueError, match="map to no port tensor"):
-            state_dict_from_jax(get_model(_cls_cfg()), tree)
+            state_dict_from_jax(get_model(_cls_cfg(), device="cpu"), tree)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -250,7 +250,7 @@ def test_kernel_path_and_plain_path_modules_agree_on_cpu(train):
     x = torch.from_numpy(_images(48, seed=8))
     outs, grads = [], []
     for fused in (True, False):
-        model = get_model(_cls_cfg(48), generator=torch.Generator().manual_seed(3))
+        model = get_model(_cls_cfg(48), generator=torch.Generator().manual_seed(3), device="cpu")
         for m in model.modules():
             if isinstance(m, WindowAttention):
                 m.use_fused = fused
@@ -294,7 +294,7 @@ def test_swin_b_structure():
 
 def test_unported_swin_options_raise():
     with pytest.raises(NotImplementedError):
-        get_model({"task": "classification", "name": TINY, "num_classes": 3, "kwargs": {"remat": True}})
-    model = get_model(_cls_cfg())
+        get_model({"task": "classification", "name": TINY, "num_classes": 3, "kwargs": {"remat": True}}, device="cpu")
+    model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(ValueError, match="built for 32"):
         model(torch.zeros((1, 48, 48, 3)))

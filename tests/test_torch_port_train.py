@@ -284,7 +284,7 @@ def test_layer_wise_labels_by_top_level_flax_key():
     assert spec.labels(Toy()) == {"backbone.weight": 1.0, "backbone.bias": 1.0, "bn.weight": 1.0,
                                   "bn.bias": 1.0, "head.weight": 10.0, "head.bias": 10.0}
     # a VisionModel's top-level key is `backbone`: its own `head` is not boosted
-    vit = get_model({"task": "classification", "name": TINY, "num_classes": 7, "image_size": IMG})
+    vit = get_model({"task": "classification", "name": TINY, "num_classes": 7, "image_size": IMG}, device="cpu")
     labels = spec.labels(vit)
     assert "backbone.head.weight" in labels and set(labels.values()) == {1.0}
 
@@ -366,7 +366,7 @@ def test_three_train_steps_match_jax():
     params = {p: (0.1 * rng.normal(size=np.shape(v))).astype(np.float32) if not p.endswith("scale")
               else (1.0 + 0.1 * rng.normal(size=np.shape(v))).astype(np.float32)
               for p, v in _flatten(dict(variables["params"])).items()}
-    port = load_jax_params(get_model(cfg), {"params": params})
+    port = load_jax_params(get_model(cfg, device="cpu"), {"params": params})
     theta0 = {k: v.clone() for k, v in port.state_dict().items()}
 
     fake = SimpleNamespace(hyp_cfg=PET_SYNTH_HYP, opt_name="sgd", layer_wise=False, model_cfg={})
@@ -404,7 +404,7 @@ def test_train_step_then_eval_runs_in_eval_mode():
     """The serving steps set eval mode on every call, not once when built: a
     train step in between would leave DropPath and dropout on."""
     cfg = _cls_cfg({"stochastic_depth_prob": 0.5, "dropout": 0.2})
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     eval_step = make_eval_step(model, StepConfig())
     tx = build_tx(PET_SYNTH_HYP, 2, True)
     state = create_train_state(model, tx)
@@ -424,7 +424,7 @@ def test_train_step_dropout_draws_follow_the_generator():
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
 
     def losses(seed):
-        model = get_model(_cls_cfg({"stochastic_depth_prob": 0.5, "dropout": 0.2}))
+        model = get_model(_cls_cfg({"stochastic_depth_prob": 0.5, "dropout": 0.2}), device="cpu")
         tx = build_tx(PET_SYNTH_HYP, 2, True)
         state = create_train_state(model, tx)
         step = make_train_step(model, tx, create_lossfn("ce"), StepConfig(), torch.Generator().manual_seed(seed))
@@ -436,12 +436,12 @@ def test_train_step_dropout_draws_follow_the_generator():
 @pytest.mark.parametrize("kind", ["eval", "embed"])
 def test_serving_steps_are_deterministic_after_model_train(kind):
     if kind == "eval":
-        model = get_model(_cls_cfg({"stochastic_depth_prob": 0.5, "dropout": 0.2}))
+        model = get_model(_cls_cfg({"stochastic_depth_prob": 0.5, "dropout": 0.2}), device="cpu")
         serve = make_eval_step(model, StepConfig())
         forward = model
     else:
         model = get_model({"task": "cbir", "backbone": {
-            TINY: {"feat_dim": 16, "image_size": IMG, "stochastic_depth_prob": 0.5, "dropout": 0.2}}})
+            TINY: {"feat_dim": 16, "image_size": IMG, "stochastic_depth_prob": 0.5, "dropout": 0.2}}}, device="cpu")
         serve = make_embed_step(model, StepConfig())
 
         def forward(x):
@@ -466,7 +466,7 @@ def test_serving_steps_are_deterministic_after_model_train(kind):
     StepConfig(ohem=OHEMConfig()),
 ], ids=["embedding", "mixup", "sam", "ohem"])
 def test_train_step_variants_not_ported_raise(cfg):
-    model = get_model(_cls_cfg())
+    model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(NotImplementedError):
         make_train_step(model, build_tx(PET_SYNTH_HYP, 2, True), create_lossfn("ce"), cfg,
                         torch.Generator().manual_seed(0))

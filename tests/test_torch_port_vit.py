@@ -104,7 +104,7 @@ def test_vision_model_logits_match_jax(variant):
     jmodel, tree = _jax_classifier(VARIANTS[variant])
     x = _images()
     ref = np.asarray(jmodel.apply(_jax_vars(tree), jnp.asarray(x), train=False))
-    port = load_jax_params(get_model(_cls_cfg(VARIANTS[variant])), tree)
+    port = load_jax_params(get_model(_cls_cfg(VARIANTS[variant]), device="cpu"), tree)
     out = _port_out(port, x)
     assert out.shape == (3, 10) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
@@ -116,7 +116,7 @@ def test_embedding_model_features_match_jax():
     ref = np.asarray(
         jmodel.apply(_jax_vars(tree), jnp.asarray(x), train=False, method=jmodel.embed)
     )
-    port = load_jax_params(get_model(_cbir_cfg()), tree)
+    port = load_jax_params(get_model(_cbir_cfg(), device="cpu"), tree)
     out = _port_out(port, x, method="embed")
     assert out.shape == (3, 16) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
@@ -140,7 +140,7 @@ def test_unpooled_token_map_matches_jax():
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_convert_vit_reads_port_state_dict_back_to_the_jax_tree(variant):
     _, tree = _jax_classifier(VARIANTS[variant], seed=3)
-    port = load_jax_params(get_model(_cls_cfg(VARIANTS[variant])), tree)
+    port = load_jax_params(get_model(_cls_cfg(VARIANTS[variant]), device="cpu"), tree)
     back = convert_vit(port.backbone.state_dict())
     want = {p[len("backbone/"):]: v for p, v in tree["params"].items()}
     assert sorted(back["params"]) == sorted(want)
@@ -153,7 +153,7 @@ def test_bridge_reads_the_jax_npz(tmp_path):
     jmodel, tree = _jax_embedder(seed=4)
     path = str(tmp_path / "embed.npz")
     save_converted(tree, path)
-    port = load_jax_params(get_model(_cbir_cfg()), load_converted(path))
+    port = load_jax_params(get_model(_cbir_cfg(), device="cpu"), load_converted(path))
     x = _images(4)
     ref = np.asarray(
         jmodel.apply(_jax_vars(tree), jnp.asarray(x), train=False, method=jmodel.embed)
@@ -165,27 +165,27 @@ def test_bridge_raises_on_a_missing_tensor():
     _, tree = _jax_classifier({})
     del tree["params"]["backbone/block1/mlp/fc2/bias"]
     with pytest.raises(KeyError, match="block1/mlp/fc2/bias"):
-        state_dict_from_jax(get_model(_cls_cfg({})), tree)
+        state_dict_from_jax(get_model(_cls_cfg({}), device="cpu"), tree)
 
 
 def test_bridge_raises_on_an_extra_tensor():
     _, tree = _jax_classifier({})
     tree["params"]["backbone/block0/ls1"] = np.ones(64, np.float32)  # LayerScale the port lacks
     with pytest.raises(ValueError, match="map to no port tensor"):
-        state_dict_from_jax(get_model(_cls_cfg({})), tree)
+        state_dict_from_jax(get_model(_cls_cfg({}), device="cpu"), tree)
 
 
 def test_bridge_raises_on_a_shape_mismatch():
     _, tree = _jax_classifier({})
     tree["params"]["backbone/pos_embed"] = np.zeros((1, 24, 64), np.float32)  # a padded grid
     with pytest.raises(ValueError, match="pos_embed"):
-        state_dict_from_jax(get_model(_cls_cfg({})), tree)
+        state_dict_from_jax(get_model(_cls_cfg({}), device="cpu"), tree)
 
 
 def test_get_model_init_follows_the_jax_initializers():
-    a = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(7))
-    b = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(7))
-    c = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(8))
+    a = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(7), device="cpu")
+    b = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(7), device="cpu")
+    c = get_model(_cls_cfg({}), generator=torch.Generator().manual_seed(8), device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["backbone.pos_embed"], sc["backbone.pos_embed"])
@@ -199,6 +199,18 @@ def test_get_model_init_follows_the_jax_initializers():
     assert torch.equal(bb.blocks[1].norm2.weight, torch.ones(64))
     assert torch.count_nonzero(bb.blocks[1].attn.qkv.bias) == 0
     assert bb.blocks[0].norm1.eps == 1e-6
+
+
+def test_get_model_builds_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """get_model's default device is the card: without CUDA it raises and
+    tells the caller to pass device='cpu', and never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(_cls_cfg({}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(_cls_cfg({}), device="cuda:0")
+    model = get_model(_cls_cfg({}), device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
 
 
 def test_pet_synth_model_structure():
@@ -220,11 +232,11 @@ def test_pet_synth_model_structure():
     "build",
     [
         lambda: get_model({"task": "classification", "name": TINY, "num_classes": 3,
-                           "attention_pool": True}),
+                           "attention_pool": True}, device="cpu"),
         lambda: get_model({"task": "cbir", "backbone": {TINY: {}},
-                           "head": {"arcface": {"s": 64}}}),
+                           "head": {"arcface": {"s": 64}}}, device="cpu"),
         lambda: get_model({"task": "classification", "num_classes": 3,
-                           "name": "vit_so400m_patch14_siglip_224"}),
+                           "name": "vit_so400m_patch14_siglip_224"}, device="cpu"),
     ],
     ids=["attention_pool", "margin_head", "map_pool"],
 )

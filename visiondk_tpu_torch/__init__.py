@@ -15,6 +15,10 @@ with ``losses``, ``engine.optim``, ``engine.schedules``, ``models.ema``,
 ``ops.window_attention.fused_window_attention`` (Swin): four CUDA kernels
 each (the forward with and without the probability stash, the backward from
 the stash and the recompute backward) behind one autograd Function.
+``ops.attention.vision_attention`` (q, k, v ``[B, H, N, D]``, which no model
+calls, as in the JAX package) runs the ViT forward and recompute-backward
+kernels through their strided entries. Models are built on the card unless
+the caller passes ``device="cpu"`` to ``models.get_model``.
 
 Importing this package loads torch, numpy and the standard library only: no
 JAX, no Triton, and no kernel is built until a CUDA tensor reaches one.

@@ -1,15 +1,28 @@
-// Fused QKV attention, forward: [B, N, 3C] -> [B, N, C], for Hopper (sm_90a),
-// with an optional stash of the probabilities P [B, H, N, N] for the backward.
+// Fused attention, forward, for Hopper (sm_90a): one stride-generic kernel
+// behind two entries, with an optional stash of the probabilities P
+// [B, H, N, N] for the backward.
 //
-// Replaces the Pallas TPU kernel visiondk_tpu/ops/pallas/attention.py::
-// _fused_fwd_kernel in both of its launches: by _fused_attention_padded (the
-// no-stash forward of fused_qkv_attention) and by _fused_vjp_fwd (the
-// training forward, which also writes p_ref). It keeps that kernel's layout
-// contract:
-// q, k and v are read by strides straight out of the packed QKV-projection
-// buffer (row stride 3C; q at column h*d, k at C + h*d, v at 2C + h*d) and O
-// is written at column h*d of a [B, N, C] output, so no [B, H, N, D]
-// transpose ever reaches device memory.
+// (K1) vdk_fused_qkv_attention_fwd: [B, N, 3C] -> [B, N, C]. Replaces the
+// Pallas TPU kernel visiondk_tpu/ops/pallas/attention.py::_fused_fwd_kernel
+// in both of its launches: by _fused_attention_padded (the no-stash forward
+// of fused_qkv_attention) and by _fused_vjp_fwd (the training forward, which
+// also writes p_ref). It keeps that kernel's layout contract: q, k and v are
+// read by strides straight out of the packed QKV-projection buffer (row
+// stride 3C; q at column h*d, k at C + h*d, v at 2C + h*d) and O is written
+// at column h*d of a [B, N, C] output, so no [B, H, N, D] transpose ever
+// reaches device memory.
+//
+// (K3) vdk_vision_attention_fwd: q, k, v [B, H, N, D] -> O [B, H, N, D].
+// Replaces visiondk_tpu/ops/pallas/attention.py::_fwd_kernel (launched by
+// _attn_fwd_padded under vision_attention). Same kernel: q, k and v are
+// read through any (batch, head, token) strides with a unit-stride head dim
+// (a strided view of a packed buffer costs no copy), O is written
+// contiguous, no stash, n_valid = N. The JAX wrapper pads N up to a multiple
+// of 128 and masks the padded keys; this kernel computes exactly N rows and
+// keys, which is the same result. The reference scales its f32 scores by
+// D^-0.5 and takes exp; this kernel folds D^-0.5 * log2(e) into q and takes
+// exp2, which agrees within f32 rounding. P is rounded to the input dtype
+// before P . V, as the reference's .astype(v.dtype) does.
 //
 // Math, per (b, h), as the reference does it (attention.py:229-260):
 //   S = (q * scale * log2(e)) . k^T in f32   (log2-domain scores; q, k upcast)
@@ -29,22 +42,21 @@
 // (rescaled as the max grows), so it may differ from the reference's
 // sum-after-max in the last f32 bits; nothing else differs.
 //
-// What bounds it. At ViT shapes (N = 197, d = 64) the work is B*H*N^2 score
-// elements: two small products of depth 64 and the softmax's exp2, max, sum
-// and rounding on every element. With the products on tensor cores the
-// elementwise softmax work would bound it, as it did on the TPU. This first
-// version runs the products on CUDA cores out of shared memory (one fma and
-// about one shared-memory load per multiply-add) and computes the scores
-// twice, so those products bound it here; the stash adds B*H*N^2 stores
-// (119 MB in bf16 at ViT-B/16, bs 128), written a tile row at a time from
-// shared memory so that neighbouring threads store neighbouring keys. What
-// the design does: without the stash, scores and probabilities never leave
-// the SM (no [B, H, N, N] tensor in device memory);
-// scale*log2(e) is folded into the [N, d] q tile once instead of into the
-// N^2 scores; exp2 and a reciprocal multiply replace exp and division; shared
-// memory is sized by the tile, not by N, so any N works (ViT-B/8 has 785
-// tokens). Tensor-core products (mma / wgmma), TMA loads and a single-pass
-// online softmax are later work.
+// What bounds it. On the H100 the least time is set by bytes: q, k, v read
+// once and O written once (155 MB in bf16 at ViT-B/16, bs 128, 46 us at
+// 3.35 TB/s) against 15 GFLOP of products (15 us at the bf16 tensor-core
+// peak); the stash adds B*H*N^2 stores (119 MB). This first version runs the
+// products on CUDA cores out of shared memory (one fma and about one
+// shared-memory load per multiply-add) and computes the scores twice, so
+// those products bound it here, far above the bytes. What the design does:
+// without the stash, scores and probabilities never leave the SM (no
+// [B, H, N, N] tensor in device memory); the stash is written a tile row at
+// a time from shared memory so that neighbouring threads store neighbouring
+// keys; scale*log2(e) is folded into the [N, d] q tile once instead of into
+// the N^2 scores; exp2 and a reciprocal multiply replace exp and division;
+// shared memory is sized by the tile, not by N, so any N works (ViT-B/8 has
+// 785 tokens); K3 shares every line of K1's kernel. Tensor-core products (mma / wgmma), TMA loads and a
+// single-pass online softmax are later work.
 //
 // Grid: one block per (query tile of 32 rows, head, batch row); 128 threads.
 // Thread t owns query row t / 4 of the tile and, within every 64-key tile,
@@ -81,6 +93,24 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// A [B, H, N, d] operand seen through element strides of its batch row, head
+// and token; the head dim has unit stride.
+struct View {
+  const void* ptr;
+  int64_t sb, sh, sn;
+  template <typename T>
+  __device__ __forceinline__ T* head(int b, int h) const {
+    return static_cast<T*>(const_cast<void*>(ptr)) + b * sb + h * sh;
+  }
+};
+
+struct FwdArgs {
+  View q, k, v, o;
+  void* p;  // [B, H, N, N] stash, or null
+  int n, heads, d, n_valid;
+  float q_mul;  // head_dim**-0.5 * log2(e)
+};
+
 // Shared-memory layout in floats; DP is the head dim rounded up to 32, 64 or
 // 128. Q and K rows are padded by one float so the column reads of the score
 // loop fall in distinct banks.
@@ -93,18 +123,30 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
 };
 
-// Copies rows [row0, row0 + rows) of one head's q, k or v slice into shared
+// Copies rows [row0, row0 + ROWS) of one head's q, k or v slice into shared
 // memory as f32 times `mul`, with zeros for rows >= n and dims >= d.
-template <typename T, int DP>
+// Thread t keeps column t % DP and reads rows t / DP + i * kThreads / DP,
+// i < ROWS * DP / kThreads. Every load is unconditional: a row >= n reads the
+// last real row and a dim >= d the last real dim, and a select stores 0 for
+// them. So every thread makes the same, compile-time number of loads with no
+// branch between them, and the unrolled loop issues eight before their first
+// use (faster on the H100 than a predicated load or 2, 4, 16 or full unrolls;
+// PERF.md). row0 < n.
+template <typename T, int DP, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int64_t row_stride,
-                                          int row0, int rows, int n, int d, float mul) {
-  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < n && c < d) val = to_float(src[static_cast<int64_t>(row) * row_stride + c]) * mul;
-    dst[r * ld + c] = val;
+                                          int row0, int n, int d, float mul) {
+  constexpr int kRowStep = kThreads / DP;
+  static_assert(kThreads % DP == 0 && ROWS % kRowStep == 0, "each thread keeps one column");
+  const int c = threadIdx.x % DP;
+  const int r0 = threadIdx.x / DP;
+  const int valid = c < d ? n - row0 : 0;  // rows this thread may read
+  const int last = min(ROWS, n - row0) - 1;  // the last real row of the tile
+  const T* ptr = src + row0 * row_stride + min(c, d - 1);
+#pragma unroll 8
+  for (int i = 0; i < ROWS / kRowStep; ++i) {
+    const int r = r0 + i * kRowStep;
+    const float x = to_float(ptr[min(r, last) * row_stride]);
+    dst[r * ld + c] = r < valid ? x * mul : 0.f;
   }
 }
 
@@ -126,29 +168,25 @@ __device__ __forceinline__ void tile_scores(const float* qs, const float* ks, in
 
 template <typename T, int DP, bool kStash>
 __global__ void __launch_bounds__(kThreads)
-    fused_qkv_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                                   T* __restrict__ p_out, int n, int heads, int d, int n_valid,
-                                   float q_mul) {
+    fused_attention_fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + Smem<DP>::kQ;
   float* vs = ks + Smem<DP>::kK;
   float* ps = vs + Smem<DP>::kV;
 
+  const int n = a.n, d = a.d, n_valid = a.n_valid;
   const int m0 = blockIdx.x * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int c = heads * d;
-  const int64_t row_stride = 3 * static_cast<int64_t>(c);
-  const T* base = qkv + static_cast<int64_t>(b) * n * row_stride;
-  const T* q_src = base + h * d;
-  const T* k_src = base + c + h * d;
-  const T* v_src = base + 2 * c + h * d;
+  const T* q_src = a.q.head<const T>(b, h);
+  const T* k_src = a.k.head<const T>(b, h);
+  const T* v_src = a.v.head<const T>(b, h);
 
   const int r = threadIdx.x / kLanesPerRow;
   const int g = threadIdx.x % kLanesPerRow;
 
-  load_tile<T, DP>(qs, DP + 1, q_src, row_stride, m0, kBlockM, n, d, q_mul);
+  load_tile<T, DP, kBlockM>(qs, DP + 1, q_src, a.q.sn, m0, n, d, a.q_mul);
 
   // Pass 1: this thread's running max and sum of exp2 over its keys.
   float s[kColsPerLane];
@@ -156,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
   float l_loc = 0.f;
   for (int k0 = 0; k0 < n; k0 += kBlockN) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DP>(ks, DP + 1, k_src, row_stride, k0, kBlockN, n, d, 1.f);
+    load_tile<T, DP, kBlockN>(ks, DP + 1, k_src, a.k.sn, k0, n, d, 1.f);
     __syncthreads();
     tile_scores<DP>(qs, ks, r, g, s);
 #pragma unroll
@@ -192,8 +230,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
   for (int k0 = 0; k0 < n; k0 += kBlockN) {
     __syncthreads();
-    load_tile<T, DP>(ks, DP + 1, k_src, row_stride, k0, kBlockN, n, d, 1.f);
-    load_tile<T, DP>(vs, DP, v_src, row_stride, k0, kBlockN, n, d, 1.f);
+    load_tile<T, DP, kBlockN>(ks, DP + 1, k_src, a.k.sn, k0, n, d, 1.f);
+    load_tile<T, DP, kBlockN>(vs, DP, v_src, a.v.sn, k0, n, d, 1.f);
     __syncthreads();
     tile_scores<DP>(qs, ks, r, g, s);
 #pragma unroll
@@ -210,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
     const int kn = min(kBlockN, n - k0);
     if (kStash) {
       // P[b, h, m0 + rr, k0 + cc] for the tile's real rows and keys
-      T* p_tile = p_out + ((static_cast<int64_t>(b) * heads + h) * n + m0) * n + k0;
+      T* p_tile = static_cast<T*>(a.p) + ((static_cast<int64_t>(b) * a.heads + h) * n + m0) * n + k0;
       for (int idx = threadIdx.x; idx < kBlockM * kBlockN; idx += kThreads) {
         const int rr = idx / kBlockN;
         const int cc = idx - rr * kBlockN;
@@ -229,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row = m0 + r;
   if (row < n) {
-    T* o = out + (static_cast<int64_t>(b) * n + row) * c + h * d;
+    T* o = a.o.head<T>(b, h) + row * a.o.sn;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const int dd = g + i * kLanesPerRow;
@@ -239,33 +277,47 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int DP, bool kStash>
-cudaError_t launch(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
-                   int n_valid, float q_mul, cudaStream_t stream) {
-  auto kernel = fused_qkv_attention_fwd_kernel<T, DP, kStash>;
+cudaError_t launch(const FwdArgs& a, int b, cudaStream_t stream) {
+  auto kernel = fused_attention_fwd_kernel<T, DP, kStash>;
   constexpr size_t bytes = Smem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBlockM - 1) / kBlockM, heads, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
-                                            static_cast<T*>(p), n, heads, d, n_valid, q_mul);
+  const dim3 grid((a.n + kBlockM - 1) / kBlockM, a.heads, b);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, bool kStash>
-cudaError_t dispatch_dim(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
-                         int n_valid, float q_mul, cudaStream_t stream) {
-  if (d <= 32) return launch<T, 32, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
-  if (d <= 64) return launch<T, 64, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
-  return launch<T, 128, kStash>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+cudaError_t dispatch_dim(const FwdArgs& a, int b, cudaStream_t stream) {
+  if (a.d <= 32) return launch<T, 32, kStash>(a, b, stream);
+  if (a.d <= 64) return launch<T, 64, kStash>(a, b, stream);
+  return launch<T, 128, kStash>(a, b, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_stash(const void* qkv, void* out, void* p, int b, int n, int heads, int d,
-                           int n_valid, float q_mul, cudaStream_t stream) {
-  if (p != nullptr) return dispatch_dim<T, true>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
-  return dispatch_dim<T, false>(qkv, out, p, b, n, heads, d, n_valid, q_mul, stream);
+cudaError_t dispatch_stash(const FwdArgs& a, int b, cudaStream_t stream) {
+  if (a.p != nullptr) return dispatch_dim<T, true>(a, b, stream);
+  return dispatch_dim<T, false>(a, b, stream);
 }
+
+int run(const FwdArgs& a, int b, int dtype, void* stream) {
+  if (b < 1 || b > 65535 || a.n < 1 || a.heads < 1 || a.heads > 65535 || a.d < 1 || a.d > 128 ||
+      a.n_valid < 1 || a.n_valid > a.n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(dispatch_stash<float>(a, b, s));
+    case 1:
+      return static_cast<int>(dispatch_stash<__nv_bfloat16>(a, b, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+size_t elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
@@ -277,21 +329,35 @@ cudaError_t dispatch_stash(const void* qkv, void* out, void* p, int b, int n, in
 extern "C" int vdk_fused_qkv_attention_fwd(const void* qkv, void* out, void* p, int b, int n,
                                            int heads, int head_dim, int n_valid, float q_mul,
                                            int dtype, void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || heads < 1 || heads > 65535 || head_dim < 1 ||
-      head_dim > 128 || n_valid < 1 || n_valid > n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          dispatch_stash<float>(qkv, out, p, b, n, heads, head_dim, n_valid, q_mul, s));
-    case 1:
-      return static_cast<int>(dispatch_stash<__nv_bfloat16>(qkv, out, p, b, n, heads, head_dim,
-                                                            n_valid, q_mul, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int64_t c = static_cast<int64_t>(heads) * head_dim;
+  const int64_t rs = 3 * c;  // row stride of the packed buffer
+  const char* base = static_cast<const char*>(qkv);
+  const size_t col = c * elem_bytes(dtype);
+  const FwdArgs a{{base, n * rs, head_dim, rs},
+                  {base + col, n * rs, head_dim, rs},
+                  {base + 2 * col, n * rs, head_dim, rs},
+                  {out, n * c, head_dim, c},
+                  p, n, heads, head_dim, n_valid, q_mul};
+  return run(a, b, dtype, stream);
+}
+
+// q, k, v: [b, heads, n, head_dim] with element strides (sb, sh, sn) each and a
+// unit-stride head dim; out: [b, heads, n, head_dim] contiguous; all of
+// `dtype` (0: float32, 1: bfloat16), on the current device. No stash, no key
+// mask. q_mul = head_dim**-0.5 * log2(e). Returns the CUDA error code of the
+// launch (0 on success).
+extern "C" int vdk_vision_attention_fwd(const void* q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
+                                        const void* k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                                        const void* v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
+                                        void* out, int b, int n, int heads, int head_dim,
+                                        float q_mul, int dtype, void* stream) {
+  const int64_t nd = static_cast<int64_t>(n) * head_dim;
+  const FwdArgs a{{q, q_sb, q_sh, q_sn},
+                  {k, k_sb, k_sh, k_sn},
+                  {v, v_sb, v_sh, v_sn},
+                  {out, heads * nd, nd, head_dim},
+                  nullptr, n, heads, head_dim, n, q_mul};
+  return run(a, b, dtype, stream);
 }
 
 extern "C" const char* vdk_cuda_error_string(int code) {

@@ -1,13 +1,27 @@
-// Fused QKV attention, backward: (qkv [B, N, 3C], dO [B, N, C], P) -> dqkv
-// [B, N, 3C], for Hopper (sm_90a), in two variants.
+// Fused attention, backward, for Hopper (sm_90a): two stride-generic kernels
+// (dq, then dk and dv) behind two entries, in two variants.
 //
-// Replaces the Pallas TPU kernels of visiondk_tpu/ops/pallas/attention.py::
-// _fused_vjp_bwd: _fused_bwd_from_p_kernel (the default, which reads the
-// probabilities the forward stashed) and _fused_bwd_kernel (the recompute
-// backward, chosen by VDK_ATTN_NO_PCACHE=1). Same layout contract as the
-// forward: q, k, v are read by strides out of the packed [B, N, 3C] buffer,
-// dO out of [B, N, C], and dq, dk, dv are written into the column blocks of
-// dqkv (q at h*d, k at C + h*d, v at 2C + h*d) in the input dtype.
+// (K1b, K1r) vdk_fused_qkv_attention_bwd: (qkv [B, N, 3C], dO [B, N, C], P)
+// -> dqkv [B, N, 3C]. Replaces the Pallas TPU kernels of
+// visiondk_tpu/ops/pallas/attention.py::_fused_vjp_bwd:
+// _fused_bwd_from_p_kernel (the default, which reads the probabilities the
+// forward stashed) and _fused_bwd_kernel (the recompute backward, chosen by
+// VDK_ATTN_NO_PCACHE=1). Same layout contract as the forward: q, k, v are
+// read by strides out of the packed [B, N, 3C] buffer, dO out of [B, N, C],
+// and dq, dk, dv are written into the column blocks of dqkv (q at h*d, k at
+// C + h*d, v at 2C + h*d) in the input dtype.
+//
+// (K3r) vdk_vision_attention_bwd: (q, k, v, dO [B, H, N, D]) -> dq, dk, dv
+// [B, H, N, D]. Replaces visiondk_tpu/ops/pallas/attention.py::_bwd_kernel
+// (launched by _attn_bwd_padded, the custom VJP of vision_attention), the
+// recompute variant of the same kernels: q, k, v and dO are read through any
+// (batch, head, token) strides with a unit-stride head dim, dq, dk and dv
+// are written to three contiguous [B, H, N, D] buffers, n_valid = N (no
+// padding: the JAX wrapper's padded keys do not exist here). P is recomputed
+// in f32 and not rounded, as the reference's is. The reference computes
+// dS = P o (dP - delta) * scale, dQ = dS . k, dK = dS^T . q from exp-domain
+// scores; the recompute variant below applies the same scale in another
+// place (log2 domain, see dK) and agrees within f32 rounding.
 //
 // Math, per (b, h), as the reference does it (attention.py:286-320, 343-369),
 // all in f32 from upcast operands:
@@ -36,16 +50,21 @@
 //       (a) wrote, and accumulates dV and dK.
 // Both run on the same stream, so (b) sees (a)'s delta.
 //
-// What bounds it. At ViT shapes (N = 197, d = 64) the work is products of
-// depth 64 over the B*H*N^2 (query, key) pairs: the reference needs 4 (from
-// P) or 5 (recompute); these kernels do 6 (from P: dP three times, dQ, dV,
-// dK) or 10 (recompute: S four times besides), on CUDA cores out of shared
-// memory, as the forward does, so those products bound it. The P stash is
-// read three times (3 * 119 MB in bf16 at ViT-B/16, bs 128), in rows of
-// neighbouring keys. What the design does: shared memory is sized by the
-// tile, not by N, so any N works; the dS tile never leaves the SM; no
-// [B, H, N, N] scratch is written. Tensor-core products and one fused
-// kernel with a cross-block reduction are later work.
+// What bounds it. On the H100 the least time is set by bytes: at ViT-B/16
+// (bs 128, bf16) the recompute variant reads q, k, v and dO and writes dq,
+// dk and dv once, 271 MB (81 us at 3.35 TB/s), against 38 GFLOP of products
+// (38 us at the bf16 tensor-core peak); from P it also reads the 119 MB
+// stash (390 MB, 117 us). The work is products of depth 64 over the
+// B*H*N^2 (query, key) pairs: the reference needs 4 (from P) or 5
+// (recompute); these kernels do 6 (from P: dP three times, dQ, dV, dK) or
+// 10 (recompute: S four times besides), on CUDA cores out of shared memory,
+// as the forward does, so those products bound them here, far above the
+// bytes. The P stash is read three times, in rows of neighbouring keys.
+// What the design does: shared memory is sized by the tile, not by N, so
+// any N works; the dS tile never leaves the SM; no [B, H, N, N] scratch is
+// written; K3r shares every line of K1r's kernels, so the two cannot drift.
+// Tensor-core products and one fused kernel with a cross-block reduction
+// are later work.
 //
 // Threads: 128 per block. Thread t owns row t / 4 of the block's 32 rows and,
 // within every 64-column tile, the columns (t % 4) + 4j, j < 16; for the
@@ -81,19 +100,31 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-// Copies rows [row0, row0 + rows) of one head's slice of a row-major buffer
+// Copies rows [row0, row0 + ROWS) of one head's slice of a row-major buffer
 // into shared memory (row stride DP + 1 floats) as f32 times `mul`, with
 // zeros for rows >= n and dims >= d.
-template <typename T, int DP>
+// Thread t keeps column t % DP and reads rows t / DP + i * kThreads / DP,
+// i < ROWS * DP / kThreads. Every load is unconditional: a row >= n reads the
+// last real row and a dim >= d the last real dim, and a select stores 0 for
+// them. So every thread makes the same, compile-time number of loads with no
+// branch between them, and the unrolled loop issues eight before their first
+// use (faster on the H100 than a predicated load or 2, 4, 16 or full unrolls;
+// PERF.md). row0 < n.
+template <typename T, int DP, int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int64_t row_stride, int row0,
-                                          int rows, int n, int d, float mul) {
-  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < n && c < d) val = to_float(src[static_cast<int64_t>(row) * row_stride + c]) * mul;
-    dst[r * (DP + 1) + c] = val;
+                                          int n, int d, float mul) {
+  constexpr int kRowStep = kThreads / DP;
+  static_assert(kThreads % DP == 0 && ROWS % kRowStep == 0, "each thread keeps one column");
+  const int c = threadIdx.x % DP;
+  const int r0 = threadIdx.x / DP;
+  const int valid = c < d ? n - row0 : 0;  // rows this thread may read
+  const int last = min(ROWS, n - row0) - 1;  // the last real row of the tile
+  const T* ptr = src + row0 * row_stride + min(c, d - 1);
+#pragma unroll 8
+  for (int i = 0; i < ROWS / kRowStep; ++i) {
+    const int r = r0 + i * kRowStep;
+    const float x = to_float(ptr[min(r, last) * row_stride]);
+    dst[r * (DP + 1) + c] = r < valid ? x * mul : 0.f;
   }
 }
 
@@ -163,14 +194,24 @@ struct DkvSmem {
   static constexpr size_t kBytes = sizeof(float) * (kK + kV + kQ + kDo + kP + kDs + kStats);
 };
 
+// A [B, H, N, d] operand seen through element strides of its batch row, head
+// and token; the head dim has unit stride.
+struct View {
+  const void* ptr;
+  int64_t sb, sh, sn;
+  template <typename T>
+  __device__ __forceinline__ T* head(int b, int h) const {
+    return static_cast<T*>(const_cast<void*>(ptr)) + b * sb + h * sh;
+  }
+};
+
 struct Args {
-  const void* qkv;
-  const void* p;     // [B, H, N, N] stash (from-P variant)
-  const void* dout;  // [B, N, C]
-  void* dqkv;        // [B, N, 3C]
-  float* delta;      // [B, H, N] rowsum(P o dP), written by (a), read by (b)
-  float* row_m;      // [B, H, N] row max of S (recompute variant)
-  float* row_il;     // [B, H, N] 1 / row sum of exp2(S - max) (recompute variant)
+  View q, k, v, dout;  // inputs
+  View dq, dk, dv;     // outputs
+  const void* p;       // [B, H, N, N] stash (from-P variant)
+  float* delta;        // [B, H, N] rowsum(P o dP), written by (a), read by (b)
+  float* row_m;        // [B, H, N] row max of S (recompute variant)
+  float* row_il;       // [B, H, N] 1 / row sum of exp2(S - max) (recompute variant)
   int n, heads, d, n_valid;
   float q_mul;  // head_dim**-0.5 * log2(e)
   float scale;  // head_dim**-0.5
@@ -191,28 +232,24 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
   const int m0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int c = a.heads * d;
-  const int64_t row_stride = 3 * static_cast<int64_t>(c);
-  const T* base = static_cast<const T*>(a.qkv) + static_cast<int64_t>(b) * n * row_stride;
-  const T* k_src = base + c + h * d;
-  const T* v_src = base + 2 * c + h * d;
-  const T* do_src = static_cast<const T*>(a.dout) + static_cast<int64_t>(b) * n * c + h * d;
+  const T* k_src = a.k.head<const T>(b, h);
+  const T* v_src = a.v.head<const T>(b, h);
   const int64_t bh = static_cast<int64_t>(b) * a.heads + h;
 
   const int r = threadIdx.x / kLanesPerRow;
   const int g = threadIdx.x % kLanesPerRow;
   const int row = m0 + r;
 
-  load_rows<T, DP>(dos, do_src, c, m0, kRows, n, d, 1.f);
+  load_rows<T, DP, kRows>(dos, a.dout.head<const T>(b, h), a.dout.sn, m0, n, d, 1.f);
   float m_row = 0.f, inv_l = 0.f;
   float s[kColsPerLane];
   if (kRecompute) {
-    load_rows<T, DP>(qs, base + h * d, row_stride, m0, kRows, n, d, a.q_mul);
+    load_rows<T, DP, kRows>(qs, a.q.head<const T>(b, h), a.q.sn, m0, n, d, a.q_mul);
     // pass 0: the row's max and sum of exp2, as the forward's pass 1
     float m_loc = -INFINITY, l_loc = 0.f;
     for (int k0 = 0; k0 < n; k0 += kTile) {
       __syncthreads();
-      load_rows<T, DP>(ks, k_src, row_stride, k0, kTile, n, d, 1.f);
+      load_rows<T, DP, kTile>(ks, k_src, a.k.sn, k0, n, d, 1.f);
       __syncthreads();
       row_dots<DP>(qs, ks, r, g, s);
 #pragma unroll
@@ -265,9 +302,9 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
   float dlt = 0.f;
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();
-    load_rows<T, DP>(vs, v_src, row_stride, k0, kTile, n, d, 1.f);
+    load_rows<T, DP, kTile>(vs, v_src, a.v.sn, k0, n, d, 1.f);
     if (kRecompute) {
-      load_rows<T, DP>(ks, k_src, row_stride, k0, kTile, n, d, 1.f);
+      load_rows<T, DP, kTile>(ks, k_src, a.k.sn, k0, n, d, 1.f);
     } else {
       load_p_tile(k0);
     }
@@ -292,8 +329,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
   for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();
-    load_rows<T, DP>(vs, v_src, row_stride, k0, kTile, n, d, 1.f);
-    load_rows<T, DP>(ks, k_src, row_stride, k0, kTile, n, d, 1.f);
+    load_rows<T, DP, kTile>(vs, v_src, a.v.sn, k0, n, d, 1.f);
+    load_rows<T, DP, kTile>(ks, k_src, a.k.sn, k0, n, d, 1.f);
     if (!kRecompute) load_p_tile(k0);
     __syncthreads();
     tile_p_dp(k0, pv, dp);
@@ -307,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
   }
 
   if (row < n) {
-    T* dq = static_cast<T*>(a.dqkv) + (static_cast<int64_t>(b) * n + row) * row_stride + h * d;
+    T* dq = a.dq.head<T>(b, h) + row * a.dq.sn;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const int dd = g + i * kLanesPerRow;
@@ -334,11 +371,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
   const int n0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int c = a.heads * d;
-  const int64_t row_stride = 3 * static_cast<int64_t>(c);
-  const T* base = static_cast<const T*>(a.qkv) + static_cast<int64_t>(b) * n * row_stride;
-  const T* q_src = base + h * d;
-  const T* do_src = static_cast<const T*>(a.dout) + static_cast<int64_t>(b) * n * c + h * d;
+  const T* q_src = a.q.head<const T>(b, h);
+  const T* do_src = a.dout.head<const T>(b, h);
   const int64_t bh = static_cast<int64_t>(b) * a.heads + h;
 
   const int r = threadIdx.x / kLanesPerRow;
@@ -347,8 +381,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
   // q is scaled by scale (from P) or by scale * log2(e) (recompute: the score operand)
   const float q_mul = kRecompute ? a.q_mul : a.scale;
 
-  if (kRecompute) load_rows<T, DP>(ks, base + c + h * d, row_stride, n0, kRows, n, d, 1.f);
-  load_rows<T, DP>(vs, base + 2 * c + h * d, row_stride, n0, kRows, n, d, 1.f);
+  if (kRecompute) load_rows<T, DP, kRows>(ks, a.k.head<const T>(b, h), a.k.sn, n0, n, d, 1.f);
+  load_rows<T, DP, kRows>(vs, a.v.head<const T>(b, h), a.v.sn, n0, n, d, 1.f);
 
   constexpr int kDimsPerLane = DP / kLanesPerRow;
   float acc_dv[kDimsPerLane], acc_dk[kDimsPerLane];
@@ -357,8 +391,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
   float s[kColsPerLane], dp[kColsPerLane];
   for (int q0 = 0; q0 < n; q0 += kTile) {
     __syncthreads();
-    load_rows<T, DP>(qs, q_src, row_stride, q0, kTile, n, d, q_mul);
-    load_rows<T, DP>(dos, do_src, c, q0, kTile, n, d, 1.f);
+    load_rows<T, DP, kTile>(qs, q_src, a.q.sn, q0, n, d, q_mul);
+    load_rows<T, DP, kTile>(dos, do_src, a.dout.sn, q0, n, d, 1.f);
     for (int qq = threadIdx.x; qq < kTile; qq += kThreads) {
       const bool in = q0 + qq < n;
       st_delta[qq] = in ? a.delta[bh * n + q0 + qq] : 0.f;
@@ -400,14 +434,15 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
   }
 
   if (key < n) {
-    T* out = static_cast<T*>(a.dqkv) + (static_cast<int64_t>(b) * n + key) * row_stride + h * d;
+    T* dk = a.dk.head<T>(b, h) + key * a.dk.sn;
+    T* dv = a.dv.head<T>(b, h) + key * a.dv.sn;
     const float dk_mul = kRecompute ? a.inv_log2e : 1.f;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const int dd = g + i * kLanesPerRow;
       if (dd < d) {
-        out[c + dd] = from_float<T>(acc_dk[i] * dk_mul);
-        out[2 * c + dd] = from_float<T>(acc_dv[i]);
+        dk[dd] = from_float<T>(acc_dk[i] * dk_mul);
+        dv[dd] = from_float<T>(acc_dv[i]);
       }
     }
   }
@@ -445,6 +480,25 @@ cudaError_t dispatch_variant(const Args& a, int b, cudaStream_t stream) {
   return dispatch_dim<T, false>(a, b, stream);
 }
 
+int run(const Args& a, int b, int dtype, void* stream) {
+  if (b < 1 || b > 65535 || a.n < 1 || a.heads < 1 || a.heads > 65535 || a.d < 1 || a.d > 128 ||
+      a.n_valid < 1 || a.n_valid > a.n || a.delta == nullptr ||
+      (a.p == nullptr && (a.row_m == nullptr || a.row_il == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(dispatch_variant<float>(a, b, s));
+    case 1:
+      return static_cast<int>(dispatch_variant<__nv_bfloat16>(a, b, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+size_t elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
+
 }  // namespace
 
 // qkv: [b, n, 3 * heads * head_dim], dout: [b, n, heads * head_dim], dqkv:
@@ -460,22 +514,47 @@ extern "C" int vdk_fused_qkv_attention_bwd(const void* qkv, const void* p, const
                                            int b, int n, int heads, int head_dim, int n_valid,
                                            float q_mul, float scale, float inv_log2e, int dtype,
                                            void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || heads < 1 || heads > 65535 || head_dim < 1 ||
-      head_dim > 128 || n_valid < 1 || n_valid > n || delta == nullptr ||
-      (p == nullptr && (row_m == nullptr || row_il == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args a{qkv, p, dout, dqkv, delta, row_m, row_il, n, heads, head_dim, n_valid,
-               q_mul, scale, inv_log2e};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(dispatch_variant<float>(a, b, s));
-    case 1:
-      return static_cast<int>(dispatch_variant<__nv_bfloat16>(a, b, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int64_t c = static_cast<int64_t>(heads) * head_dim;
+  const int64_t rs = 3 * c;  // row stride of the packed buffers
+  const size_t col = c * elem_bytes(dtype);
+  const char* in = static_cast<const char*>(qkv);
+  char* out = static_cast<char*>(dqkv);
+  const Args a{{in, n * rs, head_dim, rs},
+               {in + col, n * rs, head_dim, rs},
+               {in + 2 * col, n * rs, head_dim, rs},
+               {dout, n * c, head_dim, c},
+               {out, n * rs, head_dim, rs},
+               {out + col, n * rs, head_dim, rs},
+               {out + 2 * col, n * rs, head_dim, rs},
+               p, delta, row_m, row_il, n, heads, head_dim, n_valid, q_mul, scale, inv_log2e};
+  return run(a, b, dtype, stream);
+}
+
+// q, k, v, dout: [b, heads, n, head_dim] with element strides (sb, sh, sn) each
+// and a unit-stride head dim; dq, dk, dv: [b, heads, n, head_dim] contiguous;
+// all of `dtype` (0: float32, 1: bfloat16), on the current device. delta,
+// row_m, row_il: f32 [b, heads, n] scratch. Recomputes P (no stash, no key
+// mask). q_mul, scale and inv_log2e as above. Launches the dq kernel, then
+// the dkv kernel, on `stream`. Returns the CUDA error code of the launches
+// (0 on success).
+extern "C" int vdk_vision_attention_bwd(
+    const void* q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
+    const void* k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+    const void* v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
+    const void* dout, int64_t do_sb, int64_t do_sh, int64_t do_sn,
+    void* dq, void* dk, void* dv, float* delta, float* row_m, float* row_il,
+    int b, int n, int heads, int head_dim, float q_mul, float scale, float inv_log2e, int dtype,
+    void* stream) {
+  const int64_t nd = static_cast<int64_t>(n) * head_dim;
+  const Args a{{q, q_sb, q_sh, q_sn},
+               {k, k_sb, k_sh, k_sn},
+               {v, v_sb, v_sh, v_sn},
+               {dout, do_sb, do_sh, do_sn},
+               {dq, heads * nd, nd, head_dim},
+               {dk, heads * nd, nd, head_dim},
+               {dv, heads * nd, nd, head_dim},
+               nullptr, delta, row_m, row_il, n, heads, head_dim, n, q_mul, scale, inv_log2e};
+  return run(a, b, dtype, stream);
 }
 
 extern "C" const char* vdk_cuda_error_string(int code) {

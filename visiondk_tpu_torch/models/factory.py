@@ -10,7 +10,8 @@ margin heads of ``EmbeddingModel`` (``head_config``) raise
 
 ``get_model`` takes the ``model:`` section of a YAML config as a dict and
 returns a model initialised as the JAX package initialises one, drawn from an
-explicit ``torch.Generator``, on an explicit ``device``.
+explicit ``torch.Generator``, on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -97,12 +98,19 @@ def _image_size(kwargs: Dict[str, Any], image_size: Optional[int]) -> Dict[str, 
 def get_model(
     model_cfg: Dict[str, Any],
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
     """Task dispatch mirroring the JAX ``get_model``. Parameters are drawn on
     the CPU from ``generator`` (default: seed 0), so a seed gives the same
-    weights on every device, then moved to ``device``."""
+    weights on every device, then moved to ``device``: the card by default.
+    Without CUDA that raises; a CPU caller passes ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"get_model: device {device} was asked for (the default) but CUDA is not available; "
+            "pass device='cpu' to build the model on the CPU"
+        )
     task = model_cfg["task"]
     if task == "classification":
         kwargs = dict(model_cfg.get("kwargs") or {})

@@ -1,4 +1,6 @@
-"""Fused QKV attention (counterpart of ``visiondk_tpu/ops/pallas/attention.py``).
+"""Fused attention (counterpart of ``visiondk_tpu/ops/pallas/attention.py``):
+``fused_qkv_attention`` on the packed QKV buffer and ``vision_attention`` on
+``[B, H, N, D]`` operands.
 
 ``fused_qkv_attention(qkv [B, N, 3C], heads, n_valid)`` → ``[B, N, C]`` reads
 q, k and v out of the packed QKV-projection buffer and writes O straight
@@ -19,10 +21,20 @@ Four kernels, each behind a wrapper with its own launch count
   (``csrc/fused_qkv_attention_bwd.cu``);
 - ``fused_qkv_attention_bwd_recompute``: backward that recomputes P in f32.
 
+``vision_attention(q, k, v)`` (``[B, H, N, D]`` → ``[B, H, N, D]``, the JAX
+op at ``attention.py:533``) runs the same CUDA kernels through other entry
+points: q, k and v are read through their strides (a strided view of a
+packed buffer costs no copy) and the outputs are contiguous. Two more
+wrappers: ``vision_attention_fwd`` (no stash) and ``vision_attention_bwd``
+(recompute backward: dq, dk, dv), behind the autograd Function
+``VisionAttention``, as ``_vision_attention_padded``'s custom VJP saves q,
+k, v and recomputes P. The JAX wrapper pads N up to a multiple of 128 and
+masks the padded keys; the port computes exactly N, the same result.
+
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs the kernel's plain PyTorch version (``*_plain``), which has the
-reference kernel's arithmetic. So the Function runs the same hand-derived
-backward on both devices. The plain versions compute in f32, or in f64 for
+reference kernel's arithmetic. So the Functions run the same hand-derived
+backwards on both devices. The plain versions compute in f32, or in f64 for
 f64 inputs (which ``torch.autograd.gradcheck`` uses on the CPU).
 """
 
@@ -215,6 +227,11 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]  # qkv out p | b n heads d n_valid | q_mul dtype stream
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P,  # qkv p dout dqkv delta row_m row_il
              _I, _I, _I, _I, _I, _F, _F, _F, _I, _P]  # b n heads d n_valid | q_mul scale inv_log2e | dtype stream
+_L = ctypes.c_int64
+_STRIDED = [_P, _L, _L, _L]  # pointer, then the element strides of batch row, head and token
+_VIS_FWD_ARGS = [*_STRIDED * 3, _P, _I, _I, _I, _I, _F, _I, _P]  # q k v | out b n heads d q_mul dtype stream
+_VIS_BWD_ARGS = [*_STRIDED * 4, _P, _P, _P, _P, _P, _P,  # q k v dout | dq dk dv delta row_m row_il
+                 _I, _I, _I, _I, _F, _F, _F, _I, _P]  # b n heads d | q_mul scale inv_log2e | dtype stream
 
 
 def _check_err(lib: ctypes.CDLL, err: int, op: str) -> None:
@@ -324,11 +341,140 @@ def fused_qkv_attention_bwd_recompute(
     return dqkv
 
 
+# ---------------------------------------------------------------- vision_attention
+
+
+def _check_bhnd(op: str, q: torch.Tensor, **others: torch.Tensor) -> None:
+    """q is [B, H, N, D]; every other operand has q's shape, dtype and device."""
+    if q.dim() != 4:
+        raise ValueError(f"{op} takes [B, H, N, D] operands, got q of shape {tuple(q.shape)}")
+    for what, t in others.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{op}: {what} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{op}: {what} is {t.dtype} on {t.device}, q {q.dtype} on {q.device}")
+
+
+def _runs_vision_kernel(tensors, op: str) -> bool:
+    """True for CUDA tensors the kernels take, False for CPU tensors (the
+    plain version runs); raises for anything else. ``tensors`` agree in
+    shape, dtype and device (``_check_bhnd``)."""
+    q = tensors[0]
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu tensors, got {q.device}")
+    b, h, _, d = q.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op} kernel takes float32 or bfloat16, got {q.dtype}")
+    if d > 128:
+        raise ValueError(f"{op} kernel takes head_dim <= 128, got {d}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{op} kernel needs a unit-stride head dim, got strides {[t.stride() for t in tensors]}")
+    if not 1 <= b <= 65535 or h > 65535:
+        raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={h}")
+    return True
+
+
+def vision_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ·D^-½)·v for [B, H, N, D] operands, with the reference
+    kernel's arithmetic (``_fwd_kernel``, ``attention.py:41-65``): scores of
+    the upcast q and k, scaled, P = exp(S − rowmax) / rowsum, cast to v's
+    dtype before P·V, which sums in f32 (f64 for f64 inputs) and rounds to
+    q's dtype."""
+    acc = _acc(q.dtype)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * q.shape[-1] ** -0.5
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(p.to(acc), v.to(acc)).to(q.dtype)
+
+
+def vision_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) with P recomputed, as ``_bwd_kernel`` (``attention.py:68-92``):
+    every operand upcast, P in f32 (f64 for f64 inputs) and not rounded,
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − rowsum(P∘dP))·scale, dQ = dS·k,
+    dK = dSᵀ·q, each rounded to q's dtype."""
+    dtype, acc = q.dtype, _acc(q.dtype)
+    scale = q.shape[-1] ** -0.5
+    q, k, v, do = (t.to(acc) for t in (q, k, v, dout))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    dq, dk, dv = _bwd_core(e / e.sum(dim=-1, keepdim=True), do, v, k * scale, q * scale)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _strided(t: torch.Tensor):
+    return (t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))
+
+
+def _launch_vision_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = q.shape
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    lib = _lib(_FWD_LIB, "vdk_vision_attention_fwd", _VIS_FWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vdk_vision_attention_fwd(
+            *_strided(q), *_strided(k), *_strided(v), out.data_ptr(),
+            b, n, h, d, d**-0.5 * _LOG2E, _DTYPE_CODES[q.dtype], stream,
+        )
+    _check_err(lib, err, "vision_attention forward")
+    return out
+
+
+def _launch_vision_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor):
+    b, h, n, d = q.shape
+    grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)  # delta, row max, 1 / row sum
+    lib = _lib(_BWD_LIB, "vdk_vision_attention_bwd", _VIS_BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vdk_vision_attention_bwd(
+            *_strided(q), *_strided(k), *_strided(v), *_strided(dout),
+            *(g.data_ptr() for g in grads), *(t.data_ptr() for t in stats),
+            b, n, h, d, d**-0.5 * _LOG2E, d**-0.5, 1.0 / _LOG2E, _DTYPE_CODES[q.dtype], stream,
+        )
+    _check_err(lib, err, "vision_attention backward")
+    return tuple(grads.unbind(0))
+
+
+def vision_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """O [B, H, N, D] (contiguous) from q, k, v [B, H, N, D] of one shape,
+    dtype and device. A CUDA tensor (float32 or bfloat16, D ≤ 128, unit
+    stride in D, any other strides, B and H ≤ 65535) launches the kernel
+    (``vdk_vision_attention_fwd``, K1's kernel), built at first use; a CPU
+    tensor runs ``vision_attention_plain``. Anything else raises."""
+    _check_bhnd("vision_attention_fwd", q, k=k, v=v)
+    if not _runs_vision_kernel((q, k, v), "vision_attention_fwd"):
+        return vision_attention_plain(q, k, v)
+    out = _launch_vision_fwd(q, k, v)
+    vision_attention_fwd.launches += 1
+    return out
+
+
+def vision_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each [B, H, N, D] contiguous in q's dtype, from q, k, v
+    and dO [B, H, N, D] of one shape, dtype and device, P recomputed in f32
+    (``vdk_vision_attention_bwd``, K1r's kernels). Same devices and checks
+    as ``vision_attention_fwd``; dO too is read through its strides."""
+    _check_bhnd("vision_attention_bwd", q, k=k, v=v, dout=dout)
+    if not _runs_vision_kernel((q, k, v, dout), "vision_attention_bwd"):
+        return vision_attention_bwd_plain(q, k, v, dout)
+    grads = _launch_vision_bwd(q, k, v, dout)
+    vision_attention_bwd.launches += 1
+    return grads
+
+
 KERNELS = (
     fused_qkv_attention_fwd,
     fused_qkv_attention_fwd_stash,
     fused_qkv_attention_bwd_from_p,
     fused_qkv_attention_bwd_recompute,
+    vision_attention_fwd,
+    vision_attention_bwd,
 )
 for _k in KERNELS:
     _k.launches = 0
@@ -378,3 +524,34 @@ def fused_qkv_attention(
     if torch.is_grad_enabled() and qkv.requires_grad:
         return FusedQKVAttention.apply(qkv, heads, n_valid)
     return fused_qkv_attention_fwd(qkv, heads, n_valid)
+
+
+class VisionAttention(torch.autograd.Function):
+    """The counterpart of ``_vision_attention_padded.defvjp(_vjp_fwd,
+    _vjp_bwd)``: the no-stash forward, saving q, k and v, and the recompute
+    backward. Its backward is not itself differentiable."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        return vision_attention_fwd(q, k, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        dout = dout.to(q.dtype)  # autograd may hand over f32 or strided
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        return vision_attention_bwd(q, k, v, dout)
+
+
+def vision_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ/√D)·v for [B, H, N, D] inputs (N arbitrary, D ≤ 128 on the
+    card), differentiable. With grad mode on and any input requiring grad it
+    runs ``VisionAttention``; otherwise ``vision_attention_fwd``. Kernels on
+    CUDA tensors, their plain versions on CPU tensors (see module doc)."""
+    _check_bhnd("vision_attention", q, k=k, v=v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return VisionAttention.apply(q, k, v)
+    return vision_attention_fwd(q, k, v)
