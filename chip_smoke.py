@@ -12,10 +12,16 @@ Phases, one line or more each; any failure raises and exits non-zero:
              (fused QKV attention: forward with optional P stash, both
              backwards; fused window attention: the same two) with nvcc for
              sm_90a into visiondk_tpu_torch/_build/, one nvcc each, all in
-             parallel, and prints ptxas' register and spill lines.
+             parallel, and prints ptxas' register and spill lines. Reads the
+             SASS of the two fused-QKV libraries (cuobjdump): every bf16
+             instantiation of the forward, dq and dkv kernels (head-dim
+             buckets 32, 64, 80, 128 x variant) must issue tensor-core
+             instructions (HMMA, or HGMMA for wgmma), counted per kernel; the
+             float32 CUDA-core kernels must have no bf16 instantiation.
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
-             (N=37 with a key mask, ViT-B/8's N=785, head dim 80), f32 and
+             (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
+             P rows are 16-byte aligned), f32 and
              bf16: the no-stash forward (O), the stash forward (O bit-equal to
              the no-stash kernel's, and P), the backward from P (both sides
              fed the kernel's stash) and the recompute backward (dqkv).
@@ -67,8 +73,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
              the key bias's gradient is zero in exact arithmetic, so a
              relative bar would not hold on it, and the max-abs bar compares
              it by absolute size); in bf16 (bs 128) the agreement is printed.
-             Prints images/s of both paths (order kernel, plain, plain,
-             kernel) and torch.cuda.max_memory_allocated.
+             Prints images/s and torch.cuda.max_memory_allocated of the
+             kernel path with the P stash (the default), the kernel path with
+             VDK_ATTN_NO_PCACHE=1 and the plain path (order kernel,
+             no-pcache, plain, plain, no-pcache, kernel).
+5p. profile — the ViT-B/16 bf16 train and eval steps (bs 128, K1 path):
+             unprofiled step time, then device time per step by kernel class
+             (attention kernels by name, GEMMs, copies and casts, LayerNorm,
+             optimizer, reductions, other elementwise) from torch.profiler
+             over 3 steps, and the device's idle share.
 
 6. swin serving, 7. swin train — phases 4 and 5 for Swin-B
              (swin_base_patch4_window7_224), the reference's default recipe:
@@ -85,12 +98,24 @@ Phases, one line or more each; any failure raises and exits non-zero:
              relative_position_bias_table gradient non-zero after the first;
              the one-step f32 comparison at bs 16 with phase 5's bars.
 
-The line before the last is a JSON summary of the eight kernels, with each
+3v. vision kernel — vision_attention's forward (K3) and recompute backward
+             (K3r) against their plain versions, f32 and bf16, at ViT-B/16
+             (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
+             packed qkv buffer (timed), the same views one element into a
+             wider buffer (rows not 16-byte aligned), the JAX test's shape,
+             ViT-B/8 and head dim 128; phase 3's bars; strided and unaligned
+             views bit-equal to the kernels on contiguous copies.
+8. vision path — the pet_synth ViT-B/16 with every attention core on
+             vision_attention: one bf16 train step (12 K3 + 12 K3r) and the
+             eval forward (12 K3), then images/s against the K1 path and the
+             f32 one-step comparison with phase 5's bars.
+
+The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
-bf16 train runs of both models, counts set to 0 before each and read
-after), and times at the ViT-B/16 bf16 shape (fused QKV attention) or the
-Swin-B stage-0 bf16 shape (window attention); the last line is
-{"ok": true, "device": {...}}.
+bf16 train runs of both models and the vision path, counts set to 0 before
+each and read after), and times at the ViT-B/16 bf16 shape (fused QKV
+attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
+attention); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -211,13 +236,15 @@ SWIN = Recipe("swin serving", "swin train", PET_MODEL, CBIR_EMBED_MODEL, PET_HYP
               wattn.KERNELS, ("attn.qkv.weight", "attn.relative_position_bias_table"))
 
 # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape (timed),
-# the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens, and
-# ViT-H/14's head_dim 80
+# the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens,
+# ViT-H/14's head_dim 80, and an N that is a multiple of 8 (the bf16 kernels
+# then move the P stash in 16-byte pieces; every other N here is odd)
 QKV_CASES = [
     ("vit_b16", BATCH, 197, 12, 64, None),
     ("unaligned", 8, 37, 4, 32, 29),
     ("vit_b8", 4, 785, 12, 64, None),
     ("hd80", 4, 257, 16, 80, 250),
+    ("n_mult8", 8, 200, 6, 64, 196),
 ]
 
 # (name, B, H=W, heads, C, ws, shift, scale, timed): Swin-B at bs 80, stage by
@@ -370,6 +397,54 @@ def phase_device() -> None:
           f"capability {torch.cuda.get_device_capability(0)} | tf32 off for matmul and cudnn")
 
 
+def sass_mma_counts(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, or HGMMA for wgmma) per kernel of a
+    built library, read from its SASS with the toolkit's cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            function = found.group(1)
+            counts[function] = 0
+        elif function is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[function] += 1
+    return counts
+
+
+# the bf16 tensor-core kernels: every instantiation (head-dim bucket x variant)
+# must issue HMMA / HGMMA; the float32 CUDA-core kernels are instantiated for
+# float only (no __nv_bfloat16 in their mangled names)
+TC_KERNELS = {"fused_qkv_attention": ("fused_attention_fwd_tc_kernel", "fused_attention_fwd_kernel"),
+              "fused_qkv_attention_bwd": ("attention_bwd_dq_tc_kernel", "attention_bwd_dkv_tc_kernel",
+                                          "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
+TC_INSTANTIATIONS = 8  # head-dim buckets 32, 64, 80, 128 x two variants
+
+
+def check_sass(built) -> None:
+    for b in built:
+        name = b.path.name.split("-")[0][len("lib"):]
+        if name not in TC_KERNELS:
+            continue
+        counts = sass_mma_counts(b.path)
+        for kernel in TC_KERNELS[name]:
+            found = {f: c for f, c in counts.items() if re.search(rf"\d{kernel}I", f)}
+            if kernel.endswith("_tc_kernel"):
+                check(len(found) == TC_INSTANTIATIONS,
+                      f"{kernel}: {len(found)} instantiations in {b.path.name}, want {TC_INSTANTIATIONS}")
+                bad = [f for f, c in found.items() if c == 0]
+                check(not bad, f"bf16 kernels without tensor-core instructions: {bad}")
+                print(f"[build] sass: {kernel} (bf16): HMMA/HGMMA per instantiation (head-dim bucket/variant) "
+                      + ", ".join(f"{'/'.join(re.findall(r'L[ib](\d+)E', f))}: {c}" for f, c in found.items()))
+            else:
+                bf16 = [f for f in found if "bfloat16" in f]
+                check(not bf16, f"a bf16 instantiation of the CUDA-core kernel {kernel}: {bf16}")
+                print(f"[build] sass: {kernel} (float32, CUDA cores): {len(found)} instantiations, "
+                      f"HMMA/HGMMA {sum(found.values())}")
+
+
 def phase_build() -> None:
     names = ("fused_qkv_attention", "fused_qkv_attention_bwd",
              "fused_window_attention", "fused_window_attention_bwd")
@@ -385,6 +460,7 @@ def phase_build() -> None:
                 function = found.group(1)  # mangled: kernel name, dtype, head-dim bucket, variant
             elif "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {function}: {line.split(':', 1)[-1].strip()}")
+    check_sass(built)
 
 
 def max_err(out: torch.Tensor, ref: torch.Tensor, scaled: bool = False) -> float:
@@ -916,16 +992,22 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
     print(f"[{tag}] VDK_ATTN_NO_PCACHE=1, {NO_PCACHE_STEPS} steps: finite losses; launches per step: "
           f"{depth} no-stash forwards, {depth} recompute backwards, nothing else")
 
-    # throughput and memory, interleaved: kernel, plain, plain, kernel
-    rates = {KERNEL_PATH: [], PLAIN_PATH: []}
-    for path in (KERNEL_PATH, PLAIN_PATH, PLAIN_PATH, KERNEL_PATH):
-        rates[path].append(train_rate(model, state, step, batch, path))
+    # throughput and memory, interleaved: kernel path with the P stash (the
+    # default), kernel path with VDK_ATTN_NO_PCACHE=1 (forward and recompute
+    # backward), plain path, then the same in reverse
+    runs = (("kernel", KERNEL_PATH, False), ("no-pcache", KERNEL_PATH, True), ("plain", PLAIN_PATH, False))
+    rates = {label: [] for label, _, _ in runs}
+    for label, path, no_pcache in (*runs, *runs[::-1]):
+        if no_pcache:
+            os.environ["VDK_ATTN_NO_PCACHE"] = "1"
+        rates[label].append(train_rate(model, state, step, batch, path))
+        os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     set_fused(model, True)
-    (k1, km1), (k2, km2) = rates[KERNEL_PATH]
-    (p1, pm1), (p2, pm2) = rates[PLAIN_PATH]
-    print(f"[{tag}] bf16 bs {bs} images/s: kernel path {k1:.1f}, {k2:.1f} | plain path {p1:.1f}, {p2:.1f} "
-          f"(order kernel, plain, plain, kernel); max_memory_allocated kernel path {km1:.2f}, {km2:.2f} GiB, "
-          f"plain path {pm1:.2f}, {pm2:.2f} GiB")
+    print(f"[{tag}] bf16 bs {bs} images/s: " + " | ".join(
+        f"{label} path {r[0][0]:.1f}, {r[1][0]:.1f}" for label, r in rates.items())
+        + " (order kernel, no-pcache, plain, plain, no-pcache, kernel; no-pcache = the kernel path with "
+        "VDK_ATTN_NO_PCACHE=1); max_memory_allocated " + ", ".join(
+            f"{label} {r[0][1]:.2f}, {r[1][1]:.2f} GiB" for label, r in rates.items()))
     del model, state, step
     torch.cuda.empty_cache()
 
@@ -937,18 +1019,92 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------- profile
+
+# device-time classes of a step, by kernel name (lower case), first match wins
+KERNEL_CLASSES = (
+    ("attention kernels", ("attention",)),
+    ("GEMMs and the patch convolution", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "conv")),
+    ("copies and casts", ("copy", "cast", "memcpy", "memset", "transpose")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("SGD + clip + EMA (foreach)", ("multi_tensor", "foreach")),
+    ("softmax and reductions", ("reduce", "softmax", "norm")),
+    ("other elementwise", ("",)),
+)
+
+
+def device_split(fn, steps: int) -> tuple:
+    """Per step: device ms by class of kernel, and by attention kernel name,
+    from torch.profiler over ``steps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    split = {label: 0.0 for label, _ in KERNEL_CLASSES}
+    attention = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3 / steps
+        label = next(lb for lb, keys in KERNEL_CLASSES if any(k in name for k in keys))
+        split[label] += ms
+        if label == "attention kernels":
+            short = re.search(r"(\w*attention\w*kernel)", e.name)
+            key = short.group(1) if short else e.name[:60]
+            attention[key] = attention.get(key, 0.0) + ms
+    return split, attention
+
+
+def phase_profile(dev: torch.device) -> None:
+    """Where the time of the ViT-B/16 bf16 train step and eval step goes on
+    the K1 path (bs 128): the unprofiled step time (host clock, synchronised,
+    5 steps after 2 warm-up), then device time by kernel class from
+    torch.profiler over 3 steps, and the device's idle share."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {
+        "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "label": torch.randint(0, VIT.model["num_classes"], (BATCH,), generator=gen, device=dev),
+    }
+    model, state, step = build_trainer(VIT, torch.bfloat16, dev)
+    eval_step = make_eval_step(model, StepConfig())
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    for what, fn in (("train", lambda: step(state, batch)), ("eval", lambda: eval_step(batch))):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        split, attention = device_split(fn, steps=3)
+        busy = sum(split.values())
+        print(f"[profile] vit_b16 {what} bf16 bs {BATCH}, K1 path: step {step_ms:.2f} ms unprofiled "
+              f"({BATCH / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
+              f"{max(0.0, 1 - busy / step_ms):.1%}; device ms per step: "
+              + ", ".join(f"{label} {ms:.2f}" for label, ms in split.items())
+              + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
+    del model, state, step, eval_step
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- vision_attention
 
 
-# (name, B, H, N, D, strided, timed): ViT-B/16 at bs 128 as contiguous
+# (name, B, H, N, D, layout, timed): ViT-B/16 at bs 128 as contiguous
 # tensors and as the views of a packed qkv buffer that the vision path hands
-# over, the JAX kernel test's shape, ViT-B/8's 785 tokens, head dim 128
+# over, the same views shifted by one element (rows not 16-byte aligned: the
+# bf16 kernels stage them element by element), the JAX kernel test's shape,
+# ViT-B/8's 785 tokens, head dim 128
 VISION_CASES = [
-    ("vit_b16", BATCH, 12, 197, 64, False, False),
-    ("vit_b16_packed", BATCH, 12, 197, 64, True, True),
-    ("jax_test", 2, 3, 50, 32, False, False),
-    ("vit_b8_packed", 4, 12, 785, 64, True, False),
-    ("d128", 8, 8, 197, 128, False, False),
+    ("vit_b16", BATCH, 12, 197, 64, "contiguous", False),
+    ("vit_b16_packed", BATCH, 12, 197, 64, "packed", True),
+    ("vit_b16_unaligned", 16, 12, 197, 64, "unaligned", False),
+    ("jax_test", 2, 3, 50, 32, "contiguous", False),
+    ("vit_b8_packed", 4, 12, 785, 64, "packed", False),
+    ("d128", 8, 8, 197, 128, "contiguous", False),
 ]
 
 
@@ -959,14 +1115,19 @@ def phase_vision_kernel(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     k3, k3r = K3_KERNELS
     summary = {}
-    for name, b, h, n, d, strided, timed in VISION_CASES:
+    for name, b, h, n, d, layout, timed in VISION_CASES:
+        strided = layout != "contiguous"
         for dtype in (torch.float32, torch.bfloat16):
-            tag = f"{name} B={b} H={h} N={n} D={d} {'strided' if strided else 'contiguous'} " \
-                  f"{str(dtype).replace('torch.', '')}"
+            tag = f"{name} B={b} H={h} N={n} D={d} {layout} {str(dtype).replace('torch.', '')}"
             if strided:  # q, k, v views of [B, N, 3C]; dO the [B, H, N, D] view of [B, N, C]
-                qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
+                shift = 1 if layout == "unaligned" else 0  # one element into a wider buffer
+                qkv = torch.randn((b, n, 3 * h * d + shift), generator=gen, device=dev).to(dtype)
+                qkv = qkv[..., shift:shift + 3 * h * d]
                 q, k, v = heads_view(qkv, h)
-                dout = torch.randn((b, n, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                dout = torch.randn((b, n, h * d + shift), generator=gen, device=dev).to(dtype)
+                dout = dout[..., shift:].view(b, n, h, d).transpose(1, 2)
+                if shift:
+                    check(all(t.data_ptr() % 16 for t in (q, k, v, dout)), f"{tag}: views are 16-byte aligned")
             else:
                 q, k, v, dout = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype) for _ in range(4))
             tol = TOL[dtype]
@@ -1098,6 +1259,8 @@ def main() -> None:
     for recipe in (VIT, SWIN):
         serving = phase_slice(dev, recipe)
         training = phase_train(dev, recipe)
+        if recipe is VIT:
+            phase_profile(dev)
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}

@@ -1,13 +1,15 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At first
-use it is compiled for Hopper with
+Each kernel library is one ``csrc/<name>.cu`` file with a plain C interface
+(it may include the shared ``csrc/*.cuh`` headers). At first use it is
+compiled for Hopper with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 into ``visiondk_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with
-ctypes. The file name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. The compiler's
+ctypes. The file name carries a hash of the source, the headers and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside it in
 ``lib<name>-<hash>.log``.
 
@@ -78,7 +80,8 @@ def build(name: str) -> Built:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         log = out.with_suffix(".log")

@@ -33,7 +33,10 @@ masks the padded keys; the port computes exactly N, the same result.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs the kernel's plain PyTorch version (``*_plain``), which has the
-reference kernel's arithmetic. So the Functions run the same hand-derived
+reference kernel's arithmetic. In bfloat16 the kernels run every product on
+the tensor cores (bf16 operands, f32 sums); the backwards split dS and the
+recomputed P into bf16 hi + lo operands so that they keep about 16 bits (see
+the notes in ``csrc/``). In float32 they run on CUDA cores. So the Functions run the same hand-derived
 backwards on both devices. The plain versions compute in f32, or in f64 for
 f64 inputs (which ``torch.autograd.gradcheck`` uses on the CPU).
 """
