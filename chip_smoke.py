@@ -13,11 +13,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
              backwards; fused window attention: the same two) with nvcc for
              sm_90a into visiondk_tpu_torch/_build/, one nvcc each, all in
              parallel, and prints ptxas' register and spill lines. Reads the
-             SASS of the two fused-QKV libraries (cuobjdump): every bf16
-             instantiation of the forward, dq and dkv kernels (head-dim
-             buckets 32, 64, 80, 128 x variant) must issue tensor-core
-             instructions (HMMA, or HGMMA for wgmma), counted per kernel; the
-             float32 CUDA-core kernels must have no bf16 instantiation.
+             SASS of the two fused-QKV libraries and of the window backward
+             (cuobjdump): every bf16 instantiation of the forward, dq and dkv
+             kernels (head-dim buckets 32, 64, 80, 128 x variant) and of the
+             window backward (32, 64 x from P, recompute shifted, recompute
+             unshifted) must issue tensor-core instructions (HMMA, or HGMMA
+             for wgmma), counted per kernel; the float32 CUDA-core kernels
+             must have no bf16 instantiation.
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
@@ -45,7 +47,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              (stage 0: 56×56, 4 heads, unshifted and shifted; stage 2: 14×14,
              16 heads, shifted; stage 3: 7×7, 32 heads, one window) and at odd
              shapes (the JAX kernel test's B=4, 8×8, ws 4, 2 heads, shift 2;
-             ws 8 with head dim 64 and scale 1.0, SwinV2's call). O, P and dqkv
+             ws 8 with head dim 64 and scale 1.0, SwinV2's call; head dim 12,
+             whose rows are not 16-byte aligned). O, P and dqkv
              are held to phase 3's bars; the stash forward's O must be
              bit-equal to the no-stash kernel's; dbias (f32 in both dtypes)
              within 1e-4 · max(1, max |plain|): both sides sum the same f32
@@ -76,12 +79,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
              Prints images/s and torch.cuda.max_memory_allocated of the
              kernel path with the P stash (the default), the kernel path with
              VDK_ATTN_NO_PCACHE=1 and the plain path (order kernel,
-             no-pcache, plain, plain, no-pcache, kernel).
-5p. profile — the ViT-B/16 bf16 train and eval steps (bs 128, K1 path):
-             unprofiled step time, then device time per step by kernel class
+             no-pcache, plain, plain, no-pcache, kernel), each trial 20
+             synchronised steps after 3 warm-up, each printed.
+5p. profile — the bf16 train step (its train batch) and eval step (bs 128)
+             on the kernel path: unprofiled step time (20 steps after 3
+             warm-up), then device time per step by kernel class
              (attention kernels by name, GEMMs, copies and casts, LayerNorm,
              optimizer, reductions, other elementwise) from torch.profiler
-             over 3 steps, and the device's idle share.
+             over 3 steps, and the device's idle share. Run after phase 5
+             for ViT-B/16 and after phase 7 for Swin-B.
 
 6. swin serving, 7. swin train — phases 4 and 5 for Swin-B
              (swin_base_patch4_window7_224), the reference's default recipe:
@@ -110,6 +116,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
              eval forward (12 K3), then images/s against the K1 path and the
              f32 one-step comparison with phase 5's bars.
 
+With --swin-train-trials it runs only the Swin-B bf16 train step's timed
+trials, device-time split and bf16 one-step comparison (swin_train_trials).
+
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
 bf16 train runs of both models and the vision path, counts set to 0 before
@@ -125,6 +134,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -200,6 +210,9 @@ DEPTH = 12  # ViT-B/16 blocks, one attention forward and backward each
 N_BATCHES = 3
 TRAIN_STEPS = 5
 NO_PCACHE_STEPS = 2
+# train images/s: each interleaved trial times this many steps after this many warm-up
+TRAIN_RATE_STEPS = 20
+TRAIN_RATE_WARMUP = 3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 DBIAS_TOL = 1e-4  # max |kernel − plain| over dbias, relative to max(1, its largest |plain| entry)
@@ -248,8 +261,9 @@ QKV_CASES = [
 ]
 
 # (name, B, H=W, heads, C, ws, shift, scale, timed): Swin-B at bs 80, stage by
-# stage (18 of its 24 blocks run at stage 2), the JAX kernel test's shape, and
-# SwinV2's window 8 with scale 1.0 at head dim 64
+# stage (18 of its 24 blocks run at stage 2), the JAX kernel test's shape,
+# SwinV2's window 8 with scale 1.0 at head dim 64, and head dim 12 (rows not
+# 16-byte aligned: the bf16 backward loads and stores them element by element)
 WINDOW_CASES = [
     ("swin_b_stage0", 80, 56, 4, 128, 7, 0, None, True),
     ("swin_b_stage0_shifted", 80, 56, 4, 128, 7, 3, None, False),
@@ -257,6 +271,7 @@ WINDOW_CASES = [
     ("swin_b_stage3", 80, 7, 32, 1024, 7, 0, None, False),
     ("jax_test", 4, 8, 2, 32, 4, 2, None, False),
     ("ws8_scale1", 4, 16, 2, 128, 8, 4, 1.0, False),
+    ("hd12_unaligned", 2, 14, 2, 24, 7, 3, None, False),
 ]
 
 NAMES = {k: k.__name__ for k in KERNELS}
@@ -419,8 +434,12 @@ def sass_mma_counts(lib_path) -> dict:
 # float only (no __nv_bfloat16 in their mangled names)
 TC_KERNELS = {"fused_qkv_attention": ("fused_attention_fwd_tc_kernel", "fused_attention_fwd_kernel"),
               "fused_qkv_attention_bwd": ("attention_bwd_dq_tc_kernel", "attention_bwd_dkv_tc_kernel",
-                                          "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
-TC_INSTANTIATIONS = 8  # head-dim buckets 32, 64, 80, 128 x two variants
+                                          "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"),
+              "fused_window_attention_bwd": ("window_attention_bwd_tc_kernel", "window_attention_bwd_kernel")}
+# bf16 instantiations of each tensor-core kernel, per library: head-dim buckets
+# 32, 64, 80, 128 x two variants (fused QKV); 32, 64 x three variants (window
+# backward: from P, recompute with and without shift regions)
+TC_INSTANTIATIONS = {"fused_qkv_attention": 8, "fused_qkv_attention_bwd": 8, "fused_window_attention_bwd": 6}
 
 
 def check_sass(built) -> None:
@@ -432,8 +451,8 @@ def check_sass(built) -> None:
         for kernel in TC_KERNELS[name]:
             found = {f: c for f, c in counts.items() if re.search(rf"\d{kernel}I", f)}
             if kernel.endswith("_tc_kernel"):
-                check(len(found) == TC_INSTANTIATIONS,
-                      f"{kernel}: {len(found)} instantiations in {b.path.name}, want {TC_INSTANTIATIONS}")
+                check(len(found) == TC_INSTANTIATIONS[name],
+                      f"{kernel}: {len(found)} instantiations in {b.path.name}, want {TC_INSTANTIATIONS[name]}")
                 bad = [f for f, c in found.items() if c == 0]
                 check(not bad, f"bf16 kernels without tensor-core instructions: {bad}")
                 print(f"[build] sass: {kernel} (bf16): HMMA/HGMMA per instantiation (head-dim bucket/variant) "
@@ -923,17 +942,24 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
                   f"f32 {what} of {worst[what][1]} differs by {worst[what][0]} of its max > {F32_TENSOR_TOL}")
 
 
-def train_rate(model, state, step, batch: dict, path, steps: int = 5):
+def train_rate(model, state, step, batch: dict, path, label: str):
+    """One trial on an attention path: images/s over TRAIN_RATE_STEPS
+    synchronised train steps after TRAIN_RATE_WARMUP (host clock), and the
+    peak memory; prints the trial under ``label``."""
     path[1](model)
-    step(state, batch)  # warm-up
+    for _ in range(TRAIN_RATE_WARMUP):
+        step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(TRAIN_RATE_STEPS):
         step(state, batch)
     torch.cuda.synchronize()
-    rate = steps * batch["label"].shape[0] / (time.perf_counter() - t0)
-    return rate, torch.cuda.max_memory_allocated() / 2**30
+    rate = TRAIN_RATE_STEPS * batch["label"].shape[0] / (time.perf_counter() - t0)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {rate:.1f} img/s over {TRAIN_RATE_STEPS} steps after {TRAIN_RATE_WARMUP} warm-up, "
+          f"max_memory_allocated {mem:.2f} GiB")
+    return rate, mem
 
 
 def phase_train(dev: torch.device, recipe: Recipe) -> dict:
@@ -997,10 +1023,11 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
     # backward), plain path, then the same in reverse
     runs = (("kernel", KERNEL_PATH, False), ("no-pcache", KERNEL_PATH, True), ("plain", PLAIN_PATH, False))
     rates = {label: [] for label, _, _ in runs}
-    for label, path, no_pcache in (*runs, *runs[::-1]):
+    for trial, (label, path, no_pcache) in enumerate((*runs, *runs[::-1])):
         if no_pcache:
             os.environ["VDK_ATTN_NO_PCACHE"] = "1"
-        rates[label].append(train_rate(model, state, step, batch, path))
+        rates[label].append(train_rate(model, state, step, batch, path,
+                                       f"[{tag}] bf16 bs {bs} trial {trial}, {label} path"))
         os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     set_fused(model, True)
     print(f"[{tag}] bf16 bs {bs} images/s: " + " | ".join(
@@ -1023,7 +1050,7 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
 
 # device-time classes of a step, by kernel name (lower case), first match wins
 KERNEL_CLASSES = (
-    ("attention kernels", ("attention",)),
+    ("attention kernels", ("attention", "dbias_sum")),
     ("GEMMs and the patch convolution", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "conv")),
     ("copies and casts", ("copy", "cast", "memcpy", "memset", "transpose")),
     ("LayerNorm", ("layer_norm", "layernorm")),
@@ -1051,38 +1078,41 @@ def device_split(fn, steps: int) -> tuple:
         label = next(lb for lb, keys in KERNEL_CLASSES if any(k in name for k in keys))
         split[label] += ms
         if label == "attention kernels":
-            short = re.search(r"(\w*attention\w*kernel)", e.name)
+            short = re.search(r"(\w*(?:attention|dbias_sum)\w*kernel)", e.name)
             key = short.group(1) if short else e.name[:60]
             attention[key] = attention.get(key, 0.0) + ms
     return split, attention
 
 
-def phase_profile(dev: torch.device) -> None:
-    """Where the time of the ViT-B/16 bf16 train step and eval step goes on
-    the K1 path (bs 128): the unprofiled step time (host clock, synchronised,
-    5 steps after 2 warm-up), then device time by kernel class from
-    torch.profiler over 3 steps, and the device's idle share."""
+def phase_profile(dev: torch.device, recipe: Recipe) -> None:
+    """Where the time of a recipe's bf16 train step (its train batch) and eval
+    step (bs 128) goes on the kernel path with the P stash: the unprofiled
+    step time (host clock, synchronised, TRAIN_RATE_STEPS steps after
+    TRAIN_RATE_WARMUP), then device time by kernel class from torch.profiler
+    over 3 steps, and the device's idle share."""
     gen = torch.Generator(device=dev).manual_seed(7)
     batch = {
         "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
-        "label": torch.randint(0, VIT.model["num_classes"], (BATCH,), generator=gen, device=dev),
+        "label": torch.randint(0, recipe.model["num_classes"], (BATCH,), generator=gen, device=dev),
     }
-    model, state, step = build_trainer(VIT, torch.bfloat16, dev)
+    train_batch = {k: v[:recipe.train_batch] for k, v in batch.items()}
+    model, state, step = build_trainer(recipe, torch.bfloat16, dev)
     eval_step = make_eval_step(model, StepConfig())
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
-    for what, fn in (("train", lambda: step(state, batch)), ("eval", lambda: eval_step(batch))):
-        for _ in range(2):
+    for what, fn, bs in (("train", lambda: step(state, train_batch), recipe.train_batch),
+                         ("eval", lambda: eval_step(batch), BATCH)):
+        for _ in range(TRAIN_RATE_WARMUP):
             fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(TRAIN_RATE_STEPS):
             fn()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        step_ms = (time.perf_counter() - t0) / TRAIN_RATE_STEPS * 1e3
         split, attention = device_split(fn, steps=3)
         busy = sum(split.values())
-        print(f"[profile] vit_b16 {what} bf16 bs {BATCH}, K1 path: step {step_ms:.2f} ms unprofiled "
-              f"({BATCH / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
+        print(f"[profile] {recipe.model['name']} {what} bf16 bs {bs}, kernel path: step {step_ms:.2f} ms unprofiled "
+              f"({bs / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
               f"{max(0.0, 1 - busy / step_ms):.1%}; device ms per step: "
               + ", ".join(f"{label} {ms:.2f}" for label, ms in split.items())
               + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
@@ -1218,8 +1248,9 @@ def phase_vision_path(dev: torch.device) -> dict:
 
     # images/s, interleaved: K1 path, vision path, vision path, K1 path
     rates = {KERNEL_PATH: [], VISION_PATH: []}
-    for path in (KERNEL_PATH, VISION_PATH, VISION_PATH, KERNEL_PATH):
-        rates[path].append(train_rate(model, state, step, batch, path)[0])
+    for trial, path in enumerate((KERNEL_PATH, VISION_PATH, VISION_PATH, KERNEL_PATH)):
+        rates[path].append(train_rate(model, state, step, batch, path,
+                                      f"[{tag}] bf16 bs {BATCH} trial {trial}, {path[0]} path")[0])
     evals = {KERNEL_PATH: [], VISION_PATH: []}
     for path in (KERNEL_PATH, VISION_PATH, VISION_PATH, KERNEL_PATH):
         path[1](model)
@@ -1259,14 +1290,41 @@ def main() -> None:
     for recipe in (VIT, SWIN):
         serving = phase_slice(dev, recipe)
         training = phase_train(dev, recipe)
-        if recipe is VIT:
-            phase_profile(dev)
+        phase_profile(dev, recipe)
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
     vision = phase_vision_path(dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     report(kern, {k: launches[k] + vision[k] for k in KERNELS})
+
+
+def swin_train_trials(dev: torch.device, trials: int = 3) -> None:
+    """The Swin-B bf16 train step (bs 80, kernel path with the P stash)
+    alone: ``trials`` timed trials, then its device time by kernel class,
+    then the bf16 one-step comparison with the plain path. It uses nothing
+    but the package's public API, so running this file's function against
+    another tree's package (``python3 -c "import runpy, sys; sys.argv =
+    ['chip_smoke.py', '--swin-train-trials']; runpy.run_path('<this
+    file>', run_name='__main__')"`` from that tree's root) A/Bs two trees
+    on one card."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bs = SWIN.train_batch
+    batch = {
+        "image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "label": torch.randint(0, SWIN.model["num_classes"], (bs,), generator=gen, device=dev),
+    }
+    model, state, step = build_trainer(SWIN, torch.bfloat16, dev)
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    for trial in range(trials):
+        train_rate(model, state, step, batch, KERNEL_PATH, f"[swin trials] bf16 bs {bs} trial {trial}, kernel path")
+    split, attention = device_split(lambda: step(state, batch), steps=3)
+    print(f"[swin trials] device busy {sum(split.values()):.2f} ms per step: "
+          + ", ".join(f"{label} {ms:.2f}" for label, ms in split.items())
+          + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
+    del model, state, step
+    torch.cuda.empty_cache()
+    compare_one_step(SWIN, torch.bfloat16, dev, batch, tag="swin trials")
 
 
 def report(kern: dict, launches: dict) -> None:
@@ -1290,4 +1348,9 @@ def report(kern: dict, launches: dict) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--swin-train-trials"]:
+        phase_device()
+        torch.cuda.set_device(0)
+        swin_train_trials(torch.device("cuda", 0))
+    else:
+        main()

@@ -12,6 +12,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import linen as fnn
 
 from visiondk_tpu.engine.state import create_train_state
 from visiondk_tpu.engine.steps import StepConfig as JaxStepConfig
@@ -25,7 +26,7 @@ from visiondk_tpu.models.convert import _flatten
 from visiondk_tpu_torch.engine.steps import (
     StepConfig, device_preprocess, make_embed_step, make_eval_step,
 )
-from visiondk_tpu_torch.models import BACKBONES, get_model
+from visiondk_tpu_torch.models import BACKBONES, EmbeddingNeck, get_model
 from visiondk_tpu_torch.models.backbones.vit import _vit
 from visiondk_tpu_torch.models.convert import load_jax_params
 
@@ -110,3 +111,33 @@ def test_embed_step_keeps_a_zero_embedding_finite():
         port.neck.bn_out.bias.zero_()
     feats = make_embed_step(port, StepConfig())({"image": torch.from_numpy(_batch(3))})
     assert torch.equal(feats, torch.zeros_like(feats))  # x / max(‖x‖, 1e-12), not NaN
+
+
+def test_embedding_neck_batchnorm_updates_stats_as_flax():
+    """The neck's bn_out in train mode against flax ``nn.BatchNorm`` (momentum
+    0.9, eps 1e-5) over three steps from the same scale, bias and statistics:
+    outputs and ``batch_stats``. flax updates the running variance with the
+    biased batch variance; torch's own BatchNorm1d takes the unbiased one, 8/7
+    of it at batch 8."""
+    rng = np.random.default_rng(9)
+    feat = 16
+    flax_bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    params = {"scale": (1 + 0.1 * rng.normal(size=feat)).astype(np.float32),
+              "bias": (0.1 * rng.normal(size=feat)).astype(np.float32)}
+    stats = {"mean": rng.normal(size=feat).astype(np.float32),
+             "var": (0.5 + rng.random(feat)).astype(np.float32)}
+    bn = EmbeddingNeck((4, 8), feat).bn_out.train()
+    with torch.no_grad():
+        for name, value in (("weight", params["scale"]), ("bias", params["bias"]),
+                            ("running_mean", stats["mean"]), ("running_var", stats["var"])):
+            getattr(bn, name).copy_(torch.from_numpy(value))
+    for _ in range(3):
+        x = (1.0 + 2.0 * rng.normal(size=(8, feat))).astype(np.float32)
+        ref, updated = flax_bn.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                                     mutable=["batch_stats"])
+        stats = jax.tree_util.tree_map(np.asarray, dict(updated["batch_stats"]))
+        out = bn(torch.from_numpy(x))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(bn.running_mean.numpy(), stats["mean"], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(bn.running_var.numpy(), stats["var"], rtol=1e-6, atol=1e-6)
+    assert bn.num_batches_tracked.item() == 3

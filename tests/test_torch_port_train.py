@@ -320,6 +320,9 @@ BUILD_TX_CASES = {
     "layer_wise_head": ({**PET_SYNTH_HYP, "optimizer": ["sgd", True]}, 2, True, {}),
     "backbone_freeze": (PET_SYNTH_HYP, 2, True, {"backbone_freeze": True}),
     "adam_linear": ({**PET_SYNTH_HYP, "optimizer": ["adam"], "scheduler": "linear_with_warm"}, 2, True, {}),
+    # momentum 0 through the warm-up: optax's trace lives through it, so the
+    # first step after it is g + 0.937·v (torch.optim.SGD would restart at g)
+    "warmup_momentum_0": ({**PET_SYNTH_HYP, "warmup_momentum": 0.0}, 2, True, {}),
 }
 
 

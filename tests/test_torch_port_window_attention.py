@@ -214,11 +214,21 @@ def test_window_partition_and_reverse_are_inverse_and_row_major():
 
 
 def test_backward_blocks_take_fixed_runs_of_windows():
-    """Every backward block takes a fixed run of windows for one head, about
-    eight blocks on each of an H100's SMs, never less than one window."""
-    assert W.windows_per_chunk(80, 64, 4) == 20  # Swin-B stage 0 at bs 80: 256 runs × 4 heads
-    assert W.windows_per_chunk(80, 4, 16) == 5
-    assert W.windows_per_chunk(4, 4, 2) == 1
+    """Every backward block takes a fixed run of windows for one head, never
+    less than one window, so that the blocks of every head fit one wave on an
+    H100's 132 SMs: at about eight blocks an SM for the f32 kernel (1056), at
+    three (396) for the bf16 one from P and two (264) for it recomputing."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for recompute in (False, True):
+        assert W.windows_per_chunk(80, 64, 4, f32, recompute) == 20  # Swin-B stage 0 at bs 80: 256 runs × 4 heads
+        assert W.windows_per_chunk(80, 4, 16, f32, recompute) == 5
+        assert W.windows_per_chunk(4, 4, 2, f32, recompute) == 1
+        assert W.windows_per_chunk(4, 4, 2, bf16, recompute) == 1
+    assert W.windows_per_chunk(80, 64, 4, bf16, False) == 52  # 99 runs × 4 heads = 396 blocks
+    assert W.windows_per_chunk(80, 4, 16, bf16, False) == 14  # stage 2: 23 runs × 16 heads = 368
+    assert W.windows_per_chunk(80, 1, 32, bf16, False) == 7   # stage 3: 12 runs × 32 heads = 384
+    assert W.windows_per_chunk(80, 64, 4, bf16, True) == 78   # 66 runs × 4 heads = 264
+    assert W.windows_per_chunk(80, 4, 16, bf16, True) == 20   # 16 runs × 16 heads = 256
 
 
 _B, _H, _W, _HEADS, _C, _WS = 2, 8, 8, 2, 16, 4

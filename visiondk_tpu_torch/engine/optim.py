@@ -24,8 +24,9 @@ from the gradients in ``.grad``:
 - **Schedules**: lr and momentum are evaluated at the count of updates
   applied so far, before it is incremented (optax ``inject_hyperparams``),
   and set on the param groups before every step.
-- torch ``SGD`` (g ← g + wd·p; v ← μ·v + g; p ← p − lr·v) and ``Adam`` with
-  L2-coupled weight decay are the optax chains' math; both run ``foreach``.
+- ``SGD`` below (g ← g + wd·p; v ← μ·v + g; p ← p − lr·v, the trace kept
+  through μ = 0 steps as optax's) and torch ``Adam`` with L2-coupled weight
+  decay are the optax chains' math; both run ``foreach``.
 
 Not ported yet: SAM (``sam_perturb`` and its two-pass step; ``create_optimizer``
 raises for ``sam``).
@@ -60,10 +61,38 @@ class SAMConfig:
 # --- registry entries: factory(param_groups, weight_decay) -> torch.optim.Optimizer ---
 
 
+class SGD(torch.optim.Optimizer):
+    """The optax chain [add_decayed_weights(wd), trace(μ), scale_by_learning_rate(lr)]
+    with foreach ops: g ← g + wd·p; v ← μ·v + g; p ← p − lr·v. The trace v
+    starts at 0 and is kept through steps with μ = 0, as optax keeps it
+    (``torch.optim.SGD`` keeps no buffer while μ = 0 and restarts it at v = g
+    when μ turns non-zero)."""
+
+    def __init__(self, param_groups: List[dict], weight_decay: float):
+        super().__init__(param_groups, {"lr": 0.0, "momentum": 0.0, "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:  # the foreach ops take no empty lists
+                continue
+            for p in params:
+                if "momentum_buffer" not in self.state[p]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            trace = [self.state[p]["momentum_buffer"] for p in params]
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            torch._foreach_mul_(trace, group["momentum"])
+            torch._foreach_add_(trace, grads)
+            torch._foreach_add_(params, trace, alpha=-group["lr"])
+
+
 @OPTIMIZER.register(name="sgd")
 def sgd(param_groups: List[dict], weight_decay: float) -> torch.optim.Optimizer:
     # lr and momentum are set from the schedules before every step
-    return torch.optim.SGD(param_groups, lr=0.0, momentum=0.0, weight_decay=weight_decay, foreach=True)
+    return SGD(param_groups, weight_decay)
 
 
 @OPTIMIZER.register(name="adam")

@@ -23,7 +23,7 @@ from torch import nn
 
 from visiondk_tpu_torch.config.checks import canonical_model_name
 from visiondk_tpu_torch.models.backbones import BACKBONES
-from visiondk_tpu_torch.models.layers import LayerNorm, Linear, init_params
+from visiondk_tpu_torch.models.layers import BatchNorm1d, LayerNorm, Linear, init_params
 
 
 class EmbeddingNeck(nn.Module):
@@ -38,7 +38,7 @@ class EmbeddingNeck(nn.Module):
         self.norm = LayerNorm(c, dtype=dtype)
         self.proj = Linear(n * c, feat_dim, dtype=dtype)
         # flax BatchNorm(momentum=0.9, epsilon=1e-5) ↔ torch momentum 0.1
-        self.bn_out = nn.BatchNorm1d(feat_dim, eps=1e-5, momentum=0.1)
+        self.bn_out = BatchNorm1d(feat_dim, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim != 3:

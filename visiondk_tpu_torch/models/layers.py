@@ -52,6 +52,25 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+class BatchNorm1d(nn.BatchNorm1d):
+    """flax ``BatchNorm`` over [B, C]: in train mode it normalises with the
+    batch's biased variance, as torch does, and also updates ``running_var``
+    with that biased variance (torch's own uses the unbiased one, × n/(n−1)).
+    ``momentum`` is torch's (flax momentum 0.9 ↔ 0.1); the state-dict keys are
+    torch's, so the weight bridge maps it unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            mean = x.mean(dim=0)
+            var = x.var(dim=0, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class DropPath(nn.Module):
     """Stochastic depth: drop a residual branch per sample (timm semantics:
     survivors scaled by 1/keep_prob). Identity in eval mode."""

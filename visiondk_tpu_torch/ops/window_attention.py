@@ -63,9 +63,15 @@ _FWD_LIB = "fused_window_attention"
 _BWD_LIB = "fused_window_attention_bwd"
 _MAX_WS = 8
 _MAX_HEAD_DIM = 64
-# The backward's blocks each take a fixed run of windows for one head; this
-# many blocks (8 on each of an H100's 132 SMs) sets the run's length.
-_BWD_TARGET_BLOCKS = 1056
+# The backward's blocks each take a fixed run of windows for one head; the
+# runs are as short as keep every head's blocks within one wave on an H100's
+# 132 SMs at this many blocks an SM, by (dtype, recompute): about 8 for the
+# f32 CUDA-core kernel; for the bf16 tensor-core kernel the 3 (from P) or 2
+# (recomputing) an SM holds, so that each block's loads of its next window
+# overlap its products.
+_SMS = 132
+_BWD_BLOCKS_PER_SM = {(torch.float32, False): 8, (torch.float32, True): 8,
+                      (torch.bfloat16, False): 3, (torch.bfloat16, True): 2}
 
 
 def _window_size(bias: torch.Tensor, heads: int) -> int:
@@ -270,16 +276,17 @@ def _launch_fwd(qkv, bias, ids, heads, scale, stash: bool):
     return out, p
 
 
-def windows_per_chunk(batch: int, n_win: int, heads: int) -> int:
+def windows_per_chunk(batch: int, n_win: int, heads: int, dtype: torch.dtype, recompute: bool) -> int:
     """Windows each backward block takes, in a fixed order, for one head."""
-    return max(1, -(-batch * n_win * heads // _BWD_TARGET_BLOCKS))
+    chunks = max(1, _SMS * _BWD_BLOCKS_PER_SM[dtype, recompute] // heads)
+    return -(-batch * n_win // chunks)
 
 
 def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
     """The backward kernel (from P when ``p`` is given, else recomputing it
     from bias and ids), then the fixed-order sum of its dbias partials."""
     b, hh, ww, _, d, ws, n_win = _layout(qkv, heads, n, ids)
-    per_chunk = windows_per_chunk(b, n_win, heads)
+    per_chunk = windows_per_chunk(b, n_win, heads, qkv.dtype, p is None)
     n_chunks = -(-b * n_win // per_chunk)
     dqkv = torch.empty_like(qkv)
     dbias_part = torch.empty((n_chunks, heads, n, n), dtype=torch.float32, device=qkv.device)
