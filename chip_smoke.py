@@ -13,13 +13,14 @@ Phases, one line or more each; any failure raises and exits non-zero:
              backwards; fused window attention: the same two) with nvcc for
              sm_90a into visiondk_tpu_torch/_build/, one nvcc each, all in
              parallel, and prints ptxas' register and spill lines. Reads the
-             SASS of the two fused-QKV libraries and of the window backward
-             (cuobjdump): every bf16 instantiation of the forward, dq and dkv
-             kernels (head-dim buckets 32, 64, 80, 128 x variant) and of the
-             window backward (32, 64 x from P, recompute shifted, recompute
-             unshifted) must issue tensor-core instructions (HMMA, or HGMMA
-             for wgmma), counted per kernel; the float32 CUDA-core kernels
-             must have no bf16 instantiation.
+             SASS of all four libraries (cuobjdump): every bf16 instantiation
+             of the forward, dq and dkv kernels (head-dim buckets 32, 64, 80,
+             128 x variant), of the window forward (32, 64 x shift regions
+             or none x stash or none) and of the window backward (32, 64 x
+             from P, recompute shifted, recompute unshifted) must issue
+             tensor-core instructions (HMMA, or HGMMA for wgmma), counted per
+             kernel; the float32 CUDA-core kernels must have no bf16
+             instantiation.
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
@@ -48,7 +49,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
              16 heads, shifted; stage 3: 7×7, 32 heads, one window) and at odd
              shapes (the JAX kernel test's B=4, 8×8, ws 4, 2 heads, shift 2;
              ws 8 with head dim 64 and scale 1.0, SwinV2's call; head dim 12,
-             whose rows are not 16-byte aligned). O, P and dqkv
+             whose rows are not 16-byte aligned: the bf16 kernels load and
+             store them element by element). In bf16 all four run on the
+             tensor cores, the forwards over fixed runs of windows per block
+             with the stash written through shared memory (its 49 x 49 tiles
+             are not 16-byte aligned). O, P and dqkv
              are held to phase 3's bars; the stash forward's O must be
              bit-equal to the no-stash kernel's; dbias (f32 in both dtypes)
              within 1e-4 · max(1, max |plain|): both sides sum the same f32
@@ -435,11 +440,14 @@ def sass_mma_counts(lib_path) -> dict:
 TC_KERNELS = {"fused_qkv_attention": ("fused_attention_fwd_tc_kernel", "fused_attention_fwd_kernel"),
               "fused_qkv_attention_bwd": ("attention_bwd_dq_tc_kernel", "attention_bwd_dkv_tc_kernel",
                                           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"),
+              "fused_window_attention": ("window_attention_fwd_tc_kernel", "window_attention_fwd_kernel"),
               "fused_window_attention_bwd": ("window_attention_bwd_tc_kernel", "window_attention_bwd_kernel")}
 # bf16 instantiations of each tensor-core kernel, per library: head-dim buckets
-# 32, 64, 80, 128 x two variants (fused QKV); 32, 64 x three variants (window
-# backward: from P, recompute with and without shift regions)
-TC_INSTANTIATIONS = {"fused_qkv_attention": 8, "fused_qkv_attention_bwd": 8, "fused_window_attention_bwd": 6}
+# 32, 64, 80, 128 x two variants (fused QKV); 32, 64 x shift regions or none x
+# stash or none (window forward); 32, 64 x three variants (window backward:
+# from P, recompute with and without shift regions)
+TC_INSTANTIATIONS = {"fused_qkv_attention": 8, "fused_qkv_attention_bwd": 8, "fused_window_attention": 8,
+                     "fused_window_attention_bwd": 6}
 
 
 def check_sass(built) -> None:

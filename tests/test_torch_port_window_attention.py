@@ -231,6 +231,31 @@ def test_backward_blocks_take_fixed_runs_of_windows():
     assert W.windows_per_chunk(80, 4, 16, bf16, True) == 20   # 16 runs × 16 heads = 256
 
 
+@pytest.mark.parametrize(
+    "batch,n_win,heads,per_run",
+    [(80, 64, 4, 39),   # Swin-B stage 0 at bs 80: 132 runs × 4 heads = 528 blocks
+     (80, 16, 8, 20),   # stage 1: 64 runs × 8 heads = 512
+     (80, 4, 16, 10),   # stage 2: 32 runs × 16 heads = 512
+     (80, 1, 32, 5),    # stage 3: 16 runs × 32 heads = 512
+     (128, 64, 4, 63),  # stage 0 at the serving batch: 131 runs × 4 heads
+     (4, 4, 2, 1),      # the JAX kernel test's shape: one window a block
+     (1, 1, 600, 1)],   # more heads than four blocks an SM: one window a block
+)
+def test_forward_blocks_take_fixed_runs_of_windows(batch, n_win, heads, per_run):
+    """Every bf16 forward block takes a fixed run of windows for one head, as
+    the kernel walks it (windows [t0, t0 + count) of run t0 / per_run): the runs
+    cover every window once, in order, with none empty, and all heads' blocks
+    fit one wave of four blocks an SM on an H100's 132 SMs where they can."""
+    per = W.forward_windows_per_chunk(batch, n_win, heads)
+    assert per == per_run
+    total = batch * n_win
+    n_runs = -(-total // per)  # the launch's grid, as csrc/fused_window_attention.cu computes it
+    runs = [(t0, min(per, total - t0)) for t0 in range(0, n_runs * per, per)]
+    assert all(count >= 1 for _, count in runs)
+    assert [t for t0, count in runs for t in range(t0, t0 + count)] == list(range(total))
+    assert n_runs * heads <= 132 * 4 or n_runs == 1
+
+
 _B, _H, _W, _HEADS, _C, _WS = 2, 8, 8, 2, 16, 4
 _N = _WS * _WS
 

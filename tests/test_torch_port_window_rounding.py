@@ -1,10 +1,25 @@
-"""The rounding points of the bf16 tensor-core window backward, modelled in
+"""The rounding points of the bf16 tensor-core window kernels, modelled in
 plain PyTorch and held to a quarter of chip_smoke.py's bf16 bars.
 
-``csrc/fused_window_attention_bwd.cu`` runs its products on the tensor cores
-with bf16 operands and f32 accumulation. That rounds some values the plain
-versions (``ops/window_attention.py``, the reference kernel's arithmetic)
-keep in f32. The model below rounds at exactly the kernel's points:
+``csrc/fused_window_attention.cu`` (the forward) and
+``csrc/fused_window_attention_bwd.cu`` (the backward) run their products on
+the tensor cores with bf16 operands and f32 accumulation. The forward rounds
+where the plain version (``ops/window_attention.py``, the reference kernel's
+arithmetic) rounds, but scales the scores after the product:
+
+- S is the f32 sum of the bf16 products q·kᵀ, times scale·log2(e), plus
+  bias·log2(e) and the −100·log2(e) region mask (the plain version scales q
+  first: a last-bit difference in S);
+- P = exp2(S − rowmax) · (1 / rowsum) is rounded once to bf16;
+- O is the f32 sum of the bf16 P times the bf16 V, then rounded.
+
+A last-bit difference in S flips P's bf16 rounding by one ulp now and then;
+P's bar is 2⁻⁸, one ulp at p ≤ 1, and O is held to a quarter of its bar
+before its last rounding (the same half-bar flips as below) and to the full
+bar after it.
+
+The backward rounds some values the plain versions keep in f32. The model
+below rounds at exactly the kernel's points:
 
 - q, k, v and dO are the bf16 inputs; every product sums in f32;
 - the stashed P is bf16 already and multiplies as it is;
@@ -37,7 +52,8 @@ from visiondk_tpu_torch.ops import window_attention as W
 
 LOG2E = 1.4426950408889634
 BF16 = torch.bfloat16
-TOL = 1.6e-2  # chip_smoke.py's bf16 bar on dqkv, of max(1, |plain|)
+TOL = 1.6e-2  # chip_smoke.py's bf16 bar on O (absolute) and on dqkv (of max(1, |plain|))
+P_TOL = 2.0**-8  # chip_smoke.py's bf16 bar on P
 DQKV_TOL = TOL / 4
 DBIAS_TOL = 1e-4 / 4  # of max(1, max |plain|)
 
@@ -73,6 +89,27 @@ def _product(a, b, split: bool):
     return hi @ b + _bf(a - hi) @ b
 
 
+def _kernel_probs(q, k, bias, ids, sc):
+    """P in f32, not rounded, from S = the f32 product q·kᵀ scaled after the
+    sum, + bias·log2(e) [+ the region mask], as both kernels form it."""
+    s = (q @ k.transpose(-1, -2)) * (sc * LOG2E) + bias * LOG2E
+    if ids is not None:
+        apart = ids[:, :, None] != ids[:, None, :]
+        s = s + torch.where(apart, -100.0 * LOG2E, 0.0)[None, :, None]
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    return e * (1.0 / e.sum(dim=-1, keepdim=True))
+
+
+def model_forward(qkv, bias, ids, heads, scale=None, out_dtype=BF16):
+    """(O [B, H, W, C] in ``out_dtype``, P [B, nW, heads, N, N] bf16), rounded
+    where the tensor-core forward rounds: P once to bf16, O after its f32 sum."""
+    n = bias.shape[-1]
+    _, hh, ww, _, d, ws, _ = W._layout(qkv, heads, n, ids)
+    q, k, v = (t.float() for t in W._split(qkv, ws, heads, d))
+    p = _kernel_probs(q, k, bias, ids, d**-0.5 if scale is None else scale).to(BF16)
+    return W._merge([p.float() @ v], ws, hh, ww, out_dtype), p
+
+
 def model_backward(qkv, dout, bias, ids, heads, scale=None, p_stash=None, split=True, out_dtype=BF16):
     """(dqkv [B, H, W, 3C] in ``out_dtype``, dbias [heads, N, N] f32), rounded
     where the kernel rounds: recompute (``p_stash`` None) or from the stash."""
@@ -82,12 +119,7 @@ def model_backward(qkv, dout, bias, ids, heads, scale=None, p_stash=None, split=
     do = W._split(dout, ws, heads, d)[0].float()
     sc = d**-0.5 if scale is None else scale
     if p_stash is None:
-        s = (q @ k.transpose(-1, -2)) * (sc * LOG2E) + bias * LOG2E  # scaled after the f32 product
-        if ids is not None:
-            apart = ids[:, :, None] != ids[:, None, :]
-            s = s + torch.where(apart, -100.0 * LOG2E, 0.0)[None, :, None]
-        e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        p = e * (1.0 / e.sum(dim=-1, keepdim=True))  # f32, not rounded
+        p = _kernel_probs(q, k, bias, ids, sc)  # f32, not rounded
         dv = _product(p.transpose(-1, -2), do, split)
     else:
         p = p_stash.float()
@@ -126,6 +158,27 @@ def _both(case, variant, split=True):
     out, out_db = model_backward(qkv, dout, bias, ids, heads, scale, p, split)
     out32, _ = model_backward(qkv, dout, bias, ids, heads, scale, p, split, torch.float32)
     return (out, out32, out_db), (ref, ref32, ref_db)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_forward_rounding_within_a_quarter_of_the_bars(case):
+    """O and P of the model against the plain stash forward: P within 2⁻⁸, O
+    before its last rounding within a quarter of the bar, O within the bar."""
+    _, _, hh, heads, _, ws, _, scale = case
+    qkv, _, bias, ids = _inputs(case)
+    ref, ref_p = W.fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale)
+    v = W._split(qkv, ws, heads, qkv.shape[-1] // (3 * heads))[2].float()
+    ref32 = W._merge([ref_p.float() @ v], ws, hh, hh, torch.float32)
+    assert torch.equal(ref32.to(BF16), ref)  # the plain version's O before its last rounding
+    out, p = model_forward(qkv, bias, ids, heads, scale)
+    out32, _ = model_forward(qkv, bias, ids, heads, scale, torch.float32)
+    assert out.shape == ref.shape and out.dtype == ref.dtype and p.shape == ref_p.shape and p.dtype == BF16
+    assert torch.isfinite(out32).all()
+    p_err = (p.float() - ref_p.float()).abs().max().item()
+    assert p_err <= P_TOL, f"P {p_err} > {P_TOL}"
+    err32 = (out32 - ref32).abs().max().item()
+    assert err32 <= TOL / 4, f"O before rounding {err32} > {TOL / 4}"
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize("variant", ["recompute", "from_p"])

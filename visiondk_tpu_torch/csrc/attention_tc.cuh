@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the bfloat16 attention kernels
-// (fused_qkv_attention.cu, fused_qkv_attention_bwd.cu): asynchronous tile
+// (fused_qkv_attention.cu, fused_qkv_attention_bwd.cu,
+// fused_window_attention.cu, fused_window_attention_bwd.cu): asynchronous tile
 // loads into shared memory, ldmatrix fragments, the m16n8k16 bf16 MMA with
 // f32 accumulation, and tile stores.
 //
@@ -185,6 +186,50 @@ __device__ __forceinline__ void accumulate_tn(float (&acc)[DP / 8][4], const uin
   for (int dp = 0; dp < DP / 16; ++dp) {
     uint32_t bf[4];
     ldmatrix_x4_trans(bf, b + (kk * 16 + bt_row(lane)) * ld + dp * 16 + bt_col(lane));
+    mma(acc[2 * dp], hi, bf[0], bf[1]);
+    mma(acc[2 * dp + 1], hi, bf[2], bf[3]);
+    if (kSplit) {
+      mma(acc[2 * dp], lo, bf[0], bf[1]);
+      mma(acc[2 * dp + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+// c = A . B^T as product_nt for tiles of only n rows (the window kernels):
+// A the 16 rows from a_row0 of a row-major tile, B its first NT * 8 rows;
+// rows at or past n read row n - 1 (finite values; the caller masks what
+// they give).
+template <int DP, int NT>
+__device__ __forceinline__ void product_nt_rows(float (&c)[NT][4], const bf16* a, int a_row0, const bf16* b,
+                                                int ld, int n, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const bf16* a_lane = a + min(a_row0 + a_row(lane), n - 1) * ld + a_col(lane);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a_lane + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + min(np * 16 + b_row(lane), n - 1) * ld + kk * 16 + b_col(lane));
+      mma(c[2 * np], af, bf[0], bf[1]);
+      mma(c[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc += A . B as accumulate_tn for tiles of only n rows: B's rows at or
+// past n read row n - 1 (A must be 0 in those columns).
+template <int DP, bool kSplit>
+__device__ __forceinline__ void accumulate_tn_rows(float (&acc)[DP / 8][4], const uint32_t (&hi)[4],
+                                                   const uint32_t (&lo)[4], const bf16* b, int ld, int kk, int n,
+                                                   int lane) {
+  const bf16* b_lane = b + min(kk * 16 + bt_row(lane), n - 1) * ld + bt_col(lane);
+#pragma unroll
+  for (int dp = 0; dp < DP / 16; ++dp) {
+    uint32_t bf[4];
+    ldmatrix_x4_trans(bf, b_lane + dp * 16);
     mma(acc[2 * dp], hi, bf[0], bf[1]);
     mma(acc[2 * dp + 1], hi, bf[2], bf[3]);
     if (kSplit) {

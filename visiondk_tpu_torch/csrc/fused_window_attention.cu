@@ -3,8 +3,9 @@
 // P [B, nW, heads, N, N] for the backward.
 //
 // Replaces the Pallas TPU kernel visiondk_tpu/ops/pallas/window_attention.py::
-// _wattn_fwd_kernel in both of its launches: by _wattn_fwd (K2, the no-stash
-// forward of fused_window_attention) and by _wattn_vjp_fwd (K2s, the training
+// _wattn_fwd_kernel (:246-290, scores by _scores :224-243) in both of its
+// launches: by _wattn_fwd (:467; K2, the no-stash forward of
+// fused_window_attention) and by _wattn_vjp_fwd (:521; K2s, the training
 // forward, which also writes p_ref; the window pairing of VDK_WATTN_PAIR > 1
 // is TPU layout machinery and is not ported). It keeps that kernel's layout
 // contract and does the window partition itself: row r of window (wy, wx) is
@@ -13,37 +14,75 @@
 // back to the same pixel of [B, H, W, C]. No partition or reverse copy ever
 // reaches device memory.
 //
-// Math, per (window, head, batch row), as the reference does it
-// (window_attention.py:224-290), all in f32 from upcast operands:
-//   S = (q * scale * log2(e)) . k^T + bias_h * log2(e)      (log2 domain)
+// Math, per (window, head, batch row), as the reference does it, in f32 from
+// the input dtype's values:
+//   S = (q . k^T) * scale * log2(e) + bias_h * log2(e)      (log2 domain)
 //   S += -100 * log2(e) where the region ids of query and key differ
-//        (shifted windows only; the unshifted variant does no mask work)
+//        (shifted windows only; the unshifted variants do no mask work)
 //   P = exp2(S - rowmax) * (1 / rowsum), rounded to the input dtype
-//   O = P . v, accumulated in f32, rounded to the input dtype
-// With the stash (kStash), P is written from where it is formed, the rounded
-// value that multiplies V; the stash only adds stores, so O is bit-for-bit
-// the no-stash kernel's.
+//   O = P . v, summed in f32, rounded to the input dtype
+// The reference scales q before the product; the kernels scale the f32 sum
+// after it (a last-bit difference in S, which flips P's rounding by one ulp
+// now and then: tests/test_torch_port_window_rounding.py models it). With
+// the stash (kStash), P is written from where it is formed, the rounded value
+// that multiplies V; the stash only adds stores, so O is bit-for-bit the
+// no-stash kernel's.
 //
-// What bounds it. A window is tiny (Swin: N = 49 tokens, d = 32), so the
-// whole (window, head) fits in one block: q, k, v take 3 * 49 * 32 values
-// and the scores 49 * 49. The work per block is two products of depth 32 over
-// 49^2 pairs and the softmax's exp2 on each pair; the bytes are qkv in, O out
-// and, with the stash, P out (Swin-B stage 0, bf16, bs 80: 193 MB in, 64 MB
-// out, 98 MB of P). So on this card it is memory-bound at the sizes Swin
-// runs (about 0.1 ms of HBM traffic at stage 0), provided enough windows are
-// in flight to hide each block's load latency. What the design does: one
-// pass over the row (a whole row of scores fits in registers, so there is no
-// running max and no second pass); the scores, the mask and the partition
-// never leave the SM; the bias tile is read from global memory, where every
-// block of a head reads the same [N, N] f32 tile out of L2; shared memory is
-// sized by N (about 32 KB at N = 49, d = 32), so several blocks share an SM.
-// Products run on CUDA cores out of shared memory; tensor-core products and
-// several windows per block are later work.
+// What bounds it on the H100: bytes. A window is tiny (Swin: N = 49 tokens,
+// d = 32); per (window, head) the work is two products of 49 x 49 x 32 and
+// 49^2 exp2, and the bytes are q, k, v in, O out and, with the stash, P out.
+// At Swin-B stage 0 (bs 80, 56^2, 4 heads, bf16) that is 256.9 MB (0.077 ms
+// at 3.35 TB/s) against 6.3 GFLOP (0.006 ms at the bf16 tensor-core peak);
+// the stash adds 98.3 MB (0.106 ms in all).
 //
-// Grid: one block per (window, head, batch row); 256 threads. Thread t owns
-// window row t / 4 and the keys (t % 4) + 4j, j < 16; for P . V it owns the
-// output dims (t % 4) + 4i. The four threads of a row are adjacent lanes, so
-// row reductions are two xor-shuffles. Rows >= N idle (N = 49: 15 of 64).
+// bfloat16 (the main path): tensor cores. The first design (the f32 kernel
+// below, once also bf16's: one block per (window, head, batch row), products
+// on CUDA cores out of f32 shared memory) issued about one shared-memory load
+// per multiply-add, loaded each window synchronously with 2-byte loads and
+// computed only after a barrier: shared-memory issue and each window's load
+// latency, not the bytes, set its time (10% and 14% of the bound). This
+// design, the window backward's (fused_window_attention_bwd.cu) applied to
+// the forward:
+//   - a block takes one head and a fixed run of `per_chunk` consecutive
+//     windows (batch-row-major); the wrapper sizes the runs so that one wave
+//     of blocks covers the call. A window's rows and keys pad to 64 = four
+//     16-row MMA tiles, one warp each (4 warps a block).
+//   - a two-stage cp.async ring: window t + 1's q, k, v head slices (16-byte
+//     chunks when rows are 16-byte aligned and d is a multiple of 8, else
+//     element by element) and region ids arrive while window t computes; one
+//     barrier a window. Rows past N are never loaded: their ldmatrix
+//     addresses read row N - 1.
+//   - S = q . k^T on mma.sync m16n8k16 (bf16 in, f32 sum) from ldmatrix
+//     fragments; a warp's 16 rows x 64 keys stay in registers (32 f32 a
+//     thread), so the softmax takes one pass with no running max. The head's
+//     bias x log2(e), with -inf at keys past N, is read once per block into
+//     the same fragment positions (32 registers).
+//   - row max and row sum by xor-shuffles across the four lanes of a fragment
+//     row, every lane taking part; P rounded once to bf16 and repacked C -> A
+//     in registers for O += P . V, V's B fragments by ldmatrix.trans.
+//   - O's fragment rows go straight to the pixels' head slices (4-byte stores
+//     where aligned); rows past N are never stored.
+//   - the stash: a 49 x 49 tile is 2,401 bf16, so every other tile starts on
+//     a 2-byte boundary and no row is 16-byte aligned, and no store may touch
+//     a neighbouring tile's bytes. Each warp writes its rows of P, in the
+//     tile's own order, into its staging strip of shared memory at the tile's
+//     16-byte phase, then copies the strip out: 16-byte stores for the pieces
+//     inside its rows, element stores for the (at most two) pieces that its
+//     range cuts. A __syncwarp and no block barrier. (Direct 2-byte global
+//     stores from the fragments would be 32 scattered stores a thread.)
+//   - each thread's pixel offsets (row r of a window is r / ws image rows and
+//     r % ws columns from the window's first pixel) are divided out once per
+//     block, as in the backward.
+// Tried on the card and dropped, none faster at Swin-B's stages 0 and 2: the
+// stash stored straight from the fragments (2-byte stores; far slower), a 3-
+// or 4-stage ring, runs sized for 2, 5 or 8 blocks an SM, the bias held in
+// shared memory instead of registers, and ex2.approx in place of exp2f.
+//
+// float32: the first design's CUDA-core kernel, kept for the f32 bars (O
+// 1e-4, P 1e-5); TF32 products would not hold them. 256 threads, one block
+// per (window, head, batch row); thread t owns window row t / 4 and the keys
+// (t % 4) + 4j, j < 16; for P . V the output dims (t % 4) + 4i. A bf16 tensor
+// never reaches it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //   -shared -Xcompiler -fPIC (see visiondk_tpu_torch/ops/_build.py).
@@ -53,26 +92,30 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxN = 64;                           // ws <= 8
-constexpr int kLanesPerRow = kThreads / kMaxN;      // 4
-constexpr int kColsPerLane = kMaxN / kLanesPerRow;  // 16
+constexpr int kMaxN = 64;  // ws <= 8
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskValue = -144.26950408889634f;  // -100 * log2(e), the reference's region mask
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+struct Args {
+  const void* qkv;    // [B, H, W, 3C]
+  const float* bias;  // [heads, N, N]
+  const int* ids;     // [nW, N] region ids, or NULL (unshifted)
+  void* out;          // [B, H, W, C]
+  void* p;            // [B, nW, heads, N, N], or NULL (no stash)
+  int h_img, w_img, heads, d, ws, n, n_win_x, n_win, total, per_chunk;
+  float q_mul;  // scale * log2(e)
+  int aligned;  // bf16: qkv and out start on 16 bytes, d and C multiples of 8
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
+// ---------------------------------------------------------------- float32
+
+constexpr int kThreads = 256;
+constexpr int kLanesPerRow = kThreads / kMaxN;      // 4
+constexpr int kColsPerLane = kMaxN / kLanesPerRow;  // 16
 
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -88,16 +131,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-struct Args {
-  const void* qkv;    // [B, H, W, 3C]
-  const float* bias;  // [heads, N, N]
-  const int* ids;     // [nW, N] region ids, or NULL (unshifted)
-  void* out;          // [B, H, W, C]
-  void* p;            // [B, nW, heads, N, N], or NULL (no stash)
-  int h_img, w_img, heads, d, ws, n, n_win_x, n_win;
-  float q_mul;  // scale * log2(e)
-};
-
 // Shared memory in floats: q and k [N][DP + 1] (the pad puts the column reads
 // of the score loop in distinct banks), v [N][DP], P [N][N + 1], then N ints
 // of region ids.
@@ -106,7 +139,7 @@ __host__ __device__ constexpr size_t smem_bytes(int n) {
   return sizeof(float) * (2 * n * (DP + 1) + n * DP + n * (n + 1)) + sizeof(int) * n;
 }
 
-template <typename T, int DP, bool kMasked, bool kStash>
+template <int DP, bool kMasked, bool kStash>
 __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   const int n = a.n, d = a.d, ws = a.ws;
@@ -129,16 +162,16 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
     return (static_cast<int64_t>(b) * a.h_img + wy * ws + ry) * a.w_img + wx * ws + (r - ry * ws);
   };
 
-  const T* qkv = static_cast<const T*>(a.qkv);
+  const float* qkv = static_cast<const float*>(a.qkv);
   for (int idx = threadIdx.x; idx < n * DP; idx += kThreads) {
     const int r = idx / DP;
     const int cc = idx - r * DP;
     float qv = 0.f, kv = 0.f, vv = 0.f;
     if (cc < d) {
-      const T* src = qkv + pixel(r) * (3 * static_cast<int64_t>(c)) + h * d + cc;
-      qv = to_float(src[0]) * a.q_mul;
-      kv = to_float(src[c]);
-      vv = to_float(src[2 * c]);
+      const float* src = qkv + pixel(r) * (3 * static_cast<int64_t>(c)) + h * d + cc;
+      qv = src[0] * a.q_mul;
+      kv = src[c];
+      vv = src[2 * c];
     }
     qs[r * (DP + 1) + cc] = qv;
     ks[r * (DP + 1) + cc] = kv;
@@ -192,18 +225,17 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
 #pragma unroll
     for (int j = 0; j < kColsPerLane; ++j) {
       const int key = g + j * kLanesPerRow;
-      if (key < n) ps[r * lp + key] = to_float(from_float<T>(s[j] * inv_l));
+      if (key < n) ps[r * lp + key] = s[j] * inv_l;
     }
   }
   __syncthreads();
 
   if (kStash) {
     // this (window, head)'s N x N tile of P, contiguous in [B, nW, heads, N, N]
-    T* p_tile = static_cast<T*>(a.p) +
-                ((static_cast<int64_t>(b) * a.n_win + w) * a.heads + h) * n * n;
+    float* p_tile = static_cast<float*>(a.p) + ((static_cast<int64_t>(b) * a.n_win + w) * a.heads + h) * n * n;
     for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
       const int pr = idx / n;
-      p_tile[idx] = from_float<T>(ps[pr * lp + idx - pr * n]);
+      p_tile[idx] = ps[pr * lp + idx - pr * n];
     }
   }
 
@@ -218,42 +250,296 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) acc[i] = fmaf(p, vrow[g + i * kLanesPerRow], acc[i]);
     }
-    T* o = static_cast<T*>(a.out) + pixel(r) * c + h * d;
+    float* o = static_cast<float*>(a.out) + pixel(r) * c + h * d;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const int dd = g + i * kLanesPerRow;
-      if (dd < d) o[dd] = from_float<T>(acc[i]);
+      if (dd < d) o[dd] = acc[i];
     }
   }
 }
 
-template <typename T, int DP, bool kMasked, bool kStash>
-cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_kernel<T, DP, kMasked, kStash>;
+// ---------------------------------------------------------------- bfloat16
+
+constexpr int kTcWarps = 4;                    // one per 16-row tile of a window padded to 64
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kNP = kTcWarps * tc::kWarpRows;  // 64: a window's rows and keys, padded
+constexpr int kNT = kNP / 8;                   // n-tiles of 8 keys
+constexpr int kStages = 2;                     // windows in a block's cp.async ring
+static_assert(kLanesPerRow == 4, "row_max and row_sum also reduce the four lanes of an MMA fragment row");
+
+// Shared memory of the tensor-core kernel, in this order: kStages stages of
+// q, k, v [N][DP + 8] bf16; with the stash, each warp's staging strip for its
+// rows of the P tile (16 rows of N, shifted by up to 7 to the tile's 16-byte
+// phase); with shift regions, kStages stages of the window's region ids
+// [kNP] int.
+template <int DP, bool kMasked, bool kStash>
+struct TcSmem {
+  static constexpr int kLd = DP + tc::kPad;
+  __host__ __device__ static constexpr int ops(int n) { return 3 * n * kLd; }  // bf16 elements of one stage
+  __host__ __device__ static constexpr int strip(int n) {
+    return kStash ? (tc::kWarpRows * n + 7 + 7) / 8 * 8 : 0;
+  }
+  static constexpr size_t bytes(int n) {
+    return sizeof(tc::bf16) * (kStages * ops(n) + kTcWarps * strip(n)) +
+           (kMasked ? sizeof(int) * kStages * kNP : 0);
+  }
+};
+
+// The first pixel (row 0) of window t (batch-row-major), as a row index of [B * H * W].
+__device__ __forceinline__ int64_t window_base(const Args& a, int t) {
+  const int b = t / a.n_win, w = t - b * a.n_win;
+  const int wy = w / a.n_win_x, wx = w - wy * a.n_win_x;
+  return (static_cast<int64_t>(b) * a.h_img + wy * a.ws) * a.w_img + wx * a.ws;
+}
+
+// Blocks an SM: four at head dim 32, three at 64; the wrapper sizes its runs
+// of windows for four.
+template <int DP, bool kMasked, bool kStash>
+__global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention_fwd_tc_kernel(Args a) {
+  using namespace tc;
+  using Smem = TcSmem<DP, kMasked, kStash>;
+  constexpr int kLd = Smem::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, d = a.d, ws = a.ws, c = a.heads * d;
+  bf16* ops = reinterpret_cast<bf16*>(smem_raw);
+  bf16* strips = ops + kStages * Smem::ops(n);                            // with the stash
+  int* ids_s = reinterpret_cast<int*>(strips + kTcWarps * Smem::strip(n));  // shifted windows
+
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int t0 = chunk * a.per_chunk;
+  const int count = min(a.per_chunk, a.total - t0);
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  bf16* out = static_cast<bf16*>(a.out);
+
+  // A window's row r is the pixel `base + (r / ws) * w_img + r % ws` of its
+  // first pixel `base`. The divisions are made once per block: each thread
+  // keeps the offsets of the rows it loads (16-byte column lc of rows lr +
+  // kRowStep k) and of the two fragment rows it stores.
+  constexpr int kChunks = DP / 8, kRowStep = kTcThreads / kChunks, kRowLoads = kNP / kRowStep;
+  const int lc = (threadIdx.x % kChunks) * 8, lr = threadIdx.x / kChunks;
+  auto pixel_offset = [&](int r) { return (r / ws) * a.w_img + r % ws; };
+  int load_px[kRowLoads];
+#pragma unroll
+  for (int k = 0; k < kRowLoads; ++k) load_px[k] = pixel_offset(lr + kRowStep * k);
+
+  // Window t0 + i into stage i % kStages: q, k, v rows [0, n) with zeros
+  // past d; the region ids.
+  auto load = [&](int i) {
+    const int t = t0 + i, s = i % kStages;
+    const int64_t base = window_base(a, t);
+    bf16* dst = ops + s * Smem::ops(n) + lc;
+#pragma unroll
+    for (int k = 0; k < kRowLoads; ++k) {
+      const int r = lr + kRowStep * k;
+      if (r >= n) break;
+      const bf16* row = qkv + (base + load_px[k]) * row_stride + h * d + lc;
+#pragma unroll
+      for (int op = 0; op < 3; ++op) {
+        const bf16* src = row + op * c;
+        bf16* to = dst + (op * n + r) * kLd;
+        if (a.aligned) {
+          const bool in = lc < d;
+          cp_async16(to, in ? src : qkv, in ? 16 : 0);
+        } else {
+          uint32_t wv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c0 = lc + 2 * e;
+            const uint32_t x0 = c0 < d ? __bfloat16_as_ushort(src[2 * e]) : 0u;
+            const uint32_t x1 = c0 + 1 < d ? __bfloat16_as_ushort(src[2 * e + 1]) : 0u;
+            wv[e] = x0 | (x1 << 16);
+          }
+          *reinterpret_cast<uint4*>(to) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        }
+      }
+    }
+    if (kMasked) {
+      const int w = t % a.n_win;
+      for (int r = threadIdx.x; r < n; r += kTcThreads) {
+        cp_async4(ids_s + s * kNP + r, a.ids + static_cast<int64_t>(w) * n + r, 4);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = warp * kWarpRows;  // this warp's 16 query rows
+  const int rowc[2] = {min(row0 + g, n - 1), min(row0 + g + 8, n - 1)};  // rows past N: row N - 1's, never stored
+  const int store_px[2] = {pixel_offset(row0 + g), pixel_offset(row0 + g + 8)};
+
+  // bias * log2(e) at this thread's fragment positions (rows row0 + g (+ 8),
+  // keys 8j + 2tq (+ 1)), -inf at keys past N: out of the row
+  float bias2[kNT][4];
+  const float* bias_h = a.bias + static_cast<int64_t>(h) * n * n;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j * 8 + 2 * tq + (e & 1);
+      bias2[j][e] = key < n ? __ldg(bias_h + rowc[e >> 1] * n + key) * kLog2e : -INFINITY;
+    }
+  }
+
+  // One commit group per window, empty past the run, so that window i's is
+  // always kStages - 2 groups before the newest.
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // window i has arrived, and every warp is done with window i - 1
+    if (i + kStages - 1 < count) load(i + kStages - 1);  // into window i - 1's stage
+    cp_async_commit();
+    if (row0 >= n) continue;  // a warp with no rows (N <= 48)
+    const int t = t0 + i, s = i % kStages;
+    const bf16* qs = ops + s * Smem::ops(n);
+    const bf16* ks = qs + n * kLd;
+    const bf16* vs = ks + n * kLd;
+
+    // S = q . k^T, scaled after the sum, + bias [+ region mask]; row max
+    float sc[kNT][4];
+    product_nt_rows<DP, kNT>(sc, qs, row0, ks, kLd, n, lane);
+    const int* ids = ids_s + s * kNP;
+    const int id_row[2] = {kMasked ? ids[rowc[0]] : 0, kMasked ? ids[rowc[1]] : 0};
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * a.q_mul + bias2[j][e];
+        // ids past N hold no window's ids, but x is -inf there whatever is added
+        if (kMasked && ids[j * 8 + 2 * tq + (e & 1)] != id_row[e >> 1]) x += kMaskValue;
+        sc[j][e] = x;
+        m[e >> 1] = fmaxf(m[e >> 1], x);
+      }
+    }
+    // P = exp2(S - m) * (1 / l), rounded to bf16 into A fragments: pa[kk]
+    // holds keys [16 kk, 16 kk + 16). Every lane of the warp shuffles.
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = row_max(m[r]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - m[e >> 1]);
+        l[e >> 1] += sc[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = 1.f / row_sum(l[r]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= l[e >> 1];
+    }
+    uint32_t pa[kNP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kNP / 16; ++kk) a_from_c(pa[kk], sc[2 * kk], sc[2 * kk + 1]);
+
+    if (kStash) {
+      // this (window, head)'s N x N tile, contiguous in [B, nW, heads, N, N];
+      // the warp's rows are its elements [e0, e0 + len), staged at the
+      // strip's index ph + (e - e0), so that strip index 8k is 16-byte
+      // aligned in the tile exactly where it is in the strip
+      bf16* tile = static_cast<bf16*>(a.p) + (static_cast<int64_t>(t) * a.heads + h) * n * n;
+      const int e0 = row0 * n, len = (min(row0 + kWarpRows, n) - row0) * n;
+      const int ph = static_cast<int>(((reinterpret_cast<uintptr_t>(tile) >> 1) + e0) & 7);
+      bf16* strip = strips + warp * Smem::strip(n);
+      uint16_t* strip16 = reinterpret_cast<uint16_t*>(strip) + ph;
+#pragma unroll
+      for (int kk = 0; kk < kNP / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {  // a0..a3: (row g or g + 8, keys 16kk + 2tq (+ 8), + 1)
+          const int row = g + 8 * (x & 1), key = kk * 16 + 8 * (x >> 1) + 2 * tq;
+          if (row0 + row < n) {
+            if (key < n) strip16[row * n + key] = static_cast<uint16_t>(pa[kk][x] & 0xffffu);
+            if (key + 1 < n) strip16[row * n + key + 1] = static_cast<uint16_t>(pa[kk][x] >> 16);
+          }
+        }
+      }
+      __syncwarp();
+      bf16* dst = tile + e0 - ph;  // 16-byte aligned; only [ph, ph + len) is this warp's
+      for (int k = 8 * lane; k < ph + len; k += 8 * 32) {
+        if (k >= ph && k + 8 <= ph + len) {
+          *reinterpret_cast<uint4*>(dst + k) = *reinterpret_cast<const uint4*>(strip + k);
+        } else {
+          for (int x = max(k, ph); x < min(k + 8, ph + len); ++x) dst[x] = strip[x];
+        }
+      }
+    }
+
+    // O = P . V, rounded to bf16 into the rows' pixels
+    float o[DP / 8][4];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kNP / 16; ++kk) {
+      if (kk * 16 < n) accumulate_tn_rows<DP, false>(o, pa[kk], pa[kk], vs, kLd, kk, n, lane);
+    }
+    const int64_t base = window_base(a, t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + g + 8 * r >= n) continue;
+      bf16* dst = out + (base + store_px[r]) * c + h * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = j * 8 + 2 * tq;
+        if (a.aligned) {
+          if (col < d) *reinterpret_cast<uint32_t*>(dst + col) = pack(o[j][2 * r], o[j][2 * r + 1]);
+        } else {
+          if (col < d) dst[col] = __float2bfloat16(o[j][2 * r]);
+          if (col + 1 < d) dst[col + 1] = __float2bfloat16(o[j][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launches
+
+template <int DP, bool kMasked, bool kStash>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  auto kernel = window_attention_fwd_kernel<DP, kMasked, kStash>;
   const size_t bytes = smem_bytes<DP>(a.n);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.n_win, a.heads, b), kThreads, bytes, stream>>>(a);
+  kernel<<<dim3(a.n_win, a.heads, a.total / a.n_win), kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DP, bool kMasked>
-cudaError_t dispatch_stash(const Args& a, int b, cudaStream_t stream) {
-  if (a.p != nullptr) return launch<T, DP, kMasked, true>(a, b, stream);
-  return launch<T, DP, kMasked, false>(a, b, stream);
+// A grid of (run of windows, head).
+template <int DP, bool kMasked, bool kStash>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  auto kernel = window_attention_fwd_tc_kernel<DP, kMasked, kStash>;
+  const size_t bytes = TcSmem<DP, kMasked, kStash>::bytes(a.n);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int n_chunks = (a.total + a.per_chunk - 1) / a.per_chunk;
+  kernel<<<dim3(n_chunks, a.heads), kTcThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dispatch_mask(const Args& a, int b, cudaStream_t stream) {
-  if (a.ids != nullptr) return dispatch_stash<T, DP, true>(a, b, stream);
-  return dispatch_stash<T, DP, false>(a, b, stream);
+// float32 -> the CUDA-core kernel, bfloat16 -> the tensor-core kernel; DP is
+// the head-dim bucket, then shift regions or none, stash or none.
+template <int DP, bool kMasked>
+cudaError_t dispatch_stash(const Args& a, int dtype, cudaStream_t s) {
+  if (dtype == 0) return a.p != nullptr ? launch_f32<DP, kMasked, true>(a, s) : launch_f32<DP, kMasked, false>(a, s);
+  return a.p != nullptr ? launch_tc<DP, kMasked, true>(a, s) : launch_tc<DP, kMasked, false>(a, s);
 }
 
-template <typename T>
-cudaError_t dispatch_dim(const Args& a, int b, cudaStream_t stream) {
-  if (a.d <= 32) return dispatch_mask<T, 32>(a, b, stream);
-  return dispatch_mask<T, 64>(a, b, stream);
+template <int DP>
+cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
+  if (a.ids != nullptr) return dispatch_stash<DP, true>(a, dtype, s);
+  return dispatch_stash<DP, false>(a, dtype, s);
 }
 
 }  // namespace
@@ -263,29 +549,29 @@ cudaError_t dispatch_dim(const Args& a, int b, cudaStream_t stream) {
 // (nW = (h_img / ws) * (w_img / ws), windows row-major) or NULL for unshifted
 // windows; out: [b, h_img, w_img, heads * head_dim] of `dtype`; p: [b, nW,
 // heads, ws^2, ws^2] of `dtype` or NULL (no stash). All contiguous, on the
-// current device. q_mul = scale * log2(e). Takes ws <= 8 and head_dim <= 64.
-// Returns the CUDA error code of the launch (0 on success).
+// current device. per_chunk: windows each bf16 block takes, in batch-row-major
+// order, for one head (the f32 kernel takes one). q_mul = scale * log2(e).
+// Takes ws <= 8 and head_dim <= 64. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias, const int* ids,
                                               void* out, void* p, int b, int h_img, int w_img,
-                                              int heads, int head_dim, int ws, float q_mul,
+                                              int heads, int head_dim, int ws, int per_chunk, float q_mul,
                                               int dtype, void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || head_dim < 1 || head_dim > 64 ||
       ws < 1 || ws * ws > kMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
-      bias == nullptr) {
+      per_chunk < 1 || bias == nullptr || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_win_x = w_img / ws;
-  const Args a{qkv,   bias,    ids,     out,     p,    h_img, w_img, heads, head_dim, ws, ws * ws,
-               n_win_x, (h_img / ws) * n_win_x, q_mul};
+  const int n_win = (h_img / ws) * n_win_x;
+  const int c = heads * head_dim;
+  const int aligned = reinterpret_cast<uintptr_t>(qkv) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                      head_dim % 8 == 0 && c % 8 == 0;
+  const Args a{qkv,   bias,     ids, out,     p,     h_img,     w_img,     heads, head_dim,
+               ws,    ws * ws,  n_win_x, n_win, b * n_win, per_chunk, q_mul, aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(dispatch_dim<float>(a, b, s));
-    case 1:
-      return static_cast<int>(dispatch_dim<__nv_bfloat16>(a, b, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dtype, s) : dispatch<64>(a, dtype, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* vdk_cuda_error_string(int code) {

@@ -368,51 +368,6 @@ struct TcSmem {
   }
 };
 
-// c = A . B^T as tc::product_nt: A the 16 rows from a_row0 of a row-major
-// tile, B its first NT * 8 rows; rows at or past n read row n - 1 (finite
-// values; the caller masks what they give).
-template <int DP, int NT>
-__device__ __forceinline__ void product_nt_rows(float (&c)[NT][4], const tc::bf16* a, int a_row0,
-                                                const tc::bf16* b, int ld, int n, int lane) {
-  using namespace tc;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-  const bf16* a_lane = a + min(a_row0 + a_row(lane), n - 1) * ld + a_col(lane);
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a_lane + kk * 16);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + min(np * 16 + b_row(lane), n - 1) * ld + kk * 16 + b_col(lane));
-      mma(c[2 * np], af, bf[0], bf[1]);
-      mma(c[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc += A . B as tc::accumulate_tn for the 16-deep step kk; B's rows at or
-// past n read row n - 1 (A is 0 in those columns).
-template <int DP, bool kSplit>
-__device__ __forceinline__ void accumulate_tn_rows(float (&acc)[DP / 8][4], const uint32_t (&hi)[4],
-                                                   const uint32_t (&lo)[4], const tc::bf16* b, int ld,
-                                                   int kk, int n, int lane) {
-  using namespace tc;
-  const bf16* b_lane = b + min(kk * 16 + bt_row(lane), n - 1) * ld + bt_col(lane);
-#pragma unroll
-  for (int dp = 0; dp < DP / 16; ++dp) {
-    uint32_t bf[4];
-    ldmatrix_x4_trans(bf, b_lane + dp * 16);
-    mma(acc[2 * dp], hi, bf[0], bf[1]);
-    mma(acc[2 * dp + 1], hi, bf[2], bf[3]);
-    if (kSplit) {
-      mma(acc[2 * dp], lo, bf[0], bf[1]);
-      mma(acc[2 * dp + 1], lo, bf[2], bf[3]);
-    }
-  }
-}
-
 // The first element of the stash tile of window t (batch-row-major), head h.
 __device__ __forceinline__ const tc::bf16* stash_tile(const Args& a, int t, int h) {
   return static_cast<const tc::bf16*>(a.p) + (static_cast<int64_t>(t) * a.heads + h) * a.n * a.n;

@@ -63,15 +63,17 @@ _FWD_LIB = "fused_window_attention"
 _BWD_LIB = "fused_window_attention_bwd"
 _MAX_WS = 8
 _MAX_HEAD_DIM = 64
-# The backward's blocks each take a fixed run of windows for one head; the
-# runs are as short as keep every head's blocks within one wave on an H100's
-# 132 SMs at this many blocks an SM, by (dtype, recompute): about 8 for the
-# f32 CUDA-core kernel; for the bf16 tensor-core kernel the 3 (from P) or 2
-# (recomputing) an SM holds, so that each block's loads of its next window
-# overlap its products.
+# The backward's blocks, and the bf16 forward's, each take a fixed run of
+# windows for one head; the runs are as short as keep every head's blocks
+# within one wave on an H100's 132 SMs at this many blocks an SM. Backward,
+# by (dtype, recompute): about 8 for the f32 CUDA-core kernel; for the bf16
+# tensor-core kernel the 3 (from P) or 2 (recomputing) an SM holds, so that
+# each block's loads of its next window overlap its products. Forward: the 4
+# an SM holds at head dim 32 (the f32 forward takes one window a block).
 _SMS = 132
 _BWD_BLOCKS_PER_SM = {(torch.float32, False): 8, (torch.float32, True): 8,
                       (torch.bfloat16, False): 3, (torch.bfloat16, True): 2}
+_FWD_BLOCKS_PER_SM = 4
 
 
 def _window_size(bias: torch.Tensor, heads: int) -> int:
@@ -251,7 +253,7 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _FWD_ARGS = [_P, _P, _P, _P, _P,  # qkv bias ids out p
-             _I, _I, _I, _I, _I, _I, _F, _I, _P]  # b h w heads d ws | q_mul dtype stream
+             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul dtype stream
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P,  # qkv bias ids p dout dqkv dbias_part dbias
              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul scale dtype stream
 
@@ -270,16 +272,29 @@ def _launch_fwd(qkv, bias, ids, heads, scale, stash: bool):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_window_attention_fwd(
             qkv.data_ptr(), bias.data_ptr(), _ptr(ids), out.data_ptr(), _ptr(p),
-            b, hh, ww, heads, d, ws, _scale(d, scale) * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
+            b, hh, ww, heads, d, ws, forward_windows_per_chunk(b, n_win, heads),
+            _scale(d, scale) * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
         )
     _check_err(lib, err, "fused_window_attention forward")
     return out, p
 
 
+def _windows_per_run(windows: int, heads: int, blocks_per_sm: int) -> int:
+    """Windows a block takes so that ``windows`` × ``heads`` fill one wave of
+    ``blocks_per_sm`` blocks on every SM (at least one)."""
+    runs = max(1, _SMS * blocks_per_sm // heads)
+    return -(-windows // runs)
+
+
 def windows_per_chunk(batch: int, n_win: int, heads: int, dtype: torch.dtype, recompute: bool) -> int:
     """Windows each backward block takes, in a fixed order, for one head."""
-    chunks = max(1, _SMS * _BWD_BLOCKS_PER_SM[dtype, recompute] // heads)
-    return -(-batch * n_win // chunks)
+    return _windows_per_run(batch * n_win, heads, _BWD_BLOCKS_PER_SM[dtype, recompute])
+
+
+def forward_windows_per_chunk(batch: int, n_win: int, heads: int) -> int:
+    """Windows each bf16 forward block takes, in a fixed order, for one head
+    (the f32 forward ignores it: one window a block)."""
+    return _windows_per_run(batch * n_win, heads, _FWD_BLOCKS_PER_SM)
 
 
 def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
