@@ -109,6 +109,32 @@ Phases, one line or more each; any failure raises and exits non-zero:
              relative_position_bias_table gradient non-zero after the first;
              the one-step f32 comparison at bs 16 with phase 5's bars.
 
+RL. run loop — the classification run loop through the port's own CLIs, on a
+             temporary directory: benchmarks/make_synth_pet.py (a subprocess)
+             writes 40 train and 4 val JPEGs per class (1,400 / 140), and
+             configs/classification/pet_synth.yaml runs with
+             data.train.device_augment: false (the device-augment stage is
+             not ported) and these cuts, printed: that dataset size, hyp.epochs
+             3 (epoch 0 on the val augments, 1 on the full train pipeline, 2
+             weakened from aug_epoch 2), everything else as written (ViT-B/16,
+             bs 128 bf16, val bs 320). Needs PyYAML and PIL: without them the
+             phase fails and names the one missing. Run A: `python -m
+             visiondk_tpu_torch.main` in this process (runpy, sys.argv as on
+             the command line): the epoch table, trainer-fed images/s per
+             epoch, which loaders ran (native or PIL), and exactly 12 x 30 K1s,
+             12 x 30 K1b and 12 x 3 K1 launches (10 steps and one val batch an
+             epoch), no other attention kernel. Run B, the same command: per-
+             epoch train loss within 1e-3 relative and val top1 within one
+             image of run A (bit-identity printed). Run C, the same command as
+             a subprocess, SIGKILLed in epoch 1 once epoch 0's checkpoint is
+             complete on disk, then `--resume` in this process: it must resume
+             from epoch 1 and its epochs match run A's to the same bars.
+             `python -m visiondk_tpu_torch.validate --ema` on run A's best
+             checkpoint: 12 K1 launches and exactly run A's best-epoch top1.
+             Last, images/s of the train loader alone (epoch 1's pipeline, no
+             step; as the trainer builds it, with 4 batches in flight, and with
+             one in flight per worker), of the trainer-fed epoch 1 and of phase
+             5's synthetic batch, and whether the trainer-fed run is host-paced.
 3v. vision kernel — vision_attention's forward (K3) and recompute backward
              (K3r) against their plain versions, f32 and bf16, at ViT-B/16
              (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
@@ -126,7 +152,8 @@ trials, device-time split and bf16 one-step comparison (swin_train_trials).
 
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
-bf16 train runs of both models and the vision path, counts set to 0 before
+bf16 train runs of both models, the run loop's in-process runs (A, B, C's
+resume, validate) and the vision path, counts set to 0 before
 each and read after), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
 attention); the last line is {"ok": true, "device": {...}}.
@@ -134,15 +161,24 @@ attention); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import io
 import json
+import math
 import os
 import re
+import runpy
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -224,6 +260,8 @@ DBIAS_TOL = 1e-4  # max |kernel − plain| over dbias, relative to max(1, its la
 MIN_COSINE = 0.999
 MIN_ARGMAX_AGREEMENT = 0.99
 F32_LOSS_RTOL = 1e-5
+# kernel-path train images/s of phases 5 and 7 by train tag (the synthetic-batch rate)
+TRAIN_RATES: dict = {}
 F32_TENSOR_TOL = 1e-3  # max |kernel − plain| over a tensor, relative to its largest |plain| entry
 # the H100 SXM's published rates (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # dense peak FLOP/s of the products (bf16 tensor cores; f32 outside them)
@@ -1038,6 +1076,7 @@ def phase_train(dev: torch.device, recipe: Recipe) -> dict:
                                        f"[{tag}] bf16 bs {bs} trial {trial}, {label} path"))
         os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     set_fused(model, True)
+    TRAIN_RATES[tag] = [r for r, _ in rates["kernel"]]
     print(f"[{tag}] bf16 bs {bs} images/s: " + " | ".join(
         f"{label} path {r[0][0]:.1f}, {r[1][0]:.1f}" for label, r in rates.items())
         + " (order kernel, no-pcache, plain, plain, no-pcache, kernel; no-pcache = the kernel path with "
@@ -1288,6 +1327,222 @@ def phase_vision_path(dev: torch.device) -> dict:
     return {k: train_counts[k] + eval_counts[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------- run loop
+
+PET_SYNTH_YAML = Path(__file__).resolve().parent / "configs" / "classification" / "pet_synth.yaml"
+# the cuts of the run loop's pet_synth run: 40 train and 4 val JPEGs a class
+# (35 classes: 1,400 train = 10 steps of 128 an epoch with drop_last, 140 val =
+# one batch of 320), 3 epochs (0: val augments, the warm-up; 1: the full train
+# pipeline; 2: weakened to the val augments from aug_epoch 2 on)
+RUN_LOOP_CUTS = {"n_train_per_class": 40, "n_val_per_class": 4, "epochs": 3, "aug_epoch": 2}
+RUN_LOOP_LOSS_RTOL = 1e-3
+RUN_LOOP_TIMEOUT_S = 300
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def run_cli(module: str, argv: list) -> str:
+    """``python -m module argv`` in this process (runpy with sys.argv set as
+    on the command line), so the kernels' launch counts see its launches;
+    returns what it printed, which also goes to stdout."""
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = [module, *argv]
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    return buf.getvalue()
+
+
+def read_metrics(project: Path) -> dict:
+    """metrics.jsonl as {tag: {epoch: value}}; a resumed run's later record wins."""
+    out: dict = {}
+    for line in (project / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        out.setdefault(rec["tag"], {})[rec["step"]] = rec["value"]
+    return out
+
+
+def committed_epoch(project: Path):
+    """The epoch of the newest complete ``last`` checkpoint on disk, or None:
+    a promoted ``last/`` with its meta, or a complete ``.last.staging`` with
+    the sidecar written before its save."""
+    for data, meta in ((project / "last", project / "last" / "meta.json"),
+                       (project / ".last.staging", project / "last.meta.json")):
+        if data.is_dir() and meta.is_file():
+            try:
+                return json.loads(meta.read_text())["epoch"]
+            except (ValueError, KeyError):  # the sidecar is being written
+                return None
+    return None
+
+
+def compare_runs(a: dict, b: dict, epochs, n_val: int) -> tuple:
+    """Largest per-epoch train-loss difference (relative) and val-top1
+    difference (in images) of two runs' metrics over ``epochs``, and whether
+    every compared number is bit-identical."""
+    loss = max(abs(a["Train_loss"][e] - b["Train_loss"][e]) / abs(a["Train_loss"][e]) for e in epochs)
+    top1 = max(abs(a["Val_top1"][e] - b["Val_top1"][e]) * n_val for e in epochs)
+    same = all(a[t][e] == b[t][e] for t in ("Train_loss", "Val_top1", "Val_v_loss") for e in epochs)
+    return loss, top1, same
+
+
+def phase_run_loop(dev: torch.device) -> dict:
+    """The classification run loop through the port's CLIs on pet_synth's
+    ViT-B/16 (see the module doc); returns the K1 family's launches of the
+    in-process runs."""
+    tag = "run loop"
+    for module in ("yaml", "PIL"):
+        try:
+            __import__(module)
+        except ImportError as e:
+            raise RuntimeError(f"chip_smoke: [{tag}] needs {module} ({e}); it is not installed here") from e
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+    from visiondk_tpu_torch.data import SmartDataProcessor, loader_kind
+
+    fwd, stash, bwd_p, _ = K1_KERNELS
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_run_loop_"))
+    try:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, str(PET_SYNTH_YAML.parents[2] / "benchmarks" / "make_synth_pet.py"),
+                        "--root", str(tmp / "synthpet"), "--n-train", str(RUN_LOOP_CUTS["n_train_per_class"]),
+                        "--n-val", str(RUN_LOOP_CUTS["n_val_per_class"]), "--seed", "0"],
+                       check=True, timeout=RUN_LOOP_TIMEOUT_S)
+        cfg = yaml_load(PET_SYNTH_YAML)
+        cfg["data"]["root"] = str(tmp / "synthpet")
+        cfg["data"]["train"]["device_augment"] = False
+        cfg["data"]["train"]["aug_epoch"] = RUN_LOOP_CUTS["aug_epoch"]
+        cfg["hyp"]["epochs"] = RUN_LOOP_CUTS["epochs"]
+        yaml_path = tmp / "pet_synth_run_loop.yaml"
+        yaml_dump(cfg, yaml_path)
+        n_classes, bs, val_bs = cfg["model"]["num_classes"], cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+        n_train = RUN_LOOP_CUTS["n_train_per_class"] * n_classes
+        n_val = RUN_LOOP_CUTS["n_val_per_class"] * n_classes
+        epochs = RUN_LOOP_CUTS["epochs"]
+        steps, val_batches = n_train // bs, -(-n_val // val_bs)
+        print(f"[{tag}] configs/classification/pet_synth.yaml with data.train.device_augment: false (the device-augment "
+              f"stage is not ported) and these cuts: dataset {n_train} train / {n_val} val JPEGs "
+              f"(make_synth_pet.py --n-train {RUN_LOOP_CUTS['n_train_per_class']} --n-val "
+              f"{RUN_LOOP_CUTS['n_val_per_class']}; {steps} steps of {bs} an epoch), hyp.epochs {epochs} (was 6), "
+              f"data.train.aug_epoch {RUN_LOOP_CUTS['aug_epoch']} (was 5); everything else as written "
+              f"({cfg['model']['name']}, bs {bs}, val bs {val_bs}, bf16); data made in {time.perf_counter() - t0:.1f} s")
+
+        def train(project: Path, *extra) -> tuple:
+            reset_counts()
+            t = time.perf_counter()
+            out = run_cli("visiondk_tpu_torch.main", ["--cfgs", str(yaml_path), "--project", str(project),
+                                                      "--seed", "0", *extra])
+            return out, read_counts(), read_metrics(project), time.perf_counter() - t
+
+        # run A: the main path, counted
+        out_a, counts_a, metrics_a, secs_a = train(tmp / "runA")
+        want = only({stash: DEPTH * steps * epochs, bwd_p: DEPTH * steps * epochs, fwd: DEPTH * val_batches * epochs})
+        check(counts_a == want, f"run A launches {[(NAMES[k], v) for k, v in counts_a.items()]}, want "
+                                f"{[(NAMES[k], v) for k, v in want.items()]}")
+        loaders = re.search(r"loaders: (.*)", out_a).group(1)
+        rates_a = [metrics_a["Train_images_per_sec"][e] for e in range(epochs)]
+        for e in range(epochs):
+            check(all(math.isfinite(metrics_a[t][e]) for t in ("Train_loss", "Val_v_loss", "Val_top1")),
+                  f"run A epoch {e}: non-finite metrics")
+        print(f"[{tag}] run A: {secs_a:.1f} s; loaders {loaders}; trainer-fed images/s by epoch "
+              + ", ".join(f"{r:.1f}" for r in rates_a)
+              + f"; launches: {NAMES[stash]} {counts_a[stash]} and {NAMES[bwd_p]} {counts_a[bwd_p]} "
+                f"(= {DEPTH} x {steps * epochs} train steps), {NAMES[fwd]} {counts_a[fwd]} (= {DEPTH} x "
+                f"{val_batches} val batch x {epochs} epochs), no other attention kernel")
+
+        # run B: the same command; seeded runs agree
+        _, counts_b, metrics_b, _ = train(tmp / "runB")
+        loss_d, top1_d, same = compare_runs(metrics_a, metrics_b, range(epochs), n_val)
+        print(f"[{tag}] run B vs run A, epochs 1-{epochs}: largest train-loss difference {loss_d:.3e} relative "
+              f"(bar {RUN_LOOP_LOSS_RTOL}), largest val-top1 difference {top1_d:.2f} images (bar 1); "
+              f"bit-identical: {same}")
+        check(loss_d <= RUN_LOOP_LOSS_RTOL and top1_d <= 1 + 1e-9, "seeded runs A and B disagree")
+        shutil.rmtree(tmp / "runB")
+
+        # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
+        run_c = tmp / "runC"
+        with open(tmp / "runC.log", "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.main", "--cfgs", str(yaml_path),
+                                     "--project", str(run_c), "--seed", "0"], stdout=log, stderr=subprocess.STDOUT)
+            deadline = time.monotonic() + RUN_LOOP_TIMEOUT_S
+            while committed_epoch(run_c) != 0:
+                check(proc.poll() is None, f"run C exited ({proc.returncode}) before epoch 0's checkpoint: "
+                                           f"{(tmp / 'runC.log').read_text()[-2000:]}")
+                check(time.monotonic() < deadline, "run C: no epoch-0 checkpoint in time")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        done = sorted(read_metrics(run_c).get("Train_loss", {}))
+        out_c, counts_c, metrics_c, _ = train(run_c, "--resume")
+        resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
+        check(resumed == 1, f"run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
+        loss_d, top1_d, same = compare_runs(metrics_a, metrics_c, range(resumed, epochs), n_val)
+        print(f"[{tag}] run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from epoch "
+              f"{resumed}; epochs {resumed + 1}-{epochs} vs run A: train loss {loss_d:.3e} relative, val top1 "
+              f"{top1_d:.2f} images; bit-identical: {same}")
+        check(loss_d <= RUN_LOOP_LOSS_RTOL and top1_d <= 1 + 1e-9, "the resumed run C disagrees with run A")
+        resumed_steps = steps * (epochs - resumed)
+        check(counts_c == only({stash: DEPTH * resumed_steps, bwd_p: DEPTH * resumed_steps,
+                                fwd: DEPTH * val_batches * (epochs - resumed)}),
+              f"resumed run C launches {[(NAMES[k], v) for k, v in counts_c.items()]}")
+
+        # validate on run A's best checkpoint
+        reset_counts()
+        out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
+                                                         "--weight", str(tmp / "runA" / "best"), "--ema"])
+        counts_v = read_counts()
+        check(counts_v == only({fwd: DEPTH * val_batches}),
+              f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+        top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
+        best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
+        top1_a = metrics_a["Val_top1"][best_epoch]
+        print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
+              f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
+        check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+
+        # the host pipeline alone against the step: the train loader of epoch 1 (the full pipeline), no
+        # step; as built (at most `prefetch` = 4 batches in flight, one worker thread a batch), then with
+        # a batch in flight for every worker, to see whether the workers or the cores set its rate
+        dp = SmartDataProcessor(cfg["data"], project=str(tmp / "loader"), training=True)
+        loader = dp.dataloader("train", bs, seed=0)
+        loader.set_epoch(1)
+        loader_rates, built = {}, loader.prefetch
+        for in_flight in (built, loader.num_workers):
+            loader.prefetch = in_flight
+            t, n = time.perf_counter(), 0
+            for batch in loader:
+                n += batch["image"].shape[0]
+            loader_rates[in_flight] = n / (time.perf_counter() - t)
+        synthetic = TRAIN_RATES[VIT.train_tag]
+        fed = rates_a[1]
+        print(f"[{tag}] ViT-B/16 bf16 bs {bs} images/s: train loader alone ({loader_kind(loader)}, "
+              f"{loader.num_workers} workers on {os.cpu_count()} cores, epoch 1's full pipeline, no step) "
+              + ", ".join(f"{r:.1f} with {k} batches in flight" for k, r in loader_rates.items())
+              + f" (the trainer's loader keeps {built}); trainer-fed epoch 1 {fed:.1f}; "
+                f"synthetic batch on the card (phase 5, kernel path) " + ", ".join(f"{r:.1f}" for r in synthetic)
+              + f" -> the trainer-fed step runs at {fed / (sum(synthetic) / len(synthetic)):.1%} of the synthetic "
+                f"rate: {'host-paced' if fed < 0.9 * min(synthetic) else 'not host-paced'}")
+        return {k: counts_a[k] + counts_b[k] + counts_c[k] + counts_v[k] for k in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -1302,6 +1557,9 @@ def main() -> None:
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
+    run_loop = phase_run_loop(dev)
+    print("[launches] run loop: " + ", ".join(f"{NAMES[k]} {run_loop[k]}" for k in K1_KERNELS))
+    launches = {k: launches[k] + run_loop[k] for k in KERNELS}
     vision = phase_vision_path(dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     report(kern, {k: launches[k] + vision[k] for k in KERNELS})

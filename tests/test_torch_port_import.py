@@ -1,5 +1,7 @@
 """Import hygiene of visiondk_tpu_torch: no JAX, no Triton, no build at import.
 
+Every module of the port is imported, the run loop's included.
+
 The check runs in a fresh interpreter, because this test process has JAX
 loaded already (tests/conftest.py imports it).
 """
@@ -20,11 +22,19 @@ import visiondk_tpu_torch.engine.optim, visiondk_tpu_torch.engine.schedules
 import visiondk_tpu_torch.engine.state, visiondk_tpu_torch.engine.trainer
 import visiondk_tpu_torch.ops.window_attention, visiondk_tpu_torch.models.backbones.swin
 import visiondk_tpu_torch.models.convert
+import visiondk_tpu_torch.config, visiondk_tpu_torch.config.loader, visiondk_tpu_torch.config.checks
+import visiondk_tpu_torch.utils, visiondk_tpu_torch.utils.logger, visiondk_tpu_torch.utils.meters
+import visiondk_tpu_torch.utils.metrics_writer, visiondk_tpu_torch.utils.plots
+import visiondk_tpu_torch.data, visiondk_tpu_torch.data.transforms, visiondk_tpu_torch.data.class_augmenter
+import visiondk_tpu_torch.data.datasets, visiondk_tpu_torch.data.native, visiondk_tpu_torch.data.loader
+import visiondk_tpu_torch.data.dataprocessor, visiondk_tpu_torch.engine.evaluation
+import visiondk_tpu_torch.engine.checkpoint, visiondk_tpu_torch.main, visiondk_tpu_torch.validate
 from visiondk_tpu_torch.ops import _build
-loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "triton", "visiondk_tpu")
-                if m in sys.modules)
+loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "visiondk_tpu",
+                            "tensorflow", "tensorboard") if m in sys.modules)
 print("LOADED", loaded)
 print("BUILT", sorted(_build._loaded))
+print("NATIVE", visiondk_tpu_torch.data.native._lib)
 """
 
 
@@ -35,6 +45,7 @@ def test_port_imports_without_jax_flax_optax_or_triton():
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
     assert "BUILT []" in proc.stdout, proc.stdout  # kernels build at first CUDA use only
+    assert "NATIVE None" in proc.stdout, proc.stdout  # nor the native decode library
 
 
 def test_no_port_source_mentions_jax_imports():

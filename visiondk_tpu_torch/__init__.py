@@ -20,8 +20,15 @@ calls, as in the JAX package) runs the ViT forward and recompute-backward
 kernels through their strided entries. Models are built on the card unless
 the caller passes ``device="cpu"`` to ``models.get_model``.
 
+The classification run loop sits on top: ``config`` (YAML loading and
+checks), ``data`` (the host pipeline, byte-identical to the JAX package's,
+and the CUDA device feeder), ``engine.checkpoint``, ``engine.evaluation``,
+``engine.trainer.CenterProcessor`` and the CLIs ``python -m
+visiondk_tpu_torch.main`` / ``.validate``, on the card unless ``--device cpu``.
+
 Importing this package loads torch, numpy and the standard library only: no
-JAX, no Triton, and no kernel is built until a CUDA tensor reaches one.
+JAX, no Triton, and no kernel is built until a CUDA tensor reaches one. The
+data modules add PIL; PyYAML is imported when a config is read or written.
 """
 
 from visiondk_tpu_torch.version import __version__

@@ -1,0 +1,32 @@
+from visiondk_tpu_torch.data.class_augmenter import ClassWiseAugmenter
+from visiondk_tpu_torch.data.dataprocessor import SmartDataProcessor
+from visiondk_tpu_torch.data.datasets import ImageDatasets, read_image, smooth_labels, tell_data_distribution
+from visiondk_tpu_torch.data.loader import DataLoader, DevicePrefetcher, loader_kind
+from visiondk_tpu_torch.data.transforms import (
+    AUG_METHODS,
+    SPATIAL_TRANSFORMS,
+    Compose,
+    create_aug_transforms,
+    extract_normalization,
+    seed_sample,
+    set_pipeline_size,
+)
+
+__all__ = [
+    "AUG_METHODS",
+    "ClassWiseAugmenter",
+    "Compose",
+    "DataLoader",
+    "DevicePrefetcher",
+    "ImageDatasets",
+    "SPATIAL_TRANSFORMS",
+    "SmartDataProcessor",
+    "create_aug_transforms",
+    "extract_normalization",
+    "loader_kind",
+    "read_image",
+    "seed_sample",
+    "set_pipeline_size",
+    "smooth_labels",
+    "tell_data_distribution",
+]

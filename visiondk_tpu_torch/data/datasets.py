@@ -1,0 +1,236 @@
+"""Train/val image datasets over a folder tree, a CSV or a HuggingFace
+dataset (counterpart of ``visiondk_tpu/data/datasets.py``).
+
+``ImageDatasets`` (with ``class_indices.json`` written into the run dir at
+train time and read back at eval time, and a corrupt-image retry),
+``smooth_labels`` (the BCE path's smoothed multi-hot targets),
+``tell_data_distribution`` (the per-class train/val table) and
+``read_image`` (PIL, cv2 as a fallback where installed). ``__getitem__``
+returns a **uint8 HWC** array; the loaders stack fixed-shape numpy batches.
+The HF source needs the ``datasets`` library and a dataset it can load
+offline. The prediction, embedding-distillation and CBIR datasets belong
+to ports still to come.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+from PIL import Image
+
+IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
+
+
+def read_image(path: str) -> Image.Image:
+    """PIL first, cv2 fallback (reference basedataset.py:233-241)."""
+    try:
+        return Image.open(path).convert("RGB")
+    except OSError:
+        import cv2
+
+        img = cv2.imread(path)
+        if img is None:
+            raise
+        return Image.fromarray(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+
+
+def smooth_labels(
+    label: Union[int, Sequence[int], np.ndarray],
+    num_classes: int,
+    label_smooth: float,
+) -> np.ndarray:
+    """Multi-hot vector with smoothing y·(1−α)+α/2 / background α/2
+    (reference basedataset.py:197-231)."""
+    if isinstance(label, np.ndarray) and label.shape[0] == num_classes:
+        if label_smooth > 0:
+            return label.astype(np.float32) * (1.0 - label_smooth) + 0.5 * label_smooth
+        return label.astype(np.float32)
+    vec = np.full((num_classes,), 0.5 * label_smooth, dtype=np.float32)
+    if isinstance(label, (int, np.integer)):
+        vec[label] = 1.0 - 0.5 * label_smooth
+    else:
+        idx = np.nonzero(np.asarray(label))[0]
+        vec[idx] = 1.0 - 0.5 * label_smooth
+    return vec
+
+
+def _is_hf_root(root: str) -> bool:
+    return not (os.path.isdir(root) or str(root).endswith(".csv"))
+
+
+class ImageDatasets:
+    """Train/val dataset over one of three backends.
+
+    ``transforms`` is a callable PIL → ndarray (a compiled augment pipeline or
+    a ClassWiseAugmenter). ``label_transforms`` optionally maps raw labels to
+    smoothed multi-hot vectors (BCE path).
+    """
+
+    def __init__(
+        self,
+        root: str,
+        mode: str,  # "train" | "val"
+        transforms: Optional[Callable] = None,
+        label_transforms: Optional[Callable] = None,
+        project: Optional[str] = None,
+        rank_is_primary: bool = True,
+        training: bool = True,
+    ):
+        self.root = str(root)
+        self.mode = mode
+        self.transforms = transforms
+        self.label_transforms = label_transforms
+        self.multi_label = False
+        self.images: List[Any] = []  # paths or HF indices
+        self.labels: List[Any] = []
+        self._hf_dataset = None
+
+        if self.root.endswith(".csv"):
+            self._init_from_csv()
+        elif os.path.isdir(self.root):
+            self._init_from_local()
+        else:
+            self._init_from_huggingface()
+
+        # class_indices.json contract (reference basedataset.py:121-138):
+        # written at train time into the run dir, reloaded at eval time.
+        if project is not None:
+            path = Path(project) / "class_indices.json"
+            if training and mode == "train" and rank_is_primary:
+                path.parent.mkdir(parents=True, exist_ok=True)
+                with open(path, "w") as f:
+                    json.dump({str(i): c for i, c in enumerate(self.class_names)}, f, indent=2)
+            elif path.is_file():
+                with open(path) as f:
+                    idx2class = json.load(f)
+                self.class_names = [idx2class[str(i)] for i in range(len(idx2class))]
+
+    # ------------------------------------------------------------ backends
+
+    def _init_from_local(self):
+        split_dir = Path(self.root) / self.mode
+        classes = sorted(
+            d for d in os.listdir(split_dir)
+            if not (d.startswith(".") or d.startswith("_")) and (split_dir / d).is_dir()
+        )
+        self.class_names = classes
+        for ci, c in enumerate(classes):
+            for f in sorted(os.listdir(split_dir / c)):
+                if Path(f).suffix.lower() in IMG_EXTENSIONS:
+                    self.images.append(str(split_dir / c / f))
+                    self.labels.append(ci)
+
+    def _init_from_csv(self):
+        import pandas as pd
+
+        df = pd.read_csv(self.root)
+        class_cols = [c for c in df.columns if c not in ("image_path", "train")]
+        self.class_names = class_cols
+        self.multi_label = True
+        want_train = self.mode == "train"
+        sel = df[df["train"] == want_train] if "train" in df.columns else df
+        for _, row in sel.iterrows():
+            self.images.append(row["image_path"])
+            self.labels.append(row[class_cols].to_numpy(dtype=np.float32))
+
+    def _init_from_huggingface(self):
+        from datasets import load_dataset
+
+        split = "train" if self.mode == "train" else "validation"
+        try:
+            ds = load_dataset(self.root, split=split)
+        except ValueError:
+            ds = load_dataset(self.root, split="test" if self.mode != "train" else "train")
+        self._hf_dataset = ds
+        label_feature = ds.features["label"]
+        self.class_names = (
+            list(label_feature.names) if hasattr(label_feature, "names")
+            else sorted(set(ds["label"]))
+        )
+        self.images = list(range(len(ds)))
+        self.labels = list(ds["label"])
+
+    # ------------------------------------------------------------ access
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def _load(self, index: int) -> Image.Image:
+        if self._hf_dataset is not None:
+            img = self._hf_dataset[int(self.images[index])]["image"]
+            return img.convert("RGB")
+        return read_image(self.images[index])
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, Any]:
+        # Corrupt-image retry with a random substitute (reference :140-161).
+        for _ in range(10):
+            try:
+                img = self._load(index)
+                break
+            except Exception:
+                index = random.randrange(len(self))
+        else:
+            raise RuntimeError("too many corrupt images")
+        label = self.labels[index]
+        if self.transforms is not None:
+            try:
+                img = self.transforms(img, label)  # ClassWiseAugmenter
+            except TypeError:
+                img = self.transforms(img)
+        if self.label_transforms is not None:
+            label = self.label_transforms(label)
+        return np.asarray(img), label
+
+    # ------------------------------------------------------------ reporting
+
+    def tell_data_distribution(self) -> List[Tuple[str, int]]:
+        """(class, count) pairs — the per-class distribution table
+        (reference basedataset.py:256-306)."""
+        counts: Dict[str, int] = {c: 0 for c in self.class_names}
+        for lbl in self.labels:
+            if isinstance(lbl, (int, np.integer)):
+                counts[self.class_names[int(lbl)]] += 1
+            else:
+                for i in np.nonzero(np.asarray(lbl))[0]:
+                    counts[self.class_names[int(i)]] += 1
+        return list(counts.items())
+
+
+def tell_data_distribution(
+    datasets: Dict[str, "ImageDatasets"],
+) -> Tuple[List[Tuple[str, Dict[str, int]]], str]:
+    """Combined per-class train AND val distribution table (reference
+    tell_data_distribution covers both splits, basedataset.py:256-306).
+
+    ``datasets`` maps split name ('train'/'val') → dataset (val may be
+    absent/None). Returns (rows sorted by class, rendered text table with a
+    totals row).
+    """
+    splits = [(k, d) for k, d in datasets.items() if d is not None]
+    dist: Dict[str, Dict[str, int]] = {}
+    for split, ds in splits:
+        for cls, n in ds.tell_data_distribution():
+            dist.setdefault(cls, {s: 0 for s, _ in splits})[split] += n
+    rows = sorted(dist.items())
+    headers = ["Class"] + [f"{s.capitalize()} Samples" for s, _ in splits]
+    table_rows = [
+        [cls] + [str(counts.get(s, 0)) for s, _ in splits] for cls, counts in rows
+    ]
+    table_rows.append(
+        ["total"]
+        + [str(sum(c.get(s, 0) for _, c in rows)) for s, _ in splits]
+    )
+    widths = [
+        max(len(headers[i]), *(len(r[i]) for r in table_rows))
+        for i in range(len(headers))
+    ]
+    sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+    def fmt(cells):
+        return "| " + " | ".join(c.ljust(w) for c, w in zip(cells, widths)) + " |"
+    lines = [sep, fmt(headers), sep] + [fmt(r) for r in table_rows] + [sep]
+    return rows, "\n".join(lines)

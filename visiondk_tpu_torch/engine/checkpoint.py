@@ -1,0 +1,245 @@
+"""Checkpoint / resume on ``torch.save`` / ``torch.load`` (counterpart of
+``visiondk_tpu/engine/checkpoint.py``, which checkpoints through Orbax).
+
+A checkpoint ``name`` (``last``, ``best``) is a directory ``{name}/`` in the
+run directory holding ``state.pt`` and ``meta.json`` (``epoch``,
+``best_fitness``). ``state.pt`` holds everything a resumed run needs to
+continue as the uninterrupted run would: the model's and the EMA module's
+state dicts, the optimizer's state, ``step``, ``ema_updates``, the count of
+applied updates, and the state of the train step's CPU generator (without
+it a resumed run would draw other dropout masks).
+
+Saves are asynchronous: ``save`` copies every tensor of the state to host
+memory before it returns (the next step may then update the live tensors),
+and a background thread writes the copy into a fresh temporary directory
+``.{name}.staging.tmp-<pid>-<n>`` and renames it to ``.{name}.staging``, so
+a staging directory that exists is complete. ``wait()`` joins the writes.
+
+Crash safety, as the JAX manager's: an overwrite never leaves a moment with
+no complete checkpoint on disk. The ``{name}.meta.json`` sidecar is written
+before the save; ``_promote`` — run at every join point (``wait()``, a later
+save of the same name, any restore, and construction, for crash recovery) —
+stamps the sidecar into the staging dir as ``meta.json`` and moves it into
+place with two renames (old → ``.{name}.trash``, staging → ``{name}``).
+At every instant a complete checkpoint exists under ``{name}``,
+``.{name}.staging`` or ``.{name}.trash``, and construction recovers it. Only
+a *writer* (the training run that owns the directory) deletes half-written
+temporaries: a reader (validate) opened on a live run directory must not
+delete the trainer's in-flight write.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Dict, Tuple
+
+import torch
+
+from visiondk_tpu_torch.engine.state import TrainState
+
+_STAGE = ".{}.staging"
+_TRASH = ".{}.trash"
+_TMP = ".tmp-"
+_STATE = "state.pt"
+_serial = itertools.count()
+
+
+def _to_host(obj):
+    """A copy of ``obj`` with every tensor copied to the CPU."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _snapshot(state: TrainState) -> Dict[str, Any]:
+    """The host copy of ``state`` that ``state.pt`` holds."""
+    return {
+        "model": _to_host(state.model.state_dict()),
+        "ema": _to_host(state.ema_model.state_dict()),
+        "optimizer": _to_host(state.optimizer.optimizer.state_dict()),
+        "step": state.step,
+        "ema_updates": state.ema_updates,
+        "opt_count": state.optimizer.count,
+        "generator": None if state.generator is None else state.generator.get_state(),
+    }
+
+
+class CheckpointManager:
+    def __init__(self, directory, writer: bool = False):
+        """``writer``: this manager owns the run directory and may delete
+        half-written temporaries at construction (see module doc)."""
+        self.directory = Path(directory).resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="ckpt-write")
+        self._futures: Dict[str, Future] = {}
+        self._pending: set = set()
+        self._writer = bool(writer)
+        self._recover_staged()
+
+    # -------------------------------------------------- staging / promotion
+
+    def _stage_path(self, name: str) -> Path:
+        return self.directory / _STAGE.format(name)
+
+    def _recover_staged(self) -> None:
+        """Crash recovery at construction: promote complete but unpromoted
+        staging dirs, bring back a trashed checkpoint that is the only
+        complete copy, drop leftover trash, and (writer only) drop
+        half-written temporaries."""
+        if self._writer:
+            for p in self.directory.glob(f"{_STAGE.format('*')}{_TMP}*"):
+                shutil.rmtree(p, ignore_errors=True)
+        for p in self.directory.glob(_TRASH.format("*")):
+            name = p.name[1: -len(".trash")]
+            if not (self.directory / name).exists() and not self._stage_path(name).exists():
+                # promote died between its two renames with no newer staged
+                # copy left: the trashed dir is the only complete checkpoint
+                p.rename(self.directory / name)
+            else:
+                shutil.rmtree(p, ignore_errors=True)
+        for p in self.directory.glob(_STAGE.format("*")):
+            if p.is_dir():
+                self._promote(p.name[1: -len(".staging")])
+
+    def _promote(self, name: str) -> None:
+        """Move a complete staging dir into place: stamp meta inside (the dir
+        becomes self-contained), rename old → trash, staging → final, drop
+        trash. A crash between any two steps leaves a complete checkpoint
+        under ``name``, ``.{name}.staging`` or ``.{name}.trash``."""
+        staging = self._stage_path(name)
+        self._pending.discard(name)
+        if not staging.exists():
+            return
+        sidecar = self.directory / f"{name}.meta.json"
+        if sidecar.exists():
+            shutil.copyfile(sidecar, staging / "meta.json")
+        final = self.directory / name
+        trash = self.directory / _TRASH.format(name)
+        shutil.rmtree(trash, ignore_errors=True)
+        try:
+            if final.exists():
+                final.rename(trash)
+            staging.rename(final)
+        except OSError:
+            # another manager on the same run dir promoted the same staged
+            # data concurrently (a reader opened mid-train): nothing left to do
+            return
+        shutil.rmtree(trash, ignore_errors=True)
+        sidecar.unlink(missing_ok=True)
+
+    def _write(self, name: str, host_state: Dict[str, Any]) -> None:
+        tmp = self.directory / f"{_STAGE.format(name)}{_TMP}{os.getpid()}-{next(_serial)}"
+        tmp.mkdir()
+        torch.save(host_state, tmp / _STATE)
+        tmp.rename(self._stage_path(name))  # the commit: staging is complete once it exists
+
+    def wait(self) -> None:
+        """Join in-flight writes (raising any error they met) and promote
+        them into place. Called before any restore and by the trainer at the
+        end of a run."""
+        for name in sorted(self._futures):
+            self._futures.pop(name).result()
+        for name in sorted(self._pending):
+            self._promote(name)
+
+    # ------------------------------------------------------------ full state
+
+    def save(
+        self,
+        name: str,
+        state: TrainState,
+        epoch: int,
+        best_fitness: float,
+    ) -> None:
+        meta = {"epoch": epoch, "best_fitness": float(best_fitness)}
+        if name in self._pending:
+            # the previous save of this name: join and promote it, so the
+            # staging slot is free and the promote bookkeeping one deep
+            future = self._futures.pop(name, None)
+            if future is not None:
+                future.result()
+            self._promote(name)
+        shutil.rmtree(self._stage_path(name), ignore_errors=True)  # stale crash leftover
+        # the meta sidecar BEFORE the save: recovery of a complete staging dir
+        # can then always stamp the right meta into it
+        with open(self.directory / f"{name}.meta.json", "w") as f:
+            json.dump(meta, f)
+        host_state = _snapshot(state)
+        self._pending.add(name)
+        self._futures[name] = self._pool.submit(self._write, name, host_state)
+
+    def _read_meta(self, name: str) -> Dict[str, Any]:
+        indir = self.directory / name / "meta.json"     # self-contained (promoted)
+        sidecar = self.directory / f"{name}.meta.json"  # in-flight / recovery
+        path = indir if indir.exists() else sidecar
+        if not path.exists():
+            # a checkpoint dir copied without its meta: degrade, don't crash.
+            # best_fitness must stay comparable (NaN would make every later
+            # `fitness > best_fitness` False and stop 'best' saves on resume);
+            # "meta_missing" lets the resume path warn loudly.
+            return {"epoch": -1, "best_fitness": 0.0, "meta_missing": True}
+        with open(path) as f:
+            return json.load(f)
+
+    def read(self, name: str) -> Dict[str, Any]:
+        """The saved state dict of checkpoint ``name``, on the CPU."""
+        self.wait()
+        return torch.load(self.directory / name / _STATE, map_location="cpu", weights_only=True)
+
+    def restore(self, name: str, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
+        """Load checkpoint ``name`` into ``state`` in place (model, EMA,
+        optimizer, counters, generator); returns ``(state, meta)``."""
+        saved = self.read(name)
+        state.model.load_state_dict(saved["model"])
+        state.ema_model.load_state_dict(saved["ema"])
+        state.optimizer.optimizer.load_state_dict(saved["optimizer"])
+        state.step, state.ema_updates = saved["step"], saved["ema_updates"]
+        state.optimizer.count = saved["opt_count"]
+        if state.generator is not None and saved["generator"] is not None:
+            state.generator.set_state(saved["generator"])
+        return state, self._read_meta(name)
+
+    def exists(self, name: str) -> bool:
+        self.wait()
+        return (self.directory / name).exists()
+
+    # ------------------------------------------------------------ fine-tune
+
+    @staticmethod
+    def load_from(
+        target: Dict[str, torch.Tensor],
+        source: Dict[str, torch.Tensor],
+        logger=None,
+        prefix: str = "",
+    ) -> Dict[str, torch.Tensor]:
+        """Non-strict merge of state dicts: every ``target`` entry whose key
+        ``source`` has with the same shape takes the source's values (in the
+        target's dtype); the rest keep theirs. Logs the counts of loaded,
+        missing, shape-mismatched and unexpected entries."""
+        loaded, missing, mismatched = [], [], []
+        out: Dict[str, torch.Tensor] = {}
+        for key, value in target.items():
+            src = source.get(key)
+            if src is not None and tuple(src.shape) == tuple(value.shape):
+                out[key] = src.to(value.dtype)
+                loaded.append(key)
+            else:
+                out[key] = value
+                (mismatched if src is not None else missing).append(key)
+        unexpected = [k for k in source if k not in target]
+        if logger is not None:
+            logger.both(
+                f"{prefix}load_from: loaded {len(loaded)} tensors, "
+                f"missing {len(missing)}, shape-mismatch {len(mismatched)}, "
+                f"unexpected {len(unexpected)}"
+            )
+        return out

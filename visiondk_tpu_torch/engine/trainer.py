@@ -1,18 +1,60 @@
 """The trainer (counterpart of ``visiondk_tpu/engine/trainer.py``).
 
-Ported so far: ``build_tx``, the optimizer a run trains with (the JAX
-``Trainer._build_tx``). The run loops, checkpoints and metrics are not
-ported yet.
+``build_tx`` makes the optimizer a run trains with (the JAX
+``CenterProcessor._build_tx``). ``CenterProcessor`` owns a run: model, data,
+loss, optimizer, schedule, EMA, checkpoints, logger and ``metrics.jsonl``.
+``run_classifier`` trains and validates a classification model epoch by
+epoch, as the JAX loop does:
+
+- the epoch strategy (``_epoch_strategy``): epoch 0 trains on the val
+  augments, ``warm_ep`` restores the train augments (and swaps in the
+  focal loss where configured), ``aug_epoch`` weakens them to the val
+  augments, progressive resize rewrites the pipeline's sizes; a resumed run
+  replays the skipped epochs' strategy so its pipeline matches the
+  uninterrupted run's;
+- each step through the port's ``make_train_step``, fed by a
+  ``DevicePrefetcher`` (batch N+1 is copied to the card while step N runs);
+  per-step losses stay on the device, with one host read per epoch;
+- EMA validation each epoch through ``make_eval_step`` on the EMA module;
+- ``last`` / ``best`` checkpoints each epoch (``engine/checkpoint.py``),
+  ``load_from`` and ``convert_npz`` initialisation, the epoch table,
+  ``metrics.jsonl`` and the "Validate:" hint.
+
+A run trains on the card (``device="cuda"``, the default) unless the caller
+passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
+with f32 parameters by default (``compute_dtype``). Not ported yet, and
+raising ``NotImplementedError``: the embedding tasks (``run_embedding``),
+mixup, OHEM, SAM, gradient accumulation and the device-augment stage
+(``data/dataprocessor.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
 
 from visiondk_tpu_torch.config.checks import normalize_accumulate
+from visiondk_tpu_torch.config.loader import get_imgsz, yaml_dump
+from visiondk_tpu_torch.data.dataprocessor import SmartDataProcessor
+from visiondk_tpu_torch.data.datasets import tell_data_distribution
+from visiondk_tpu_torch.data.loader import DevicePrefetcher, loader_kind
+from visiondk_tpu_torch.engine import evaluation as cls_eval
+from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.engine.optim import OptimizerSpec, create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
+from visiondk_tpu_torch.engine.state import TrainState, create_train_state
+from visiondk_tpu_torch.engine.steps import StepConfig, make_eval_step, make_train_step
+from visiondk_tpu_torch.losses import create_lossfn
+from visiondk_tpu_torch.models.convert import load_converted, merge_converted
+from visiondk_tpu_torch.models.factory import get_model
+from visiondk_tpu_torch.utils.logger import SmartLogger
+from visiondk_tpu_torch.utils.metrics_writer import MetricsWriter
+from visiondk_tpu_torch.utils.plots import colorstr
 
 
 def build_tx(
@@ -53,3 +95,286 @@ def build_tx(
         backbone_freeze=bool(model_cfg.get("backbone_freeze")),
         bn_freeze_affine=bool(model_cfg.get("bn_freeze_affine")),
     )
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; CUDA without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for (the default) but CUDA is not available; "
+            "pass --device cpu (device='cpu') to run on the CPU"
+        )
+    return device
+
+
+class CenterProcessor:
+    def __init__(
+        self,
+        cfgs: Dict[str, Any],
+        project: str,
+        train: bool = True,
+        device: torch.device | str = "cuda",
+        compute_dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+    ):
+        self.device = resolve_device(device)
+        self.model_cfg = cfgs["model"]
+        self.data_cfg = cfgs["data"]
+        self.hyp_cfg = cfgs["hyp"]
+        self.task = self.model_cfg["task"]
+        if self.task != "classification":
+            raise NotImplementedError(
+                f"task {self.task!r}: the embedding tasks are not ported to visiondk_tpu_torch yet"
+            )
+        self.project = Path(project)
+        self.compute_dtype = compute_dtype
+        self.seed = seed
+
+        self.project.mkdir(parents=True, exist_ok=True)
+        logfile = str(self.project / f"log{time.strftime('%Y%m%d-%H%M%S')}.log") if train else None
+        self.logger = SmartLogger(filename=logfile)
+        if train:
+            yaml_dump(cfgs, self.project / "config.yaml")
+
+        strategy = self.hyp_cfg.get("strategy", {})
+        loss_cfg = self.hyp_cfg["loss"]
+        self.loss_choice = "ce" if loss_cfg.get("ce") else "bce"
+        mix = strategy.get("mixup", [0.0, 0])
+        if isinstance(mix, dict):
+            mix = [mix["ratio"], mix["duration"]]
+        ohem = strategy.get("ohem", [False])
+        if train:
+            for what, on in (("mixup", float(mix[0]) > 0 and int(mix[1]) > 0),
+                             ("OHEM", bool(ohem and ohem[0] and self.loss_choice == "ce"))):
+                if on:
+                    raise NotImplementedError(f"hyp.strategy.{what.lower()} is not ported to visiondk_tpu_torch yet")
+
+        self.model = get_model(self.model_cfg, dtype=compute_dtype, device=self.device,
+                               generator=torch.Generator().manual_seed(seed))
+        self.data_processor = SmartDataProcessor(
+            self.data_cfg, project=str(self.project), training=train, task=self.task,
+        )
+        # look-ahead of the device feeder: batches on the card beyond the one in use
+        self.device_prefetch_depth = int(self.data_cfg["train"].get("device_prefetch", 2))
+        # the final resize of the val pipeline wins; model.image_size when it has none
+        self.imgsz = get_imgsz(self.data_cfg["val"]["augment"]) or self.model_cfg.get("image_size")
+        if self.imgsz is None:
+            raise ValueError(
+                "cannot infer input size: no resize op in data.val.augment and "
+                "model.image_size is unset"
+            )
+
+        label_smooth = self.hyp_cfg.get("label_smooth", 0.0)
+        if self.loss_choice == "ce":
+            self.lossfn = create_lossfn("ce", label_smooth=label_smooth)
+            self.thresh = 0
+        else:
+            self.lossfn = create_lossfn("bce")
+            self.thresh = loss_cfg["bce"][1]
+            if train:
+                self.data_processor.set_label_smoothing(self.model_cfg["num_classes"], label_smooth)
+        focal = strategy.get("focal", [False])
+        self.focal_fn = (
+            create_lossfn("focal", alpha=focal[1], gamma=focal[2])
+            if focal and focal[0] and self.loss_choice == "bce"
+            else None
+        )
+        # progressive learning: three resize milestones from warm_ep on
+        self.prog_learn = bool(strategy.get("prog_learn", False))
+        warm_ep, epochs = self.hyp_cfg["warm_ep"], self.hyp_cfg["epochs"]
+        if self.prog_learn:
+            remaining = epochs - warm_ep
+            s1, s2 = remaining // 4, remaining // 4
+            self.resize_chnodes = [warm_ep, warm_ep + s1, warm_ep + s1 + s2]
+            self.imgsz_milestone = [int(x) for x in np.linspace(int(self.imgsz * 0.5), self.imgsz, 3)]
+
+        # only the training run may delete half-written temporaries in its run dir
+        self.ckpt = CheckpointManager(self.project, writer=bool(train))
+        self._step_cache: Dict[str, Callable] = {}
+        self.metrics_writer = MetricsWriter(self.project) if train else None
+
+    # ------------------------------------------------------------ helpers
+
+    def step_config(self) -> StepConfig:
+        mean, std = self.data_processor.normalization
+        return StepConfig(mean=mean, std=std)
+
+    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key: str, lossfn) -> Callable:
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(self.model, tx, lossfn, self.step_config(), state.generator)
+        return self._step_cache[key]
+
+    def _epoch_strategy(self, epoch: int, lossfn, aug_epoch: int, log: bool = True):
+        """Apply this epoch's strategy to the data processor and the loss and
+        return the loss. A function of the epoch number and the config, so a
+        resume replays epochs [0, start) with ``log=False``."""
+        dp = self.data_processor
+        if epoch == 0:
+            dp.set_augment("train", None)
+        if epoch == self.hyp_cfg["warm_ep"]:
+            dp.restore_train_augment()
+            if self.focal_fn is not None:
+                lossfn = self.focal_fn
+        dp.auto_aug_weaken(epoch, milestone=aug_epoch)
+        if self.prog_learn:
+            for node, size in zip(self.resize_chnodes, self.imgsz_milestone):
+                if epoch == node:
+                    dp.set_train_size(size)
+                    if log:
+                        self.logger.both(f"progressive resize -> {size}")
+        return lossfn
+
+    # --------------------------------------------------------- classification
+
+    def run_classifier(self, resume: Optional[str] = None) -> Dict[str, Any]:
+        hyp, data_cfg = self.hyp_cfg, self.data_cfg
+        epochs = hyp["epochs"]
+        aug_epoch = data_cfg["train"].get("aug_epoch", epochs)
+        logger = self.logger
+        dp = self.data_processor
+
+        train_loader = dp.dataloader("train", data_cfg["train"]["bs"], seed=self.seed)
+        val_loader = dp.dataloader("val", data_cfg["val"]["bs"])
+        steps_per_epoch = max(len(train_loader), 1)
+        _, table = tell_data_distribution({"train": dp.train_dataset, "val": dp.val_dataset})
+        if self.model_cfg["num_classes"] <= 50:
+            logger.both("\n" + table)
+        else:
+            logger.log("\n" + table)
+
+        tx = build_tx(hyp, steps_per_epoch, discrete_per_epoch=True, model_cfg=self.model_cfg)
+        # the train step draws its dropout seeds from this generator; checkpoints carry its state
+        state = create_train_state(self.model, tx, torch.Generator().manual_seed(self.seed + 1))
+
+        best_fitness, start_epoch = 0.0, 0
+        if resume:
+            state, meta = self.ckpt.restore(resume, state)
+            start_epoch = meta["epoch"] + 1
+            best_fitness = meta["best_fitness"]
+            logger.both(f"resume: {resume} (epoch {start_epoch})")
+            if meta.get("meta_missing"):
+                logger.both(
+                    f"WARNING resume: {resume} has no meta.json — epoch and "
+                    "best_fitness are unknown; restarting the schedule at "
+                    "epoch 0 with the restored weights"
+                )
+        elif self.model_cfg.get("load_from"):
+            state = self._apply_load_from(state, self.model_cfg["load_from"])
+        if not resume and self.model_cfg.get("convert_npz"):
+            state = self._apply_convert_npz(state, self.model_cfg["convert_npz"])
+        eval_step = make_eval_step(state.ema_model, self.step_config())
+
+        num_classes = self.model_cfg["num_classes"]
+        lossfn = self.lossfn
+        logger.both(
+            f"device {self.device}, compute {str(self.compute_dtype).replace('torch.', '')}; loaders: train "
+            f"{loader_kind(train_loader)} ({len(train_loader)} batches of {data_cfg['train']['bs']}), "
+            f"val {loader_kind(val_loader)} ({len(val_loader)} batches of {data_cfg['val']['bs']})"
+        )
+        logger.console(
+            f"{'Epoch':>10}{'train_loss':>12}{'val_loss':>12}{'top1':>10}{'top5':>10}"
+            if self.thresh == 0
+            else f"{'Epoch':>10}{'train_loss':>12}{'val_loss':>12}{'precision':>12}{'recall':>10}{'f1':>10}"
+        )
+
+        # a resumed run replays the strategy of the skipped epochs, so its
+        # augment pipeline / focal swap / progressive size match the uninterrupted run's
+        for past in range(min(start_epoch, epochs)):
+            lossfn = self._epoch_strategy(past, lossfn, aug_epoch, log=False)
+
+        t0 = time.time()
+        last_metrics: Dict[str, Any] = {}
+        for epoch in range(start_epoch, epochs):
+            lossfn = self._epoch_strategy(epoch, lossfn, aug_epoch)
+            step = self._get_train_step(tx, state, "focal" if lossfn is self.focal_fn else self.loss_choice, lossfn)
+
+            train_loader.set_epoch(epoch)
+            epoch_t0 = time.time()
+            n_images = 0
+            # losses stay on the device; ONE host read per epoch. A per-step
+            # .item() would sync the host with the card every step.
+            step_losses = []
+            for batch in DevicePrefetcher(train_loader, self.device, self.device_prefetch_depth):
+                step_losses.append(step(state, batch)["loss"])
+                n_images += batch["image"].shape[0]
+            tloss = torch.stack(step_losses).mean().item() if step_losses else 0.0
+            epoch_secs = time.time() - epoch_t0
+            rate = n_images / max(epoch_secs, 1e-9)
+
+            val_metrics = cls_eval.valuate(
+                eval_step, val_loader, num_classes,
+                thresh=self.thresh if self.loss_choice == "bce" else None,
+                lossfn=lossfn,
+                class_names=dp.val_dataset.class_names,
+            )
+            fitness = val_metrics["fitness"]
+            last_metrics = val_metrics
+            if self.thresh == 0:
+                logger.console(
+                    f"{epoch + 1:>6}/{epochs:<3}{tloss:>12.4g}"
+                    f"{val_metrics.get('v_loss', float('nan')):>12.4g}"
+                    f"{val_metrics['top1']:>10.3g}{val_metrics.get('top5', 0.0):>10.3g}"
+                )
+            else:
+                logger.console(
+                    f"{epoch + 1:>6}/{epochs:<3}{tloss:>12.4g}"
+                    f"{val_metrics.get('v_loss', float('nan')):>12.4g}"
+                    f"{val_metrics['precision']:>12.3g}{val_metrics['recall']:>10.3g}"
+                    f"{val_metrics['f1score']:>10.3g}"
+                )
+            logger.log(
+                f"epoch:{epoch + 1} t_loss:{tloss:.4f} fitness:{fitness:.4f} imgs/s:{rate:.1f}"
+                f" train loader {loader_kind(train_loader)}"
+            )
+            if self.metrics_writer is not None:
+                w = self.metrics_writer
+                w.add_scalar("Train_loss", tloss, epoch)
+                w.add_scalar("Train_images_per_sec", rate, epoch)
+                w.add_scalar("Train_lr", tx.lr_schedule(state.optimizer.count), epoch)
+                for k in ("top1", "top5", "precision", "recall", "f1score", "v_loss"):
+                    if k in val_metrics:
+                        w.add_scalar(f"Val_{k}", float(val_metrics[k]), epoch)
+                w.flush()
+
+            self.ckpt.save("last", state, epoch, max(best_fitness, fitness))
+            if fitness > best_fitness:
+                best_fitness = fitness
+                self.ckpt.save("best", state, epoch, best_fitness)
+
+        self.ckpt.wait()  # join the in-flight writes before reporting done
+        hours = (time.time() - t0) / 3600
+        logger.both(f"\n{epochs - start_epoch} epochs completed in {hours:.3f} hours.")
+        device_flag = "" if self.device.type == "cuda" else f" --device {self.device.type}"
+        logger.console(
+            colorstr("Validate:")
+            + f" python -m visiondk_tpu_torch.validate --cfgs {self.project / 'config.yaml'}"
+            f" --weight {self.project / 'best'} --ema{device_flag}"
+        )
+        return {"best_fitness": best_fitness, **last_metrics}
+
+    # ------------------------------------------------------- initialisation
+
+    def _apply_convert_npz(self, state: TrainState, path: str) -> TrainState:
+        """Initialise from a converted ``.npz`` (the JAX package's
+        ``save_converted`` format); a backbone-only file lands under the
+        classification model's ``backbone``. The EMA restarts from the
+        loaded weights."""
+        tree = load_converted(path)
+        prefix = "backbone/" if hasattr(self.model, "backbone") else ""
+        tree = {t: {prefix + p: v for p, v in flat.items()} for t, flat in tree.items()}
+        merge_converted(self.model, tree, logger=self.logger)
+        state.ema_model.load_state_dict(self.model.state_dict())
+        return state
+
+    def _apply_load_from(self, state: TrainState, path: str) -> TrainState:
+        """Fine-tune from another run's checkpoint dir: its EMA weights only,
+        merged by key and shape (the saving run's optimizer need not match
+        this run's); the EMA restarts from them."""
+        path = Path(path)
+        source = CheckpointManager(path.parent).read(path.name)["ema"]
+        merged = CheckpointManager.load_from(self.model.state_dict(), source, logger=self.logger, prefix="ema ")
+        self.model.load_state_dict(merged)
+        state.ema_model.load_state_dict(merged)
+        self.logger.both(f"load_from: {path}")
+        return state

@@ -166,6 +166,28 @@ def load_jax_params(model: nn.Module, tree: Tree) -> nn.Module:
     return model
 
 
+def merge_converted(model: nn.Module, tree: Tree, logger=None) -> nn.Module:
+    """Non-strict load of a JAX tree into ``model`` in place (the JAX
+    ``merge_converted``, a config's ``convert_npz``): each port tensor whose
+    source is in ``tree`` with the right shape takes it, the others keep
+    their values. Logs the counts. (The JAX merge also resizes a
+    ``pos_embed`` of another grid; here that tensor is skipped.)"""
+    target = model.state_dict()
+    loaded, skipped = 0, []
+    for key, (t, path, fn) in _sources(model).items():
+        src = tree.get(t, {}).get(path)
+        arr = None if src is None else np.array(fn(np.asarray(src)), order="C")
+        if arr is not None and arr.shape == tuple(target[key].shape):
+            target[key] = torch.from_numpy(arr).to(target[key].dtype)
+            loaded += 1
+        else:
+            skipped.append(key)
+    model.load_state_dict(target, strict=True)
+    if logger is not None:
+        logger.both(f"convert: loaded {loaded} tensors; skipped {len(skipped)} {skipped[:8]}")
+    return model
+
+
 def load_converted(path: str) -> Tree:
     """Read a ``{tree}::{path}`` npz (the JAX package's ``save_converted``).
     Keys that start with ``__`` are not tensors of a tree (a golden fixture's

@@ -1,0 +1,71 @@
+"""Evaluation CLI (counterpart of the repo's ``validate.py``), on the card by default::
+
+    python -m visiondk_tpu_torch.validate --cfgs run/exp/config.yaml --weight run/exp/best \
+        [--ema] [--eval_topk 5] [--thresh 0.5] [--device cuda|cpu]
+
+Classification: top-1/top-k (or multi-label precision/recall/F1), the
+per-class table and, for ≤ 10 classes, a confusion-matrix PNG beside the
+checkpoint. ``--ema`` serves the EMA weights, as the trainer's validation
+does. ``--quant int8`` and the embedding tasks raise ``NotImplementedError``:
+they are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--cfgs", type=str, required=True)
+    p.add_argument("--weight", type=str, required=True, help="checkpoint dir (e.g. run/exp/best)")
+    p.add_argument("--ema", action="store_true", help="evaluate the EMA weights")
+    p.add_argument("--eval_topk", type=int, default=5)
+    p.add_argument("--thresh", type=float, default=None, help="multilabel threshold override")
+    p.add_argument("--quant", type=str, default=None, choices=["int8"], help="int8 serving (not ported)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(opt):
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.engine import evaluation as cls_eval
+    from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
+    from visiondk_tpu_torch.engine.state import create_train_state
+    from visiondk_tpu_torch.engine.steps import make_eval_step
+    from visiondk_tpu_torch.engine.trainer import CenterProcessor, build_tx, resolve_device
+
+    if opt.quant is not None:
+        raise NotImplementedError("--quant int8: int8 serving is not ported yet")
+    resolve_device(opt.device)
+    cfgs = yaml_load(opt.cfgs)
+    weight = Path(opt.weight)
+
+    cp = CenterProcessor(cfgs, project=str(weight.parent), train=False, device=opt.device)
+    # rebuild the state's shape and restore
+    tx = build_tx(cfgs["hyp"], steps_per_epoch=1, discrete_per_epoch=True, model_cfg=cfgs["model"])
+    state = create_train_state(cp.model, tx)
+    state, meta = CheckpointManager(weight.parent).restore(weight.name, state)
+    print(f"loaded {weight} (epoch {meta.get('epoch')}, best_fitness {meta.get('best_fitness')})")
+
+    eval_step = make_eval_step(state.ema_model if opt.ema else state.model, cp.step_config())
+    loader = cp.data_processor.dataloader("val", cfgs["data"]["val"]["bs"])
+    thresh = opt.thresh if opt.thresh is not None else (cp.thresh if cp.loss_choice == "bce" else None)
+    names = cp.data_processor.val_dataset.class_names
+    metrics = cls_eval.valuate(
+        eval_step, loader, cfgs["model"]["num_classes"],
+        thresh=thresh, lossfn=cp.lossfn, class_names=names,
+        conm_path=weight.parent / "confusion_matrix.png", eval_topk=opt.eval_topk,
+    )
+    per_class = metrics.pop("per_class", [])
+    print(metrics)
+    for row in per_class:
+        row = dict(row)
+        row["class"] = names[row["class"]] if row["class"] < len(names) else row["class"]
+        print(row)
+    return metrics
+
+
+if __name__ == "__main__":
+    main(parse_opt())
