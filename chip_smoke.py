@@ -109,32 +109,53 @@ Phases, one line or more each; any failure raises and exits non-zero:
              relative_position_bias_table gradient non-zero after the first;
              the one-step f32 comparison at bs 16 with phase 5's bars.
 
+DA. device augment — the device-augment stage (visiondk_tpu_torch/ops/
+             device_augment.py) at pet_synth's shape: a seeded uint8 batch of
+             128 224² images on the card. Every compiler of the registry with
+             its defaults (random_crop at 192), every branch of pet_synth's two
+             lifted items forced (its random_choice's seven, hflip at p 1), and
+             both items as drawn: apply on the card against apply on a CPU copy
+             with the same host draws (random_cutaddnoise's CPU side takes the
+             noise the card drew from its seed). Flips, invert, grayscale,
+             autocontrast, equalize, crop, cutout and the noise holes equal;
+             the rest (blends, hue, blur, rotate, affine, AugMix, RandAugment)
+             within 1 LSB with ≥ 99% of pixels equal. pet_synth's whole stage
+             once under torch.cuda.set_sync_debug_mode("error"): a hidden
+             device→host sync fails the phase. Its time per batch (CUDA events,
+             10 calls after 2 warm-up, and the host clock) at bs 128 beside
+             phase 5's ViT-B/16 step, and at pet.yaml's bs 80.
 RL. run loop — the classification run loop through the port's own CLIs, on a
              temporary directory: benchmarks/make_synth_pet.py (a subprocess)
              writes 40 train and 4 val JPEGs per class (1,400 / 140), and
-             configs/classification/pet_synth.yaml runs with
-             data.train.device_augment: false (the device-augment stage is
-             not ported) and these cuts, printed: that dataset size, hyp.epochs
-             3 (epoch 0 on the val augments, 1 on the full train pipeline, 2
-             weakened from aug_epoch 2), everything else as written (ViT-B/16,
-             bs 128 bf16, val bs 320). Needs PyYAML and PIL: without them the
-             phase fails and names the one missing. Run A: `python -m
-             visiondk_tpu_torch.main` in this process (runpy, sys.argv as on
-             the command line): the epoch table, trainer-fed images/s per
-             epoch, which loaders ran (native or PIL), and exactly 12 x 30 K1s,
-             12 x 30 K1b and 12 x 3 K1 launches (10 steps and one val batch an
-             epoch), no other attention kernel. Run B, the same command: per-
-             epoch train loss within 1e-3 relative and val top1 within one
-             image of run A (bit-identity printed). Run C, the same command as
-             a subprocess, SIGKILLed in epoch 1 once epoch 0's checkpoint is
-             complete on disk, then `--resume` in this process: it must resume
-             from epoch 1 and its epochs match run A's to the same bars.
-             `python -m visiondk_tpu_torch.validate --ema` on run A's best
+             configs/classification/pet_synth.yaml runs as written
+             (data.train.device_augment "auto": the host keeps decode and the
+             letterbox-or-RRC, the device-augment stage runs the rest) with
+             these cuts, printed: that dataset size, hyp.epochs 3 (epoch 0 on
+             the val augments, 1 on the full train pipeline, the one epoch in
+             which the stage is live, 2 weakened from aug_epoch 2), everything
+             else as written (ViT-B/16, bs 128 bf16, val bs 320). Needs PyYAML
+             and PIL: without them the phase fails and names the one missing.
+             Run A: `python -m visiondk_tpu_torch.main` in this process (runpy,
+             sys.argv as on the command line): the split line the trainer
+             logged, the epoch table, trainer-fed images/s per epoch, which
+             loaders ran (native or PIL), exactly 12 x 30 K1s, 12 x 30 K1b and
+             12 x 3 K1 launches (10 steps and one val batch an epoch), no other
+             attention kernel, and the stage's calls per epoch exactly 0 / 10 /
+             0 (make_device_augment.calls, read at each epoch's start). Run B,
+             the same command: the same stage calls; per-epoch train loss
+             within 1e-3 relative and val top1 within one image of run A
+             (bit-identity printed). Run C, the same command as a subprocess,
+             SIGKILLed in epoch 1 once epoch 0's checkpoint is complete on
+             disk, then `--resume` in this process: it must resume from epoch 1
+             with stage calls 10 / 0, and its epochs match run A's to the same
+             bars. `python -m visiondk_tpu_torch.validate --ema` on run A's best
              checkpoint: 12 K1 launches and exactly run A's best-epoch top1.
-             Last, images/s of the train loader alone (epoch 1's pipeline, no
-             step; as the trainer builds it, with 4 batches in flight, and with
-             one in flight per worker), of the trainer-fed epoch 1 and of phase
-             5's synthetic batch, and whether the trainer-fed run is host-paced.
+             Last, images/s of the train loader alone on epoch 1 (no step) with
+             the split host pipeline and with the full one (the
+             device_augment: false processor), each as the trainer builds it
+             (4 batches in flight) and with one batch in flight per worker,
+             beside the trainer-fed epochs and phase 5's synthetic batch, and
+             whether the trainer-fed run is host-paced.
 3v. vision kernel — vision_attention's forward (K3) and recompute backward
              (K3r) against their plain versions, f32 and bf16, at ViT-B/16
              (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
@@ -156,7 +177,9 @@ bf16 train runs of both models, the run loop's in-process runs (A, B, C's
 resume, validate) and the vision path, counts set to 0 before
 each and read after), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
-attention); the last line is {"ok": true, "device": {...}}.
+attention); the last line is {"ok": true, "device": {...}}. The
+device-augment stage has no kernel of its own (plain PyTorch ops on the card),
+so it has no entry there.
 """
 
 from __future__ import annotations
@@ -180,6 +203,7 @@ import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -191,6 +215,7 @@ from visiondk_tpu_torch.models import get_model
 from visiondk_tpu_torch.models.backbones.swin import WindowAttention, window_region_ids
 from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
+from visiondk_tpu_torch.ops import device_augment as da
 from visiondk_tpu_torch.ops import window_attention as wattn
 from visiondk_tpu_torch.ops.attention import (
     fused_qkv_attention_bwd_from_p,
@@ -428,6 +453,7 @@ def heads_view(qkv: torch.Tensor, heads: int):
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    da.make_device_augment.calls = 0
 
 
 def read_counts() -> dict:
@@ -1327,9 +1353,119 @@ def phase_vision_path(dev: torch.device) -> dict:
     return {k: train_counts[k] + eval_counts[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------- device augment
+
+# the train augment list of configs/classification/pet_synth.yaml (pet.yaml's is the same, at bs 80)
+PET_SYNTH_YAML = Path(__file__).resolve().parent / "configs" / "classification" / "pet_synth.yaml"
+PET_BATCH = 80
+# ops whose card and CPU results must be equal; the others (blends, hue, blur, the affine family and
+# the composites that chain them) within 1 LSB, with at least this share of pixels equal
+DA_EXACT = {"random_horizonflip", "random_verticalflip", "random_double_flip", "random_doubleflip", "random_invert",
+            "random_grayscale", "random_autocontrast", "random_equalize", "random_cutout", "random_cutaddnoise",
+            "random_crop"}
+DA_MIN_EQUAL = 0.99
+DA_TIMED_CALLS, DA_WARMUP = 10, 2
+
+
+def augment_batch(n: int, dev: torch.device, seed: int = 5) -> torch.Tensor:
+    """Seeded uint8 images [n, IMG, IMG, 3] on the card: noise over a per-image
+    band [lo, hi] of values plus a gradient, so that the LUT ops, the blurs and
+    the geometry all change it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.randint(0, 96, (n, 1, 1, 1), generator=gen, device=dev)
+    span = torch.randint(64, 160, (n, 1, 1, 1), generator=gen, device=dev)
+    noise = torch.randint(0, 256, (n, IMG, IMG, 3), generator=gen, device=dev)
+    ramp = torch.arange(IMG, device=dev).view(1, IMG, 1, 1) * 255 // IMG
+    return (lo + (noise // 2 + ramp // 2) * span // 256).clamp(0, 255).to(torch.uint8)
+
+
+def card_noise(draw, like: torch.Tensor):
+    """random_cutaddnoise's draw (a gate over its holes) with the noise the card
+    draws from its seed, on the CPU, so the CPU apply uses the same noise."""
+    fire, inner = draw
+    shape = (len(fire), *like.shape[1:])
+    noise = da.cutaddnoise_noise(torch.empty(shape, device=like.device), inner["noise_seed"]).cpu()
+    return fire, {**inner, "noise": noise}
+
+
+def phase_device_augment(dev: torch.device) -> None:
+    """The device-augment stage at pet_synth's shape: every compiled op on the
+    card against the same op on a CPU copy with the same draws, the stage once
+    under the sync-debug mode, and its time per batch (see the module doc)."""
+    from visiondk_tpu_torch.config import yaml_load
+
+    tag = "device augment"
+    augment = yaml_load(PET_SYNTH_YAML)["data"]["train"]["augment"]
+    host, device_cfg = da.split_device_pipeline(augment)
+    choice, flip = device_cfg
+    x_card = augment_batch(BATCH, dev).to(torch.float32)
+    x_cpu = x_card.cpu()
+    n, h, w = x_card.shape[:3]
+    cases = [(f"{name} (defaults)", {name: {"size": IMG - 32} if name == "random_crop" else None})
+             for name in da._COMPILERS]
+    cases += [(f"pet_synth choice branch {b} forced: {da._item_name(t)}", t)
+              for b, t in enumerate(choice["random_choice"]["transforms"])]
+    cases += [("pet_synth random_choice (drawn)", choice), ("pet_synth random_horizonflip (p 1 forced)",
+                                                           {"random_horizonflip": {"p": 1.0}}),
+              ("pet_synth random_horizonflip (drawn)", flip)]
+    print(f"[{tag}] pet_synth split: {da.describe_split(host, device_cfg)}; batch {tuple(x_card.shape)} seeded "
+          f"uint8 on the card; {len(cases)} ops, card against CPU on the same draws")
+    worst = 0.0
+    for i, (label, item) in enumerate(cases):
+        name = da._item_name(item)
+        op = da._compile_one(name, da._item_params(item))
+        draw = op.draw(np.random.default_rng(100 + i), n, h, w)
+        card = op.apply(x_card, draw).cpu()
+        cpu = op.apply(x_cpu, card_noise(draw, x_card) if name == "random_cutaddnoise" else draw)
+        check(card.shape == cpu.shape, f"[{tag}] {label}: card {tuple(card.shape)} vs CPU {tuple(cpu.shape)}")
+        diff = (card - cpu).abs()
+        err, equal = diff.max().item(), (diff == 0).float().mean().item()
+        changed = (card.shape != x_cpu.shape) or bool((card != x_cpu).any())
+        print(f"[{tag}] {label}: max |card - CPU| {err:g}, {equal:.6%} of pixels equal, "
+              f"{'changed the batch' if changed else 'left the batch as it was'}")
+        if name in DA_EXACT:
+            check(err == 0, f"[{tag}] {label}: card and CPU differ (max {err})")
+        else:
+            check(err <= 1 and equal >= DA_MIN_EQUAL, f"[{tag}] {label}: card and CPU differ beyond the bar")
+        worst = max(worst, err)
+
+    stage = da.make_device_augment(device_cfg, group_size=1)
+    images = x_card.to(torch.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = stage(7, images)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(out.shape == images.shape and out.dtype == torch.uint8, f"[{tag}] stage output {out.shape} {out.dtype}")
+    print(f"[{tag}] pet_synth's whole stage under torch.cuda.set_sync_debug_mode('error'): no device-to-host "
+          f"sync; {(out != images).any(dim=(1, 2, 3)).sum().item()} of {BATCH} images changed")
+
+    step_ms = [BATCH / r * 1e3 for r in TRAIN_RATES[VIT.train_tag]]
+    for bs, what in ((BATCH, "pet_synth"), (PET_BATCH, "pet.yaml")):
+        imgs = augment_batch(bs, dev, seed=6)
+        seeds = iter(range(1000))
+        for _ in range(DA_WARMUP):
+            stage(next(seeds), imgs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(DA_TIMED_CALLS):
+            stage(next(seeds), imgs)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / DA_TIMED_CALLS
+        print(f"[{tag}] {what}'s stage, bs {bs} {IMG}²: {start.elapsed_time(end) / DA_TIMED_CALLS:.3f} ms a batch "
+              f"(CUDA events over {DA_TIMED_CALLS} calls after {DA_WARMUP} warm-up; host clock {host_ms:.3f} ms)"
+              + (f"; the ViT-B/16 bf16 train step (phase 5, kernel path) " + ", ".join(f"{t:.2f}" for t in step_ms)
+                 + " ms" if bs == BATCH else ""))
+    print(f"[{tag}] largest |card - CPU| over every op {worst:g}")
+
+
 # ---------------------------------------------------------------- run loop
 
-PET_SYNTH_YAML = Path(__file__).resolve().parent / "configs" / "classification" / "pet_synth.yaml"
 # the cuts of the run loop's pet_synth run: 40 train and 4 val JPEGs a class
 # (35 classes: 1,400 train = 10 steps of 128 an epoch with drop_last, 140 val =
 # one batch of 320), 3 epochs (0: val augments, the warm-up; 1: the full train
@@ -1414,6 +1550,7 @@ def phase_run_loop(dev: torch.device) -> dict:
             raise RuntimeError(f"chip_smoke: [{tag}] needs {module} ({e}); it is not installed here") from e
     from visiondk_tpu_torch.config import yaml_dump, yaml_load
     from visiondk_tpu_torch.data import SmartDataProcessor, loader_kind
+    from visiondk_tpu_torch.engine.trainer import CenterProcessor
 
     fwd, stash, bwd_p, _ = K1_KERNELS
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
@@ -1426,7 +1563,6 @@ def phase_run_loop(dev: torch.device) -> dict:
                        check=True, timeout=RUN_LOOP_TIMEOUT_S)
         cfg = yaml_load(PET_SYNTH_YAML)
         cfg["data"]["root"] = str(tmp / "synthpet")
-        cfg["data"]["train"]["device_augment"] = False
         cfg["data"]["train"]["aug_epoch"] = RUN_LOOP_CUTS["aug_epoch"]
         cfg["hyp"]["epochs"] = RUN_LOOP_CUTS["epochs"]
         yaml_path = tmp / "pet_synth_run_loop.yaml"
@@ -1436,25 +1572,45 @@ def phase_run_loop(dev: torch.device) -> dict:
         n_val = RUN_LOOP_CUTS["n_val_per_class"] * n_classes
         epochs = RUN_LOOP_CUTS["epochs"]
         steps, val_batches = n_train // bs, -(-n_val // val_bs)
-        print(f"[{tag}] configs/classification/pet_synth.yaml with data.train.device_augment: false (the device-augment "
-              f"stage is not ported) and these cuts: dataset {n_train} train / {n_val} val JPEGs "
+        print(f"[{tag}] configs/classification/pet_synth.yaml as written (data.train.device_augment 'auto': the "
+              f"device-augment stage live in epoch 1) with these cuts: dataset {n_train} train / {n_val} val JPEGs "
               f"(make_synth_pet.py --n-train {RUN_LOOP_CUTS['n_train_per_class']} --n-val "
               f"{RUN_LOOP_CUTS['n_val_per_class']}; {steps} steps of {bs} an epoch), hyp.epochs {epochs} (was 6), "
               f"data.train.aug_epoch {RUN_LOOP_CUTS['aug_epoch']} (was 5); everything else as written "
               f"({cfg['model']['name']}, bs {bs}, val bs {val_bs}, bf16); data made in {time.perf_counter() - t0:.1f} s")
 
         def train(project: Path, *extra) -> tuple:
+            """One in-process run: its output, launches, metrics, seconds and the
+            device-augment stage's calls in each epoch it trained."""
             reset_counts()
+            marks, strategy = [], CenterProcessor._epoch_strategy
+
+            def mark(self, epoch, *args, **kwargs):
+                if kwargs.get("log", True):
+                    marks.append(da.make_device_augment.calls)
+                return strategy(self, epoch, *args, **kwargs)
+
+            CenterProcessor._epoch_strategy = mark
             t = time.perf_counter()
-            out = run_cli("visiondk_tpu_torch.main", ["--cfgs", str(yaml_path), "--project", str(project),
-                                                      "--seed", "0", *extra])
-            return out, read_counts(), read_metrics(project), time.perf_counter() - t
+            try:
+                out = run_cli("visiondk_tpu_torch.main", ["--cfgs", str(yaml_path), "--project", str(project),
+                                                          "--seed", "0", *extra])
+            finally:
+                CenterProcessor._epoch_strategy = strategy
+            stage = [b - a for a, b in zip(marks, marks[1:] + [da.make_device_augment.calls])]
+            return out, read_counts(), read_metrics(project), time.perf_counter() - t, stage
+
+        live = [steps if cfg["hyp"]["warm_ep"] <= e < RUN_LOOP_CUTS["aug_epoch"] else 0 for e in range(epochs)]
 
         # run A: the main path, counted
-        out_a, counts_a, metrics_a, secs_a = train(tmp / "runA")
+        out_a, counts_a, metrics_a, secs_a, stage_a = train(tmp / "runA")
         want = only({stash: DEPTH * steps * epochs, bwd_p: DEPTH * steps * epochs, fwd: DEPTH * val_batches * epochs})
         check(counts_a == want, f"run A launches {[(NAMES[k], v) for k, v in counts_a.items()]}, want "
                                 f"{[(NAMES[k], v) for k, v in want.items()]}")
+        split = re.search(r"device augment split — (.*)", out_a)
+        check(split is not None, "run A logged no device augment split")
+        print(f"[{tag}] run A's trainer logged: device augment split — {split.group(1)}")
+        check(stage_a == live, f"run A's device-augment stage calls by epoch {stage_a}, want {live}")
         loaders = re.search(r"loaders: (.*)", out_a).group(1)
         rates_a = [metrics_a["Train_images_per_sec"][e] for e in range(epochs)]
         for e in range(epochs):
@@ -1464,10 +1620,12 @@ def phase_run_loop(dev: torch.device) -> dict:
               + ", ".join(f"{r:.1f}" for r in rates_a)
               + f"; launches: {NAMES[stash]} {counts_a[stash]} and {NAMES[bwd_p]} {counts_a[bwd_p]} "
                 f"(= {DEPTH} x {steps * epochs} train steps), {NAMES[fwd]} {counts_a[fwd]} (= {DEPTH} x "
-                f"{val_batches} val batch x {epochs} epochs), no other attention kernel")
+                f"{val_batches} val batch x {epochs} epochs), no other attention kernel; device-augment stage "
+                f"calls by epoch {' / '.join(map(str, stage_a))}")
 
         # run B: the same command; seeded runs agree
-        _, counts_b, metrics_b, _ = train(tmp / "runB")
+        _, counts_b, metrics_b, _, stage_b = train(tmp / "runB")
+        check(stage_b == live, f"run B's device-augment stage calls by epoch {stage_b}, want {live}")
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_b, range(epochs), n_val)
         print(f"[{tag}] run B vs run A, epochs 1-{epochs}: largest train-loss difference {loss_d:.3e} relative "
               f"(bar {RUN_LOOP_LOSS_RTOL}), largest val-top1 difference {top1_d:.2f} images (bar 1); "
@@ -1489,13 +1647,15 @@ def phase_run_loop(dev: torch.device) -> dict:
             proc.send_signal(signal.SIGKILL)
             proc.wait()
         done = sorted(read_metrics(run_c).get("Train_loss", {}))
-        out_c, counts_c, metrics_c, _ = train(run_c, "--resume")
+        out_c, counts_c, metrics_c, _, stage_c = train(run_c, "--resume")
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
         check(resumed == 1, f"run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
+        check(stage_c == live[resumed:], f"resumed run C's device-augment stage calls {stage_c}, want {live[resumed:]}")
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_c, range(resumed, epochs), n_val)
         print(f"[{tag}] run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from epoch "
               f"{resumed}; epochs {resumed + 1}-{epochs} vs run A: train loss {loss_d:.3e} relative, val top1 "
-              f"{top1_d:.2f} images; bit-identical: {same}")
+              f"{top1_d:.2f} images; bit-identical: {same}; device-augment stage calls by epoch "
+              f"{' / '.join(map(str, stage_c))}")
         check(loss_d <= RUN_LOOP_LOSS_RTOL and top1_d <= 1 + 1e-9, "the resumed run C disagrees with run A")
         resumed_steps = steps * (epochs - resumed)
         check(counts_c == only({stash: DEPTH * resumed_steps, bwd_p: DEPTH * resumed_steps,
@@ -1516,28 +1676,34 @@ def phase_run_loop(dev: torch.device) -> dict:
               f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
         check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
 
-        # the host pipeline alone against the step: the train loader of epoch 1 (the full pipeline), no
-        # step; as built (at most `prefetch` = 4 batches in flight, one worker thread a batch), then with
-        # a batch in flight for every worker, to see whether the workers or the cores set its rate
-        dp = SmartDataProcessor(cfg["data"], project=str(tmp / "loader"), training=True)
-        loader = dp.dataloader("train", bs, seed=0)
-        loader.set_epoch(1)
-        loader_rates, built = {}, loader.prefetch
-        for in_flight in (built, loader.num_workers):
-            loader.prefetch = in_flight
-            t, n = time.perf_counter(), 0
-            for batch in loader:
-                n += batch["image"].shape[0]
-            loader_rates[in_flight] = n / (time.perf_counter() - t)
+        # the host pipeline alone against the step: the train loader of epoch 1, no step, on the split
+        # host pipeline the trainer runs (decode + letterbox-or-RRC) and on the full pipeline (the
+        # device_augment: false processor); as built (at most `prefetch` = 4 batches in flight, one
+        # worker thread a batch), then with a batch in flight for every worker
+        loader_rates, kinds = {}, {}
+        for which, dev_aug in (("split", "auto"), ("full", False)):
+            data_cfg = {**cfg["data"], "train": {**cfg["data"]["train"], "device_augment": dev_aug}}
+            dp = SmartDataProcessor(data_cfg, project=str(tmp / f"loader_{which}"), training=True)
+            loader = dp.dataloader("train", bs, seed=0)
+            loader.set_epoch(1)
+            built, kinds[which] = loader.prefetch, loader_kind(loader)
+            for in_flight in (built, loader.num_workers):
+                loader.prefetch = in_flight
+                t, n = time.perf_counter(), 0
+                for batch in loader:
+                    n += batch["image"].shape[0]
+                loader_rates[which, in_flight] = n / (time.perf_counter() - t)
         synthetic = TRAIN_RATES[VIT.train_tag]
         fed = rates_a[1]
-        print(f"[{tag}] ViT-B/16 bf16 bs {bs} images/s: train loader alone ({loader_kind(loader)}, "
-              f"{loader.num_workers} workers on {os.cpu_count()} cores, epoch 1's full pipeline, no step) "
-              + ", ".join(f"{r:.1f} with {k} batches in flight" for k, r in loader_rates.items())
-              + f" (the trainer's loader keeps {built}); trainer-fed epoch 1 {fed:.1f}; "
-                f"synthetic batch on the card (phase 5, kernel path) " + ", ".join(f"{r:.1f}" for r in synthetic)
-              + f" -> the trainer-fed step runs at {fed / (sum(synthetic) / len(synthetic)):.1%} of the synthetic "
-                f"rate: {'host-paced' if fed < 0.9 * min(synthetic) else 'not host-paced'}")
+        print(f"[{tag}] ViT-B/16 bf16 bs {bs} images/s: train loader alone ({loader.num_workers} workers on "
+              f"{os.cpu_count()} cores, epoch 1, no step) "
+              + ", ".join(f"{which} host pipeline ({kinds[which]}) {r:.1f} with {k} batches in flight"
+                          for (which, k), r in loader_rates.items())
+              + f" (the trainer's loader keeps {built}; split = decode + letterbox-or-RRC, the rest on the card; "
+                f"full = device_augment: false); trainer-fed by epoch " + ", ".join(f"{r:.1f}" for r in rates_a)
+              + f"; synthetic batch on the card (phase 5, kernel path) " + ", ".join(f"{r:.1f}" for r in synthetic)
+              + f" -> the trainer-fed epoch 1 runs at {fed / (sum(synthetic) / len(synthetic)):.1%} of the "
+                f"synthetic rate: {'host-paced' if fed < 0.9 * min(synthetic) else 'not host-paced'}")
         return {k: counts_a[k] + counts_b[k] + counts_c[k] + counts_v[k] for k in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1557,6 +1723,7 @@ def main() -> None:
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
+    phase_device_augment(dev)
     run_loop = phase_run_loop(dev)
     print("[launches] run loop: " + ", ".join(f"{NAMES[k]} {run_loop[k]}" for k in K1_KERNELS))
     launches = {k: launches[k] + run_loop[k] for k in KERNELS}

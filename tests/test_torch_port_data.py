@@ -5,9 +5,9 @@ The port keeps its own copies of the JAX package's numpy/PIL data modules
 seeded images written by PIL into ``tmp_path``. Every comparison is exact:
 the same ops on the same bytes under the same per-sample seeding
 (``seed_sample(seed, epoch, index)``) must give the same uint8 output, so
-the port trains on byte-identical batches. Also here: the guard that a
-training processor raises for the device-augment split the port does not
-have, and the CPU behaviour of the port's ``DevicePrefetcher`` (mirroring
+the port trains on byte-identical batches. Also here: the device-augment
+split of the train pipeline against the JAX processor's, and the CPU
+behaviour of the port's ``DevicePrefetcher`` (mirroring
 ``tests/test_device_prefetch.py``).
 """
 
@@ -244,12 +244,25 @@ def test_val_batches_are_byte_identical_to_jax(image_root, tmp_path, monkeypatch
     assert _assert_same_batches(port_loader, jax_loader, epochs=(0,)) == 3
 
 
-def test_processor_raises_for_the_device_augment_split(image_root, tmp_path):
-    data_cfg = _data_cfg(image_root, device_augment=None)  # pet_synth as written: "auto"
-    with pytest.raises(NotImplementedError, match="device_augment: false"):
-        SmartDataProcessor(data_cfg, project=str(tmp_path))
-    SmartDataProcessor(data_cfg, project=str(tmp_path), training=False)  # serving builds no train pipeline
-    SmartDataProcessor({**data_cfg, "train": {**data_cfg["train"], "device_augment": False}}, project=str(tmp_path))
+def test_processor_splits_the_train_pipeline_like_jax(image_root, tmp_path):
+    """pet_synth as written (``device_augment: "auto"``): the same host and
+    device configs as the JAX processor, and byte-identical host batches of
+    the split pipeline; ``device_augment: false``, a class_aug, or a serving
+    processor keep the whole pipeline on the host."""
+    data_cfg = _data_cfg(image_root, device_augment=None)
+    port, ref = _both_processors(image_root, tmp_path, data_cfg)
+    assert [next(iter(i)) for i in port.device_augment_cfg] == ["random_choice", "random_horizonflip"]
+    assert port.device_augment_cfg == ref.device_augment_cfg
+    assert port.train_pipeline_cfg == ref.train_pipeline_cfg != data_cfg["train"]["augment"]
+    assert _assert_same_batches(port.dataloader("train", 8), ref.dataloader("train", 8), epochs=(1,)) > 0
+    assert port.set_train_size(24) is ref.set_train_size(24) is False  # no lifted random_crop
+    whole = data_cfg["train"]["augment"]
+    for variant in ({"device_augment": False}, {"device_augment": "off"}, {"class_aug": {0: [0]}}):
+        cfg = {**data_cfg, "train": {**data_cfg["train"], **variant}}
+        dp = SmartDataProcessor(copy.deepcopy(cfg), project=str(tmp_path / "v"))
+        assert dp.device_augment_cfg == [] and dp.train_pipeline_cfg == whole, variant
+    serving = SmartDataProcessor(copy.deepcopy(data_cfg), project=str(tmp_path / "s"), training=False)
+    assert serving.device_augment_cfg == []
 
 
 def test_loader_surfaces_a_sample_exception(image_root, tmp_path):

@@ -21,6 +21,7 @@ import visiondk_tpu_torch.ops.attention, visiondk_tpu_torch.losses, visiondk_tpu
 import visiondk_tpu_torch.engine.optim, visiondk_tpu_torch.engine.schedules
 import visiondk_tpu_torch.engine.state, visiondk_tpu_torch.engine.trainer
 import visiondk_tpu_torch.ops.window_attention, visiondk_tpu_torch.models.backbones.swin
+import visiondk_tpu_torch.ops.device_augment
 import visiondk_tpu_torch.models.convert
 import visiondk_tpu_torch.config, visiondk_tpu_torch.config.loader, visiondk_tpu_torch.config.checks
 import visiondk_tpu_torch.utils, visiondk_tpu_torch.utils.logger, visiondk_tpu_torch.utils.meters

@@ -18,7 +18,9 @@ its batch is sharded over 8 devices), carried through 21 SGD steps: the
 three-step test's 1e-5 (``test_torch_port_train.py``) grows with the steps.
 A port run killed after its second epoch and resumed equals the
 uninterrupted run to 1e-6 (the same process, the same ops: in practice
-bit-equal). ``validate`` reproduces the trainer's best top1 exactly.
+bit-equal). ``validate`` reproduces the trainer's best top1 exactly. A run
+with ``device_augment: "auto"`` on deterministic lifted ops (hflip,
+autocontrast, invert) is held to the JAX trainer's at the same bars.
 """
 
 import json
@@ -186,6 +188,73 @@ def test_resumed_run_equals_the_uninterrupted_run(toy, port_run, tmp_path):
         want_sd = want_m if isinstance(want_m, dict) else want_m.state_dict()
         for key, value in want_sd.items():
             assert torch.allclose(got_sd[key], value, rtol=0, atol=RESUME_TOL), key
+
+
+def test_run_with_the_device_augment_stage_matches_the_jax_trainer(toy, port_run, tmp_path, mesh8, monkeypatch,
+                                                                  capsys):
+    """``device_augment: "auto"`` on a train pipeline whose lifted ops are
+    deterministic (hflip, autocontrast and invert, each at p 1), before
+    pet_synth's host geometry: both trainers run the stage in epoch 1 only,
+    on the same host batches; the file's bars."""
+    from visiondk_tpu_torch.ops.device_augment import make_device_augment
+
+    cfg = json.loads(json.dumps(toy[0]))
+    train = cfg["data"]["train"]
+    train["augment"] = [{"random_horizonflip": {"p": 1.0}}, {"random_autocontrast": {"p": 1.0}},
+                        {"random_invert": {"p": 1.0}}, *train["augment"][2:]]
+    train["device_augment"] = "auto"
+    monkeypatch.setattr(jax_trainer, "MetricsWriter", lambda logdir: JaxMetricsWriter(logdir, use_tensorboard=False))
+    JaxCenterProcessor(json.loads(json.dumps(cfg)), project=str(tmp_path / "jax"), train=True, mesh=mesh8,
+                       compute_dtype=jnp.float32, seed=0).run_classifier()
+    cp = CenterProcessor(json.loads(json.dumps(cfg)), project=str(tmp_path / "port"), device="cpu",
+                         compute_dtype=torch.float32, seed=0)
+    calls = []
+    strategy = cp._epoch_strategy
+
+    def record(epoch, *args, **kwargs):
+        calls.append(make_device_augment.calls)
+        return strategy(epoch, *args, **kwargs)
+
+    cp._epoch_strategy = record
+    cp.run_classifier()
+    calls.append(make_device_augment.calls)
+    out = capsys.readouterr().out
+    assert ("device augment split — host: [random_choice, to_tensor, normalize] | device: [random_horizonflip, "
+            "random_autocontrast, random_invert]; data.train.device_augment_group_size 8 is not used") in out
+    assert np.diff(calls).tolist() == [0, N_TRAIN * CLASSES // 16, 0]
+    got, want = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    for epoch in range(EPOCHS):
+        for tag in ("Train_loss", "Val_v_loss"):
+            a, b = got[tag][epoch], want[tag][epoch]
+            assert abs(a - b) <= LOSS_RTOL * abs(b), (tag, epoch, a, b)
+        assert abs(got["Val_top1"][epoch] - want["Val_top1"][epoch]) * N_VAL * CLASSES <= 1 + 1e-9, epoch
+    assert got["Train_loss"][1] != _metrics(port_run[0])["Train_loss"][1]  # the stage changed epoch 1's batches
+
+
+def test_progressive_resize_rebuilds_the_device_stage(toy, tmp_path):
+    """A lifted random_crop carries a static size: at each progressive-resize
+    node the trainer rewrites it, rebuilds the stage and drops the cached
+    steps that hold the old one (the JAX trainer's ``_epoch_strategy``)."""
+    cfg = json.loads(json.dumps(toy[0]))
+    normalize = cfg["data"]["train"]["augment"][-1]
+    cfg["data"]["train"].update(device_augment="auto", augment=[
+        {"resize_and_padding": {"size": SIZE, "training": True}}, {"random_horizonflip": {"p": 0.5}},
+        {"random_crop": {"size": SIZE}}, "to_tensor", normalize])
+    cfg["hyp"].update(epochs=9)
+    cfg["hyp"]["strategy"]["prog_learn"] = True
+    cp = CenterProcessor(cfg, project=str(tmp_path), device="cpu", compute_dtype=torch.float32, seed=0)
+    dp = cp.data_processor
+    assert dp.device_augment_cfg == [{"random_horizonflip": {"p": 0.5}}, {"random_crop": {"size": SIZE}}]
+    assert cp.resize_chnodes == [1, 3, 5] and cp.imgsz_milestone == [16, 24, 32]
+    for epoch, size in ((0, SIZE), (1, 16), (2, 16), (3, 24), (5, SIZE)):
+        stage = cp.device_augment_fn
+        cp._step_cache["cached"] = object()
+        cp._epoch_strategy(epoch, cp.lossfn, aug_epoch=9)
+        assert dp.device_augment_cfg[1] == {"random_crop": {"size": size}}, epoch
+        assert (cp.device_augment_fn is not stage) == (epoch in (1, 3, 5)), epoch
+        assert ("cached" in cp._step_cache) == (epoch not in (1, 3, 5)), epoch
+        out = cp.device_augment_fn(epoch, torch.zeros((2, size + 4, size + 4, 3), dtype=torch.uint8))
+        assert out.shape == (2, size, size, 3)
 
 
 def _cli(module, argv):

@@ -4,12 +4,14 @@ augment pipelines mid-training (warm-up val augments, aug weakening,
 progressive resize), and builds the loaders, taking the C++ decode pool
 (``data/native.py``) where the pipeline allows it.
 
-The JAX package lifts the per-pixel random ops of a train pipeline onto the
-device by default (``data.train.device_augment: "auto"``); that stage is not
-ported yet. So a training processor raises ``NotImplementedError`` unless the
-whole pipeline stays on the host, as the JAX package keeps it when
-``data.train.device_augment`` is false or a ``class_aug`` / ``base_aug``
-pipeline is set: the port never runs a different pipeline without saying so.
+As in the JAX package, a training processor lifts the per-pixel random ops
+of the train pipeline onto the device (``data.train.device_augment:
+"auto"``, the default): ``ops/device_augment.split_device_pipeline`` leaves
+the host decode and the geometry to the static size (``train_pipeline_cfg``)
+and ``device_augment_cfg`` holds the lifted part, which the trainer compiles
+into the device stage. Lifting stays off when ``device_augment`` is false or
+"off", or a ``class_aug`` / ``base_aug`` pipeline is set (the device stage
+is class-agnostic).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from visiondk_tpu_torch.data.transforms import (
     extract_normalization,
     set_pipeline_size,
 )
+from visiondk_tpu_torch.ops.device_augment import set_device_pipeline_size, split_device_pipeline
 
 
 class SmartDataProcessor:
@@ -45,6 +48,7 @@ class SmartDataProcessor:
         class_aug_cfg = data_cfg["train"].get("class_aug") or None
         base_aug_cfg = data_cfg["train"].get("base_aug") or data_cfg["train"].get("common_aug")
 
+        self.device_augment_cfg: list = []
         full_train_cfg = data_cfg["train"]["augment"]
         dev_mode = data_cfg["train"].get("device_augment", "auto")
         if (
@@ -53,15 +57,15 @@ class SmartDataProcessor:
             and class_aug_cfg is None
             and base_aug_cfg is None
         ):
-            raise NotImplementedError(
-                f"data.train.device_augment: {dev_mode!r} lifts the per-pixel random ops of the train "
-                "pipeline onto the device, and that stage is not ported to visiondk_tpu_torch yet; set "
-                "data.train.device_augment: false to run the whole pipeline on the host"
-            )
+            host_cfg, device_cfg = split_device_pipeline(full_train_cfg)
+            if device_cfg:
+                self.device_augment_cfg = device_cfg
+                full_train_cfg = host_cfg
 
         train_aug = create_aug_transforms(full_train_cfg)
         val_aug = create_aug_transforms(data_cfg["val"]["augment"])
-        # restore_train_augment() / progressive resize rebuild from this
+        # the host part: restore_train_augment() / progressive resize rebuild
+        # from this; the lifted device part lives in device_augment_cfg
         self.train_pipeline_cfg = full_train_cfg
         self.val_pipeline_cfg = data_cfg["val"]["augment"]
         # normalize is a marker: the device step applies it
@@ -103,9 +107,13 @@ class SmartDataProcessor:
         if epoch == milestone:
             self.set_augment("train", None)
 
-    def set_train_size(self, size: int) -> None:
-        """Progressive resolution: rewrite spatial sizes in the live pipeline."""
+    def set_train_size(self, size: int) -> bool:
+        """Progressive resolution: rewrite spatial sizes in the live pipeline,
+        and the static sizes of lifted device ops (``random_crop``). Returns
+        True when the device config changed: the trainer must then rebuild
+        its device stage."""
         set_pipeline_size(self.train_dataset.transforms.base_transforms, size)
+        return set_device_pipeline_size(self.device_augment_cfg, size)
 
     def set_label_smoothing(self, num_classes: int, label_smooth: float) -> None:
         """BCE path: dataset emits smoothed multi-hot targets

@@ -2,7 +2,8 @@
 
 ``make_train_step`` returns ``step(state, batch, lam=0.0)`` for
 ``{"image": uint8 [B, H, W, 3], "label": int [B] or f32 [B, C]}``: the JAX
-step's chain, uint8 batch → normalise on the device → forward in train mode
+step's chain, uint8 batch → the device-augment stage where one is given →
+normalise on the device → forward in train mode
 → loss → backward → clip → optimizer → EMA, run eagerly and in place on the
 state (see ``make_train_step``). Ported: the plain classification variant.
 Mixup, SAM, OHEM and the embedding task raise ``NotImplementedError``.
@@ -69,6 +70,7 @@ def make_train_step(
     lossfn: Callable,
     cfg: StepConfig,
     generator: torch.Generator,
+    device_augment: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step(state, batch, lam=0.0) -> {"loss": f32 scalar tensor}``.
 
@@ -80,6 +82,10 @@ def make_train_step(
     Dropout and DropPath draw from a seed taken from ``generator`` (a CPU
     ``torch.Generator``) on every call (the JAX step folds the step into its
     key), so two runs from the same generator state draw the same masks.
+    ``device_augment`` (``ops/device_augment.make_device_augment``) runs on
+    the uint8 batch on the model's device before normalisation, seeded by a
+    second draw from ``generator`` after the dropout seed's: a checkpoint
+    carries the generator, so a resumed run draws the same augments.
     ``lam`` is the mixup weight, unused until mixup is ported.
     """
     for what, on in (("task='embedding'", cfg.task != "classification"), ("mixup", cfg.mixup),
@@ -92,9 +98,12 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the state holds another model than the one this step was built for")
         model.train()
-        images = device_preprocess(batch["image"].to(device, non_blocking=True), cfg.mean, cfg.std)
+        images = batch["image"].to(device, non_blocking=True)
         labels = batch["label"].to(device, non_blocking=True)
         seed = int(torch.randint(0, 2**62, (), generator=generator))
+        if device_augment is not None:
+            images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
+        images = device_preprocess(images, cfg.mean, cfg.std)
         for p in model.parameters():
             p.grad = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):

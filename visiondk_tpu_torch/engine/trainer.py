@@ -15,6 +15,10 @@ epoch, as the JAX loop does:
 - each step through the port's ``make_train_step``, fed by a
   ``DevicePrefetcher`` (batch N+1 is copied to the card while step N runs);
   per-step losses stay on the device, with one host read per epoch;
+- the device-augment stage (``ops/device_augment.py``) where the data
+  processor lifted the per-pixel random ops off the host pipeline: it runs
+  inside the train step in the epochs whose train augments are live,
+  ``[warm_ep, aug_epoch)``;
 - EMA validation each epoch through ``make_eval_step`` on the EMA module;
 - ``last`` / ``best`` checkpoints each epoch (``engine/checkpoint.py``),
   ``load_from`` and ``convert_npz`` initialisation, the epoch table,
@@ -24,8 +28,7 @@ A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
 with f32 parameters by default (``compute_dtype``). Not ported yet, and
 raising ``NotImplementedError``: the embedding tasks (``run_embedding``),
-mixup, OHEM, SAM, gradient accumulation and the device-augment stage
-(``data/dataprocessor.py``).
+mixup, OHEM, SAM and gradient accumulation.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from visiondk_tpu_torch.engine.steps import StepConfig, make_eval_step, make_tra
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models.convert import load_converted, merge_converted
 from visiondk_tpu_torch.models.factory import get_model
+from visiondk_tpu_torch.ops.device_augment import describe_split, make_device_augment
 from visiondk_tpu_torch.utils.logger import SmartLogger
 from visiondk_tpu_torch.utils.metrics_writer import MetricsWriter
 from visiondk_tpu_torch.utils.plots import colorstr
@@ -155,6 +159,20 @@ class CenterProcessor:
         self.data_processor = SmartDataProcessor(
             self.data_cfg, project=str(self.project), training=train, task=self.task,
         )
+        # the device-augment stage: the lifted per-pixel random ops run on the
+        # batch inside the train step, in the epochs whose train augments are live
+        self.device_augment_fn = None
+        # the JAX package's per-group branch draw; the port draws per sample whatever it says
+        self.device_augment_group_size = self.data_cfg["train"].get("device_augment_group_size", 8)
+        if train and self.data_processor.device_augment_cfg:
+            self.device_augment_fn = make_device_augment(
+                self.data_processor.device_augment_cfg, group_size=self.device_augment_group_size)
+            note = ""
+            if self.device_augment_group_size != 1:
+                note = (f"; data.train.device_augment_group_size {self.device_augment_group_size} is not used: "
+                        "the port draws every branch per sample (group_size 1, the reference's semantics)")
+            self.logger.both("device augment split — " + describe_split(
+                self.data_processor.train_pipeline_cfg, self.data_processor.device_augment_cfg) + note)
         # look-ahead of the device feeder: batches on the card beyond the one in use
         self.device_prefetch_depth = int(self.data_cfg["train"].get("device_prefetch", 2))
         # the final resize of the val pipeline wins; model.image_size when it has none
@@ -200,9 +218,11 @@ class CenterProcessor:
         mean, std = self.data_processor.normalization
         return StepConfig(mean=mean, std=std)
 
-    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key: str, lossfn) -> Callable:
+    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool) -> Callable:
         if key not in self._step_cache:
-            self._step_cache[key] = make_train_step(self.model, tx, lossfn, self.step_config(), state.generator)
+            self._step_cache[key] = make_train_step(
+                self.model, tx, lossfn, self.step_config(), state.generator,
+                device_augment=self.device_augment_fn if device_aug else None)
         return self._step_cache[key]
 
     def _epoch_strategy(self, epoch: int, lossfn, aug_epoch: int, log: bool = True):
@@ -220,7 +240,12 @@ class CenterProcessor:
         if self.prog_learn:
             for node, size in zip(self.resize_chnodes, self.imgsz_milestone):
                 if epoch == node:
-                    dp.set_train_size(size)
+                    if dp.set_train_size(size) and self.device_augment_fn is not None:
+                        # a lifted random_crop carries a static size: rebuild the
+                        # stage and drop the cached steps that hold the old one
+                        self.device_augment_fn = make_device_augment(
+                            dp.device_augment_cfg, group_size=self.device_augment_group_size)
+                        self._step_cache.clear()
                     if log:
                         self.logger.both(f"progressive resize -> {size}")
         return lossfn
@@ -287,7 +312,12 @@ class CenterProcessor:
         last_metrics: Dict[str, Any] = {}
         for epoch in range(start_epoch, epochs):
             lossfn = self._epoch_strategy(epoch, lossfn, aug_epoch)
-            step = self._get_train_step(tx, state, "focal" if lossfn is self.focal_fn else self.loss_choice, lossfn)
+            # device augments are live exactly when the host train augments
+            # are: epochs [warm_ep, aug_epoch) (before: val augments, the
+            # warm-up; from aug_epoch on: weakened to the val augments)
+            dev_aug = self.device_augment_fn is not None and hyp["warm_ep"] <= epoch < aug_epoch
+            loss_key = "focal" if lossfn is self.focal_fn else self.loss_choice
+            step = self._get_train_step(tx, state, (loss_key, dev_aug), lossfn, dev_aug)
 
             train_loader.set_epoch(epoch)
             epoch_t0 = time.time()

@@ -6,9 +6,9 @@
 
 The same flags as ``main.py``, plus ``--device`` (default ``cuda``; without
 a card that raises, so a CPU run asks for it with ``--device cpu``). The
-port trains the classification task; the config must keep the whole augment
-pipeline on the host (``data.train.device_augment: false``), since the
-device-augment stage is not ported yet. ``--trace`` records a
+port trains the classification task, with the device-augment stage where
+the config lifts the per-pixel random ops off the host
+(``data.train.device_augment``, "auto" by default). ``--trace`` records a
 ``torch.profiler`` trace of the run into ``<project>/trace``. ``--multihost``,
 ``--model_parallel > 1`` and ``--distill`` raise ``NotImplementedError``:
 distributed training and distillation are not ported yet.
