@@ -92,14 +92,20 @@ Phases, one line or more each; any failure raises and exits non-zero:
              (attention kernels by name, GEMMs, copies and casts, LayerNorm,
              optimizer, reductions, other elementwise) from torch.profiler
              over 3 steps, and the device's idle share. Run after phase 5
-             for ViT-B/16 and after phase 7 for Swin-B.
+             for ViT-B/16 and after phase 7 for Swin-B; then for the bf16
+             Swin-B embedding train step of configs/faceX/face_synth.yaml
+             (Swin-B, 128-d neck, ArcFace over 64 classes, bs 64, its hyp):
+             24 K2s + 24 K2b in a step, the same split, and the margin head
+             with its loss (ArcFace + CE, forward and backward) as rows of
+             their own: profiled alone at the step's shapes and at
+             face.yaml's 58,671 classes, CUDA-event and device time.
 
 6. swin serving, 7. swin train — phases 4 and 5 for Swin-B
              (swin_base_patch4_window7_224), the reference's default recipe:
              the `model:` section of configs/classification/pet.yaml (35
              classes, 224²) and the embedding model of configs/faceX/cbir.yaml
-             (Swin-B backbone, 128-d neck; its margin head is not ported),
-             seeded weights. Serving: bs 128 through make_eval_step and
+             (Swin-B backbone, 128-d neck; serving embeds, so no margin
+             head), seeded weights. Serving: bs 128 through make_eval_step and
              make_embed_step, exactly 24 window-attention forwards per forward
              and no other kernel, the same bars. Training: pet.yaml's hyp (SGD
              lr0 0.006, momentum 0.8 → 0.937, wd 5e-4, cosine_with_warm, clip
@@ -156,6 +162,46 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              (4 batches in flight) and with one batch in flight per worker,
              beside the trainer-fed epochs and phase 5's synthetic batch, and
              whether the trainer-fed run is host-paced.
+MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
+             (ArcFace, MagFace, CircleLoss, MV-Softmax AM and Arc), forward
+             and gradient, on the card in f32 against the same function in
+             float64 on the CPU, at face_synth's bs 64, 128-d, 64 classes and
+             at face.yaml's 58,671 classes, with the caller's
+             allow_tf32 on (the heads must not depend on it): logits within
+             1e-4 at scale 32 (x s/32 at another scale: CircleLoss's γ 256),
+             MagFace's aux within 1e-6 relative, gradients within 1e-5 of
+             their largest entry; what a TF32 product would do is printed.
+             Exact retrieval (ops/retrieval.py): topk_ip and search (query
+             chunks) at 512 queries x 50,000 x 128 (the last 2,000 gallery
+             rows repeat the first: exact ties), k 100, against a float64
+             CPU brute force over the same bf16-rounded inputs: scores within
+             1e-5 rank by rank, indices equal wherever consecutive f64
+             scores differ by more than 1e-5 and in every exact tie (the
+             lower index first). Queries/s of exact search at a 1,000,000 x
+             128 gallery, 1,024 queries, k 100 (CUDA events), split into the
+             scores' product and the top-k.
+ER. embedding run — the face and CBIR run loops through the port's CLIs on
+             Swin-B, on a temporary directory: benchmarks/make_synth_face.py
+             (a subprocess, its defaults: 64 ids x 20 train, 4 val, 300 pairs,
+             and the CBIR twin: 64 queries, 192 gallery images; started after
+             phase 1 on one CPU core, so it overlaps the phases before), then
+             configs/faceX/face_synth.yaml as written with data.root, its
+             pair file and hyp.epochs 3 cut (printed). Run A (`python -m
+             visiondk_tpu_torch.main` in this process): the split line the
+             trainer logged, per-epoch loss, pair mean, trainer-fed images/s
+             and checkpoint bytes written; exactly 24 K2s + 24 K2b per train
+             step and 24 K2 per evaluation forward, nothing else; the stage's
+             calls equal to the steps in every epoch (read at each epoch's
+             evaluation). Run B, the same command: per-epoch loss within 1e-3
+             relative and pair mean within one pair a fold of run A
+             (bit-identity printed). Run C, a subprocess SIGKILLed in epoch 1
+             once epoch 0's checkpoint is complete, then `--resume` here: the
+             same bars against run A. `validate --ema` on run A's best: the
+             best epoch's {mean, std} exactly. Then cbir_synth.yaml with the
+             same cuts, one run with the same counts, and `validate --ema` and
+             `python -m visiondk_tpu_torch.cbir_eval --ema` on its best: the
+             best epoch's metrics exactly; cbir_eval's evaluation split into
+             embed forwards and product + top-k (host clock, synchronised).
 3v. vision kernel — vision_attention's forward (K3) and recompute backward
              (K3r) against their plain versions, f32 and bf16, at ViT-B/16
              (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
@@ -174,7 +220,8 @@ trials, device-time split and bf16 one-step comparison (swin_train_trials).
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
 bf16 train runs of both models, the run loop's in-process runs (A, B, C's
-resume, validate) and the vision path, counts set to 0 before
+resume, validate), the embedding runs' (face A, B, C's resume, validate;
+CBIR, validate, cbir_eval) and the vision path, counts set to 0 before
 each and read after), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
 attention); the last line is {"ok": true, "device": {...}}. The
@@ -216,6 +263,8 @@ from visiondk_tpu_torch.models.backbones.swin import WindowAttention, window_reg
 from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
 from visiondk_tpu_torch.ops import device_augment as da
+from visiondk_tpu_torch.ops import margin_heads as mh
+from visiondk_tpu_torch.ops import retrieval
 from visiondk_tpu_torch.ops import window_attention as wattn
 from visiondk_tpu_torch.ops.attention import (
     fused_qkv_attention_bwd_from_p,
@@ -264,8 +313,8 @@ EMBED_MODEL = {"task": "cbir", "backbone": {"vit_base_patch16_224": {"feat_dim":
 PET_MODEL = {**PET_SYNTH_MODEL, "name": "swin_base_patch4_window7_224"}
 # the optimizer fields of its `hyp:` section
 PET_HYP = {**PET_SYNTH_HYP, "epochs": 15, "lr0": 0.006}
-# the embedding model of configs/faceX/cbir.yaml: Swin-B backbone, 128-d neck (its
-# arcface head trains the embedding and is not ported)
+# the embedding model of configs/faceX/cbir.yaml: Swin-B backbone, 128-d neck (serving
+# embeds: no margin head)
 CBIR_EMBED_MODEL = {"task": "cbir", "backbone": {
     "swin_base_patch4_window7_224": {"pretrained": False, "image_size": 224, "feat_dim": 128}}}
 
@@ -466,13 +515,18 @@ def only(launches: dict) -> dict:
     return {k: launches.get(k, 0) for k in KERNELS}
 
 
-def phase_device() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
+    smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(smi)  # the card's name and power limit, as nvidia-smi reports them
@@ -1157,12 +1211,33 @@ def device_split(fn, steps: int) -> tuple:
     return split, attention
 
 
+def profile_step(label: str, fn, bs: int) -> float:
+    """Prints where the time of ``fn`` (one step of batch ``bs``) goes: the
+    unprofiled step time (host clock, synchronised, TRAIN_RATE_STEPS calls
+    after TRAIN_RATE_WARMUP), device time by kernel class from
+    torch.profiler over 3 calls, and the device's idle share. Returns the
+    device busy ms per step."""
+    for _ in range(TRAIN_RATE_WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_RATE_STEPS):
+        fn()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_RATE_STEPS * 1e3
+    split, attention = device_split(fn, steps=3)
+    busy = sum(split.values())
+    print(f"[profile] {label} bs {bs}, kernel path: step {step_ms:.2f} ms unprofiled "
+          f"({bs / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
+          f"{max(0.0, 1 - busy / step_ms):.1%}; device ms per step: "
+          + ", ".join(f"{lb} {ms:.2f}" for lb, ms in split.items())
+          + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
+    return busy
+
+
 def phase_profile(dev: torch.device, recipe: Recipe) -> None:
     """Where the time of a recipe's bf16 train step (its train batch) and eval
-    step (bs 128) goes on the kernel path with the P stash: the unprofiled
-    step time (host clock, synchronised, TRAIN_RATE_STEPS steps after
-    TRAIN_RATE_WARMUP), then device time by kernel class from torch.profiler
-    over 3 steps, and the device's idle share."""
+    step (bs 128) goes on the kernel path with the P stash (``profile_step``)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     batch = {
         "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
@@ -1172,24 +1247,64 @@ def phase_profile(dev: torch.device, recipe: Recipe) -> None:
     model, state, step = build_trainer(recipe, torch.bfloat16, dev)
     eval_step = make_eval_step(model, StepConfig())
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
-    for what, fn, bs in (("train", lambda: step(state, train_batch), recipe.train_batch),
-                         ("eval", lambda: eval_step(batch), BATCH)):
-        for _ in range(TRAIN_RATE_WARMUP):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_RATE_STEPS):
-            fn()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / TRAIN_RATE_STEPS * 1e3
-        split, attention = device_split(fn, steps=3)
-        busy = sum(split.values())
-        print(f"[profile] {recipe.model['name']} {what} bf16 bs {bs}, kernel path: step {step_ms:.2f} ms unprofiled "
-              f"({bs / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
-              f"{max(0.0, 1 - busy / step_ms):.1%}; device ms per step: "
-              + ", ".join(f"{label} {ms:.2f}" for label, ms in split.items())
-              + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
+    name = recipe.model["name"]
+    profile_step(f"{name} train bf16", lambda: step(state, train_batch), recipe.train_batch)
+    profile_step(f"{name} eval bf16", lambda: eval_step(batch), BATCH)
     del model, state, step, eval_step
+    torch.cuda.empty_cache()
+
+
+def phase_profile_embedding(dev: torch.device) -> None:
+    """Phase 5p for the embedding task: face_synth's bf16 Swin-B train step
+    (Swin-B, 128-d neck, ArcFace over 64 classes, bs 64, its hyp) on a
+    synthetic batch (``profile_step``; 24 K2s + 24 K2b launched), then the
+    margin head and its loss (ArcFace + CE, forward and backward) alone at
+    the step's shapes and at face.yaml's 58,671 classes: device time by
+    class over 3 calls and CUDA-event time."""
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.models import build_head
+
+    cfg = yaml_load(FACE_SYNTH_YAML)
+    model_cfg, bs = cfg["model"], cfg["data"]["train"]["bs"]
+    (head_name, head_cfg), = model_cfg["head"].items()
+    classes, feat_dim = head_cfg["num_class"], head_cfg["feat_dim"]
+    model = get_model(model_cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    tx = build_tx(cfg["hyp"], 20, discrete_per_epoch=False, model_cfg=model_cfg)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, create_lossfn("ce", valid_class=classes), StepConfig(task="embedding"),
+                           torch.Generator().manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+             "label": torch.randint(0, classes, (bs,), generator=gen, device=dev)}
+    _, stash, bwd_p, _ = wattn.KERNELS
+    reset_counts()
+    check(torch.isfinite(step(state, batch)["loss"]).item(), "the embedding train step's loss is not finite")
+    counts = read_counts()
+    check(counts == only({stash: SWIN.depth, bwd_p: SWIN.depth}),
+          f"embedding train step launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    busy = profile_step(f"face_synth embedding train ({next(iter(model_cfg['backbone']))} + {feat_dim}-d neck + "
+                        f"{head_name} over {classes} classes) bf16", lambda: step(state, batch), bs)
+    del model, state, step
+    torch.cuda.empty_cache()
+    for n_class in (classes, 58671):
+        head = build_head({head_name: {**head_cfg, "num_class": n_class}})
+        head.init_weights(torch.Generator().manual_seed(0))
+        head.to(dev)
+        lossfn = create_lossfn("ce", valid_class=n_class)
+        feats = torch.randn(bs, feat_dim, generator=gen, device=dev).requires_grad_()
+        labels = torch.randint(0, n_class, (bs,), generator=gen, device=dev)
+
+        def head_step():
+            logits, aux = head(feats, labels)
+            (lossfn(logits, labels) + aux).backward()
+
+        ms = cuda_ms(head_step, iters=20)
+        split, _ = device_split(head_step, steps=3)
+        dev_ms = sum(split.values())
+        print(f"[profile] margin head + CE ({head_name}, bs {bs}, {feat_dim}-d, {n_class} classes; forward and "
+              f"backward, alone): {ms:.4f} ms a call (CUDA events), device busy {dev_ms:.4f} ms"
+              + (f" = {dev_ms / max(busy, 1e-9):.2%} of the face_synth step's device busy" if n_class == classes else "")
+              + "; device ms: " + ", ".join(f"{lb} {v:.4f}" for lb, v in split.items() if v > 0))
     torch.cuda.empty_cache()
 
 
@@ -1709,10 +1824,418 @@ def phase_run_loop(dev: torch.device) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- margin heads and retrieval
+
+# (bs, feat_dim, classes): face_synth's and cbir_synth's ArcFace head, and face.yaml's 58,671 classes
+MH_SHAPES = ((64, 128, 64), (64, 128, 58671))
+# every head of models/heads.py, MV-Softmax in both modes
+MH_HEADS = (("arcface", {}), ("magface", {}), ("circleloss", {}), ("mv_softmax", {"is_am": False}),
+            ("mv_softmax", {"is_am": True}))
+MH_LOGIT_TOL = 1e-4   # max |card f32 − CPU f64| over the logits at scale 32 (× s/32 at another scale)
+MH_GRAD_RTOL = 1e-5   # max |card − CPU| over a gradient, relative to its largest |entry|
+SEARCH_TOL = 1e-5     # scores; and indices must agree where consecutive f64 scores differ by more
+# (queries, gallery, dim, k): the card against a float64 CPU brute force (the gallery's last
+# SEARCH_DUPLICATES rows repeat its first ones: exact ties), and the queries/s shape (the JAX
+# docstring's 1M × 128 gallery)
+SEARCH_CHECK = (512, 50_000, 128, 100)
+SEARCH_DUPLICATES = 2_000
+SEARCH_RATE = (1024, 1_000_000, 128, 100)
+
+
+def margin_case(op, opts, w, f, y, g, device, dtype):
+    """(logits, aux, dL/dW, dL/dfeats) in float64 on the CPU, of the loss
+    sum(logits · g) + aux on ``device`` in ``dtype``."""
+    tw = w.to(device, dtype, copy=True).requires_grad_()
+    tf = f.to(device, dtype, copy=True).requires_grad_()
+    logits, aux = op(tw, tf, y.to(device), **opts)
+    (torch.sum(logits * g.to(device, dtype)) + aux).backward()
+    return logits.detach().cpu().double(), aux.item(), tw.grad.cpu().double(), tf.grad.cpu().double()
+
+
+def brute_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int) -> tuple:
+    """The exact top-(k + 1) in float64 on the CPU over the bf16-rounded
+    inputs, ordered by (score descending, index ascending)."""
+    sim = queries.bfloat16().double() @ gallery.bfloat16().double().T
+    order = torch.sort(-sim, dim=1, stable=True).indices[:, :k + 1]
+    return sim.gather(1, order), order
+
+
+def check_topk(label: str, scores, idx, ref_scores, ref_idx, k: int) -> None:
+    """Scores within SEARCH_TOL of the brute force rank by rank; indices
+    equal at every rank whose f64 score is more than SEARCH_TOL from both
+    neighbours, and at every rank of an exact tie (the lower index first)."""
+    scores, idx = torch.as_tensor(scores).double().cpu(), torch.as_tensor(idx).cpu()
+    err = (scores - ref_scores[:, :k]).abs().max().item()
+    gap = ref_scores[:, :-1] - ref_scores[:, 1:]  # ≥ 0
+    before = torch.cat([torch.full_like(gap[:, :1], math.inf), gap[:, :k - 1]], dim=1)
+    after = gap[:, :k]
+    decided = ((before > SEARCH_TOL) & (after > SEARCH_TOL)) | (before == 0) | (after == 0)
+    wrong = ((idx != ref_idx[:, :k]) & decided).sum().item()
+    ties = int(((before == 0) | (after == 0)).sum().item())
+    print(f"[margin heads] {label}: max |score - f64 brute force| {err:.3e} (bar {SEARCH_TOL}); {wrong} index "
+          f"mismatches among {int(decided.sum().item())} decided ranks ({ties} ranks in exact ties)")
+    check(err <= SEARCH_TOL and wrong == 0, f"{label}: top-k disagrees with the float64 brute force")
+
+
+def phase_margin_heads(dev: torch.device) -> None:
+    """The margin heads and exact top-k retrieval on the card (see the module doc)."""
+    tag = "margin heads"
+    saved = torch.backends.cuda.matmul.allow_tf32
+    # the heads and the search set their own product precision: run them under the caller's TF32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for b, d, c in MH_SHAPES:
+            rng = np.random.default_rng(c)
+            w = torch.from_numpy(rng.normal(size=(d, c)).astype(np.float32))
+            f = torch.from_numpy((2.0 * rng.normal(size=(b, d))).astype(np.float32))  # ‖f‖ ≈ 23: MagFace's [10, 110]
+            y = torch.from_numpy(rng.integers(0, c, size=b))
+            g = torch.from_numpy(rng.normal(size=(b, c)).astype(np.float32))
+            cos_ref = mh.cosine_logits(w.double(), f.double())
+            cos_tf32 = torch.clamp(F.normalize(f.to(dev), dim=1) @ F.normalize(w.to(dev), dim=0), -1.0, 1.0)
+            tf32_err = 32 * (cos_tf32.cpu().double() - cos_ref).abs().max().item()
+            for name, opts in MH_HEADS:
+                op = mh.MARGIN_OPS[name]
+                got = margin_case(op, opts, w, f, y, g, dev, torch.float32)
+                ref = margin_case(op, opts, w, f, y, g, "cpu", torch.float64)
+                scale = opts.get("scale", opts.get("gamma", 256.0 if name == "circleloss" else 32.0))
+                bar = MH_LOGIT_TOL * scale / 32
+                err = (got[0] - ref[0]).abs().max().item()
+                aux_err = abs(got[1] - ref[1]) / max(abs(ref[1]), 1e-30)
+                grad_err = [(a - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                            for a, r in zip(got[2:], ref[2:])]
+                label = f"{name}{'' if 'is_am' not in opts else ' (AM)' if opts['is_am'] else ' (Arc)'}"
+                print(f"[{tag}] {label} bs {b}, {d}-d, {c} classes: card f32 vs CPU float64: max |logit diff| "
+                      f"{err:.3e} (bar {bar:g}), aux rel {aux_err:.1e}, gradients max |diff| / max |entry| "
+                      f"W {grad_err[0]:.3e}, feats {grad_err[1]:.3e} (bar {MH_GRAD_RTOL})")
+                check(err <= bar and aux_err <= 1e-6 and max(grad_err) <= MH_GRAD_RTOL,
+                      f"{label} at {c} classes: the card disagrees with float64")
+            check(torch.backends.cuda.matmul.allow_tf32, "a head changed the caller's TF32 setting")
+            print(f"[{tag}] {c} classes: a TF32 product (allow_tf32 on, the setting the heads ran under) "
+                  f"would move the scale-32 logits by {tf32_err:.3e} (bar {MH_LOGIT_TOL})")
+
+        q, n_g, d, k = SEARCH_CHECK
+        gen = torch.Generator().manual_seed(11)
+        queries = F.normalize(torch.randn(q, d, generator=gen), dim=1)
+        gallery = F.normalize(torch.randn(n_g, d, generator=gen), dim=1)
+        gallery[-SEARCH_DUPLICATES:] = gallery[:SEARCH_DUPLICATES]
+        ref = brute_topk(queries, gallery, k)
+        s, i = retrieval.topk_ip(queries.to(dev), gallery.to(dev), k)
+        check_topk(f"topk_ip {q} x {n_g} x {d}, k {k}", s, i, *ref, k)
+        s, i = retrieval.search(queries.numpy(), gallery.numpy(), k, query_chunk=200, device=dev)
+        check_topk(f"search (chunks of 200) {q} x {n_g} x {d}, k {k}", s, i, *ref, k)
+
+        q, n_g, d, k = SEARCH_RATE
+        gen = torch.Generator(device=dev).manual_seed(12)
+        queries = F.normalize(torch.randn(q, d, generator=gen, device=dev), dim=1)
+        gallery = F.normalize(torch.randn(n_g, d, generator=gen, device=dev), dim=1)
+        whole = cuda_ms(lambda: retrieval.topk_ip(queries, gallery, k), iters=5, warmup=2)
+        product = cuda_ms(lambda: retrieval.scores(queries, gallery), iters=5, warmup=2)
+        sim = retrieval.scores(queries, gallery)
+        topk = cuda_ms(lambda: retrieval.topk_lower_index(sim, k), iters=5, warmup=2)
+        del sim
+        print(f"[{tag}] exact search {q} queries x {n_g} x {d} gallery, k {k} (topk_ip, bf16-rounded inputs, "
+              f"float64 products rounded to f32, on the card: {card()}): {whole:.3f} ms a call = "
+              f"{q / whole * 1e3:.1f} queries/s (CUDA events, 5 calls after 2 warm-up); of which the scores "
+              f"{product:.3f} ms ({2 * q * n_g * d / product / 1e9:.1f} TFLOP/s) and the top-k {topk:.3f} ms")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- embedding run loop
+
+FACE_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face_synth.yaml"
+CBIR_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "cbir_synth.yaml"
+EMBED_RUN_EPOCHS = 3
+EMBED_RUN_TIMEOUT_S = 300
+
+
+def checkpoint_bytes(written: list):
+    """A context in which every checkpoint write's state.pt size is appended to ``written``."""
+    from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
+
+    write = CheckpointManager._write
+
+    def counted(self, name, host_state):
+        write(self, name, host_state)
+        written.append((self.directory / f".{name}.staging" / "state.pt").stat().st_size)
+
+    @contextlib.contextmanager
+    def ctx():
+        CheckpointManager._write = counted
+        try:
+            yield
+        finally:
+            CheckpointManager._write = write
+
+    return ctx()
+
+
+def embedding_epochs(project: Path, *extra, module="visiondk_tpu_torch.main", argv=None) -> tuple:
+    """One in-process run of ``module``: (output, launches in each epoch's
+    training, launches in each evaluation, device-augment stage calls in
+    each epoch, metrics.jsonl, seconds, checkpoint bytes written), with the
+    epoch boundaries read at each evaluation (``_eval_embedding``)."""
+    from visiondk_tpu_torch.engine.trainer import CenterProcessor
+
+    train, evals, stage, written = [], [], [], []
+    evaluate = CenterProcessor._eval_embedding
+    mark = [read_counts(), da.make_device_augment.calls]
+
+    def counted(self, embed_step):
+        at = read_counts()
+        train.append({k: at[k] - mark[0][k] for k in KERNELS})
+        stage.append(da.make_device_augment.calls - mark[1])
+        out = evaluate(self, embed_step)
+        done = read_counts()
+        evals.append({k: done[k] - at[k] for k in KERNELS})
+        mark[:] = [done, da.make_device_augment.calls]
+        return out
+
+    reset_counts()
+    mark[:] = [read_counts(), 0]
+    CenterProcessor._eval_embedding = counted
+    t = time.perf_counter()
+    try:
+        with checkpoint_bytes(written):
+            out = run_cli(module, argv if argv is not None else ["--project", str(project), "--seed", "0", *extra])
+    finally:
+        CenterProcessor._eval_embedding = evaluate
+    metrics = read_metrics(project) if (project / "metrics.jsonl").is_file() else {}
+    return out, train, evals, stage, metrics, time.perf_counter() - t, sum(written)
+
+
+def compare_embedding_runs(a: dict, b: dict, epochs, fit: str, fit_step: float) -> tuple:
+    """Largest per-epoch train-loss difference (relative) and fitness
+    difference (in steps of ``fit_step``: a pair a fold, a query) of two
+    runs over ``epochs``, and whether all of it is bit-identical."""
+    loss = max(abs(a["Train_epoch_loss"][e] - b["Train_epoch_loss"][e]) / abs(a["Train_epoch_loss"][e]) for e in epochs)
+    fitness = max(abs(a[fit][e] - b[fit][e]) / fit_step for e in epochs)
+    same = all(a[t][e] == b[t][e] for t in a if t == "Train_epoch_loss" or t.startswith("Val_") for e in epochs)
+    return loss, fitness, same
+
+
+def start_synth_face() -> tuple:
+    """A temporary directory and the benchmarks/make_synth_face.py process
+    (its defaults) writing face/ and cbir/ into it: (dir, process, start)."""
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_embedding_run_"))
+    proc = subprocess.Popen([sys.executable, str(PET_SYNTH_YAML.parents[2] / "benchmarks" / "make_synth_face.py"),
+                             "--root", str(tmp / "face"), "--cbir-root", str(tmp / "cbir")])
+    return tmp, proc, time.perf_counter()
+
+
+def phase_embedding_run(dev: torch.device, data=None) -> dict:
+    """The face and CBIR run loops through the port's CLIs on Swin-B (see the
+    module doc), on ``data`` (``start_synth_face()``'s, started early so that
+    it overlaps the phases before) or data made now; returns the K2 family's
+    launches of the in-process runs."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+    from visiondk_tpu_torch.engine import cbir_eval as cbir_eval_mod
+    from visiondk_tpu_torch.engine.face_eval import process_pair_txt
+
+    tag = "embedding run"
+    fwd, stash, bwd_p, _ = wattn.KERNELS
+    depth = SWIN.depth
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp, proc, t0 = data or start_synth_face()
+    try:
+        waited = time.perf_counter()
+        check(proc.wait(timeout=EMBED_RUN_TIMEOUT_S) == 0, f"make_synth_face.py exited with {proc.returncode}")
+        print(f"[{tag}] benchmarks/make_synth_face.py with its defaults (64 ids x 20 train, 4 val, 300 pairs; the "
+              f"CBIR twin): done {time.perf_counter() - t0:.1f} s after its start, "
+              f"{time.perf_counter() - waited:.1f} s of it waited for here")
+        totals = {k: 0 for k in KERNELS}
+
+        def add(*runs):
+            for run in runs:
+                for counts in run:
+                    for k in KERNELS:
+                        totals[k] += counts[k]
+
+        def configure(path: Path, root: Path, name: str) -> tuple:
+            cfg = yaml_load(path)
+            was = cfg["hyp"]["epochs"]
+            cfg["data"]["root"] = str(root)
+            if cfg["model"]["task"] == "face":
+                cfg["data"]["val"]["pair_txt"] = str(root / "pairs.txt")
+            cfg["hyp"]["epochs"] = EMBED_RUN_EPOCHS
+            out = tmp / f"{name}.yaml"
+            yaml_dump(cfg, out)
+            n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
+            bs, val_bs = cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+            print(f"[{tag}] {path.parent.name}/{path.name} as written with these cuts: data.root "
+                  f"{root.name}{' (and its pair file)' if cfg['model']['task'] == 'face' else ''}, hyp.epochs {EMBED_RUN_EPOCHS} (was {was}); everything else as "
+                  f"written ({next(iter(cfg['model']['backbone']))}, feat_dim 128, ArcFace over "
+                  f"{next(iter(cfg['model']['head'].values()))['num_class']} classes, bs {bs}, val bs {val_bs}, "
+                  f"bf16; {n_train} train images: {n_train // bs} steps an epoch)")
+            return cfg, out, n_train // bs, val_bs
+
+        def check_launches(label, train, evals, steps, eval_batches):
+            for e, (tr, ev) in enumerate(zip(train, evals)):
+                check(tr == only({stash: depth * steps, bwd_p: depth * steps}),
+                      f"{label} epoch {e} training launches {[(NAMES[k], v) for k, v in tr.items()]}")
+                check(ev == only({fwd: depth * eval_batches}),
+                      f"{label} epoch {e} evaluation launches {[(NAMES[k], v) for k, v in ev.items()]}")
+
+        def summary(label, train, evals, stage, metrics, secs, nbytes, fit):
+            losses = metrics["Train_epoch_loss"]
+            rates = metrics["Train_images_per_sec"]
+            print(f"[{tag}] {label}: {secs:.1f} s; per epoch: train loss "
+                  + ", ".join(f"{losses[e]!r}" for e in sorted(losses)) + f"; {fit} "
+                  + ", ".join(f"{metrics[fit][e]!r}" for e in sorted(metrics[fit]))
+                  + "; trainer-fed images/s " + ", ".join(f"{rates[e]:.1f}" for e in sorted(rates))
+                  + f"; device-augment stage calls {' / '.join(map(str, stage))}; launches per epoch: "
+                  f"{NAMES[stash]} {train[0][stash]} and {NAMES[bwd_p]} {train[0][bwd_p]} in training, "
+                  f"{NAMES[fwd]} {evals[0][fwd]} in the evaluation, no other attention kernel; checkpoint bytes "
+                  f"written {nbytes / 1e9:.2f} GB")
+
+        # ---- face: runs A and B, run C killed and resumed, validate on A's best
+        cfg, face_yaml, steps, val_bs = configure(FACE_SYNTH_YAML, tmp / "face", "face_synth_run")
+        unique, _, pairs = process_pair_txt(str(tmp / "face" / "pairs.txt"), str(tmp / "face"))
+        face_batches, per_fold = -(-len(unique) // val_bs), len(pairs) // 10
+        want_stage = [steps] * EMBED_RUN_EPOCHS
+        face_args = ["--cfgs", str(face_yaml)]
+        out_a, train_a, evals_a, stage_a, metrics_a, secs_a, bytes_a = embedding_epochs(tmp / "A", *face_args)
+        split = re.search(r"device augment split — (.*)", out_a)
+        check(split is not None, "face run A logged no device augment split")
+        print(f"[{tag}] face run A's trainer logged: device augment split — {split.group(1)}")
+        check(stage_a == want_stage, f"face run A's device-augment stage calls by epoch {stage_a}, want {want_stage}")
+        check_launches("face run A", train_a, evals_a, steps, face_batches)
+        for e in range(EMBED_RUN_EPOCHS):
+            check(math.isfinite(metrics_a["Train_epoch_loss"][e]) and 0 <= metrics_a["Val_mean"][e] <= 1,
+                  f"face run A epoch {e}: metrics {[(t, v.get(e)) for t, v in metrics_a.items()]}")
+        summary("face run A", train_a, evals_a, stage_a, metrics_a, secs_a, bytes_a, "Val_mean")
+
+        _, train_b, evals_b, stage_b, metrics_b, _, _ = embedding_epochs(tmp / "B", *face_args)
+        check(stage_b == want_stage, f"face run B's device-augment stage calls {stage_b}")
+        loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
+                                                     1 / per_fold)
+        print(f"[{tag}] face run B vs run A, epochs 1-{EMBED_RUN_EPOCHS}: largest train-loss difference "
+              f"{loss_d:.3e} relative (bar {RUN_LOOP_LOSS_RTOL}), largest pair-mean difference {fit_d:.2f} pairs "
+              f"a fold (bar 1); bit-identical: {same}")
+        check(loss_d <= RUN_LOOP_LOSS_RTOL and fit_d <= 1 + 1e-9, "seeded face runs A and B disagree")
+        add(train_b, evals_b)
+        shutil.rmtree(tmp / "B")
+
+        run_c = tmp / "C"
+        with open(tmp / "C.log", "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.main", *face_args, "--project",
+                                     str(run_c), "--seed", "0"], stdout=log, stderr=subprocess.STDOUT)
+            deadline = time.monotonic() + EMBED_RUN_TIMEOUT_S
+            while committed_epoch(run_c) != 0:
+                check(proc.poll() is None, f"face run C exited ({proc.returncode}) before epoch 0's checkpoint: "
+                                           f"{(tmp / 'C.log').read_text()[-2000:]}")
+                check(time.monotonic() < deadline, "face run C: no epoch-0 checkpoint in time")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        done = sorted(read_metrics(run_c).get("Train_epoch_loss", {}))
+        out_c, train_c, evals_c, stage_c, metrics_c, _, _ = embedding_epochs(run_c, *face_args, "--resume")
+        resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
+        check(resumed == 1, f"face run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
+        check(stage_c == want_stage[resumed:], f"resumed face run C's stage calls {stage_c}")
+        check_launches("resumed face run C", train_c, evals_c, steps, face_batches)
+        loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_c, range(resumed, EMBED_RUN_EPOCHS),
+                                                     "Val_mean", 1 / per_fold)
+        print(f"[{tag}] face run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from "
+              f"epoch {resumed}; epochs {resumed + 1}-{EMBED_RUN_EPOCHS} vs run A: train loss {loss_d:.3e} "
+              f"relative, pair mean {fit_d:.2f} pairs a fold; bit-identical: {same}; device-augment stage calls "
+              f"{' / '.join(map(str, stage_c))}")
+        check(loss_d <= RUN_LOOP_LOSS_RTOL and fit_d <= 1 + 1e-9, "the resumed face run C disagrees with run A")
+        add(train_c, evals_c)
+        shutil.rmtree(run_c)
+
+        best = json.loads((tmp / "A" / "best" / "meta.json").read_text())
+        fitness = json.loads((tmp / "A" / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
+        out_v, _, _, _, _, _, _ = embedding_epochs(tmp / "A", module="visiondk_tpu_torch.validate", argv=[
+            "--cfgs", str(tmp / "A" / "config.yaml"), "--weight", str(tmp / "A" / "best"), "--ema"])
+        counts_v = read_counts()
+        printed = re.search(r"^(\{'mean'.*\})$", out_v, re.M).group(1)
+        print(f"[{tag}] validate --ema on face run A's best (epoch {best['epoch'] + 1}): {printed}; run A logged "
+              f"{fitness}, best_fitness {best['best_fitness']!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
+        check(printed == str(fitness) and fitness["mean"] == best["best_fitness"],
+              "validate does not reproduce face run A's best")
+        check(counts_v == only({fwd: depth * face_batches}),
+              f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+        add(train_a, evals_a, [counts_v])
+        shutil.rmtree(tmp / "A")
+
+        # ---- CBIR: one run, then validate and cbir_eval on its best
+        cfg, cbir_yaml, steps, val_bs = configure(CBIR_SYNTH_YAML, tmp / "cbir", "cbir_synth_run")
+        n_query = sum(1 for _ in (tmp / "cbir" / "query").rglob("*.jpg"))
+        n_gallery = sum(1 for _ in (tmp / "cbir" / "gallery").rglob("*.jpg"))
+        cbir_batches = -(-n_query // val_bs) + -(-n_gallery // val_bs)
+        out_r, train_r, evals_r, stage_r, metrics_r, secs_r, bytes_r = embedding_epochs(
+            tmp / "R", "--cfgs", str(cbir_yaml))
+        check(stage_r == [steps] * EMBED_RUN_EPOCHS, f"CBIR run's device-augment stage calls {stage_r}")
+        check_launches("CBIR run", train_r, evals_r, steps, cbir_batches)
+        split = re.search(r"device augment split — (.*)", out_r)
+        print(f"[{tag}] CBIR run's trainer logged: device augment split — {split.group(1)}")
+        summary("CBIR run", train_r, evals_r, stage_r, metrics_r, secs_r, bytes_r, "Val_MRR@1")
+        best = json.loads((tmp / "R" / "best" / "meta.json").read_text())
+        fitness = json.loads((tmp / "R" / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
+        weight = ["--cfgs", str(tmp / "R" / "config.yaml"), "--weight", str(tmp / "R" / "best"), "--ema"]
+        out_v, _, _, _, _, _, _ = embedding_epochs(tmp / "R", module="visiondk_tpu_torch.validate", argv=weight)
+        counts_v = read_counts()
+        printed_v = re.search(r"^(\{'MRR@1'.*\})$", out_v, re.M).group(1)
+
+        # cbir_eval, with the evaluation's split: embed forwards against the product and top-k
+        timed = {"embed forwards": 0.0, "product + top-k": 0.0}
+        extract, search = cbir_eval_mod._extract, retrieval.search
+
+        def timer(what, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                timed[what] += time.perf_counter() - t
+                return out
+            return run
+
+        cbir_eval_mod._extract = timer("embed forwards", extract)
+        retrieval.search = timer("product + top-k", search)
+        try:
+            out_e, _, _, _, _, _, _ = embedding_epochs(tmp / "R", module="visiondk_tpu_torch.cbir_eval", argv=weight)
+        finally:
+            cbir_eval_mod._extract, retrieval.search = extract, search
+        counts_e = read_counts()
+        printed_e = dict(re.findall(r"^(\S+@\d+): (\S+)$", out_e, re.M))
+        print(f"[{tag}] on the CBIR run's best (epoch {best['epoch'] + 1}): validate --ema {printed_v}; cbir_eval "
+              f"--ema {printed_e}; the run logged {fitness}; {NAMES[fwd]} launched {counts_v[fwd]} and "
+              f"{counts_e[fwd]}; cbir_eval's evaluation ({n_query} queries, {n_gallery} gallery images, bs {val_bs}): "
+              f"embed forwards {timed['embed forwards'] * 1e3:.1f} ms, product + top-k "
+              f"{timed['product + top-k'] * 1e3:.1f} ms (host clock, synchronised)")
+        check(printed_v == str(fitness) and printed_e == {k: str(v) for k, v in fitness.items()}
+              and fitness["MRR@1"] == best["best_fitness"], "validate / cbir_eval do not reproduce the CBIR run's best")
+        for label, counts in (("validate", counts_v), ("cbir_eval", counts_e)):
+            check(counts == only({fwd: depth * cbir_batches}),
+                  f"{label} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+        add(train_r, evals_r, [counts_v, counts_e])
+        return totals
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    face_data = start_synth_face()  # one CPU core, in the background until phase ER
+    try:
+        run_phases(dev, face_data)
+    finally:
+        tmp, proc, _ = face_data
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(dev: torch.device, face_data: tuple) -> None:
     phase_build()
     kern = {**phase_kernel(dev), **phase_window_kernel(dev), **phase_vision_kernel(dev)}
     launches = {k: 0 for k in KERNELS}
@@ -1723,10 +2246,14 @@ def main() -> None:
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
+    phase_profile_embedding(dev)
+    phase_margin_heads(dev)
     phase_device_augment(dev)
     run_loop = phase_run_loop(dev)
     print("[launches] run loop: " + ", ".join(f"{NAMES[k]} {run_loop[k]}" for k in K1_KERNELS))
-    launches = {k: launches[k] + run_loop[k] for k in KERNELS}
+    embedding_run = phase_embedding_run(dev, face_data)
+    print("[launches] embedding run: " + ", ".join(f"{NAMES[k]} {embedding_run[k]}" for k in wattn.KERNELS))
+    launches = {k: launches[k] + run_loop[k] + embedding_run[k] for k in KERNELS}
     vision = phase_vision_path(dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     report(kern, {k: launches[k] + vision[k] for k in KERNELS})

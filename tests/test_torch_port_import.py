@@ -30,6 +30,8 @@ import visiondk_tpu_torch.data, visiondk_tpu_torch.data.transforms, visiondk_tpu
 import visiondk_tpu_torch.data.datasets, visiondk_tpu_torch.data.native, visiondk_tpu_torch.data.loader
 import visiondk_tpu_torch.data.dataprocessor, visiondk_tpu_torch.engine.evaluation
 import visiondk_tpu_torch.engine.checkpoint, visiondk_tpu_torch.main, visiondk_tpu_torch.validate
+import visiondk_tpu_torch.ops.margin_heads, visiondk_tpu_torch.ops.retrieval, visiondk_tpu_torch.models.heads
+import visiondk_tpu_torch.engine.face_eval, visiondk_tpu_torch.engine.cbir_eval, visiondk_tpu_torch.cbir_eval
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "visiondk_tpu",
                             "tensorflow", "tensorboard") if m in sys.modules)

@@ -465,9 +465,8 @@ def test_serving_steps_are_deterministic_after_model_train(kind):
 
 
 @pytest.mark.parametrize("cfg", [
-    StepConfig(task="embedding"), StepConfig(mixup=True), StepConfig(sam=SAMConfig()),
-    StepConfig(ohem=OHEMConfig()),
-], ids=["embedding", "mixup", "sam", "ohem"])
+    StepConfig(mixup=True), StepConfig(sam=SAMConfig()), StepConfig(ohem=OHEMConfig()),
+], ids=["mixup", "sam", "ohem"])
 def test_train_step_variants_not_ported_raise(cfg):
     model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(NotImplementedError):

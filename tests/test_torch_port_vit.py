@@ -233,12 +233,10 @@ def test_pet_synth_model_structure():
     [
         lambda: get_model({"task": "classification", "name": TINY, "num_classes": 3,
                            "attention_pool": True}, device="cpu"),
-        lambda: get_model({"task": "cbir", "backbone": {TINY: {}},
-                           "head": {"arcface": {"s": 64}}}, device="cpu"),
         lambda: get_model({"task": "classification", "num_classes": 3,
                            "name": "vit_so400m_patch14_siglip_224"}, device="cpu"),
     ],
-    ids=["attention_pool", "margin_head", "map_pool"],
+    ids=["attention_pool", "map_pool"],
 )
 def test_unported_options_raise(build):
     with pytest.raises(NotImplementedError):

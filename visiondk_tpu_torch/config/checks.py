@@ -1,12 +1,13 @@
 """Eager cross-field config validation (counterpart of ``visiondk_tpu/config/checks.py``).
 
-``check(task, cfgs)`` for the classification task: one enabled loss, the
-optimizer and scheduler vocabulary, warm-up/scheduler consistency,
-normalization required for pretrained weights, num_classes against the
-dataset (folder, CSV, or a HuggingFace dataset where the ``datasets``
-library is installed), and mixup/OHEM/focal compatibility. Model names are
-native zoo names; ``timm-<name>.<tag>`` maps onto them. The embedding tasks
-(``face``, ``cbir``) are not ported yet and raise ``NotImplementedError``.
+``check(task, cfgs)``: one enabled loss, the optimizer and scheduler
+vocabulary, warm-up/scheduler consistency, normalization required for
+pretrained weights; for classification num_classes against the dataset
+(folder, CSV, or a HuggingFace dataset where the ``datasets`` library is
+installed) and mixup/OHEM/focal compatibility; for the embedding tasks
+(``face``, ``cbir``) the margin head's num_class against the dataset, and
+for face a pair file whose pair count is a multiple of 10. Model names are
+native zoo names; ``timm-<name>.<tag>`` maps onto them.
 """
 
 from __future__ import annotations
@@ -199,13 +200,47 @@ def check_cfgs_classification(cfgs: Dict[str, Any]) -> None:
     strategy["mixup"] = [mix_ratio, mix_duration]
 
 
-def check(task: str, cfgs: Dict[str, Any]) -> None:
-    if task in ("face", "cbir"):
-        raise NotImplementedError(
-            f"task {task!r}: the embedding tasks (margin heads, pair and retrieval evaluation) "
-            "are not ported to visiondk_tpu_torch yet"
+def _check_embedding_head(cfgs: Dict[str, Any]) -> None:
+    model, data = cfgs["model"], cfgs["data"]
+    head_key = next(iter(model["head"]))
+    expected = model["head"][head_key]["num_class"]
+    root = str(data["root"])
+    if os.path.isdir(root):
+        n = _count_local_classes(root)
+        assert expected == n, f"head num_class {expected} != dataset classes {n}"
+    else:
+        n = _count_hf_classes(
+            root, bool(data.get("allow_unverified_classes", False))
         )
-    if task == "classification":
+        if n is not None:
+            assert expected == n, f"head num_class {expected} != dataset classes {n}"
+
+
+def check_cfgs_face(cfgs: Dict[str, Any]) -> None:
+    check_cfgs_common(cfgs)
+    _check_embedding_head(cfgs)
+    pair_txt = cfgs["data"]["val"].get("pair_txt")
+    if not pair_txt or not os.path.isfile(pair_txt):
+        raise ValueError(f"Pair text file not found at {pair_txt}")
+    with open(pair_txt) as f:
+        n_pairs = sum(1 for line in f if line.strip())
+    if n_pairs % 10 != 0:
+        raise ValueError(
+            f"pair_txt must contain a multiple of 10 pairs (10-fold CV); got {n_pairs}"
+        )
+
+
+def check_cfgs_cbir(cfgs: Dict[str, Any]) -> None:
+    check_cfgs_common(cfgs)
+    _check_embedding_head(cfgs)
+
+
+def check(task: str, cfgs: Dict[str, Any]) -> None:
+    if task == "face":
+        check_cfgs_face(cfgs)
+    elif task == "cbir":
+        check_cfgs_cbir(cfgs)
+    elif task == "classification":
         check_cfgs_classification(cfgs)
     else:
         raise ValueError(f"task {task!r} is not supported (choose from {sorted(VALID_TASKS)})")

@@ -1,6 +1,6 @@
 from visiondk_tpu_torch.data.class_augmenter import ClassWiseAugmenter
 from visiondk_tpu_torch.data.dataprocessor import SmartDataProcessor
-from visiondk_tpu_torch.data.datasets import ImageDatasets, read_image, smooth_labels, tell_data_distribution
+from visiondk_tpu_torch.data.datasets import CBIRDatasets, ImageDatasets, read_image, smooth_labels, tell_data_distribution
 from visiondk_tpu_torch.data.loader import DataLoader, DevicePrefetcher, loader_kind
 from visiondk_tpu_torch.data.transforms import (
     AUG_METHODS,
@@ -14,6 +14,7 @@ from visiondk_tpu_torch.data.transforms import (
 
 __all__ = [
     "AUG_METHODS",
+    "CBIRDatasets",
     "ClassWiseAugmenter",
     "Compose",
     "DataLoader",

@@ -7,9 +7,9 @@ train time and read back at eval time, and a corrupt-image retry),
 ``tell_data_distribution`` (the per-class train/val table) and
 ``read_image`` (PIL, cv2 as a fallback where installed). ``__getitem__``
 returns a **uint8 HWC** array; the loaders stack fixed-shape numpy batches.
-The HF source needs the ``datasets`` library and a dataset it can load
-offline. The prediction, embedding-distillation and CBIR datasets belong
-to ports still to come.
+``CBIRDatasets`` is the query/gallery pair of the CBIR task. The HF source
+needs the ``datasets`` library and a dataset it can load offline. The
+prediction and embedding-distillation datasets belong to ports still to come.
 """
 
 from __future__ import annotations
@@ -234,3 +234,69 @@ def tell_data_distribution(
         return "| " + " | ".join(c.ljust(w) for c, w in zip(cells, widths)) + " |"
     lines = [sep, fmt(headers), sep] + [fmt(r) for r in table_rows] + [sep]
     return rows, "\n".join(lines)
+
+
+class CBIRDatasets:
+    """Query/gallery pair (reference basedataset.py:463-596).
+
+    Local layout: root/query/<id>/*, root/gallery/<id>/*; query ids must be a
+    subset of gallery ids (:590-593). HF layout: splits named query/gallery
+    with a ``class_name``-like column. ``build()`` returns (query, gallery).
+    """
+
+    def __init__(self, images: List[Any], ids: List[str], hf_dataset=None, transforms=None):
+        self.images = images
+        self.ids = ids
+        self._hf_dataset = hf_dataset
+        self.transforms = transforms
+
+    @classmethod
+    def build(cls, root: str, transforms=None) -> Tuple["CBIRDatasets", "CBIRDatasets"]:
+        root = str(root)
+        if os.path.isdir(root):
+            def scan(split):
+                images, ids = [], []
+                base = Path(root) / split
+                for cid in sorted(os.listdir(base)):
+                    d = base / cid
+                    if not d.is_dir() or cid.startswith("."):
+                        continue
+                    for f in sorted(os.listdir(d)):
+                        if Path(f).suffix.lower() in IMG_EXTENSIONS:
+                            images.append(str(d / f))
+                            ids.append(cid)
+                return images, ids
+
+            q_images, q_ids = scan("query")
+            g_images, g_ids = scan("gallery")
+            if not set(q_ids) <= set(g_ids):
+                raise AssertionError("query ids must be a subset of gallery ids")
+            return (
+                cls(q_images, q_ids, transforms=transforms),
+                cls(g_images, g_ids, transforms=transforms),
+            )
+
+        from datasets import load_dataset
+
+        q = load_dataset(root, split="query")
+        g = load_dataset(root, split="gallery")
+        label_col = "class_name" if "class_name" in q.features else "label"
+        return (
+            cls(list(range(len(q))), [str(x) for x in q[label_col]], hf_dataset=q, transforms=transforms),
+            cls(list(range(len(g))), [str(x) for x in g[label_col]], hf_dataset=g, transforms=transforms),
+        )
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, str]:
+        if self._hf_dataset is not None:
+            img = self._hf_dataset[int(self.images[index])]["image"].convert("RGB")
+        else:
+            img = read_image(self.images[index])
+        if self.transforms is not None:
+            img = self.transforms(img)
+        return np.asarray(img), self.ids[index]
+
+    def positives_for(self, query_id: str) -> List[int]:
+        return [i for i, gid in enumerate(self.ids) if gid == query_id]

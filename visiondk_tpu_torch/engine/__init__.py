@@ -1,3 +1,4 @@
+from visiondk_tpu_torch.engine import cbir_eval, face_eval
 from visiondk_tpu_torch.engine.steps import (
     OHEMConfig,
     StepConfig,
@@ -10,7 +11,9 @@ from visiondk_tpu_torch.engine.steps import (
 __all__ = [
     "OHEMConfig",
     "StepConfig",
+    "cbir_eval",
     "device_preprocess",
+    "face_eval",
     "make_eval_step",
     "make_embed_step",
     "make_train_step",

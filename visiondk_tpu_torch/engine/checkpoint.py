@@ -1,9 +1,10 @@
 """Checkpoint / resume on ``torch.save`` / ``torch.load`` (counterpart of
 ``visiondk_tpu/engine/checkpoint.py``, which checkpoints through Orbax).
 
-A checkpoint ``name`` (``last``, ``best``) is a directory ``{name}/`` in the
-run directory holding ``state.pt`` and ``meta.json`` (``epoch``,
-``best_fitness``). ``state.pt`` holds everything a resumed run needs to
+A checkpoint ``name`` (``last``, ``best``, the embedding loop's
+``Epoch_{n}``) is a directory ``{name}/`` in the run directory holding
+``state.pt`` and ``meta.json`` (``epoch``, ``best_fitness``, and what the
+caller adds). ``state.pt`` holds everything a resumed run needs to
 continue as the uninterrupted run would: the model's and the EMA module's
 state dicts, the optimizer's state, ``step``, ``ema_updates``, the count of
 applied updates, and the state of the train step's CPU generator (without
@@ -36,7 +37,7 @@ import os
 import shutil
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -159,8 +160,12 @@ class CheckpointManager:
         state: TrainState,
         epoch: int,
         best_fitness: float,
+        extra: Optional[Dict[str, Any]] = None,
     ) -> None:
-        meta = {"epoch": epoch, "best_fitness": float(best_fitness)}
+        """Save ``state`` as checkpoint ``name`` (asynchronously; see the
+        module doc). ``meta.json`` holds ``epoch``, ``best_fitness`` and the
+        entries of ``extra`` (the embedding loop's per-epoch ``fitness``)."""
+        meta = {"epoch": epoch, "best_fitness": float(best_fitness), **(extra or {})}
         if name in self._pending:
             # the previous save of this name: join and promote it, so the
             # staging slot is free and the promote bookkeeping one deep

@@ -5,8 +5,10 @@
 step's chain, uint8 batch → the device-augment stage where one is given →
 normalise on the device → forward in train mode
 → loss → backward → clip → optimizer → EMA, run eagerly and in place on the
-state (see ``make_train_step``). Ported: the plain classification variant.
-Mixup, SAM, OHEM and the embedding task raise ``NotImplementedError``.
+state (see ``make_train_step``). Ported: the plain classification variant
+and the embedding task (``task="embedding"``: the model's margin head gives
+``(logits, aux)`` and the loss is ``lossfn(logits, labels) + aux``). Mixup,
+SAM and OHEM raise ``NotImplementedError``.
 
 ``make_eval_step`` and ``make_embed_step`` return callables ``step(batch)``
 that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
@@ -77,7 +79,9 @@ def make_train_step(
     Each call, on ``state.model`` (which must be ``model``): train mode,
     normalise the uint8 batch on the model's device, forward, ``lossfn``,
     backward, then ``tx.update`` (clip, schedules, optimizer step) and the
-    EMA update, and ``state.step += 1``. The state is updated in place; the
+    EMA update, and ``state.step += 1`` (for ``task="embedding"`` the
+    forward is ``model(images, labels)``, the margin head's ``(logits, aux)``,
+    and the loss ``lossfn(logits, labels) + aux``). The state is updated in place; the
     clipped gradients stay in ``.grad`` until the next call clears them.
     Dropout and DropPath draw from a seed taken from ``generator`` (a CPU
     ``torch.Generator``) on every call (the JAX step folds the step into its
@@ -88,8 +92,7 @@ def make_train_step(
     carries the generator, so a resumed run draws the same augments.
     ``lam`` is the mixup weight, unused until mixup is ported.
     """
-    for what, on in (("task='embedding'", cfg.task != "classification"), ("mixup", cfg.mixup),
-                     ("SAM", cfg.sam is not None), ("OHEM", cfg.ohem is not None)):
+    for what, on in (("mixup", cfg.mixup), ("SAM", cfg.sam is not None), ("OHEM", cfg.ohem is not None)):
         if on:
             raise NotImplementedError(f"{what} in the train step is not ported yet")
     device = _device(model)
@@ -108,7 +111,11 @@ def make_train_step(
             p.grad = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             torch.manual_seed(seed)
-            loss = lossfn(model(images), labels)
+            if cfg.task == "embedding":
+                logits, aux = model(images, labels)
+                loss = lossfn(logits, labels) + aux
+            else:
+                loss = lossfn(model(images), labels)
         loss.backward()
         tx.update(state.optimizer)
         state.ema_updates += 1

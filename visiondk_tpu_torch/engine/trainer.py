@@ -24,11 +24,18 @@ epoch, as the JAX loop does:
   ``load_from`` and ``convert_npz`` initialisation, the epoch table,
   ``metrics.jsonl`` and the "Validate:" hint.
 
+``run_embedding`` trains the face and CBIR tasks (a margin head over the
+embedding neck), as the JAX loop does: the schedule steps per batch, the
+train augments (and the device-augment stage) are live in every epoch with
+no warm-up or weakening, the loss is logged every ``print_freq`` steps, and
+every ``save_freq`` epochs the EMA model is evaluated (``_eval_embedding``:
+the 10-fold pair accuracy for face, the retrieval metrics for CBIR) and
+``Epoch_{n}`` (with its metrics), ``best`` and ``last`` are saved.
+
 A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
 with f32 parameters by default (``compute_dtype``). Not ported yet, and
-raising ``NotImplementedError``: the embedding tasks (``run_embedding``),
-mixup, OHEM, SAM and gradient accumulation.
+raising ``NotImplementedError``: mixup, OHEM, SAM and gradient accumulation.
 """
 
 from __future__ import annotations
@@ -44,19 +51,22 @@ import torch
 from visiondk_tpu_torch.config.checks import normalize_accumulate
 from visiondk_tpu_torch.config.loader import get_imgsz, yaml_dump
 from visiondk_tpu_torch.data.dataprocessor import SmartDataProcessor
-from visiondk_tpu_torch.data.datasets import tell_data_distribution
+from visiondk_tpu_torch.data.datasets import CBIRDatasets, tell_data_distribution
 from visiondk_tpu_torch.data.loader import DevicePrefetcher, loader_kind
+from visiondk_tpu_torch.data.transforms import create_aug_transforms
+from visiondk_tpu_torch.engine import cbir_eval, face_eval
 from visiondk_tpu_torch.engine import evaluation as cls_eval
 from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.engine.optim import OptimizerSpec, create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
 from visiondk_tpu_torch.engine.state import TrainState, create_train_state
-from visiondk_tpu_torch.engine.steps import StepConfig, make_eval_step, make_train_step
+from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step, make_train_step
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models.convert import load_converted, merge_converted
 from visiondk_tpu_torch.models.factory import get_model
 from visiondk_tpu_torch.ops.device_augment import describe_split, make_device_augment
 from visiondk_tpu_torch.utils.logger import SmartLogger
+from visiondk_tpu_torch.utils.meters import AverageMeter
 from visiondk_tpu_torch.utils.metrics_writer import MetricsWriter
 from visiondk_tpu_torch.utils.plots import colorstr
 
@@ -127,10 +137,6 @@ class CenterProcessor:
         self.data_cfg = cfgs["data"]
         self.hyp_cfg = cfgs["hyp"]
         self.task = self.model_cfg["task"]
-        if self.task != "classification":
-            raise NotImplementedError(
-                f"task {self.task!r}: the embedding tasks are not ported to visiondk_tpu_torch yet"
-            )
         self.project = Path(project)
         self.compute_dtype = compute_dtype
         self.seed = seed
@@ -185,12 +191,17 @@ class CenterProcessor:
 
         label_smooth = self.hyp_cfg.get("label_smooth", 0.0)
         if self.loss_choice == "ce":
-            self.lossfn = create_lossfn("ce", label_smooth=label_smooth)
+            # smoothing over the margin head's classes (the JAX head pads its
+            # class dim and passes the real count; the port's head has no pad)
+            valid = None
+            if self.task in ("face", "cbir"):
+                valid = int(next(iter(self.model_cfg["head"].values()))["num_class"])
+            self.lossfn = create_lossfn("ce", label_smooth=label_smooth, valid_class=valid)
             self.thresh = 0
         else:
             self.lossfn = create_lossfn("bce")
             self.thresh = loss_cfg["bce"][1]
-            if train:
+            if train and self.task == "classification":
                 self.data_processor.set_label_smoothing(self.model_cfg["num_classes"], label_smooth)
         focal = strategy.get("focal", [False])
         self.focal_fn = (
@@ -214,9 +225,18 @@ class CenterProcessor:
 
     # ------------------------------------------------------------ helpers
 
+    def _validate_hint(self) -> None:
+        device_flag = "" if self.device.type == "cuda" else f" --device {self.device.type}"
+        self.logger.console(
+            colorstr("Validate:")
+            + f" python -m visiondk_tpu_torch.validate --cfgs {self.project / 'config.yaml'}"
+            f" --weight {self.project / 'best'} --ema{device_flag}"
+        )
+
     def step_config(self) -> StepConfig:
         mean, std = self.data_processor.normalization
-        return StepConfig(mean=mean, std=std)
+        task = "classification" if self.task == "classification" else "embedding"
+        return StepConfig(task=task, mean=mean, std=std)
 
     def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool) -> Callable:
         if key not in self._step_cache:
@@ -375,13 +395,122 @@ class CenterProcessor:
         self.ckpt.wait()  # join the in-flight writes before reporting done
         hours = (time.time() - t0) / 3600
         logger.both(f"\n{epochs - start_epoch} epochs completed in {hours:.3f} hours.")
-        device_flag = "" if self.device.type == "cuda" else f" --device {self.device.type}"
-        logger.console(
-            colorstr("Validate:")
-            + f" python -m visiondk_tpu_torch.validate --cfgs {self.project / 'config.yaml'}"
-            f" --weight {self.project / 'best'} --ema{device_flag}"
-        )
+        self._validate_hint()
         return {"best_fitness": best_fitness, **last_metrics}
+
+    # ------------------------------------------------------------ embedding
+
+    def run_embedding(self, resume: Optional[str] = None, save_freq: int = 1, print_freq: int = 50) -> Dict[str, Any]:
+        hyp, data_cfg = self.hyp_cfg, self.data_cfg
+        epochs = hyp["epochs"]
+        logger = self.logger
+        dp = self.data_processor
+
+        train_loader = dp.dataloader("train", data_cfg["train"]["bs"], seed=self.seed)
+        steps_per_epoch = max(len(train_loader), 1)
+        # the schedule steps per batch (vision_engine.py:486-489)
+        tx = build_tx(hyp, steps_per_epoch, discrete_per_epoch=False, model_cfg=self.model_cfg)
+        state = create_train_state(self.model, tx, torch.Generator().manual_seed(self.seed + 1))
+
+        best_fitness, start_epoch = 0.0, 0
+        if resume:
+            state, meta = self.ckpt.restore(resume, state)
+            start_epoch = meta["epoch"] + 1
+            best_fitness = meta.get("best_fitness", 0.0)
+            logger.both(f"resume: {resume} (epoch {start_epoch})")
+            if meta.get("meta_missing"):
+                logger.both(
+                    f"WARNING resume: {resume} has no meta.json — epoch and "
+                    "best_fitness are unknown; restarting the schedule at "
+                    "epoch 0 with the restored weights"
+                )
+        elif self.model_cfg.get("load_from"):
+            state = self._apply_load_from(state, self.model_cfg["load_from"])
+        if not resume and self.model_cfg.get("convert_npz"):
+            state = self._apply_convert_npz(state, self.model_cfg["convert_npz"])
+        embed_step = make_embed_step(state.ema_model, self.step_config())
+
+        # no warm-up or weakening of the augments (vision_engine.py:438-561):
+        # the device-augment stage is live in every epoch
+        dev_aug = self.device_augment_fn is not None
+        step = self._get_train_step(tx, state, ("embed", dev_aug), self.lossfn, dev_aug)
+        logger.both(
+            f"device {self.device}, compute {str(self.compute_dtype).replace('torch.', '')}; loaders: train "
+            f"{loader_kind(train_loader)} ({len(train_loader)} batches of {data_cfg['train']['bs']})"
+        )
+        loss_meter = AverageMeter()
+        fitness_metrics: Dict[str, Any] = {}
+        for epoch in range(start_epoch, epochs):
+            train_loader.set_epoch(epoch)
+            loss_meter.reset()
+            epoch_t0 = time.time()
+            n_images = 0
+            pending = []  # device losses, read at print_freq and at the epoch's end
+            for i, batch in enumerate(DevicePrefetcher(train_loader, self.device, self.device_prefetch_depth)):
+                rows = batch["image"].shape[0]
+                pending.append((step(state, batch)["loss"], rows))
+                n_images += rows
+                if (i + 1) % print_freq == 0:
+                    for dev_loss, n in pending:
+                        loss_meter.update(float(dev_loss), n=n)
+                    pending.clear()
+                    steps_done = epoch * steps_per_epoch + i + 1
+                    lr = tx.lr_schedule(state.optimizer.count)
+                    logger.console(f"epoch:{epoch + 1}/{epochs} batch:{i + 1} loss:{loss_meter.avg:.4f} lr:{lr:.3g}")
+                    if self.metrics_writer is not None:
+                        self.metrics_writer.add_scalar("Train_loss", loss_meter.avg, steps_done)
+                        self.metrics_writer.add_scalar("Train_lr", lr, steps_done)
+            for dev_loss, n in pending:
+                loss_meter.update(float(dev_loss), n=n)
+            rate = n_images / max(time.time() - epoch_t0, 1e-9)
+            logger.both(f"epoch:{epoch + 1}/{epochs} loss:{loss_meter.avg:.4f} imgs/s:{rate:.1f}")
+            if self.metrics_writer is not None:
+                self.metrics_writer.add_scalar("Train_epoch_loss", loss_meter.avg, epoch)
+                self.metrics_writer.add_scalar("Train_images_per_sec", rate, epoch)
+
+            if (epoch + 1) % save_freq == 0 or epoch == epochs - 1:
+                fitness_metrics = self._eval_embedding(embed_step)
+                # the pair-verification mean (face) or the first retrieval metric (CBIR)
+                fitness = float(fitness_metrics["mean"] if "mean" in fitness_metrics
+                                else next(iter(fitness_metrics.values())))
+                logger.both(fitness_metrics)
+                if self.metrics_writer is not None:
+                    for k, v in fitness_metrics.items():
+                        self.metrics_writer.add_scalar(f"Val_{k}", float(v), epoch)
+                    self.metrics_writer.flush()
+                self.ckpt.save(f"Epoch_{epoch + 1}", state, epoch, max(best_fitness, fitness),
+                               extra={"fitness": {k: float(v) for k, v in fitness_metrics.items()}})
+                if fitness > best_fitness:
+                    best_fitness = fitness
+                    self.ckpt.save("best", state, epoch, best_fitness)
+                self.ckpt.save("last", state, epoch, best_fitness)
+        self.ckpt.wait()  # join the in-flight writes before reporting done
+        self._validate_hint()
+        return fitness_metrics
+
+    def _eval_embedding(self, embed_step: Callable) -> Dict[str, Any]:
+        """The embedding task's evaluation with ``embed_step`` (the EMA
+        module's during training): ``{"mean", "std"}`` of the 10-fold pair
+        accuracy for face, the retrieval metrics for CBIR."""
+        val_aug = create_aug_transforms(self.data_cfg["val"]["augment"])
+        if self.task == "face":
+            mean, sem = face_eval.valuate(
+                embed_step, self.data_cfg["val"]["pair_txt"], self.data_cfg["root"], val_aug,
+                batch_size=self.data_cfg["val"]["bs"],
+            )
+            return {"mean": mean, "std": sem}
+        query, gallery = CBIRDatasets.build(self.data_cfg["root"], transforms=val_aug)
+        mcfg = self.data_cfg["val"].get("metrics", {})
+        return cbir_eval.valuate(
+            embed_step, query, gallery,
+            batch_size=self.data_cfg["val"]["bs"],
+            metrics=mcfg.get("metrics", ["mrr", "recall", "precision", "auc", "ndcg"]),
+            cutoffs=mcfg.get("cutoffs", [1, 3, 5]),
+            recall_target=mcfg.get("recall_target"),
+            # not used in training (the model changes every epoch) unless the config forces it
+            gallery_cache=self.data_cfg["val"].get("embedding_cache"),
+            device=self.device,
+        )
 
     # ------------------------------------------------------- initialisation
 
@@ -400,7 +529,10 @@ class CenterProcessor:
     def _apply_load_from(self, state: TrainState, path: str) -> TrainState:
         """Fine-tune from another run's checkpoint dir: its EMA weights only,
         merged by key and shape (the saving run's optimizer need not match
-        this run's); the EMA restarts from them."""
+        this run's); the EMA restarts from them. A margin head's weight
+        loads only from a checkpoint with exactly this head's ``num_class``
+        columns (the JAX ``head_classes`` rule; the port's heads hold no pad
+        columns, so that is the shape match)."""
         path = Path(path)
         source = CheckpointManager(path.parent).read(path.name)["ema"]
         merged = CheckpointManager.load_from(self.model.state_dict(), source, logger=self.logger, prefix="ema ")

@@ -6,9 +6,10 @@
 
 The same flags as ``main.py``, plus ``--device`` (default ``cuda``; without
 a card that raises, so a CPU run asks for it with ``--device cpu``). The
-port trains the classification task, with the device-augment stage where
-the config lifts the per-pixel random ops off the host
-(``data.train.device_augment``, "auto" by default). ``--trace`` records a
+port trains the classification task (``run_classifier``) and the face and
+CBIR tasks (``run_embedding``, with ``--save_freq`` and ``--print_freq``),
+with the device-augment stage where the config lifts the per-pixel random
+ops off the host (``data.train.device_augment``, "auto" by default). ``--trace`` records a
 ``torch.profiler`` trace of the run into ``<project>/trace``. ``--multihost``,
 ``--model_parallel > 1`` and ``--distill`` raise ``NotImplementedError``:
 distributed training and distillation are not ported yet.
@@ -60,13 +61,19 @@ def main(opt):
     project = Path(opt.project) if opt.resume else increment_path(Path(opt.project))
 
     cp = CenterProcessor(cfgs, project=str(project), train=True, device=opt.device, seed=opt.seed)
+
+    def run():
+        if task == "classification":
+            return cp.run_classifier(resume=opt.resume)
+        return cp.run_embedding(resume=opt.resume, save_freq=opt.save_freq, print_freq=opt.print_freq)
+
     if not opt.trace:
-        return cp.run_classifier(resume=opt.resume)
+        return run()
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cp.device.type == "cuda" else [])
     with profile(activities=activities) as prof:
-        result = cp.run_classifier(resume=opt.resume)
+        result = run()
     (project / "trace").mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(project / "trace" / "trace.json"))
     return result

@@ -11,6 +11,9 @@ follows the port module that owns each tensor:
 - LayerNorm / BatchNorm weight ← ``scale``; BatchNorm running_mean/var ←
   ``batch_stats`` ``mean``/``var``;
 - LayerScale gamma ← the flax param named after the module (``block{i}/ls1``);
+- a margin head's weight [feat_dim, num_class] ← ``head/weight``'s first
+  ``num_class`` columns (the JAX head pads its class dim to a multiple of
+  128; the port holds no pad columns);
 - any other parameter (``cls_token``, ``pos_embed``) ← the same name;
 - module paths, per family: ViT's torch ``blocks.{i}`` ↔ flax ``block{i}``;
   under a ``SwinTransformer``, ``layers.{s}.blocks.{b}`` ↔ ``stage{s}_block{b}``,
@@ -34,6 +37,7 @@ import torch
 from torch import nn
 
 from visiondk_tpu_torch.models.backbones.swin import SwinTransformer
+from visiondk_tpu_torch.models.heads import MarginHead
 from visiondk_tpu_torch.models.layers import LayerScale
 
 Tree = Dict[str, Dict[str, np.ndarray]]
@@ -81,6 +85,10 @@ def _conv(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1)  # HWIO → OIHW
 
 
+def _class_columns(num_class: int) -> Callable[[np.ndarray], np.ndarray]:
+    return lambda a: a[:, :num_class]  # [feat_dim, padded] → [feat_dim, num_class]
+
+
 def _sources(model: nn.Module) -> Dict[str, Tuple[str, str, Callable]]:
     """Port state-dict key → (source tree, flax path, array transform)."""
     out: Dict[str, Tuple[str, str, Callable]] = {}
@@ -109,6 +117,8 @@ def _sources(model: nn.Module) -> Dict[str, Tuple[str, str, Callable]]:
                 src = ("batch_stats", leaf("var"), _same)
             elif isinstance(m, nn.modules.batchnorm._BatchNorm) and name == "num_batches_tracked":
                 continue
+            elif isinstance(m, MarginHead) and name == "weight":
+                src = ("params", leaf("weight"), _class_columns(m.num_class))
             elif isinstance(m, LayerScale) and name == "gamma":
                 src = ("params", fpath, _same)
             elif name in params:

@@ -2,11 +2,11 @@
 
 - classification → backbone with a ``num_classes``-way f32 linear head;
 - face/cbir → backbone in unpooled token-map mode → LayerNorm → flatten →
-  Linear(feat_dim) → BatchNorm1d neck (f32), whose output is the embedding.
+  Linear(feat_dim) → BatchNorm1d neck (f32), whose output is the embedding,
+  and the margin head (``models/heads.py``) that trains it.
 
-Ported so far: the serving side. ``VisionModel(attention_pool=True)`` and the
-margin heads of ``EmbeddingModel`` (``head_config``) raise
-``NotImplementedError`` until they are ported.
+``VisionModel(attention_pool=True)`` raises ``NotImplementedError``: it is
+not ported yet.
 
 ``get_model`` takes the ``model:`` section of a YAML config as a dict and
 returns a model initialised as the JAX package initialises one, drawn from an
@@ -23,6 +23,7 @@ from torch import nn
 
 from visiondk_tpu_torch.config.checks import canonical_model_name
 from visiondk_tpu_torch.models.backbones import BACKBONES
+from visiondk_tpu_torch.models.heads import build_head
 from visiondk_tpu_torch.models.layers import BatchNorm1d, LayerNorm, Linear, init_params
 
 
@@ -66,25 +67,29 @@ class VisionModel(nn.Module):
 
 class EmbeddingModel(nn.Module):
     """Face/CBIR model: backbone(unpooled) → neck → [B, feat_dim] embedding.
-    ``forward`` is ``embed``; the margin heads of training are not ported yet."""
+
+    ``forward(x, labels)`` → (margin logits, aux loss) for training (the
+    head's); ``embed(x)`` → the [B, feat_dim] embedding for extraction and
+    evaluation. Without ``head_config`` the model only embeds."""
 
     def __init__(self, backbone_name: str, feat_dim: int,
                  head_config: Optional[Dict[str, Any]] = None,
                  backbone_kwargs: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if head_config is not None:
-            raise NotImplementedError("margin heads are not ported to visiondk_tpu_torch yet")
         self.backbone = BACKBONES.create(
             backbone_name, num_classes=0, dtype=dtype, unpooled=True, **(backbone_kwargs or {})
         )
         self.neck = EmbeddingNeck(self.backbone.feature_shape, feat_dim, dtype=dtype)
+        self.head = build_head(head_config) if head_config is not None else None
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         return self.neck(self.backbone(x))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.embed(x)
+    def forward(self, x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.head is None:
+            raise ValueError("this EmbeddingModel has no margin head (model.head); call embed()")
+        return self.head(self.embed(x), labels)
 
 
 def _image_size(kwargs: Dict[str, Any], image_size: Optional[int]) -> Dict[str, Any]:

@@ -5,9 +5,10 @@
 
 Classification: top-1/top-k (or multi-label precision/recall/F1), the
 per-class table and, for ≤ 10 classes, a confusion-matrix PNG beside the
-checkpoint. ``--ema`` serves the EMA weights, as the trainer's validation
-does. ``--quant int8`` and the embedding tasks raise ``NotImplementedError``:
-they are not ported yet.
+checkpoint. Face: the 10-fold pair accuracy ``{'mean', 'std'}``; CBIR: the
+retrieval metrics dict. ``--ema`` serves the EMA weights, as the trainer's
+validation does. ``--quant int8`` raises ``NotImplementedError``: int8
+serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def main(opt):
     from visiondk_tpu_torch.engine import evaluation as cls_eval
     from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
     from visiondk_tpu_torch.engine.state import create_train_state
-    from visiondk_tpu_torch.engine.steps import make_eval_step
+    from visiondk_tpu_torch.engine.steps import make_embed_step, make_eval_step
     from visiondk_tpu_torch.engine.trainer import CenterProcessor, build_tx, resolve_device
 
     if opt.quant is not None:
@@ -49,7 +50,12 @@ def main(opt):
     state, meta = CheckpointManager(weight.parent).restore(weight.name, state)
     print(f"loaded {weight} (epoch {meta.get('epoch')}, best_fitness {meta.get('best_fitness')})")
 
-    eval_step = make_eval_step(state.ema_model if opt.ema else state.model, cp.step_config())
+    served = state.ema_model if opt.ema else state.model
+    if cp.task != "classification":
+        metrics = cp._eval_embedding(make_embed_step(served, cp.step_config()))
+        print(metrics)
+        return metrics
+    eval_step = make_eval_step(served, cp.step_config())
     loader = cp.data_processor.dataloader("val", cfgs["data"]["val"]["bs"])
     thresh = opt.thresh if opt.thresh is not None else (cp.thresh if cp.loss_choice == "bce" else None)
     names = cp.data_processor.val_dataset.class_names
