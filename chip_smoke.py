@@ -130,9 +130,36 @@ DA. device augment — the device-augment stage (visiondk_tpu_torch/ops/
              device→host sync fails the phase. Its time per batch (CUDA events,
              10 calls after 2 warm-up, and the host clock) at bs 128 beside
              phase 5's ViT-B/16 step, and at pet.yaml's bs 80.
+DT. determinism probe — a subprocess (CUBLAS_WORKSPACE_CONFIG=:4096:8):
+             one bf16 train step each of face_synth's Swin-B embedding model
+             (with the fixed-order relative-position bias gather, and with
+             index_select's, the state before the repair), multilabel_csv's
+             resnet50 (deterministic cuDNN, and torch's defaults) and the
+             distillation step: the ops torch.use_deterministic_algorithms
+             (warn_only) names, and the parameters whose gradients differ
+             between two backward passes from the same weights and batch.
+             The repaired steps must show neither.
+CN. cnn — the ResNet family at full width: multilabel_csv.yaml's resnet50
+             (3 classes, BCE, train bs 64) and distill_example.yaml's
+             student resnet18 (35 classes, CE, train bs 128), seeded weights,
+             bf16, 224², channels_last convolutions: 3 train steps and an
+             eval forward (finite, no attention kernel launched), eval
+             images/s at bs 128, train images/s and peak memory with cuDNN's
+             deterministic algorithms (the trainer's setting) and with
+             torch's defaults (order det, defaults, defaults, det), the
+             resnet50 step's device time by class (convolutions, BatchNorm,
+             layout transposes, copies and casts, pooling, optimizer,
+             elementwise) and idle share, and one train step on the card
+             against the CPU in float64 (model, loss and pixels): loss within
+             1e-5 relative, every gradient, update and BN statistic within
+             1e-3 of its tensor's largest entry; the same step in f32 is
+             printed beside the CPU's own f32 against float64 (at random init
+             the last stage's gradients lose up to a fifth of their largest
+             entry to f32 rounding on either device).
 RL. run loop — the classification run loop through the port's own CLIs, on a
-             temporary directory: benchmarks/make_synth_pet.py (a subprocess)
-             writes 40 train and 4 val JPEGs per class (1,400 / 140), and
+             temporary directory: benchmarks/make_synth_pet.py (a subprocess,
+             started after phase 1 and shared with ML and DS) writes 40
+             train and 4 val JPEGs per class (1,400 / 140), and
              configs/classification/pet_synth.yaml runs as written
              (data.train.device_augment "auto": the host keeps decode and the
              letterbox-or-RRC, the device-augment stage runs the rest) with
@@ -162,6 +189,27 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              (4 batches in flight) and with one batch in flight per worker,
              beside the trainer-fed epochs and phase 5's synthetic batch, and
              whether the trainer-fed run is host-paced.
+ML. multilabel run — configs/classification/multilabel_csv.yaml through
+             the port's CLIs on a CSV written over RL's synthetic JPEGs
+             (image_path, train True/False, three label columns: the bits of
+             class index mod 7 + 1), read with the stdlib csv module (pandas
+             never loads), with data.root and hyp.epochs 3 cut (printed):
+             resnet50, BCE, the focal swap from epoch 1, bs 64. Run A
+             (in-process; no attention kernel), run B bit-identical to A,
+             run C SIGKILLed in epoch 1 and resumed, bit-identical to A from
+             epoch 1, validate --ema on A's best reproducing its P/R/F1
+             exactly; trainer-fed images/s per epoch.
+DS. distill — the teacher: configs/classification/pet.yaml (Swin-B, bs 80)
+             through `python -m visiondk_tpu_torch.main` on RL's synthetic
+             JPEGs, hyp.epochs 2, runs A and B bit-identical, exactly 24 K2s
+             + 24 K2b a step and 24 K2 a val forward. The student:
+             configs/classification/distill_example.yaml --distill with the
+             student's data.root and hyp.epochs 2 cut and teacher.weight
+             teacher run A's best (EMA), runs A and B bit-identical, exactly
+             24 K2 a student step and no other attention kernel. Then the
+             distillation step alone on a synthetic bs-128 batch (24 K2,
+             images/s) and one f32 step with the teacher on K2 against the
+             teacher on the plain window attention, to phase 5's bars.
 MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              (ArcFace, MagFace, CircleLoss, MV-Softmax AM and Arc), forward
              and gradient, on the card in f32 against the same function in
@@ -186,17 +234,20 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              and the CBIR twin: 64 queries, 192 gallery images; started after
              phase 1 on one CPU core, so it overlaps the phases before), then
              configs/faceX/face_synth.yaml as written with data.root, its
-             pair file and hyp.epochs 3 cut (printed). Run A (`python -m
+             pair file and hyp.epochs 2 cut (printed; 3 before the CNN,
+             multi-label and distillation phases came). Run A (`python -m
              visiondk_tpu_torch.main` in this process): the split line the
              trainer logged, per-epoch loss, pair mean, trainer-fed images/s
              and checkpoint bytes written; exactly 24 K2s + 24 K2b per train
              step and 24 K2 per evaluation forward, nothing else; the stage's
              calls equal to the steps in every epoch (read at each epoch's
-             evaluation). Run B, the same command: per-epoch loss within 1e-3
-             relative and pair mean within one pair a fold of run A
-             (bit-identity printed). Run C, a subprocess SIGKILLed in epoch 1
-             once epoch 0's checkpoint is complete, then `--resume` here: the
-             same bars against run A. `validate --ema` on run A's best: the
+             evaluation). Run B, the same command: per-epoch loss and pair
+             mean bit-identical to run A's (the relative-position bias
+             gather sums its gradient in a fixed order, and the trainer
+             selects cuDNN's deterministic algorithms). Run C, a subprocess
+             SIGKILLed in epoch 1 once epoch 0's checkpoint is complete, then
+             `--resume` here: bit-identical to run A from the epoch it
+             resumed. `validate --ema` on run A's best: the
              best epoch's {mean, std} exactly. Then cbir_synth.yaml with the
              same cuts, one run with the same counts, and `validate --ema` and
              `python -m visiondk_tpu_torch.cbir_eval --ema` on its best: the
@@ -215,14 +266,17 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              f32 one-step comparison with phase 5's bars.
 
 With --swin-train-trials it runs only the Swin-B bf16 train step's timed
-trials, device-time split and bf16 one-step comparison (swin_train_trials).
+trials, device-time split and bf16 one-step comparison (swin_train_trials);
+with --determinism-probe, phase DT's subprocess. Every phase prints its
+seconds ([time] lines) and the run its total.
 
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
 bf16 train runs of both models, the run loop's in-process runs (A, B, C's
-resume, validate), the embedding runs' (face A, B, C's resume, validate;
-CBIR, validate, cbir_eval) and the vision path, counts set to 0 before
-each and read after), and times at the ViT-B/16 bf16 shape (fused QKV
+resume, validate), the distillation phase's (teacher runs A, B; distill runs
+A, B), the embedding runs' (face A, B, C's resume, validate; CBIR,
+validate, cbir_eval) and the vision path, counts set to 0 before each and
+read after), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
 attention); the last line is {"ok": true, "device": {...}}. The
 device-augment stage has no kernel of its own (plain PyTorch ops on the card),
@@ -1187,22 +1241,23 @@ KERNEL_CLASSES = (
 )
 
 
-def device_split(fn, steps: int) -> tuple:
-    """Per step: device ms by class of kernel, and by attention kernel name,
-    from torch.profiler over ``steps`` calls of ``fn``."""
+def device_split(fn, steps: int, classes=KERNEL_CLASSES) -> tuple:
+    """Per step: device ms by class of kernel (``classes``: label → name
+    keys, first match wins), and by attention kernel name, from
+    torch.profiler over ``steps`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    split = {label: 0.0 for label, _ in KERNEL_CLASSES}
+    split = {label: 0.0 for label, _ in classes}
     attention = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3 / steps
-        label = next(lb for lb, keys in KERNEL_CLASSES if any(k in name for k in keys))
+        label = next(lb for lb, keys in classes if any(k in name for k in keys))
         split[label] += ms
         if label == "attention kernels":
             short = re.search(r"(\w*(?:attention|dbias_sum)\w*kernel)", e.name)
@@ -1211,7 +1266,7 @@ def device_split(fn, steps: int) -> tuple:
     return split, attention
 
 
-def profile_step(label: str, fn, bs: int) -> float:
+def profile_step(label: str, fn, bs: int, classes=KERNEL_CLASSES) -> float:
     """Prints where the time of ``fn`` (one step of batch ``bs``) goes: the
     unprofiled step time (host clock, synchronised, TRAIN_RATE_STEPS calls
     after TRAIN_RATE_WARMUP), device time by kernel class from
@@ -1225,13 +1280,14 @@ def profile_step(label: str, fn, bs: int) -> float:
         fn()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_RATE_STEPS * 1e3
-    split, attention = device_split(fn, steps=3)
+    split, attention = device_split(fn, steps=3, classes=classes)
     busy = sum(split.values())
     print(f"[profile] {label} bs {bs}, kernel path: step {step_ms:.2f} ms unprofiled "
           f"({bs / step_ms * 1e3:.1f} img/s), device busy {busy:.2f} ms, idle share "
           f"{max(0.0, 1 - busy / step_ms):.1%}; device ms per step: "
           + ", ".join(f"{lb} {ms:.2f}" for lb, ms in split.items())
-          + "; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items())))
+          + ("; attention kernels: " + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(attention.items()))
+             if attention else ""))
     return busy
 
 
@@ -1643,6 +1699,28 @@ def committed_epoch(project: Path):
     return None
 
 
+def killed_in_epoch_1(argv: list, project: Path) -> None:
+    """``python -m visiondk_tpu_torch.main argv`` as a subprocess, SIGKILLed
+    once epoch 0's checkpoint is complete on disk (its output in
+    ``<project>.log``)."""
+    log = project.parent / f"{project.name}.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.main", *argv, "--project", str(project),
+                                 "--seed", "0"], stdout=fh, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + RUN_LOOP_TIMEOUT_S
+            while committed_epoch(project) != 0:
+                check(proc.poll() is None, f"{project.name} exited ({proc.returncode}) before epoch 0's "
+                                           f"checkpoint: {log.read_text()[-2000:]}")
+                check(time.monotonic() < deadline, f"{project.name}: no epoch-0 checkpoint in time")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
 def compare_runs(a: dict, b: dict, epochs, n_val: int) -> tuple:
     """Largest per-epoch train-loss difference (relative) and val-top1
     difference (in images) of two runs' metrics over ``epochs``, and whether
@@ -1653,9 +1731,33 @@ def compare_runs(a: dict, b: dict, epochs, n_val: int) -> tuple:
     return loss, top1, same
 
 
-def phase_run_loop(dev: torch.device) -> dict:
+def start_synth_pet() -> tuple:
+    """A temporary directory and the benchmarks/make_synth_pet.py process
+    writing RUN_LOOP_CUTS' dataset into ``<dir>/synthpet``: (dir, process,
+    start). The run loop, the multi-label run and distillation share it."""
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_synth_pet_"))
+    proc = subprocess.Popen([sys.executable, str(PET_SYNTH_YAML.parents[2] / "benchmarks" / "make_synth_pet.py"),
+                             "--root", str(tmp / "synthpet"), "--n-train", str(RUN_LOOP_CUTS["n_train_per_class"]),
+                             "--n-val", str(RUN_LOOP_CUTS["n_val_per_class"]), "--seed", "0"],
+                            stdout=subprocess.DEVNULL)
+    return tmp, proc, time.perf_counter()
+
+
+def synth_pet_root(data: tuple, tag: str) -> Path:
+    """The shared synthetic pet folder, waiting for its generator."""
+    tmp, proc, t0 = data
+    waited = time.perf_counter()
+    check(proc.wait(timeout=RUN_LOOP_TIMEOUT_S) == 0, f"make_synth_pet.py exited with {proc.returncode}")
+    print(f"[{tag}] benchmarks/make_synth_pet.py --n-train {RUN_LOOP_CUTS['n_train_per_class']} --n-val "
+          f"{RUN_LOOP_CUTS['n_val_per_class']}: done {time.perf_counter() - t0:.1f} s after its start, "
+          f"{time.perf_counter() - waited:.1f} s of it waited for here")
+    return tmp / "synthpet"
+
+
+def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
     """The classification run loop through the port's CLIs on pet_synth's
-    ViT-B/16 (see the module doc); returns the K1 family's launches of the
+    ViT-B/16 (see the module doc), on the shared synthetic pet data
+    (``start_synth_pet()``); returns the K1 family's launches of the
     in-process runs."""
     tag = "run loop"
     for module in ("yaml", "PIL"):
@@ -1671,13 +1773,9 @@ def phase_run_loop(dev: torch.device) -> dict:
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     tmp = Path(tempfile.mkdtemp(prefix="vdk_run_loop_"))
     try:
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, str(PET_SYNTH_YAML.parents[2] / "benchmarks" / "make_synth_pet.py"),
-                        "--root", str(tmp / "synthpet"), "--n-train", str(RUN_LOOP_CUTS["n_train_per_class"]),
-                        "--n-val", str(RUN_LOOP_CUTS["n_val_per_class"]), "--seed", "0"],
-                       check=True, timeout=RUN_LOOP_TIMEOUT_S)
+        root = synth_pet_root(pet_data, tag)
         cfg = yaml_load(PET_SYNTH_YAML)
-        cfg["data"]["root"] = str(tmp / "synthpet")
+        cfg["data"]["root"] = str(root)
         cfg["data"]["train"]["aug_epoch"] = RUN_LOOP_CUTS["aug_epoch"]
         cfg["hyp"]["epochs"] = RUN_LOOP_CUTS["epochs"]
         yaml_path = tmp / "pet_synth_run_loop.yaml"
@@ -1692,7 +1790,7 @@ def phase_run_loop(dev: torch.device) -> dict:
               f"(make_synth_pet.py --n-train {RUN_LOOP_CUTS['n_train_per_class']} --n-val "
               f"{RUN_LOOP_CUTS['n_val_per_class']}; {steps} steps of {bs} an epoch), hyp.epochs {epochs} (was 6), "
               f"data.train.aug_epoch {RUN_LOOP_CUTS['aug_epoch']} (was 5); everything else as written "
-              f"({cfg['model']['name']}, bs {bs}, val bs {val_bs}, bf16); data made in {time.perf_counter() - t0:.1f} s")
+              f"({cfg['model']['name']}, bs {bs}, val bs {val_bs}, bf16)")
 
         def train(project: Path, *extra) -> tuple:
             """One in-process run: its output, launches, metrics, seconds and the
@@ -1750,17 +1848,7 @@ def phase_run_loop(dev: torch.device) -> dict:
 
         # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
         run_c = tmp / "runC"
-        with open(tmp / "runC.log", "w") as log:
-            proc = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.main", "--cfgs", str(yaml_path),
-                                     "--project", str(run_c), "--seed", "0"], stdout=log, stderr=subprocess.STDOUT)
-            deadline = time.monotonic() + RUN_LOOP_TIMEOUT_S
-            while committed_epoch(run_c) != 0:
-                check(proc.poll() is None, f"run C exited ({proc.returncode}) before epoch 0's checkpoint: "
-                                           f"{(tmp / 'runC.log').read_text()[-2000:]}")
-                check(time.monotonic() < deadline, "run C: no epoch-0 checkpoint in time")
-                time.sleep(0.05)
-            proc.send_signal(signal.SIGKILL)
-            proc.wait()
+        killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
         done = sorted(read_metrics(run_c).get("Train_loss", {}))
         out_c, counts_c, metrics_c, _, stage_c = train(run_c, "--resume")
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
@@ -1946,7 +2034,7 @@ def phase_margin_heads(dev: torch.device) -> None:
 
 FACE_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face_synth.yaml"
 CBIR_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "cbir_synth.yaml"
-EMBED_RUN_EPOCHS = 3
+EMBED_RUN_EPOCHS = 2  # 3 until the CNN, multi-label and distillation phases took their share of the time
 EMBED_RUN_TIMEOUT_S = 300
 
 
@@ -2111,24 +2199,14 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
         loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
                                                      1 / per_fold)
         print(f"[{tag}] face run B vs run A, epochs 1-{EMBED_RUN_EPOCHS}: largest train-loss difference "
-              f"{loss_d:.3e} relative (bar {RUN_LOOP_LOSS_RTOL}), largest pair-mean difference {fit_d:.2f} pairs "
-              f"a fold (bar 1); bit-identical: {same}")
-        check(loss_d <= RUN_LOOP_LOSS_RTOL and fit_d <= 1 + 1e-9, "seeded face runs A and B disagree")
+              f"{loss_d:.3e} relative, largest pair-mean difference {fit_d:.2f} pairs a fold; bit-identical: "
+              f"{same} (required)")
+        check(same, "seeded face runs A and B are not bit-identical")
         add(train_b, evals_b)
         shutil.rmtree(tmp / "B")
 
         run_c = tmp / "C"
-        with open(tmp / "C.log", "w") as log:
-            proc = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.main", *face_args, "--project",
-                                     str(run_c), "--seed", "0"], stdout=log, stderr=subprocess.STDOUT)
-            deadline = time.monotonic() + EMBED_RUN_TIMEOUT_S
-            while committed_epoch(run_c) != 0:
-                check(proc.poll() is None, f"face run C exited ({proc.returncode}) before epoch 0's checkpoint: "
-                                           f"{(tmp / 'C.log').read_text()[-2000:]}")
-                check(time.monotonic() < deadline, "face run C: no epoch-0 checkpoint in time")
-                time.sleep(0.05)
-            proc.send_signal(signal.SIGKILL)
-            proc.wait()
+        killed_in_epoch_1(face_args, run_c)
         done = sorted(read_metrics(run_c).get("Train_epoch_loss", {}))
         out_c, train_c, evals_c, stage_c, metrics_c, _, _ = embedding_epochs(run_c, *face_args, "--resume")
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
@@ -2139,9 +2217,9 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
                                                      "Val_mean", 1 / per_fold)
         print(f"[{tag}] face run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from "
               f"epoch {resumed}; epochs {resumed + 1}-{EMBED_RUN_EPOCHS} vs run A: train loss {loss_d:.3e} "
-              f"relative, pair mean {fit_d:.2f} pairs a fold; bit-identical: {same}; device-augment stage calls "
+              f"relative, pair mean {fit_d:.2f} pairs a fold; bit-identical: {same} (required); device-augment stage calls "
               f"{' / '.join(map(str, stage_c))}")
-        check(loss_d <= RUN_LOOP_LOSS_RTOL and fit_d <= 1 + 1e-9, "the resumed face run C disagrees with run A")
+        check(same, "the resumed face run C is not bit-identical to run A")
         add(train_c, evals_c)
         shutil.rmtree(run_c)
 
@@ -2220,43 +2298,643 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- CNNs, determinism, multi-label run, distillation
+
+MULTILABEL_YAML = PET_SYNTH_YAML.parent / "multilabel_csv.yaml"
+DISTILL_YAML = PET_SYNTH_YAML.parent / "distill_example.yaml"
+PET_YAML = PET_SYNTH_YAML.parent / "pet.yaml"
+# (tag, the `model:` section, train bs, loss, hyp.epochs): multilabel_csv.yaml's resnet50 (3 classes,
+# BCE) and distill_example.yaml's student resnet18 (35 classes, CE); their other optimizer fields are
+# pet_synth's
+CNN_RECIPES = (
+    ("resnet50", {"task": "classification", "name": "resnet50", "image_size": 224, "num_classes": 3,
+                  "kwargs": {}, "pretrained": False}, 64, "bce", 20),
+    ("resnet18", {"task": "classification", "name": "resnet18", "image_size": 224, "num_classes": 35,
+                  "kwargs": {}, "pretrained": False}, 128, "ce", 30),
+)
+CNN_F32_BATCH = 16
+CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
+# device-time classes of a CNN step, by kernel name (lower case), first match wins
+CNN_KERNEL_CLASSES = (
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "xmma", "gemm", "cutlass", "nvjet", "implicit")),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
+    ("SGD + clip + EMA (foreach)", ("multi_tensor", "foreach")),
+    ("copies, casts and other transposes", ("copy", "cast", "memcpy", "memset", "transpose")),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce", "softmax", "norm")),
+    ("other elementwise", ("",)),
+)
+NO_ATTENTION = ("cnn", lambda m: None)
+
+
+@contextlib.contextmanager
+def cudnn_mode(deterministic: bool):
+    """cuDNN's deterministic algorithms without the autotuner (the trainer's
+    setting), or torch's defaults (no autotuner, any algorithm)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def cnn_batch(model_cfg: dict, loss: str, bs: int, dev, seed: int) -> dict:
+    """Seeded uint8 224² images with multi-hot (BCE) or int (CE) labels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = model_cfg["num_classes"]
+    label = ((torch.rand(bs, n, generator=gen, device=dev) < 0.5).float() if loss == "bce"
+             else torch.randint(0, n, (bs,), generator=gen, device=dev))
+    return {"image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+            "label": label}
+
+
+def cnn_trainer(model_cfg: dict, loss: str, epochs: int, dtype: torch.dtype, dev, float64: bool = False):
+    """The CNN (seed 0), its optimizer, train state and step: the config's
+    SGD + clip + EMA, BCE or CE with label smoothing 0.05. With ``float64``
+    the parameters, buffers, every layer and the loss compute in float64."""
+    model = get_model(model_cfg, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+    if float64:
+        model.double()
+        for m in model.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+    tx = build_tx({**PET_SYNTH_HYP, "epochs": epochs}, STEPS_PER_EPOCH, discrete_per_epoch=True,
+                  model_cfg=model_cfg)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, cnn_loss(loss, float64), StepConfig(), torch.Generator().manual_seed(1))
+    return model, tx, state, step
+
+
+def cnn_loss(loss: str, float64: bool = False):
+    """BCE, or CE with label smoothing 0.05: the port's (f32), or torch's in the logits' dtype."""
+    if float64:
+        if loss == "bce":
+            return lambda logits, y: F.binary_cross_entropy_with_logits(logits, y.to(logits.dtype))
+        return lambda logits, y: F.cross_entropy(logits, y.long(), label_smoothing=LABEL_SMOOTH)
+    return create_lossfn("bce") if loss == "bce" else create_lossfn("ce", label_smooth=LABEL_SMOOTH)
+
+
+def distill_trainer(dev, dtype: torch.dtype, teacher_seed: int, bs=None, fused: bool = True):
+    """distill_example.yaml's step on a synthetic batch: the resnet18
+    student (seed 0) and a Swin-B teacher (pet.yaml's model, seed
+    ``teacher_seed``, on K2 or with ``fused`` off the plain window
+    attention), CE with label smoothing 0.05 + KL at T 4, weights 0.5 / 0.5.
+    Returns (step, state, batch, teacher)."""
+    from visiondk_tpu_torch.engine.distill import make_distill_step
+
+    _, student_cfg, train_bs, loss, epochs = CNN_RECIPES[1]
+    student, tx, state, _ = cnn_trainer(student_cfg, loss, epochs, dtype, dev)
+    teacher = get_model(PET_MODEL, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(teacher_seed))
+    set_fused(teacher.requires_grad_(False), fused)
+    step = make_distill_step(student, teacher, tx, cnn_loss(loss), StepConfig(), torch.Generator().manual_seed(1),
+                             cls_weight=0.5, kl_weight=0.5, temperature=4.0)
+    return step, state, cnn_batch(student_cfg, loss, bs or train_bs, dev, seed=5), teacher
+
+
+def nondeterministic_ops(fn) -> list:
+    """The ops that ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` names in one call of ``fn``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    texts = {str(w.message) for w in caught if "deterministic" in str(w.message)}
+    return sorted(t.split(" does not have a deterministic")[0].strip()[:160] for t in texts)
+
+
+def unequal_gradients(model: torch.nn.Module, loss_fn) -> list:
+    """The parameters whose gradients differ between two backward passes of
+    ``loss_fn()`` from the same weights and batch (the same seed for
+    dropout and DropPath), outside deterministic mode."""
+    grads = []
+    for _ in range(2):
+        for p in model.parameters():
+            p.grad = None
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            torch.manual_seed(0)
+            loss_fn().backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+    return sorted(n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n]))
+
+
+def determinism_probe() -> None:
+    """``--determinism-probe``: one bf16 train step each of face_synth's
+    Swin-B embedding model (with the fixed-order bias gather, and with
+    ``index_select``'s, the state before the repair), multilabel_csv's
+    resnet50 (deterministic cuDNN, and torch's defaults) and the
+    distillation step (resnet18 student, Swin-B teacher): the ops that
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` names, and
+    the parameters whose gradients differ between two backward passes from
+    the same weights and batch. Run as a subprocess with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (phase CN)."""
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.losses.losses import distill_kl
+    from visiondk_tpu_torch.models.backbones import swin
+
+    phase_device()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8", "the probe needs CUBLAS_WORKSPACE_CONFIG=:4096:8")
+    found = {}
+
+    def probe(label, model, step, loss_fn, deterministic=True):
+        with cudnn_mode(deterministic):
+            ops = nondeterministic_ops(step)
+            found[label] = {"ops": ops, "unequal_gradients": unequal_gradients(model, loss_fn)}
+
+    cfg = yaml_load(FACE_SYNTH_YAML)
+    model_cfg, bs = cfg["model"], cfg["data"]["train"]["bs"]
+    classes = next(iter(model_cfg["head"].values()))["num_class"]
+    model = get_model(model_cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    tx = build_tx(cfg["hyp"], 20, discrete_per_epoch=False, model_cfg=model_cfg)
+    lossfn = create_lossfn("ce", valid_class=classes)
+    step = make_train_step(model, tx, lossfn, StepConfig(task="embedding"), torch.Generator().manual_seed(1))
+    state = create_train_state(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+             "label": torch.randint(0, classes, (bs,), generator=gen, device=dev)}
+    images = batch["image"].float() / 255.0
+
+    def face_loss():
+        logits, aux = model(images, batch["label"])
+        return lossfn(logits, batch["label"]) + aux
+
+    swin.BiasGather.apply = staticmethod(lambda table, idx, readers: table.index_select(0, idx))
+    try:
+        probe("face_synth Swin-B embedding step, index_select gather (before the repair)", model,
+              lambda: step(state, batch), face_loss)
+    finally:
+        del swin.BiasGather.apply  # back to torch.autograd.Function.apply
+    probe("face_synth Swin-B embedding step", model, lambda: step(state, batch), face_loss)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    tag, model_cfg, bs, loss, epochs = CNN_RECIPES[0]
+    model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.bfloat16, dev)
+    batch = cnn_batch(model_cfg, loss, bs, dev, seed=4)
+    images = batch["image"].float() / 255.0
+    for det in (True, False):
+        probe(f"multilabel_csv {tag} step, cuDNN {'deterministic' if det else 'defaults'}", model,
+              lambda: step(state, batch), lambda: cnn_loss(loss)(model(images), batch["label"]), det)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    step, state, batch, teacher = distill_trainer(dev, torch.bfloat16, teacher_seed=2)
+    images = batch["image"].float() / 255.0
+    with torch.no_grad():
+        t_logits = teacher.eval()(images)
+
+    def distill_loss():
+        s_logits = state.model(images)
+        return 0.5 * cnn_loss("ce")(s_logits, batch["label"]) + 0.5 * distill_kl(s_logits, t_logits, 4.0)
+
+    probe("distill step (resnet18 student, Swin-B teacher)", state.model, lambda: step(state, batch), distill_loss)
+    for label, res in found.items():
+        print(f"[determinism] {label}: ops named {'; '.join(res['ops']) if res['ops'] else 'none'}; gradients "
+              f"unequal between two identical backward passes: "
+              + (", ".join(res["unequal_gradients"][:6]) + (f" ... ({len(res['unequal_gradients'])})"
+                 if len(res["unequal_gradients"]) > 6 else "") if res["unequal_gradients"] else "none"))
+    print("DETERMINISM " + json.dumps(found))
+
+
+def run_determinism_probe() -> dict:
+    """``determinism_probe`` in a subprocess with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS reads it at its first use,
+    and this process's cuBLAS keeps its default workspace); checks that the
+    repaired steps name no op. Returns its findings."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--determinism-probe"],
+                          env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[determinism]")]
+    print("\n".join(lines))
+    check(proc.returncode == 0, f"the determinism probe exited with {proc.returncode}: {proc.stderr[-3000:]}")
+    found = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("DETERMINISM "))[12:])
+    print(f"[determinism] probe: {time.perf_counter() - t0:.1f} s (a subprocess)")
+    for label, res in found.items():
+        if "before the repair" not in label and "defaults" not in label:
+            check(not res["ops"] and not res["unequal_gradients"], f"{label}: not deterministic: {res}")
+    return found
+
+
+def cnn_one_step(model_cfg: dict, loss: str, epochs: int, batch: dict, device, float64: bool) -> tuple:
+    """One train step from the seeded weights: (loss, {gradient, update
+    θ₁ − θ₀, BN statistic: {name: float64 CPU tensor}}, max |θ₀| by name)."""
+    model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.float32, device, float64=float64)
+    theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if float64:  # the same float64 pixels on both devices: the step then normalises them in float64
+        batch = {**batch, "image": batch["image"].cpu().double() / 255.0}
+    value = step(state, {k: v.to(device) for k, v in batch.items()})["loss"].item()
+    tensors = {
+        "gradient": {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+        "update": {n: (p.detach() - theta0[n]).double().cpu() for n, p in model.named_parameters()},
+        "BN statistic": {n: b.detach().double().cpu() for n, b in model.named_buffers() if n.endswith(("mean", "var"))},
+    }
+    return value, tensors, {n: t.abs().max().item() for n, t in theta0.items()}
+
+
+def worst_diffs(side, ref, float32_spacing: bool) -> tuple:
+    """Loss difference (relative) and, per kind of tensor, the largest
+    max|side − ref| / max|ref| (an update less one spacing of θ) and where."""
+    (ls, ts, theta_max), (lr, tr, _) = side, ref
+    eps = torch.finfo(torch.float32 if float32_spacing else torch.float64).eps
+    worst = {}
+    for what, tensors in tr.items():
+        for n, r in tensors.items():
+            slack = eps * theta_max[n] if what == "update" else 0.0
+            ratio = max((ts[what][n] - r).abs().max().item() - slack, 0.0) / max(r.abs().max().item(), 1e-300)
+            if ratio >= worst.get(what, (-1.0, ""))[0]:
+                worst[what] = (ratio, n)
+    return abs(ls - lr) / abs(lr), worst
+
+
+def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev) -> None:
+    """One train step on the card (TF32 off) against the same model, batch
+    and generator on the CPU, in float64 (model and loss): the loss within
+    F32_LOSS_RTOL relative; every gradient, update θ₁ − θ₀ (less one spacing
+    of θ) and BN running statistic within CNN_TENSOR_TOL of its tensor's
+    largest CPU entry; the float64 pixels are made on the CPU, so both
+    sides start from the same bits. The same step in f32 (the port's
+    losses, uint8 batch) is printed against the CPU's float64, beside the
+    CPU's own f32: at random init the last stage's gradients are so
+    ill-conditioned (cancellation in BatchNorm's backward) that f32
+    rounding, or one f32 ulp of the normalised input, moves them by up to a
+    fifth of their largest entry on either device, so an f32 bar would hold
+    no implementation."""
+    batch = cnn_batch(model_cfg, loss, CNN_F32_BATCH, dev, seed=6)
+    cpu = torch.device("cpu")
+    runs = {key: cnn_one_step(model_cfg, loss, epochs, batch, device, f64) for key, device, f64 in (
+        ("card f64", dev, True), ("cpu f64", cpu, True), ("card f32", dev, False), ("cpu f32", cpu, False))}
+    torch.cuda.empty_cache()
+
+    def line(key, ref):
+        loss_rel, worst = worst_diffs(runs[key], runs[ref], float32_spacing=key.endswith("f32"))
+        return loss_rel, worst, (f"{key} vs {ref}: loss rel {loss_rel:.3e}; worst max|diff|/max|ref| "
+                                 + ", ".join(f"{w} {r:.3e} ({n})" for w, (r, n) in worst.items()))
+
+    loss_rel, worst, held = line("card f64", "cpu f64")
+    print(f"[cnn] {tag} one step, bs {CNN_F32_BATCH}: {held} (bars {F32_LOSS_RTOL}, {CNN_TENSOR_TOL}); "
+          f"printed: {line('card f32', 'cpu f64')[2]} | {line('cpu f32', 'cpu f64')[2]}")
+    check(loss_rel <= F32_LOSS_RTOL, f"{tag}: float64 loss card vs CPU {loss_rel} relative")
+    for what, (r, n) in worst.items():
+        check(r <= CNN_TENSOR_TOL, f"{tag}: float64 {what} of {n} differs by {r} of its largest entry")
+
+
+def phase_cnn(dev: torch.device) -> None:
+    """The ResNet family at full width (see the module doc): resnet50 and
+    resnet18, bf16, seeded; no attention kernel may launch."""
+    for tag, model_cfg, bs, loss, epochs in CNN_RECIPES:
+        t0 = time.perf_counter()
+        model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.bfloat16, dev)
+        eval_step = make_eval_step(model, StepConfig())
+        eval_batch = cnn_batch(model_cfg, loss, BATCH, dev, seed=3)
+        train_batch = {k: v[:bs] for k, v in cnn_batch(model_cfg, loss, max(bs, BATCH), dev, seed=4).items()}
+        reset_counts()
+        with cudnn_mode(True):
+            losses = [step(state, train_batch)["loss"].item() for _ in range(3)]
+            logits = eval_step(eval_batch)
+        counts = read_counts()
+        check(all(v == 0 for v in counts.values()), f"{tag} launched an attention kernel: {counts}")
+        check(all(math.isfinite(x) for x in losses) and bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (BATCH, model_cfg["num_classes"]), f"{tag}: losses {losses}")
+        print(f"[cnn] {tag} ({model_cfg['num_classes']} classes, {loss.upper()}), bf16 compute, f32 parameters, "
+              f"channels_last convolutions: 3 train steps at bs {bs}, losses {', '.join(f'{x:.5f}' for x in losses)};"
+              f" eval logits {tuple(logits.shape)} finite; no attention kernel launched; {time.perf_counter() - t0:.1f} s")
+        rates = [images_per_s(eval_step, eval_batch) for _ in range(2)]
+        print(f"[cnn] {tag} eval bs {BATCH} bf16 images/s: {rates[0]:.1f}, {rates[1]:.1f}")
+        trials = {True: [], False: []}
+        for trial, det in enumerate((True, False, False, True)):
+            with cudnn_mode(det):
+                trials[det].append(train_rate(model, state, step, train_batch, NO_ATTENTION,
+                                              f"[cnn] {tag} train bf16 bs {bs} trial {trial}, cuDNN "
+                                              + ("deterministic (the trainer's)" if det else "defaults")))
+        TRAIN_RATES[tag] = [r for r, _ in trials[True]]
+        det, free = (sum(r for r, _ in trials[d]) / 2 for d in (True, False))
+        print(f"[cnn] {tag} train bf16 bs {bs} images/s: deterministic cuDNN {trials[True][0][0]:.1f}, "
+              f"{trials[True][1][0]:.1f} | torch defaults {trials[False][0][0]:.1f}, {trials[False][1][0]:.1f} "
+              f"(order det, defaults, defaults, det): deterministic costs {1 - det / free:.1%}; max_memory_allocated "
+              f"{trials[True][0][1]:.2f} GiB")
+        if tag == "resnet50":
+            with cudnn_mode(True):
+                profile_step(f"{tag} train bf16 (deterministic cuDNN)", lambda: step(state, train_batch), bs,
+                             classes=CNN_KERNEL_CLASSES)
+        del model, state, step, eval_step
+        torch.cuda.empty_cache()
+        with cudnn_mode(True):
+            compare_cnn_with_cpu(tag, model_cfg, loss, epochs, dev)
+        torch.cuda.empty_cache()
+
+
+ML_EPOCHS = 3
+ML_COLUMNS = ("bit0", "bit1", "bit2")
+ML_TAGS = ("Train_loss", "Val_v_loss", "Val_precision", "Val_recall", "Val_f1score")
+DS_EPOCHS = 2
+
+
+def write_multilabel_csv(root: Path, out: Path) -> tuple:
+    """A multi-label CSV (image_path, train, three label columns) over the
+    synthetic pet folders: an image of class index c has the labels of the
+    three bits of c mod 7 + 1, so at least one is positive; ``train`` is
+    True for the train folders, False for the val ones. Returns the row
+    counts (train, val)."""
+    import csv
+
+    classes = sorted(d.name for d in (root / "train").iterdir() if d.is_dir())
+    counts = {"train": 0, "val": 0}
+    with open(out, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["image_path", "train", *ML_COLUMNS])
+        for split in ("train", "val"):
+            for ci, name in enumerate(classes):
+                bits = ci % 7 + 1
+                for f in sorted((root / split / name).glob("*.jpg")):
+                    writer.writerow([str(f), str(split == "train"), *(str((bits >> j) & 1) for j in range(3))])
+                    counts[split] += 1
+    return counts["train"], counts["val"]
+
+
+def counted_run(project: Path, argv: list, module: str = "visiondk_tpu_torch.main") -> tuple:
+    """``python -m module argv`` in this process: (output, launches,
+    metrics.jsonl, seconds)."""
+    reset_counts()
+    t = time.perf_counter()
+    out = run_cli(module, argv)
+    counts = read_counts()
+    metrics = read_metrics(project) if (project / "metrics.jsonl").is_file() else {}
+    return out, counts, metrics, time.perf_counter() - t
+
+
+def same_metrics(a: dict, b: dict, tags, epochs) -> bool:
+    return all(a[t][e] == b[t][e] for t in tags for e in epochs)
+
+
+def phase_multilabel_run(dev: torch.device, pet_data: tuple) -> None:
+    """The multi-label run through the port's CLIs on resnet50 (see the
+    module doc)."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+
+    tag = "multilabel run"
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_multilabel_"))
+    try:
+        root = synth_pet_root(pet_data, tag)
+        csv_path = tmp / "synth_multilabel.csv"
+        n_train, n_val = write_multilabel_csv(root, csv_path)
+        cfg = yaml_load(MULTILABEL_YAML)
+        was = cfg["data"]["root"], cfg["hyp"]["epochs"]
+        cfg["data"]["root"] = str(csv_path)
+        cfg["hyp"]["epochs"] = ML_EPOCHS
+        yaml_path = tmp / "multilabel_run.yaml"
+        yaml_dump(cfg, yaml_path)
+        bs, val_bs = cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+        print(f"[{tag}] configs/classification/multilabel_csv.yaml as written with these cuts: data.root {csv_path.name} "
+              f"(was {was[0]}: {n_train} train / {n_val} val rows over the synthetic pet JPEGs, labels {ML_COLUMNS} "
+              f"the bits of class index mod 7 + 1; read with the stdlib csv module, pandas is not imported), "
+              f"hyp.epochs {ML_EPOCHS} (was {was[1]}); everything else as written ({cfg['model']['name']}, "
+              f"{cfg['model']['num_classes']} classes, BCE with threshold {cfg['hyp']['loss']['bce'][1]}, the focal "
+              f"swap from warm_ep {cfg['hyp']['warm_ep']}, bs {bs}, val bs {val_bs}, bf16)")
+        argv = ["--cfgs", str(yaml_path), "--seed", "0"]
+        out_a, counts_a, metrics_a, secs_a = counted_run(tmp / "A", [*argv, "--project", str(tmp / "A")])
+        check(all(v == 0 for v in counts_a.values()), f"run A launched an attention kernel: {counts_a}")
+        check("pandas" not in sys.modules, "the multi-label run imported pandas")
+        for e in range(ML_EPOCHS):
+            check(all(math.isfinite(metrics_a[t][e]) for t in ML_TAGS), f"run A epoch {e}: non-finite metrics")
+        rates = [metrics_a["Train_images_per_sec"][e] for e in range(ML_EPOCHS)]
+        print(f"[{tag}] run A: {secs_a:.1f} s; loaders {re.search(r'loaders: (.*)', out_a).group(1)}; per epoch: "
+              + "; ".join(f"train loss {metrics_a['Train_loss'][e]!r}, P/R/F1 {metrics_a['Val_precision'][e]!r} / "
+                          f"{metrics_a['Val_recall'][e]!r} / {metrics_a['Val_f1score'][e]!r}" for e in range(ML_EPOCHS))
+              + "; trainer-fed images/s by epoch " + ", ".join(f"{r:.1f}" for r in rates)
+              + f" (synthetic batch on the card, phase CN: " + ", ".join(f"{r:.1f}" for r in TRAIN_RATES['resnet50'])
+              + ")")
+        _, _, metrics_b, _ = counted_run(tmp / "B", [*argv, "--project", str(tmp / "B")])
+        same = same_metrics(metrics_a, metrics_b, ML_TAGS, range(ML_EPOCHS))
+        print(f"[{tag}] run B vs run A, epochs 1-{ML_EPOCHS}: bit-identical {same} (required)")
+        check(same, "seeded multi-label runs A and B are not bit-identical")
+        shutil.rmtree(tmp / "B")
+        killed_in_epoch_1(argv[:2], tmp / "C")
+        done = sorted(read_metrics(tmp / "C").get("Train_loss", {}))
+        out_c, counts_c, metrics_c, _ = counted_run(tmp / "C", [*argv, "--project", str(tmp / "C"), "--resume"])
+        resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
+        check(resumed == 1, f"run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
+        same = same_metrics(metrics_a, metrics_c, ML_TAGS, range(resumed, ML_EPOCHS))
+        print(f"[{tag}] run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from epoch "
+              f"{resumed}; epochs {resumed + 1}-{ML_EPOCHS} bit-identical to run A: {same} (required)")
+        check(same, "the resumed multi-label run C is not bit-identical to run A")
+        best = json.loads((tmp / "A" / "best" / "meta.json").read_text())["epoch"]
+        out_v, _, _, _ = counted_run(tmp / "A", ["--cfgs", str(tmp / "A" / "config.yaml"), "--weight",
+                                                 str(tmp / "A" / "best"), "--ema"], module="visiondk_tpu_torch.validate")
+        line = re.search(r"^\{'precision'.*$", out_v, re.M).group(0)
+        printed = {k: float(v) for k, v in re.findall(r"'(precision|recall|f1score)': ([0-9.e+-]+)", line)}
+        logged = {k: metrics_a[f"Val_{k}"][best] for k in ("precision", "recall", "f1score")}
+        print(f"[{tag}] validate --ema on run A's best (epoch {best + 1}): {printed}; run A logged {logged}")
+        check(printed == logged, "validate does not reproduce run A's best P/R/F1")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def compare_distill_paths(dev: torch.device) -> None:
+    """One f32 distillation step (bs CNN_F32_BATCH) with the teacher on K2
+    against the teacher on the plain window attention, from the same
+    weights: phase 5's bars on the loss and on every student gradient and
+    update."""
+    sides = []
+    for fused in (True, False):
+        step, state, batch, _ = distill_trainer(dev, torch.float32, teacher_seed=2, bs=CNN_F32_BATCH, fused=fused)
+        theta0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        out = step(state, batch)
+        sides.append(({k: v.item() for k, v in out.items()},
+                      {n: p.grad.detach().clone() for n, p in state.model.named_parameters()},
+                      {n: p.detach() - theta0[n] for n, p in state.model.named_parameters()},
+                      {n: torch.finfo(torch.float32).eps * p.detach().abs().max().item()
+                       for n, p in state.model.named_parameters()}))
+        del step, state
+        torch.cuda.empty_cache()
+    (mk, gk, uk, _), (mp, gp, up, spacing) = sides
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    worst = {}
+    for what, a, b in (("gradient", gk, gp), ("update", uk, up)):
+        for n in b:
+            slack = spacing[n] if what == "update" else 0.0
+            r = max((a[n] - b[n]).abs().max().item() - slack, 0.0) / max(b[n].abs().max().item(), 1e-30)
+            if r >= worst.get(what, (-1.0, ""))[0]:
+                worst[what] = (r, n)
+    print(f"[distill] f32 one distillation step, bs {CNN_F32_BATCH}, teacher on K2 vs the plain window attention: "
+          f"loss {mk['loss']:.7f} vs {mp['loss']:.7f} (rel {loss_rel:.3e}, bar {F32_LOSS_RTOL}; KL term "
+          f"{mk['loss_kl']:.7f} vs {mp['loss_kl']:.7f}); worst max|diff|/max|plain| "
+          + ", ".join(f"{w} {r:.3e} ({n})" for w, (r, n) in worst.items()) + f" (bar {F32_TENSOR_TOL})")
+    check(loss_rel <= F32_LOSS_RTOL, f"distill f32 loss differs by {loss_rel} relative")
+    for what, (r, n) in worst.items():
+        check(r <= F32_TENSOR_TOL, f"distill f32 {what} of {n} differs by {r} of its largest entry")
+
+
+def phase_distill(dev: torch.device, pet_data: tuple) -> dict:
+    """pet.yaml's Swin-B teacher and distill_example.yaml's resnet18 student
+    through the port's CLIs (see the module doc); returns the K2 family's
+    launches of the in-process runs."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+
+    tag = "distill"
+    fwd, stash, bwd_p, _ = wattn.KERNELS
+    depth = SWIN.depth
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_distill_"))
+    try:
+        root = synth_pet_root(pet_data, tag)
+        n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
+        n_val = sum(1 for _ in (root / "val").rglob("*.jpg"))
+        tcfg = yaml_load(PET_YAML)
+        was = tcfg["data"]["root"], tcfg["hyp"]["epochs"]
+        tcfg["data"]["root"], tcfg["hyp"]["epochs"] = str(root), DS_EPOCHS
+        teacher_yaml = tmp / "pet_teacher.yaml"
+        yaml_dump(tcfg, teacher_yaml)
+        bs, val_bs = tcfg["data"]["train"]["bs"], tcfg["data"]["val"]["bs"]
+        steps, val_batches = n_train // bs, -(-n_val // val_bs)
+        print(f"[{tag}] the teacher: configs/classification/pet.yaml as written with these cuts: data.root the "
+              f"synthetic pet folders (was {was[0]}; {n_train} train / {n_val} val JPEGs, {steps} steps of {bs} an "
+              f"epoch), hyp.epochs {DS_EPOCHS} (was {was[1]}); everything else as written ({tcfg['model']['name']}, "
+              f"bs {bs}, val bs {val_bs}, bf16)")
+        totals = {k: 0 for k in KERNELS}
+        teacher = {}
+        for run in ("A", "B"):
+            project = tmp / f"teacher{run}"
+            out, counts, metrics, secs = counted_run(project, ["--cfgs", str(teacher_yaml), "--project", str(project),
+                                                               "--seed", "0"])
+            want = only({stash: depth * steps * DS_EPOCHS, bwd_p: depth * steps * DS_EPOCHS,
+                         fwd: depth * val_batches * DS_EPOCHS})
+            check(counts == want, f"teacher run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+            totals = {k: totals[k] + counts[k] for k in KERNELS}
+            teacher[run] = metrics
+            print(f"[{tag}] teacher run {run}: {secs:.1f} s; per epoch train loss "
+                  + ", ".join(f"{metrics['Train_loss'][e]!r}" for e in range(DS_EPOCHS)) + ", val top1 "
+                  + ", ".join(f"{metrics['Val_top1'][e]!r}" for e in range(DS_EPOCHS)) + "; trainer-fed images/s "
+                  + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(DS_EPOCHS))
+                  + f"; launches {NAMES[stash]} {counts[stash]}, {NAMES[bwd_p]} {counts[bwd_p]} (= {depth} x "
+                    f"{steps * DS_EPOCHS} steps), {NAMES[fwd]} {counts[fwd]} (= {depth} x {val_batches} val batch x "
+                    f"{DS_EPOCHS} epochs), no other attention kernel")
+        same = same_metrics(teacher["A"], teacher["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(DS_EPOCHS))
+        print(f"[{tag}] teacher run B vs run A (Swin-B classification): bit-identical {same} (required)")
+        check(same, "seeded pet.yaml runs A and B are not bit-identical")
+
+        dcfg = yaml_load(DISTILL_YAML)
+        student = dcfg["student"]
+        was = student["data"]["root"], student["hyp"]["epochs"], dcfg["teacher"]["weight"]
+        student["data"]["root"], student["hyp"]["epochs"] = str(root), DS_EPOCHS
+        dcfg["teacher"]["weight"] = str(tmp / "teacherA" / "best")
+        distill_yaml = tmp / "distill.yaml"
+        yaml_dump(dcfg, distill_yaml)
+        sbs = student["data"]["train"]["bs"]
+        ssteps = n_train // sbs
+        print(f"[{tag}] the student: configs/classification/distill_example.yaml --distill as written with these "
+              f"cuts: student data.root the same folders (was {was[0]}; {ssteps} steps of {sbs} an epoch), "
+              f"hyp.epochs {DS_EPOCHS} (was {was[1]}), teacher.weight teacher run A's best (was {was[2]}); "
+              f"everything else as written ({student['model']['name']} student, "
+              f"{dcfg['teacher']['model']['name']} teacher with its EMA weights, {dcfg['distill']}, bf16)")
+        runs = {}
+        for run in ("A", "B"):
+            project = tmp / f"distill{run}"
+            out, counts, metrics, secs = counted_run(project, ["--cfgs", str(distill_yaml), "--distill", "--project",
+                                                               str(project), "--seed", "0"])
+            check("teacher: " in out, f"distill run {run} logged no teacher restore")
+            want = only({fwd: depth * ssteps * DS_EPOCHS})
+            check(counts == want, f"distill run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}, want "
+                                  f"{depth} K2 a step")
+            totals = {k: totals[k] + counts[k] for k in KERNELS}
+            runs[run] = metrics
+            print(f"[{tag}] distill run {run}: {secs:.1f} s; {re.search(r'teacher: (.*)', out).group(1)}; per epoch "
+                  f"train loss " + ", ".join(f"{metrics['Train_loss'][e]!r}" for e in range(DS_EPOCHS)) + ", val top1 "
+                  + ", ".join(f"{metrics['Val_top1'][e]!r}" for e in range(DS_EPOCHS)) + "; trainer-fed images/s "
+                  + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(DS_EPOCHS))
+                  + f"; launches {NAMES[fwd]} {counts[fwd]} (= {depth} x {ssteps * DS_EPOCHS} student steps), no other "
+                    f"attention kernel")
+        same = same_metrics(runs["A"], runs["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(DS_EPOCHS))
+        print(f"[{tag}] distill run B vs run A: bit-identical {same} (required)")
+        check(same, "seeded distillation runs A and B are not bit-identical")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the distillation step alone on a synthetic batch: launches, images/s, and K2 against the plain path
+    step, state, batch, _ = distill_trainer(dev, torch.bfloat16, teacher_seed=2)
+    reset_counts()
+    out = step(state, batch)
+    counts = read_counts()
+    check(counts == only({fwd: depth}), f"a distillation step launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    check(all(torch.isfinite(v).item() for v in out.values()), f"distillation step: {out}")
+    with cudnn_mode(True):
+        rate, mem = train_rate(state.model, state, step, batch, NO_ATTENTION,
+                               f"[{tag}] distillation step bf16 bs {batch['label'].shape[0]} (resnet18 student + "
+                               f"Swin-B teacher forward, {depth} K2 a step)")
+    del step, state, batch
+    torch.cuda.empty_cache()
+    with cudnn_mode(True):
+        compare_distill_paths(dev)
+    return totals
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    face_data = start_synth_face()  # one CPU core, in the background until phase ER
+    t0 = time.perf_counter()
+    # one CPU core each, in the background until the run loops
+    data = [start_synth_face(), start_synth_pet()]
     try:
-        run_phases(dev, face_data)
+        kern, launches = run_phases(dev, *data)
     finally:
-        tmp, proc, _ = face_data
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        for tmp, proc, _ in data:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
+    # the two JSON lines end the output: nothing may print after them
+    report(kern, launches)
 
 
-def run_phases(dev: torch.device, face_data: tuple) -> None:
-    phase_build()
-    kern = {**phase_kernel(dev), **phase_window_kernel(dev), **phase_vision_kernel(dev)}
+def timed(name: str, fn, *args):
+    """``fn(*args)``, with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[dict, dict]:
+    timed("build", phase_build)
+    kern = {**timed("kernel", phase_kernel, dev), **timed("window kernel", phase_window_kernel, dev),
+            **timed("vision kernel", phase_vision_kernel, dev)}
     launches = {k: 0 for k in KERNELS}
     for recipe in (VIT, SWIN):
-        serving = phase_slice(dev, recipe)
-        training = phase_train(dev, recipe)
-        phase_profile(dev, recipe)
+        serving = timed(recipe.tag, phase_slice, dev, recipe)
+        training = timed(recipe.train_tag, phase_train, dev, recipe)
+        timed(f"profile {recipe.model['name']}", phase_profile, dev, recipe)
         print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
               f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
-    phase_profile_embedding(dev)
-    phase_margin_heads(dev)
-    phase_device_augment(dev)
-    run_loop = phase_run_loop(dev)
+    timed("profile embedding", phase_profile_embedding, dev)
+    timed("margin heads", phase_margin_heads, dev)
+    timed("device augment", phase_device_augment, dev)
+    timed("determinism probe", run_determinism_probe)
+    timed("cnn", phase_cnn, dev)
+    run_loop = timed("run loop", phase_run_loop, dev, pet_data)
     print("[launches] run loop: " + ", ".join(f"{NAMES[k]} {run_loop[k]}" for k in K1_KERNELS))
-    embedding_run = phase_embedding_run(dev, face_data)
+    timed("multilabel run", phase_multilabel_run, dev, pet_data)
+    distill = timed("distill", phase_distill, dev, pet_data)
+    print("[launches] distill (teacher runs A, B; distill runs A, B): "
+          + ", ".join(f"{NAMES[k]} {distill[k]}" for k in wattn.KERNELS))
+    embedding_run = timed("embedding run", phase_embedding_run, dev, face_data)
     print("[launches] embedding run: " + ", ".join(f"{NAMES[k]} {embedding_run[k]}" for k in wattn.KERNELS))
-    launches = {k: launches[k] + run_loop[k] + embedding_run[k] for k in KERNELS}
-    vision = phase_vision_path(dev)
+    launches = {k: launches[k] + run_loop[k] + distill[k] + embedding_run[k] for k in KERNELS}
+    vision = timed("vision path", phase_vision_path, dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
-    report(kern, {k: launches[k] + vision[k] for k in KERNELS})
+    return kern, {k: launches[k] + vision[k] for k in KERNELS}
 
 
 def swin_train_trials(dev: torch.device, trials: int = 3) -> None:
@@ -2312,5 +2990,7 @@ if __name__ == "__main__":
         phase_device()
         torch.cuda.set_device(0)
         swin_train_trials(torch.device("cuda", 0))
+    elif sys.argv[1:] == ["--determinism-probe"]:
+        determinism_probe()
     else:
         main()

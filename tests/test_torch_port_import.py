@@ -1,6 +1,7 @@
 """Import hygiene of visiondk_tpu_torch: no JAX, no Triton, no build at import.
 
-Every module of the port is imported, the run loop's included.
+Every module of the port is imported, the run loop's included, and none of them
+loads pandas (the CSV datasets are read with the stdlib csv module).
 
 The check runs in a fresh interpreter, because this test process has JAX
 loaded already (tests/conftest.py imports it).
@@ -32,9 +33,10 @@ import visiondk_tpu_torch.data.dataprocessor, visiondk_tpu_torch.engine.evaluati
 import visiondk_tpu_torch.engine.checkpoint, visiondk_tpu_torch.main, visiondk_tpu_torch.validate
 import visiondk_tpu_torch.ops.margin_heads, visiondk_tpu_torch.ops.retrieval, visiondk_tpu_torch.models.heads
 import visiondk_tpu_torch.engine.face_eval, visiondk_tpu_torch.engine.cbir_eval, visiondk_tpu_torch.cbir_eval
+import visiondk_tpu_torch.models.backbones.resnet, visiondk_tpu_torch.engine.distill
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "visiondk_tpu",
-                            "tensorflow", "tensorboard") if m in sys.modules)
+                            "tensorflow", "tensorboard", "pandas") if m in sys.modules)
 print("LOADED", loaded)
 print("BUILT", sorted(_build._loaded))
 print("NATIVE", visiondk_tpu_torch.data.native._lib)
@@ -87,12 +89,14 @@ def test_canonical_model_name_matches_jax(name, want):
 
 
 def test_vit_family_registered():
-    """The ported families are registered under the JAX names: ViT and Swin V1
-    (SwinV2's names start with ``swinv2_``)."""
+    """The ported families are registered under the JAX names: ViT, Swin V1
+    (SwinV2's names start with ``swinv2_``) and the ResNet family (every name
+    the JAX ``resnet`` module registers)."""
     from visiondk_tpu.models.backbones import BACKBONES as JAX_BACKBONES
     from visiondk_tpu_torch.models import BACKBONES
 
+    resnets = {k for k in JAX_BACKBONES.keys() if JAX_BACKBONES.get(k).__module__.endswith(".resnet")}
     ported = sorted(k for k in JAX_BACKBONES.keys()
-                    if k.startswith(("vit_", "swin_")) and "port_test" not in k)
-    assert "swin_base_patch4_window7_224" in ported
+                    if (k.startswith(("vit_", "swin_")) or k in resnets) and "port_test" not in k)
+    assert "swin_base_patch4_window7_224" in ported and {"resnet18", "resnet50", "resnest50d_4s2x40d"} <= set(ported)
     assert sorted(k for k in BACKBONES.keys() if "port_test" not in k) == ported

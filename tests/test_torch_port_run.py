@@ -295,9 +295,13 @@ def test_cli_without_device_raises_without_a_gpu(toy, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--distill"], ["--multihost"], ["--model_parallel", "2"]])
 def test_cli_flags_of_unported_features_raise(toy, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+    """``--multihost`` and ``--model_parallel`` are not ported; ``--distill``
+    is, and refuses a config without its student/teacher sections."""
+    error = ValueError if flag == ["--distill"] else NotImplementedError
+    with pytest.raises(error):
         _cli("visiondk_tpu_torch.main", ["--cfgs", str(toy[1]), "--project", str(tmp_path / "x"), "--device", "cpu",
                                          *flag])
+    assert not (tmp_path / "x").exists()
 
 
 @pytest.mark.parametrize("what", ["mixup", "ohem"])

@@ -145,10 +145,9 @@ def _check_num_classes(
     if os.path.isdir(data_root):
         n = _count_local_classes(data_root)
     elif str(data_root).endswith(".csv"):
-        import pandas as pd
+        from visiondk_tpu_torch.data.datasets import read_label_csv
 
-        df = pd.read_csv(data_root)
-        n = len([c for c in df.columns if c not in ("image_path", "train")])
+        n = len(read_label_csv(str(data_root))[0])
     else:
         n = _count_hf_classes(data_root, allow_unverified)
     if n is not None:

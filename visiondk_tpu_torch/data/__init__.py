@@ -1,6 +1,14 @@
 from visiondk_tpu_torch.data.class_augmenter import ClassWiseAugmenter
 from visiondk_tpu_torch.data.dataprocessor import SmartDataProcessor
-from visiondk_tpu_torch.data.datasets import CBIRDatasets, ImageDatasets, read_image, smooth_labels, tell_data_distribution
+from visiondk_tpu_torch.data.datasets import (
+    CBIRDatasets,
+    EmbeddingDistillDataset,
+    ImageDatasets,
+    read_image,
+    read_label_csv,
+    smooth_labels,
+    tell_data_distribution,
+)
 from visiondk_tpu_torch.data.loader import DataLoader, DevicePrefetcher, loader_kind
 from visiondk_tpu_torch.data.transforms import (
     AUG_METHODS,
@@ -19,6 +27,7 @@ __all__ = [
     "Compose",
     "DataLoader",
     "DevicePrefetcher",
+    "EmbeddingDistillDataset",
     "ImageDatasets",
     "SPATIAL_TRANSFORMS",
     "SmartDataProcessor",
@@ -26,6 +35,7 @@ __all__ = [
     "extract_normalization",
     "loader_kind",
     "read_image",
+    "read_label_csv",
     "seed_sample",
     "set_pipeline_size",
     "smooth_labels",

@@ -128,9 +128,12 @@ class SmartDataProcessor:
     def _native_val_loader(self, batch_size: int):
         """C++ decode fast path for the val loader: local single-label files,
         deterministic letterbox pipeline, no label transform. Returns None
-        when any condition fails (PIL path covers the rest)."""
+        when any condition fails (PIL path covers the rest). A multi-label
+        dataset (a CSV) never takes it: its adapter emits int labels. (The
+        JAX package's guard lets a multi-hot vector through, since a numpy
+        array has ``__int__``, and scores it against the image keys.)"""
         ds = self.val_dataset
-        if ds is None or ds.label_transforms is not None or not len(ds):
+        if ds is None or ds.multi_label or ds.label_transforms is not None or not len(ds):
             return None
         if ds._hf_dataset is not None or not isinstance(ds.images[0], str):
             return None

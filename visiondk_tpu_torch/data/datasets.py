@@ -7,9 +7,12 @@ train time and read back at eval time, and a corrupt-image retry),
 ``tell_data_distribution`` (the per-class train/val table) and
 ``read_image`` (PIL, cv2 as a fallback where installed). ``__getitem__``
 returns a **uint8 HWC** array; the loaders stack fixed-shape numpy batches.
-``CBIRDatasets`` is the query/gallery pair of the CBIR task. The HF source
+``CBIRDatasets`` is the query/gallery pair of the CBIR task and
+``EmbeddingDistillDataset`` the (image, teacher feature) pairs of embedding
+distillation. A CSV is read with the stdlib ``csv`` module
+(``read_label_csv``), as the JAX package reads it with pandas. The HF source
 needs the ``datasets`` library and a dataset it can load offline. The
-prediction and embedding-distillation datasets belong to ports still to come.
+prediction dataset belongs to a port still to come.
 """
 
 from __future__ import annotations
@@ -37,6 +40,57 @@ def read_image(path: str) -> Image.Image:
         if img is None:
             raise
         return Image.fromarray(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+
+
+_CSV_TRUE = {"True", "TRUE", "true"}
+_CSV_FALSE = {"False", "FALSE", "false"}
+
+
+def read_label_csv(path: str) -> Tuple[List[str], List[Tuple[str, Optional[bool], np.ndarray]]]:
+    """A multi-label CSV (``image_path``, optional ``train``, one column per
+    class) read with the stdlib ``csv`` module as the JAX package reads it
+    with pandas: the class columns in file order, and per row in file order
+    (image path, train flag, f32 labels). A ``train`` cell may be a bool
+    (``True``/``False`` in pandas' spellings) or a number, which selects
+    the train split when it equals 1 and the val split when it equals 0
+    (pandas' ``== True``/``== False``); a row with any other number is in
+    neither split and left out. Without a ``train`` column the flag is None
+    (every split takes the row). A cell that does not parse raises, naming
+    the file."""
+    import csv
+
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        try:
+            header = next(reader)
+        except StopIteration:
+            raise ValueError(f"{path}: the CSV is empty") from None
+        if "image_path" not in header:
+            raise ValueError(f"{path}: the CSV has no image_path column (columns {header})")
+        class_cols = [c for c in header if c not in ("image_path", "train")]
+        col = {c: i for i, c in enumerate(header)}
+        rows = []
+        for line, cells in enumerate(reader, start=2):
+            if not cells:
+                continue
+            if len(cells) != len(header):
+                raise ValueError(f"{path}:{line}: {len(cells)} cells, the header has {len(header)}")
+            try:
+                labels = np.array([float(cells[col[c]]) for c in class_cols], dtype=np.float32)
+                train = None
+                if "train" in col:
+                    cell = cells[col["train"]]
+                    if cell in _CSV_TRUE or cell in _CSV_FALSE:
+                        train = cell in _CSV_TRUE
+                    else:
+                        value = float(cell)
+                        if value not in (0, 1):
+                            continue
+                        train = value == 1
+            except ValueError as e:
+                raise ValueError(f"{path}:{line}: cannot parse the row {cells} ({e})") from None
+            rows.append((cells[col["image_path"]], train, labels))
+    return class_cols, rows
 
 
 def smooth_labels(
@@ -126,17 +180,14 @@ class ImageDatasets:
                     self.labels.append(ci)
 
     def _init_from_csv(self):
-        import pandas as pd
-
-        df = pd.read_csv(self.root)
-        class_cols = [c for c in df.columns if c not in ("image_path", "train")]
+        class_cols, rows = read_label_csv(self.root)
         self.class_names = class_cols
         self.multi_label = True
         want_train = self.mode == "train"
-        sel = df[df["train"] == want_train] if "train" in df.columns else df
-        for _, row in sel.iterrows():
-            self.images.append(row["image_path"])
-            self.labels.append(row[class_cols].to_numpy(dtype=np.float32))
+        for path, train, labels in rows:
+            if train is None or train == want_train:
+                self.images.append(path)
+                self.labels.append(labels)
 
     def _init_from_huggingface(self):
         from datasets import load_dataset
@@ -234,6 +285,46 @@ def tell_data_distribution(
         return "| " + " | ".join(c.ljust(w) for c, w in zip(cells, widths)) + " |"
     lines = [sep, fmt(headers), sep] + [fmt(r) for r in table_rows] + [sep]
     return rows, "\n".join(lines)
+
+
+class EmbeddingDistillDataset:
+    """(image, teacher-feature .npy) pairs for embedding distillation, with
+    an optional exclude list (the JAX package's). Yields (uint8 array, f32
+    feature vector)."""
+
+    def __init__(
+        self,
+        image_dir: str,
+        feat_dir: str,
+        transforms: Optional[Callable] = None,
+        exclude: Optional[str] = None,
+        postfix: str = "jpg",
+    ):
+        self.transforms = transforms
+        self.images: List[str] = []
+        self.features: List[str] = []
+
+        excluded = set()
+        if exclude is not None:
+            with open(exclude) as f:
+                excluded = {line.strip() for line in f if line.strip()}
+
+        with os.scandir(image_dir) as it:
+            entries = sorted(e.path for e in it if e.is_file() and e.name.endswith(f".{postfix}"))
+        for img_path in entries:
+            feat_path = os.path.join(feat_dir, f"{Path(img_path).stem}.npy")
+            if os.path.isfile(feat_path) and feat_path not in excluded:
+                self.images.append(img_path)
+                self.features.append(feat_path)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        img = read_image(self.images[index])
+        if self.transforms is not None:
+            img = self.transforms(img)
+        return np.asarray(img), np.load(self.features[index]).astype(np.float32)
 
 
 class CBIRDatasets:

@@ -117,13 +117,19 @@ def make_train_step(
             else:
                 loss = lossfn(model(images), labels)
         loss.backward()
-        tx.update(state.optimizer)
-        state.ema_updates += 1
-        update_ema(state.ema_model, model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
-        state.step += 1
+        apply_update(state, tx, cfg)
         return {"loss": loss.detach()}
 
     return step_fn
+
+
+def apply_update(state: TrainState, tx: OptimizerSpec, cfg: StepConfig) -> None:
+    """The end of every train step, from the gradients in ``.grad``: the
+    optimizer update (clip, schedules, step), the EMA update, step += 1."""
+    tx.update(state.optimizer)
+    state.ema_updates += 1
+    update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
+    state.step += 1
 
 
 def make_eval_step(model: nn.Module, cfg: StepConfig) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:

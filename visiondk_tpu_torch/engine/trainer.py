@@ -34,7 +34,9 @@ the 10-fold pair accuracy for face, the retrieval metrics for CBIR) and
 
 A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
-with f32 parameters by default (``compute_dtype``). Not ported yet, and
+with f32 parameters by default (``compute_dtype``). On the card the run
+selects cuDNN's deterministic algorithms (no autotuner), so seeded runs are
+bit-identical. Not ported yet, and
 raising ``NotImplementedError``: mixup, OHEM, SAM and gradient accumulation.
 """
 
@@ -133,6 +135,10 @@ class CenterProcessor:
         seed: int = 0,
     ):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # a seeded run is bit-reproducible: cuDNN's deterministic algorithms, no autotuner
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.model_cfg = cfgs["model"]
         self.data_cfg = cfgs["data"]
         self.hyp_cfg = cfgs["hyp"]

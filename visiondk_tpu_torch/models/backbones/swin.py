@@ -19,7 +19,9 @@ fallback: a shape the kernels do not take raises. The window partition and
 its reverse, which the plain path uses, live beside the kernels' plain
 versions in ``ops/window_attention.py``. The relative-position index and
 the shift-region ids are static numpy, never buffers (the bridge refuses
-buffers it does not know). Tokens run in the compute dtype; LayerNorm
+buffers it does not know). The bias gather (``BiasGather``) sums its
+gradient in a fixed order, so seeded training is bit-reproducible on the
+card. Tokens run in the compute dtype; LayerNorm
 eps is 1e-5 (timm's, not the port's 1e-6 default); the pooled features and
 the head are f32, the pool taken in the compute dtype as the JAX model takes
 it. ``remat`` (activation checkpointing) is not ported and raises.
@@ -77,6 +79,47 @@ def _bias_index(ws: int, device: torch.device) -> torch.Tensor:
     return _static_tensor(lambda: relative_position_index(ws).reshape(-1).astype(np.int64), device)
 
 
+def bias_readers(ws: int) -> np.ndarray:
+    """Static [(2ws−1)², max count] index of the positions of the flat
+    [ws⁴] relative-position index that read each table row, in ascending
+    order, padded with ws⁴ (a zero row appended to the gradient)."""
+    idx = relative_position_index(ws).reshape(-1)
+    rows = (2 * ws - 1) ** 2
+    order = np.argsort(idx, kind="stable")
+    counts = np.bincount(idx, minlength=rows)
+    out = np.full((rows, counts.max()), idx.size, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for r in range(rows):
+        out[r, :counts[r]] = order[starts[r]:starts[r] + counts[r]]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_readers(ws: int, device: torch.device) -> torch.Tensor:
+    return _static_tensor(lambda: bias_readers(ws), device)
+
+
+class BiasGather(torch.autograd.Function):
+    """``table.index_select(0, idx)`` with a fixed-order backward. The
+    forward is the exact gather. ``index_select``'s backward sums the
+    gradient rows into the table with ``index_add_``, whose float atomics
+    on CUDA add in no fixed order, so seeded training drifts run to run;
+    here each table row's gradient is a gather of the rows that read it
+    (``readers``, padded with a zero row) summed over one axis: the same
+    additions in the same order on every run."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor, readers: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(readers)
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        readers, = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros(1, grad.shape[1])])
+        return padded[readers].sum(dim=1), None, None
+
+
 @functools.lru_cache(maxsize=None)
 def _region_ids(hh: int, ww: int, ws: int, shift: int, device: torch.device) -> Optional[torch.Tensor]:
     """The int32 region ids on ``device``, or None for unshifted windows."""
@@ -110,7 +153,8 @@ class WindowAttention(nn.Module):
         table = self.relative_position_bias_table
         n = self.window_size**2
         idx = _bias_index(self.window_size, table.device)
-        return table.index_select(0, idx).reshape(n, n, -1).permute(2, 0, 1).contiguous()
+        readers = _bias_readers(self.window_size, table.device)
+        return BiasGather.apply(table, idx, readers).reshape(n, n, -1).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         """x [B, H, W, C], already cyclically shifted by ``shift`` (0: W-MSA)."""

@@ -19,6 +19,14 @@ follows the port module that owns each tensor:
   under a ``SwinTransformer``, ``layers.{s}.blocks.{b}`` ↔ ``stage{s}_block{b}``,
   ``layers.{s}.downsample`` ↔ ``merge{s}``, ``patch_embed.proj`` ↔
   ``patch_embed`` (the flax Conv) and ``patch_embed.norm`` ↔ ``patch_norm``;
+  under a ``ResNet`` (timm names), ``layer{s}.{b}`` ↔ ``stage{s}_block{b+1}``
+  (JAX counts blocks from 1), the stem's ``conv1``/``bn1`` ↔
+  ``stem_conv``/``stem_bn`` (the deep stem's ``conv1.{0,1,3,4,6}`` and
+  ``bn1`` ↔ ``stem_conv1``, ``stem_bn1``, ``stem_conv2``, ``stem_bn2``,
+  ``stem_conv3``, ``stem_bn3``), a block's ``downsample`` conv and BN ↔
+  ``down_conv``/``down_bn`` (with avg-down, ``downsample.0`` is the pool),
+  and every other name (``se.fc1``, the split-attention ``conv``, ``bn0``,
+  ``fc1``, ``bn1``, ``fc2``, ``fc``) unchanged;
   ``backbone.``/``neck.`` ↔ ``backbone/``/``neck/``.
 
 The bridge is strict both ways: a port tensor with no source, a source tensor
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from visiondk_tpu_torch.models.backbones.resnet import ResNet
 from visiondk_tpu_torch.models.backbones.swin import SwinTransformer
 from visiondk_tpu_torch.models.heads import MarginHead
 from visiondk_tpu_torch.models.layers import LayerScale
@@ -43,30 +52,57 @@ from visiondk_tpu_torch.models.layers import LayerScale
 Tree = Dict[str, Dict[str, np.ndarray]]
 
 _BLOCK = re.compile(r"(^|\.)blocks\.(\d+)(?=\.|$)")
-# module path relative to a family's root module → its flax name, rule by rule
-_FAMILY_RULES = {
-    SwinTransformer: (
-        (re.compile(r"^layers\.(\d+)\.blocks\.(\d+)(?=\.|$)"), r"stage\1_block\2"),
-        (re.compile(r"^layers\.(\d+)\.downsample(?=\.|$)"), r"merge\1"),
-        (re.compile(r"^patch_embed\.proj$"), "patch_embed"),
-        (re.compile(r"^patch_embed\.norm$"), "patch_norm"),
-    ),
+_SWIN_RULES = (
+    (re.compile(r"^layers\.(\d+)\.blocks\.(\d+)(?=\.|$)"), r"stage\1_block\2"),
+    (re.compile(r"^layers\.(\d+)\.downsample(?=\.|$)"), r"merge\1"),
+    (re.compile(r"^patch_embed\.proj$"), "patch_embed"),
+    (re.compile(r"^patch_embed\.norm$"), "patch_norm"),
+)
+_RESNET_STEM = {"conv1": "stem_conv", "bn1": "stem_bn"}
+_RESNET_DEEP_STEM = {"conv1.0": "stem_conv1", "conv1.1": "stem_bn1", "conv1.3": "stem_conv2",
+                     "conv1.4": "stem_bn2", "conv1.6": "stem_conv3", "bn1": "stem_bn3"}
+_RESNET_BLOCK = re.compile(r"^layer(\d+)\.(\d+)(?=\.|$)")
+_RESNET_DOWN = re.compile(r"\.downsample\.\d+$")
+
+
+def _swin_path(root: nn.Module, rel: str) -> str:
+    for pattern, repl in _SWIN_RULES:
+        rel = pattern.sub(repl, rel)
+    return rel
+
+
+def _resnet_path(root: nn.Module, rel: str) -> str:
+    stem = _RESNET_DEEP_STEM if root.deep_stem else _RESNET_STEM
+    if rel in stem:
+        return stem[rel]
+    down = _RESNET_DOWN.search(rel)
+    if down:  # named by what it holds: timm's index moves with the avg-down pool
+        sub = root.get_submodule(rel)
+        if isinstance(sub, nn.Conv2d):
+            rel = rel[:down.start()] + ".down_conv"
+        elif isinstance(sub, nn.modules.batchnorm._BatchNorm):
+            rel = rel[:down.start()] + ".down_bn"
+    return _RESNET_BLOCK.sub(lambda m: f"stage{m[1]}_block{int(m[2]) + 1}", rel)
+
+
+# a family's root module type → (root, module path relative to it) → its flax path
+_FAMILY_PATHS: Dict[type, Callable[[nn.Module, str], str]] = {
+    SwinTransformer: _swin_path,
+    ResNet: _resnet_path,
 }
 
 
 def _path_mapper(model: nn.Module) -> Callable[[str], str]:
-    """Port module path → flax path: a family's rules below its root module,
-    ViT's ``blocks.{i}`` rule everywhere else."""
-    roots = [(name, _FAMILY_RULES[type(m)]) for name, m in model.named_modules() if type(m) in _FAMILY_RULES]
+    """Port module path → flax path: a family's mapping below its root
+    module, ViT's ``blocks.{i}`` rule everywhere else."""
+    roots = [(name, m, _FAMILY_PATHS[type(m)]) for name, m in model.named_modules() if type(m) in _FAMILY_PATHS]
 
     def flax_path(module_path: str) -> str:
-        for root, rules in roots:
+        for root, module, family_path in roots:
             prefix = f"{root}." if root else ""
             if module_path != root and not module_path.startswith(prefix):
                 continue
-            rel = "" if module_path == root else module_path[len(prefix):]
-            for pattern, repl in rules:
-                rel = pattern.sub(repl, rel)
+            rel = "" if module_path == root else family_path(module, module_path[len(prefix):])
             return ".".join(p for p in (root, rel) if p).replace(".", "/")
         return _BLOCK.sub(r"\1block\2", module_path).replace(".", "/")
 

@@ -1,9 +1,10 @@
 """Model factory (counterpart of ``visiondk_tpu/models/factory.py``).
 
 - classification → backbone with a ``num_classes``-way f32 linear head;
-- face/cbir → backbone in unpooled token-map mode → LayerNorm → flatten →
-  Linear(feat_dim) → BatchNorm1d neck (f32), whose output is the embedding,
-  and the margin head (``models/heads.py``) that trains it.
+- face/cbir → backbone in unpooled mode → the neck: LayerNorm over a token
+  map or BatchNorm over a CNN map → flatten → Linear(feat_dim) →
+  BatchNorm1d (f32), whose output is the embedding, and the margin head
+  (``models/heads.py``) that trains it.
 
 ``VisionModel(attention_pool=True)`` raises ``NotImplementedError``: it is
 not ported yet.
@@ -16,6 +17,7 @@ explicit ``torch.Generator``, on the card unless the caller passes
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -24,27 +26,34 @@ from torch import nn
 from visiondk_tpu_torch.config.checks import canonical_model_name
 from visiondk_tpu_torch.models.backbones import BACKBONES
 from visiondk_tpu_torch.models.heads import build_head
-from visiondk_tpu_torch.models.layers import BatchNorm1d, LayerNorm, Linear, init_params
+from visiondk_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, LayerNorm, Linear, init_params
 
 
 class EmbeddingNeck(nn.Module):
-    """Token map [B, N, C] → LayerNorm → flatten → Linear(feat_dim) →
-    BatchNorm1d in f32 (the JAX package's ``EmbeddingNeck`` for token maps;
-    its CNN-map branch arrives with the CNN backbones)."""
+    """The JAX package's ``EmbeddingNeck``: a token map [B, N, C] gets
+    LayerNorm, a CNN map [B, H, W, C] (NHWC) gets BatchNorm in the
+    backbone's dtype; then flatten (NHWC order, so ``proj`` lines up with
+    the JAX Dense) → Linear(feat_dim) → BatchNorm1d in f32. ``in_shape`` is
+    the backbone's ``feature_shape``: (N, C) or (H, W, C)."""
 
-    def __init__(self, in_shape: Tuple[int, int], feat_dim: int,
+    def __init__(self, in_shape: Tuple[int, ...], feat_dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        n, c = in_shape
-        self.norm = LayerNorm(c, dtype=dtype)
-        self.proj = Linear(n * c, feat_dim, dtype=dtype)
+        *spatial, c = in_shape
+        self.map_ndim = len(in_shape) + 1
         # flax BatchNorm(momentum=0.9, epsilon=1e-5) ↔ torch momentum 0.1
+        self.norm = BatchNorm2d(c, dtype=dtype) if len(spatial) == 2 else LayerNorm(c, dtype=dtype)
+        self.proj = Linear(math.prod(in_shape), feat_dim, dtype=dtype)
         self.bn_out = BatchNorm1d(feat_dim, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.ndim != 3:
-            raise ValueError(f"EmbeddingNeck takes a [B, N, C] token map, got {tuple(x.shape)}")
-        x = self.proj(self.norm(x).flatten(1))
+        if x.ndim != self.map_ndim:
+            raise ValueError(f"this EmbeddingNeck takes a {self.map_ndim}-d map, got {tuple(x.shape)}")
+        if x.ndim == 4:  # NHWC → NCHW view for the BatchNorm, and back
+            x = self.norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        else:
+            x = self.norm(x)
+        x = self.proj(x.flatten(1))
         return self.bn_out(x.float())
 
 

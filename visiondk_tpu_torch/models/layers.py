@@ -2,8 +2,10 @@
 
 Dtype policy, as in the JAX package: parameters live in f32 and every layer
 computes in its configured ``dtype`` (bf16 for serving), casting its weights
-at the call. LayerNorm takes its statistics in f32, as flax's does. Public
-image inputs stay NHWC.
+at the call. LayerNorm and BatchNorm take their statistics in f32, as flax's
+do. Public image inputs stay NHWC; the CNN layers (``Conv2d``,
+``BatchNorm2d``, ``SqueezeExcite``) take NCHW views in
+``torch.channels_last`` memory format, which is the NHWC layout itself.
 
 Parameters are initialised as the JAX package initialises them (flax's
 ``lecun_normal`` kernels with zero biases, unit/zero norms) by
@@ -39,6 +41,25 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``dtype`` with f32 parameters (flax
+    ``Conv``): input and weight are cast at the call, the weight into
+    ``channels_last`` so that cuDNN runs an NHWC convolution without layout
+    transposes."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                         groups=groups, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        weight = self.weight.to(dtype=dt, memory_format=torch.channels_last)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), weight, bias, self.stride, self.padding, self.dilation, self.groups)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm``: eps 1e-6 (torch's default is 1e-5), statistics and
     affine in f32, output in ``dtype``."""
@@ -69,6 +90,60 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``BatchNorm`` over an NCHW map (statistics per channel over N, H
+    and W), output in ``dtype``. In train mode it normalises with the batch's
+    biased variance and updates ``running_var`` with that same biased
+    variance, as flax does (torch's own takes the unbiased one for the
+    update). The statistics are reduced in f32 whatever the input dtype;
+    scale and bias stay f32 (flax promotes ``x − mean`` to f32 and rounds the
+    result to ``dtype``). ``momentum`` is torch's (flax 0.9 ↔ 0.1). With
+    ``bn_eval`` it always normalises with the running statistics and never
+    updates them (the JAX ``use_running_average=(not train) or bn_eval``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 bn_eval: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.bn_eval = bn_eval
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # normalised in the input's dtype (f32 arithmetic), rounded to ``dtype`` after, as flax
+        if not self.training or self.bn_eval:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.compute_dtype)
+        # momentum 1 writes the batch's mean and unbiased variance into the scratch buffers
+        mean, var = torch.zeros_like(self.running_mean), torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(self.compute_dtype)
+
+
+class SqueezeExcite(nn.Module):
+    """SE channel attention on an NCHW map: mean over H, W → Linear →
+    ReLU → Linear → sigmoid in f32 → scale the map (the JAX
+    ``SqueezeExcite``; ``fc1``/``fc2`` are its Dense layers)."""
+
+    def __init__(self, channels: int, reduction: int = 16, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(channels, max(channels // reduction, 8), dtype=dtype)
+        self.fc2 = Linear(max(channels // reduction, 8), channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3)))))
+        s = torch.sigmoid(s.float()).to(x.dtype)
+        return x * s[:, :, None, None]
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW map → [B, C], the mean in the map's dtype (f32 accumulation)."""
+    return x.mean(dim=(2, 3))
 
 
 class DropPath(nn.Module):
