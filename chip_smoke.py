@@ -84,10 +84,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              Prints images/s and torch.cuda.max_memory_allocated of the
              kernel path with the P stash (the default), the kernel path with
              VDK_ATTN_NO_PCACHE=1 and the plain path (order kernel,
-             no-pcache, plain, plain, no-pcache, kernel), each trial 20
+             no-pcache, plain, plain, no-pcache, kernel), each trial 10
              synchronised steps after 3 warm-up, each printed.
 5p. profile — the bf16 train step (its train batch) and eval step (bs 128)
-             on the kernel path: unprofiled step time (20 steps after 3
+             on the kernel path: unprofiled step time (10 steps after 3
              warm-up), then device time per step by kernel class
              (attention kernels by name, GEMMs, copies and casts, LayerNorm,
              optimizer, reductions, other elementwise) from torch.profiler
@@ -114,6 +114,18 @@ Phases, one line or more each; any failure raises and exits non-zero:
              24 + 24 recompute with VDK_ATTN_NO_PCACHE=1; every qkv.weight and
              relative_position_bias_table gradient non-zero after the first;
              the one-step f32 comparison at bs 16 with phase 5's bars.
+6v, 7v. swinv2 serving, swinv2 train — phases 6 and 7 for SwinV2-B
+             (swinv2_base_window8_256 at its registered 256², 24 blocks,
+             heads 4/8/16/32, every window 8×8): pet.yaml's `model:`
+             section and hyp with that name and size, and the 128-d
+             embedding model on it. K2 runs at scale 1.0 (the clamped,
+             exponentiated logit scale folded into the L2-normalised q) with
+             the continuous log-CPB bias, whose gradient K2b's dbias carries
+             into the CPB MLP. Serving at bs 128 (24 K2 a forward), training
+             at bs 64 (24 K2s + 24 K2b a step; 24 K2 + 24 K2r with
+             VDK_ATTN_NO_PCACHE=1), every qkv.weight, logit_scale and
+             cpb_mlp.0.weight gradient non-zero after the first step, the
+             same bars, and its profile.
 
 DA. device augment — the device-augment stage (visiondk_tpu_torch/ops/
              device_augment.py) at pet_synth's shape: a seeded uint8 batch of
@@ -134,25 +146,34 @@ DT. determinism probe — a subprocess (CUBLAS_WORKSPACE_CONFIG=:4096:8):
              one bf16 train step each of face_synth's Swin-B embedding model
              (with the fixed-order relative-position bias gather, and with
              index_select's, the state before the repair), multilabel_csv's
-             resnet50 (deterministic cuDNN, and torch's defaults) and the
-             distillation step: the ops torch.use_deterministic_algorithms
+             resnet50 (deterministic cuDNN, and torch's defaults),
+             convnext_base and mobilenetv3_large_100 (depthwise
+             convolutions; deterministic cuDNN) and the distillation
+             step: the ops torch.use_deterministic_algorithms
              (warn_only) names, and the parameters whose gradients differ
              between two backward passes from the same weights and batch.
              The repaired steps must show neither.
-CN. cnn — the ResNet family at full width: multilabel_csv.yaml's resnet50
-             (3 classes, BCE, train bs 64) and distill_example.yaml's
-             student resnet18 (35 classes, CE, train bs 128), seeded weights,
+CN. cnn — the CNN families at full width: multilabel_csv.yaml's resnet50
+             (3 classes, BCE, train bs 64), distill_example.yaml's student
+             resnet18 (35 classes, CE, train bs 128), and pet.yaml's model
+             list beyond ResNet (35 classes, CE): convnext_base (bs 64),
+             mobilenetv3_large_100 (bs 128), efficientnetv2_s (bs 64) and
+             tf_efficientnetv2_s (bs 64, TF 'SAME' padding), seeded weights,
              bf16, 224², channels_last convolutions: 3 train steps and an
              eval forward (finite, no attention kernel launched), eval
              images/s at bs 128, train images/s and peak memory with cuDNN's
-             deterministic algorithms (the trainer's setting) and with
-             torch's defaults (order det, defaults, defaults, det), the
-             resnet50 step's device time by class (convolutions, BatchNorm,
-             layout transposes, copies and casts, pooling, optimizer,
-             elementwise) and idle share, and one train step on the card
+             deterministic algorithms (the trainer's setting), and for
+             resnet50, resnet18 and convnext_base also with torch's defaults
+             (order det, defaults, defaults, det), the step's device time by
+             class (convolutions, BatchNorm, layout transposes, copies and
+             casts, pooling, optimizer, elementwise) and idle share for every
+             row but resnet18, and one train step on the card
              against the CPU in float64 (model, loss and pixels): loss within
              1e-5 relative, every gradient, update and BN statistic within
-             1e-3 of its tensor's largest entry; the same step in f32 is
+             1e-3 of its tensor's largest entry (a tensor whose exact
+             gradient is zero, a BatchNorm bias that a linear layer and a
+             train-mode BatchNorm follow, is held against 1e-9 of the
+             largest entry of its kind); the same step in f32 is
              printed beside the CPU's own f32 against float64 (at random init
              the last stage's gradients lose up to a fifth of their largest
              entry to f32 rounding on either device).
@@ -210,6 +231,18 @@ DS. distill — the teacher: configs/classification/pet.yaml (Swin-B, bs 80)
              distillation step alone on a synthetic bs-128 batch (24 K2,
              images/s) and one f32 step with the teacher on K2 against the
              teacher on the plain window attention, to phase 5's bars.
+V2. swinv2 run — configs/classification/pet.yaml with SwinV2-B in Swin-B's
+             place (model.name swinv2_base_window8_256 and the resize_size
+             anchor 256, which model.image_size and every resize of the
+             file read) through `python -m visiondk_tpu_torch.main` on RL's
+             synthetic JPEGs, data.root and hyp.epochs 2 cut (printed):
+             runs A and B in this process, bit-identical, exactly 24 K2s +
+             24 K2b a step and 24 K2 a val forward; `validate --ema` on A's
+             best reproducing its top1 exactly.
+V2L. swinv2 large — swinv2_large_window12to16_192to256 at 256² attends in
+             16×16 windows (N = 256) in stages 0-2, which the window kernels
+             do not take yet: its bf16 eval forward at bs 1 on the card must
+             raise the kernel wrapper's ValueError and launch nothing.
 MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              (ArcFace, MagFace, CircleLoss, MV-Softmax AM and Arc), forward
              and gradient, on the card in f32 against the same function in
@@ -272,9 +305,10 @@ seconds ([time] lines) and the run its total.
 
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
-bf16 train runs of both models, the run loop's in-process runs (A, B, C's
-resume, validate), the distillation phase's (teacher runs A, B; distill runs
-A, B), the embedding runs' (face A, B, C's resume, validate; CBIR,
+bf16 train runs of ViT-B/16, Swin-B and SwinV2-B, the run loop's in-process
+runs (A, B, C's resume, validate), the distillation phase's (teacher runs A,
+B; distill runs A, B), the SwinV2 run's (A, B, validate), the embedding
+runs' (face A, B, C's resume, validate; CBIR,
 validate, cbir_eval) and the vision path, counts set to 0 before each and
 read after), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
@@ -286,6 +320,7 @@ so it has no entry there.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -314,6 +349,7 @@ from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import get_model
 from visiondk_tpu_torch.models.backbones.swin import WindowAttention, window_region_ids
+from visiondk_tpu_torch.models.backbones.swinv2 import WindowAttentionV2
 from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
 from visiondk_tpu_torch.ops import device_augment as da
@@ -380,7 +416,7 @@ N_BATCHES = 3
 TRAIN_STEPS = 5
 NO_PCACHE_STEPS = 2
 # train images/s: each interleaved trial times this many steps after this many warm-up
-TRAIN_RATE_STEPS = 20
+TRAIN_RATE_STEPS = 10  # 20 until the other CNN families and SwinV2 took their share of the time limit
 TRAIN_RATE_WARMUP = 3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
@@ -412,12 +448,20 @@ class Recipe:
     depth: int               # attention blocks: launches of each kernel per forward or step
     kernels: tuple           # (forward, stash forward, backward from P, recompute backward)
     nonzero_grads: tuple     # parameter-name suffixes whose gradients must be non-zero after a step
+    img: int = IMG           # the `model:` section's image_size
 
 
 VIT = Recipe("slice", "train", PET_SYNTH_MODEL, EMBED_MODEL, PET_SYNTH_HYP, BATCH, F32_TRAIN_BATCH,
              TRAIN_STEPS, DEPTH, K1_KERNELS, ("attn.qkv.weight",))
 SWIN = Recipe("swin serving", "swin train", PET_MODEL, CBIR_EMBED_MODEL, PET_HYP, 80, 16, 3, 24,
               wattn.KERNELS, ("attn.qkv.weight", "attn.relative_position_bias_table"))
+# SwinV2-B at its registered 256², pet.yaml's model section and hyp otherwise: every window is
+# 8×8, K2 runs at scale 1.0 with the logit scale folded into q, and K2b's dbias feeds the CPB MLP
+SWINV2_NAME = "swinv2_base_window8_256"
+SWINV2 = Recipe("swinv2 serving", "swinv2 train", {**PET_MODEL, "name": SWINV2_NAME, "image_size": 256},
+                {"task": "cbir", "backbone": {SWINV2_NAME: {"pretrained": False, "image_size": 256, "feat_dim": 128}}},
+                PET_HYP, 64, 16, 3, 24, wattn.KERNELS,
+                ("attn.qkv.weight", "attn.logit_scale", "attn.cpb_mlp.0.weight"), img=256)
 
 # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape (timed),
 # the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens,
@@ -893,7 +937,7 @@ def phase_window_kernel(dev: torch.device) -> dict:
 
 def set_fused(model: torch.nn.Module, on: bool) -> None:
     for m in model.modules():
-        if isinstance(m, (Attention, WindowAttention)):
+        if isinstance(m, (Attention, WindowAttention, WindowAttentionV2)):
             m.use_fused = on
 
 
@@ -1004,14 +1048,15 @@ def compare_paths(recipe: Recipe, cls_model, emb_model, batches, dtype: torch.dt
 
 def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
+    img = recipe.img
     batches = [
-        {"image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8)}
+        {"image": torch.randint(0, 256, (BATCH, img, img, 3), generator=gen, device=dev, dtype=torch.uint8)}
         for _ in range(N_BATCHES)
     ]
     t0 = time.perf_counter()
     cls_model, emb_model = build_models(recipe, torch.bfloat16, dev)
     torch.cuda.synchronize()
-    print(f"[{recipe.tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes) and the "
+    print(f"[{recipe.tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes, {img}²) and the "
           f"128-d embedding model, bf16, seeded weights, in {time.perf_counter() - t0:.1f} s")
 
     # the main path, counted: bf16 serving
@@ -1144,16 +1189,16 @@ def train_rate(model, state, step, batch: dict, path, label: str):
 
 def phase_train(dev: torch.device, recipe: Recipe) -> dict:
     fwd, stash, bwd_p, bwd_r = recipe.kernels
-    depth, bs, tag = recipe.depth, recipe.train_batch, recipe.train_tag
+    depth, bs, tag, img = recipe.depth, recipe.train_batch, recipe.train_tag, recipe.img
     gen = torch.Generator(device=dev).manual_seed(3)
     batch = {
-        "image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "image": torch.randint(0, 256, (bs, img, img, 3), generator=gen, device=dev, dtype=torch.uint8),
         "label": torch.randint(0, recipe.model["num_classes"], (bs,), generator=gen, device=dev),
     }
     t0 = time.perf_counter()
     model, state, step = build_trainer(recipe, torch.bfloat16, dev)
     torch.cuda.synchronize()
-    print(f"[{tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes, {depth} attention "
+    print(f"[{tag}] built {recipe.model['name']} ({recipe.model['num_classes']} classes, {img}², {depth} attention "
           f"blocks), bf16 compute, f32 parameters, SGD + clip + EMA from the hyp (lr0 {recipe.hyp['lr0']}), "
           f"steps_per_epoch {STEPS_PER_EPOCH}, in {time.perf_counter() - t0:.1f} s")
 
@@ -1296,7 +1341,8 @@ def phase_profile(dev: torch.device, recipe: Recipe) -> None:
     step (bs 128) goes on the kernel path with the P stash (``profile_step``)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     batch = {
-        "image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "image": torch.randint(0, 256, (BATCH, recipe.img, recipe.img, 3), generator=gen, device=dev,
+                               dtype=torch.uint8),
         "label": torch.randint(0, recipe.model["num_classes"], (BATCH,), generator=gen, device=dev),
     }
     train_batch = {k: v[:recipe.train_batch] for k, v in batch.items()}
@@ -2311,7 +2357,21 @@ CNN_RECIPES = (
                   "kwargs": {}, "pretrained": False}, 64, "bce", 20),
     ("resnet18", {"task": "classification", "name": "resnet18", "image_size": 224, "num_classes": 35,
                   "kwargs": {}, "pretrained": False}, 128, "ce", 30),
+) + tuple(
+    # the other CNN families of pet.yaml's model list as its `model:` section would name them (35
+    # classes, CE, 224²), with pet_synth's optimizer fields; tf_efficientnetv2_s is the TF 'SAME' path
+    (name, {"task": "classification", "name": name, "image_size": 224, "num_classes": 35, "kwargs": {},
+            "pretrained": False}, bs, "ce", PET_SYNTH_HYP["epochs"])
+    for name, bs in (("convnext_base", 64), ("mobilenetv3_large_100", 128), ("efficientnetv2_s", 64),
+                     ("tf_efficientnetv2_s", 64))
 )
+# the rows whose train rate is also taken with torch's default cuDNN algorithms, and the rows profiled
+CNN_DETERMINISM_AB = ("resnet50", "resnet18", "convnext_base")
+CNN_PROFILED = ("resnet50", "convnext_base", "mobilenetv3_large_100", "efficientnetv2_s", "tf_efficientnetv2_s")
+# the rows of phase DT beside resnet50: one step each of a 7×7 and of a 3×3 / 5×5 depthwise family
+CNN_PROBED = ("convnext_base", "mobilenetv3_large_100")
+# the rows whose card-vs-CPU step is also printed in f32 (the float64 step is held for every row)
+CNN_F32_PRINTED = ("resnet50", "resnet18")
 CNN_F32_BATCH = 16
 CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
 # device-time classes of a CNN step, by kernel name (lower case), first match wins
@@ -2350,11 +2410,14 @@ def cnn_batch(model_cfg: dict, loss: str, bs: int, dev, seed: int) -> dict:
             "label": label}
 
 
-def cnn_trainer(model_cfg: dict, loss: str, epochs: int, dtype: torch.dtype, dev, float64: bool = False):
-    """The CNN (seed 0), its optimizer, train state and step: the config's
-    SGD + clip + EMA, BCE or CE with label smoothing 0.05. With ``float64``
-    the parameters, buffers, every layer and the loss compute in float64."""
-    model = get_model(model_cfg, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+def cnn_trainer(model_cfg: dict, loss: str, epochs: int, dtype: torch.dtype, dev, float64: bool = False,
+                model=None):
+    """The CNN (seed 0, or ``model``), its optimizer, train state and step:
+    the config's SGD + clip + EMA, BCE or CE with label smoothing 0.05. With
+    ``float64`` the parameters, buffers, every layer and the loss compute in
+    float64."""
+    if model is None:
+        model = get_model(model_cfg, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
     if float64:
         model.double()
         for m in model.modules():
@@ -2487,6 +2550,15 @@ def determinism_probe() -> None:
     del model, state, step
     torch.cuda.empty_cache()
 
+    for tag, model_cfg, bs, loss, epochs in (r for r in CNN_RECIPES if r[0] in CNN_PROBED):
+        model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.bfloat16, dev)
+        batch = cnn_batch(model_cfg, loss, bs, dev, seed=4)
+        images = batch["image"].float() / 255.0
+        probe(f"{tag} step (depthwise convolutions), cuDNN deterministic", model, lambda: step(state, batch),
+              lambda: cnn_loss(loss)(model(images), batch["label"]))
+        del model, state, step
+        torch.cuda.empty_cache()
+
     step, state, batch, teacher = distill_trainer(dev, torch.bfloat16, teacher_seed=2)
     images = batch["image"].float() / 255.0
     with torch.no_grad():
@@ -2525,10 +2597,13 @@ def run_determinism_probe() -> dict:
     return found
 
 
-def cnn_one_step(model_cfg: dict, loss: str, epochs: int, batch: dict, device, float64: bool) -> tuple:
-    """One train step from the seeded weights: (loss, {gradient, update
-    θ₁ − θ₀, BN statistic: {name: float64 CPU tensor}}, max |θ₀| by name)."""
-    model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.float32, device, float64=float64)
+def cnn_one_step(base: torch.nn.Module, model_cfg: dict, loss: str, epochs: int, batch: dict, device,
+                 float64: bool) -> tuple:
+    """One train step from a copy of ``base`` (the seeded f32 model on the
+    CPU): (loss, {gradient, update θ₁ − θ₀, BN statistic: {name: float64
+    CPU tensor}}, max |θ₀| by name)."""
+    model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.float32, device, float64=float64,
+                                        model=copy.deepcopy(base).to(device))
     theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     if float64:  # the same float64 pixels on both devices: the step then normalises them in float64
         batch = {**batch, "image": batch["image"].cpu().double() / 255.0}
@@ -2543,20 +2618,27 @@ def cnn_one_step(model_cfg: dict, loss: str, epochs: int, batch: dict, device, f
 
 def worst_diffs(side, ref, float32_spacing: bool) -> tuple:
     """Loss difference (relative) and, per kind of tensor, the largest
-    max|side − ref| / max|ref| (an update less one spacing of θ) and where."""
+    max|side − ref| / max|ref| (an update less one spacing of θ) and where.
+    A tensor whose exact value is zero holds rounding noise alone (the
+    gradient of a BatchNorm bias that a linear layer and a train-mode
+    BatchNorm follow: MobileNetV3's and EfficientNetV2's last block before
+    their head convolution), so max|ref| is floored at 1e-9 of the kind's
+    largest entry."""
     (ls, ts, theta_max), (lr, tr, _) = side, ref
     eps = torch.finfo(torch.float32 if float32_spacing else torch.float64).eps
     worst = {}
     for what, tensors in tr.items():
+        floor = 1e-9 * max((r.abs().max().item() for r in tensors.values()), default=0.0)
         for n, r in tensors.items():
             slack = eps * theta_max[n] if what == "update" else 0.0
-            ratio = max((ts[what][n] - r).abs().max().item() - slack, 0.0) / max(r.abs().max().item(), 1e-300)
+            scale = max(r.abs().max().item(), floor, 1e-300)
+            ratio = max((ts[what][n] - r).abs().max().item() - slack, 0.0) / scale
             if ratio >= worst.get(what, (-1.0, ""))[0]:
                 worst[what] = (ratio, n)
     return abs(ls - lr) / abs(lr), worst
 
 
-def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev) -> None:
+def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev, f32: bool = True) -> None:
     """One train step on the card (TF32 off) against the same model, batch
     and generator on the CPU, in float64 (model and loss): the loss within
     F32_LOSS_RTOL relative; every gradient, update θ₁ − θ₀ (less one spacing
@@ -2568,11 +2650,14 @@ def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev)
     ill-conditioned (cancellation in BatchNorm's backward) that f32
     rounding, or one f32 ulp of the normalised input, moves them by up to a
     fifth of their largest entry on either device, so an f32 bar would hold
-    no implementation."""
+    no implementation (``f32`` off: the float64 pair alone). Every run starts
+    from a copy of one seeded model."""
     batch = cnn_batch(model_cfg, loss, CNN_F32_BATCH, dev, seed=6)
     cpu = torch.device("cpu")
-    runs = {key: cnn_one_step(model_cfg, loss, epochs, batch, device, f64) for key, device, f64 in (
-        ("card f64", dev, True), ("cpu f64", cpu, True), ("card f32", dev, False), ("cpu f32", cpu, False))}
+    base = get_model(model_cfg, device=cpu, generator=torch.Generator().manual_seed(0))
+    sides = (("card f64", dev, True), ("cpu f64", cpu, True)) + (
+        (("card f32", dev, False), ("cpu f32", cpu, False)) if f32 else ())
+    runs = {key: cnn_one_step(base, model_cfg, loss, epochs, batch, device, f64) for key, device, f64 in sides}
     torch.cuda.empty_cache()
 
     def line(key, ref):
@@ -2581,16 +2666,17 @@ def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev)
                                  + ", ".join(f"{w} {r:.3e} ({n})" for w, (r, n) in worst.items()))
 
     loss_rel, worst, held = line("card f64", "cpu f64")
-    print(f"[cnn] {tag} one step, bs {CNN_F32_BATCH}: {held} (bars {F32_LOSS_RTOL}, {CNN_TENSOR_TOL}); "
-          f"printed: {line('card f32', 'cpu f64')[2]} | {line('cpu f32', 'cpu f64')[2]}")
+    print(f"[cnn] {tag} one step, bs {CNN_F32_BATCH}: {held} (bars {F32_LOSS_RTOL}, {CNN_TENSOR_TOL})"
+          + (f"; printed: {line('card f32', 'cpu f64')[2]} | {line('cpu f32', 'cpu f64')[2]}" if f32 else ""))
     check(loss_rel <= F32_LOSS_RTOL, f"{tag}: float64 loss card vs CPU {loss_rel} relative")
     for what, (r, n) in worst.items():
         check(r <= CNN_TENSOR_TOL, f"{tag}: float64 {what} of {n} differs by {r} of its largest entry")
 
 
 def phase_cnn(dev: torch.device) -> None:
-    """The ResNet family at full width (see the module doc): resnet50 and
-    resnet18, bf16, seeded; no attention kernel may launch."""
+    """The CNN families at full width (see the module doc): resnet50,
+    resnet18, convnext_base, mobilenetv3_large_100, efficientnetv2_s and
+    tf_efficientnetv2_s, bf16, seeded; no attention kernel may launch."""
     for tag, model_cfg, bs, loss, epochs in CNN_RECIPES:
         t0 = time.perf_counter()
         model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.bfloat16, dev)
@@ -2611,25 +2697,31 @@ def phase_cnn(dev: torch.device) -> None:
         rates = [images_per_s(eval_step, eval_batch) for _ in range(2)]
         print(f"[cnn] {tag} eval bs {BATCH} bf16 images/s: {rates[0]:.1f}, {rates[1]:.1f}")
         trials = {True: [], False: []}
-        for trial, det in enumerate((True, False, False, True)):
+        ab = tag in CNN_DETERMINISM_AB
+        for trial, det in enumerate((True, False, False, True) if ab else (True, True)):
             with cudnn_mode(det):
                 trials[det].append(train_rate(model, state, step, train_batch, NO_ATTENTION,
                                               f"[cnn] {tag} train bf16 bs {bs} trial {trial}, cuDNN "
                                               + ("deterministic (the trainer's)" if det else "defaults")))
         TRAIN_RATES[tag] = [r for r, _ in trials[True]]
-        det, free = (sum(r for r, _ in trials[d]) / 2 for d in (True, False))
-        print(f"[cnn] {tag} train bf16 bs {bs} images/s: deterministic cuDNN {trials[True][0][0]:.1f}, "
-              f"{trials[True][1][0]:.1f} | torch defaults {trials[False][0][0]:.1f}, {trials[False][1][0]:.1f} "
-              f"(order det, defaults, defaults, det): deterministic costs {1 - det / free:.1%}; max_memory_allocated "
-              f"{trials[True][0][1]:.2f} GiB")
-        if tag == "resnet50":
+        if ab:
+            det, free = (sum(r for r, _ in trials[d]) / 2 for d in (True, False))
+            print(f"[cnn] {tag} train bf16 bs {bs} images/s: deterministic cuDNN {trials[True][0][0]:.1f}, "
+                  f"{trials[True][1][0]:.1f} | torch defaults {trials[False][0][0]:.1f}, {trials[False][1][0]:.1f} "
+                  f"(order det, defaults, defaults, det): deterministic costs {1 - det / free:.1%}; "
+                  f"max_memory_allocated {trials[True][0][1]:.2f} GiB")
+        else:
+            print(f"[cnn] {tag} train bf16 bs {bs} images/s, deterministic cuDNN (the trainer's): "
+                  f"{trials[True][0][0]:.1f}, {trials[True][1][0]:.1f}; max_memory_allocated "
+                  f"{trials[True][0][1]:.2f} GiB")
+        if tag in CNN_PROFILED:
             with cudnn_mode(True):
                 profile_step(f"{tag} train bf16 (deterministic cuDNN)", lambda: step(state, train_batch), bs,
                              classes=CNN_KERNEL_CLASSES)
         del model, state, step, eval_step
         torch.cuda.empty_cache()
         with cudnn_mode(True):
-            compare_cnn_with_cpu(tag, model_cfg, loss, epochs, dev)
+            compare_cnn_with_cpu(tag, model_cfg, loss, epochs, dev, f32=tag in CNN_F32_PRINTED)
         torch.cuda.empty_cache()
 
 
@@ -2877,6 +2969,119 @@ def phase_distill(dev: torch.device, pet_data: tuple) -> dict:
     return totals
 
 
+SV2_EPOCHS = 2
+
+
+def swinv2_pet_yaml(root: Path, out: Path) -> tuple:
+    """configs/classification/pet.yaml with SwinV2-B at 256² in Swin-B's
+    place (the model name and the `resize_size` anchor that every resize of
+    the file reads), data.root ``root`` and SV2_EPOCHS epochs, written to
+    ``out``; returns (the config, what the cuts replaced: root, epochs)."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+
+    text = PET_YAML.read_text()
+    swaps = ((f"name: {PET_MODEL['name']}", f"name: {SWINV2_NAME}"), ("&resize_size 224", "&resize_size 256"))
+    for old, new in swaps:
+        check(text.count(old) == 1, f"pet.yaml has {text.count(old)} lines '{old}', want 1")
+        text = text.replace(old, new)
+    out.write_text(text)
+    cfg = yaml_load(out)
+    was = cfg["data"]["root"], cfg["hyp"]["epochs"]
+    cfg["data"]["root"], cfg["hyp"]["epochs"] = str(root), SV2_EPOCHS
+    yaml_dump(cfg, out)
+    return cfg, was
+
+
+def phase_swinv2_run(dev: torch.device, pet_data: tuple) -> dict:
+    """SwinV2-B classification through the port's CLIs (see the module doc):
+    runs A and B bit-identical, exact K2-family launches, validate on A's
+    best; returns the launches of the in-process runs."""
+    tag = "swinv2 run"
+    fwd, stash, bwd_p, _ = wattn.KERNELS
+    depth = SWINV2.depth
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_swinv2_"))
+    try:
+        root = synth_pet_root(pet_data, tag)
+        n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
+        n_val = sum(1 for _ in (root / "val").rglob("*.jpg"))
+        yaml_path = tmp / "pet_swinv2.yaml"
+        cfg, was = swinv2_pet_yaml(root, yaml_path)
+        bs, val_bs = cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+        steps, val_batches = n_train // bs, -(-n_val // val_bs)
+        print(f"[{tag}] configs/classification/pet.yaml with these cuts: model.name {SWINV2_NAME} and the "
+              f"resize_size anchor 256 (was {PET_MODEL['name']} at 224: model.image_size and every resize of the "
+              f"train and val augments read it), data.root the synthetic pet folders (was {was[0]}; {n_train} "
+              f"train / {n_val} val JPEGs, {steps} steps of {bs} an epoch), hyp.epochs {SV2_EPOCHS} (was {was[1]}: "
+              f"the config check wants more epochs than warm_ep's {cfg['hyp']['warm_ep']}); everything else as "
+              f"written (bs {bs}, val bs {val_bs}, bf16)")
+        totals, runs = {k: 0 for k in KERNELS}, {}
+        for run in ("A", "B"):
+            project = tmp / f"run{run}"
+            out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project", str(project),
+                                                               "--seed", "0"])
+            want = only({stash: depth * steps * SV2_EPOCHS, bwd_p: depth * steps * SV2_EPOCHS,
+                         fwd: depth * val_batches * SV2_EPOCHS})
+            check(counts == want, f"SwinV2 run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+            totals = {k: totals[k] + counts[k] for k in KERNELS}
+            runs[run] = metrics
+            print(f"[{tag}] run {run}: {secs:.1f} s; per epoch train loss "
+                  + ", ".join(f"{metrics['Train_loss'][e]!r}" for e in range(SV2_EPOCHS)) + ", val top1 "
+                  + ", ".join(f"{metrics['Val_top1'][e]!r}" for e in range(SV2_EPOCHS)) + ", val loss "
+                  + ", ".join(f"{metrics['Val_v_loss'][e]!r}" for e in range(SV2_EPOCHS)) + "; trainer-fed images/s "
+                  + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(SV2_EPOCHS))
+                  + f"; launches {NAMES[stash]} {counts[stash]}, {NAMES[bwd_p]} {counts[bwd_p]} (= {depth} x "
+                    f"{steps * SV2_EPOCHS} steps), {NAMES[fwd]} {counts[fwd]} (= {depth} x {val_batches} val batches "
+                    f"x {SV2_EPOCHS} epochs), no other attention kernel")
+        same = same_metrics(runs["A"], runs["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(SV2_EPOCHS))
+        print(f"[{tag}] run B vs run A: bit-identical {same} (required)")
+        check(same, "seeded SwinV2-B runs A and B are not bit-identical")
+
+        reset_counts()
+        out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
+                                                         "--weight", str(tmp / "runA" / "best"), "--ema"])
+        counts_v = read_counts()
+        check(counts_v == only({fwd: depth * val_batches}),
+              f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+        top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
+        best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
+        top1_a = runs["A"]["Val_top1"][best_epoch]
+        print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
+              f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
+        check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+        return {k: totals[k] + counts_v[k] for k in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+SWINV2_LARGE = "swinv2_large_window12to16_192to256"
+
+
+def phase_swinv2_large(dev: torch.device) -> None:
+    """swinv2_large_window12to16_192to256 at its 256²: stages 0-2 attend in
+    16×16 windows (N = 256), which the window kernels do not take yet. Its
+    bf16 eval forward on the card must raise the kernel wrapper's
+    ValueError, launching nothing (no fallback to the plain version)."""
+    tag = "swinv2 large"
+    cfg = {"task": "classification", "name": SWINV2_LARGE, "image_size": 256, "num_classes": 35, "kwargs": {}}
+    model = get_model(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    eval_step = make_eval_step(model, StepConfig())
+    batch = {"image": torch.zeros((1, 256, 256, 3), device=dev, dtype=torch.uint8)}
+    reset_counts()
+    try:
+        eval_step(batch)
+        raised = None
+    except ValueError as err:
+        raised = err
+    counts = read_counts()
+    check(raised is not None and "ws 16 is not taken yet" in str(raised),
+          f"{SWINV2_LARGE}'s forward on the card did not raise the window kernel's ws error: {raised!r}")
+    check(all(v == 0 for v in counts.values()), f"{SWINV2_LARGE} launched {counts}")
+    print(f"[{tag}] {SWINV2_LARGE} bf16 eval forward at bs 1, 256²: raised ValueError({raised}); no kernel launched")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -2911,7 +3116,7 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
     kern = {**timed("kernel", phase_kernel, dev), **timed("window kernel", phase_window_kernel, dev),
             **timed("vision kernel", phase_vision_kernel, dev)}
     launches = {k: 0 for k in KERNELS}
-    for recipe in (VIT, SWIN):
+    for recipe in (VIT, SWIN, SWINV2):
         serving = timed(recipe.tag, phase_slice, dev, recipe)
         training = timed(recipe.train_tag, phase_train, dev, recipe)
         timed(f"profile {recipe.model['name']}", phase_profile, dev, recipe)
@@ -2929,9 +3134,13 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
     distill = timed("distill", phase_distill, dev, pet_data)
     print("[launches] distill (teacher runs A, B; distill runs A, B): "
           + ", ".join(f"{NAMES[k]} {distill[k]}" for k in wattn.KERNELS))
+    swinv2_run = timed("swinv2 run", phase_swinv2_run, dev, pet_data)
+    print("[launches] swinv2 run (runs A, B; validate): "
+          + ", ".join(f"{NAMES[k]} {swinv2_run[k]}" for k in wattn.KERNELS))
+    timed("swinv2 large", phase_swinv2_large, dev)
     embedding_run = timed("embedding run", phase_embedding_run, dev, face_data)
     print("[launches] embedding run: " + ", ".join(f"{NAMES[k]} {embedding_run[k]}" for k in wattn.KERNELS))
-    launches = {k: launches[k] + run_loop[k] + distill[k] + embedding_run[k] for k in KERNELS}
+    launches = {k: launches[k] + run_loop[k] + distill[k] + swinv2_run[k] + embedding_run[k] for k in KERNELS}
     vision = timed("vision path", phase_vision_path, dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     return kern, {k: launches[k] + vision[k] for k in KERNELS}

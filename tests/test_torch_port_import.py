@@ -34,6 +34,8 @@ import visiondk_tpu_torch.engine.checkpoint, visiondk_tpu_torch.main, visiondk_t
 import visiondk_tpu_torch.ops.margin_heads, visiondk_tpu_torch.ops.retrieval, visiondk_tpu_torch.models.heads
 import visiondk_tpu_torch.engine.face_eval, visiondk_tpu_torch.engine.cbir_eval, visiondk_tpu_torch.cbir_eval
 import visiondk_tpu_torch.models.backbones.resnet, visiondk_tpu_torch.engine.distill
+import visiondk_tpu_torch.models.backbones.convnext, visiondk_tpu_torch.models.backbones.mobilenet
+import visiondk_tpu_torch.models.backbones.efficientnet, visiondk_tpu_torch.models.backbones.swinv2
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "visiondk_tpu",
                             "tensorflow", "tensorboard", "pandas") if m in sys.modules)
@@ -89,14 +91,20 @@ def test_canonical_model_name_matches_jax(name, want):
 
 
 def test_vit_family_registered():
-    """The ported families are registered under the JAX names: ViT, Swin V1
-    (SwinV2's names start with ``swinv2_``) and the ResNet family (every name
-    the JAX ``resnet`` module registers)."""
+    """Every name of the JAX registry is registered in the port, name for
+    name (ViT, Swin V1 and V2, ResNet, ConvNeXt, MobileNetV3,
+    EfficientNetV2), each from the port module of its JAX module's name."""
+    import visiondk_tpu_torch.models.backbones.convnext  # noqa: F401
+    import visiondk_tpu_torch.models.backbones.efficientnet  # noqa: F401
+    import visiondk_tpu_torch.models.backbones.mobilenet  # noqa: F401
+    import visiondk_tpu_torch.models.backbones.swinv2  # noqa: F401
     from visiondk_tpu.models.backbones import BACKBONES as JAX_BACKBONES
     from visiondk_tpu_torch.models import BACKBONES
 
-    resnets = {k for k in JAX_BACKBONES.keys() if JAX_BACKBONES.get(k).__module__.endswith(".resnet")}
-    ported = sorted(k for k in JAX_BACKBONES.keys()
-                    if (k.startswith(("vit_", "swin_")) or k in resnets) and "port_test" not in k)
-    assert "swin_base_patch4_window7_224" in ported and {"resnet18", "resnet50", "resnest50d_4s2x40d"} <= set(ported)
+    ported = sorted(k for k in JAX_BACKBONES.keys() if "port_test" not in k)
+    assert {"swin_base_patch4_window7_224", "resnet50", "convnext_base", "mobilenetv3_large_100",
+            "tf_efficientnetv2_s", "swinv2_base_window8_256"} <= set(ported)
     assert sorted(k for k in BACKBONES.keys() if "port_test" not in k) == ported
+    for k in ported:
+        module = JAX_BACKBONES.get(k).__module__.rsplit(".", 1)[1]
+        assert BACKBONES.get(k).__module__ == f"visiondk_tpu_torch.models.backbones.{module}", k

@@ -7,7 +7,9 @@ format ``save_converted`` writes as ``{tree}::{path}`` npz keys. The mapping
 follows the port module that owns each tensor:
 
 - ``nn.Linear`` weight ← ``kernel`` [in, out] transposed to [out, in];
-- ``nn.Conv2d`` weight ← ``kernel`` HWIO permuted to OIHW;
+- ``nn.Conv2d`` weight ← ``kernel`` HWIO permuted to OIHW, or, for a 1×1
+  conv on a pooled map (SE's ``conv_reduce``/``conv_expand``, MobileNetV3's
+  ``conv_head``), the Dense ``kernel`` [in, out] as [out, in, 1, 1];
 - LayerNorm / BatchNorm weight ← ``scale``; BatchNorm running_mean/var ←
   ``batch_stats`` ``mean``/``var``;
 - LayerScale gamma ← the flax param named after the module (``block{i}/ls1``);
@@ -26,7 +28,24 @@ follows the port module that owns each tensor:
   ``stem_conv3``, ``stem_bn3``), a block's ``downsample`` conv and BN ↔
   ``down_conv``/``down_bn`` (with avg-down, ``downsample.0`` is the pool),
   and every other name (``se.fc1``, the split-attention ``conv``, ``bn0``,
-  ``fc1``, ``bn1``, ``fc2``, ``fc``) unchanged;
+  ``fc1``, ``bn1``, ``fc2``, ``fc``) unchanged; a ``SwinTransformerV2``
+  takes Swin V1's rules, its ``attn.cpb_mlp.{0,2}`` ↔ ``attn/cpb_fc{1,2}``
+  (``logit_scale`` keeps its name); under a ``ConvNeXt``, ``stem.{0,1}`` ↔
+  ``stem_conv``/``stem_norm``, ``stages.{s}.downsample.{0,1}`` ↔
+  ``downsample_norm{s}``/``downsample_conv{s}``, ``stages.{s}.blocks.{b}`` ↔
+  ``stage{s}_block{b}`` with ``conv_dw``, ``mlp.fc1``, ``mlp.fc2`` ↔
+  ``dwconv``, ``pwconv1``, ``pwconv2`` (``gamma`` is the block's own param),
+  ``head.norm``/``head.fc`` ↔ ``head_norm``/``head``; under a
+  ``MobileNetV3`` or ``EfficientNetV2``, ``conv_stem``/``bn1`` ↔
+  ``stem``/``stem_bn``, block ``blocks.{s}.{b}`` ↔ ``stage{i}_block1``
+  numbered flat across timm's groups (MobileNetV3; its trailing
+  ``ConvBnAct`` ↔ ``head_conv``/``head_bn``) or ``stage{s+1}_block{b+1}``
+  (EfficientNetV2), its timm leaves renamed by block type (``conv_pw``,
+  ``conv_dw``, ``conv_pwl``, ``conv_exp``, ``conv``, ``bn1..3`` ↔
+  ``expand``, ``dw``, ``project``, ``bn_expand``, ``bn_dw``,
+  ``bn_project``; ``se.conv_reduce``/``se.conv_expand`` ↔ ``se/fc1``/
+  ``se/fc2``), ``conv_head`` ↔ ``pre_head`` (MobileNetV3) or ``head_conv``
+  with ``bn2`` ↔ ``head_bn`` (EfficientNetV2), ``classifier`` ↔ ``fc``;
   ``backbone.``/``neck.`` ↔ ``backbone/``/``neck/``.
 
 The bridge is strict both ways: a port tensor with no source, a source tensor
@@ -44,8 +63,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from visiondk_tpu_torch.models.backbones.convnext import ConvNeXt
+from visiondk_tpu_torch.models.backbones.efficientnet import EdgeResidual, EfficientNetV2
+from visiondk_tpu_torch.models.backbones.mobilenet import (
+    ConvBnAct, DepthwiseSeparableConv, InvertedResidual, MobileNetV3,
+)
 from visiondk_tpu_torch.models.backbones.resnet import ResNet
 from visiondk_tpu_torch.models.backbones.swin import SwinTransformer
+from visiondk_tpu_torch.models.backbones.swinv2 import SwinTransformerV2
 from visiondk_tpu_torch.models.heads import MarginHead
 from visiondk_tpu_torch.models.layers import LayerScale
 
@@ -71,6 +96,17 @@ def _swin_path(root: nn.Module, rel: str) -> str:
     return rel
 
 
+_SWINV2_CPB = {".attn.cpb_mlp.0": ".attn.cpb_fc1", ".attn.cpb_mlp.2": ".attn.cpb_fc2"}
+
+
+def _swinv2_path(root: nn.Module, rel: str) -> str:
+    rel = _swin_path(root, rel)
+    for suffix, flax_suffix in _SWINV2_CPB.items():
+        if rel.endswith(suffix):
+            return rel[:-len(suffix)] + flax_suffix
+    return rel
+
+
 def _resnet_path(root: nn.Module, rel: str) -> str:
     stem = _RESNET_DEEP_STEM if root.deep_stem else _RESNET_STEM
     if rel in stem:
@@ -85,10 +121,81 @@ def _resnet_path(root: nn.Module, rel: str) -> str:
     return _RESNET_BLOCK.sub(lambda m: f"stage{m[1]}_block{int(m[2]) + 1}", rel)
 
 
+_CONVNEXT_RULES = (
+    (re.compile(r"^stem\.0$"), "stem_conv"),
+    (re.compile(r"^stem\.1$"), "stem_norm"),
+    (re.compile(r"^stages\.(\d+)\.downsample\.0$"), r"downsample_norm\1"),
+    (re.compile(r"^stages\.(\d+)\.downsample\.1$"), r"downsample_conv\1"),
+    (re.compile(r"^stages\.(\d+)\.blocks\.(\d+)(?=\.|$)"), r"stage\1_block\2"),
+    (re.compile(r"\.conv_dw$"), ".dwconv"),
+    (re.compile(r"\.mlp\.fc1$"), ".pwconv1"),
+    (re.compile(r"\.mlp\.fc2$"), ".pwconv2"),
+    (re.compile(r"^head\.norm$"), "head_norm"),
+    (re.compile(r"^head\.fc$"), "head"),
+)
+
+
+def _convnext_path(root: nn.Module, rel: str) -> str:
+    for pattern, repl in _CONVNEXT_RULES:
+        rel = pattern.sub(repl, rel)
+    return rel
+
+
+# timm's module names inside a MobileNetV3 / EfficientNetV2 block → the JAX block's
+_SE_LEAVES = {"se.conv_reduce": "se.fc1", "se.conv_expand": "se.fc2"}  # 1×1 convs ↔ Dense
+_BLOCK_LEAVES = {
+    DepthwiseSeparableConv: {"conv_dw": "dw", "bn1": "bn_dw", "conv_pw": "project", "bn2": "bn_project",
+                             **_SE_LEAVES},
+    InvertedResidual: {"conv_pw": "expand", "bn1": "bn_expand", "conv_dw": "dw", "bn2": "bn_dw",
+                       "conv_pwl": "project", "bn3": "bn_project", **_SE_LEAVES},
+    EdgeResidual: {"conv_exp": "expand", "bn1": "bn_expand", "conv_pwl": "project", "bn2": "bn_project"},
+    ConvBnAct: {"conv": "project", "bn1": "bn_project"},
+}
+_MBCONV_BLOCK = re.compile(r"^blocks\.(\d+)\.(\d+)(?:\.(.+))?$")
+
+
+def _mbconv_path(root: nn.Module, rel: str, top: Dict[str, str], block_name: Callable[[int, int], str],
+                 head_block: Dict[str, str]) -> str:
+    """A MobileNetV3 / EfficientNetV2 path: ``top`` names the modules outside
+    the blocks; block (s, b) is ``block_name(s, b)`` with its leaves renamed
+    by its type, except that a ConvBnAct is named by ``head_block`` where
+    one is given (MobileNetV3's trailing 1×1 ConvBnAct)."""
+    if rel in top:
+        return top[rel]
+    m = _MBCONV_BLOCK.match(rel)
+    if not m:
+        return rel  # the containers ``blocks`` and ``blocks.{s}``
+    s, b, leaf = int(m[1]), int(m[2]), m[3]
+    block = root.blocks[s][b]
+    if head_block and isinstance(block, ConvBnAct):
+        return head_block.get(leaf, leaf or "")
+    name = block_name(s, b)
+    return name if leaf is None else f"{name}.{_BLOCK_LEAVES[type(block)].get(leaf, leaf)}"
+
+
+def _mobilenet_path(root: nn.Module, rel: str) -> str:
+    # the JAX tree enumerates the blocks flat across timm's groups, from stage1_block1
+    def flat(s: int, b: int) -> str:
+        return f"stage{sum(len(g) for g in root.blocks[:s]) + b + 1}_block1"
+
+    return _mbconv_path(root, rel, {"conv_stem": "stem", "bn1": "stem_bn", "conv_head": "pre_head",
+                                    "classifier": "fc"}, flat, {"conv": "head_conv", "bn1": "head_bn"})
+
+
+def _efficientnet_path(root: nn.Module, rel: str) -> str:
+    return _mbconv_path(root, rel, {"conv_stem": "stem", "bn1": "stem_bn", "conv_head": "head_conv",
+                                    "bn2": "head_bn", "classifier": "fc"},
+                        lambda s, b: f"stage{s + 1}_block{b + 1}", {})
+
+
 # a family's root module type → (root, module path relative to it) → its flax path
 _FAMILY_PATHS: Dict[type, Callable[[nn.Module, str], str]] = {
     SwinTransformer: _swin_path,
+    SwinTransformerV2: _swinv2_path,
     ResNet: _resnet_path,
+    ConvNeXt: _convnext_path,
+    MobileNetV3: _mobilenet_path,
+    EfficientNetV2: _efficientnet_path,
 }
 
 
@@ -118,6 +225,8 @@ def _dense(a: np.ndarray) -> np.ndarray:
 
 
 def _conv(a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2:  # the Dense kernel [in, out] of a 1×1 conv on a pooled map (SE, pre_head)
+        return a.T[:, :, None, None]
     return a.transpose(3, 2, 0, 1)  # HWIO → OIHW
 
 

@@ -3,9 +3,12 @@
 Dtype policy, as in the JAX package: parameters live in f32 and every layer
 computes in its configured ``dtype`` (bf16 for serving), casting its weights
 at the call. LayerNorm and BatchNorm take their statistics in f32, as flax's
-do. Public image inputs stay NHWC; the CNN layers (``Conv2d``,
-``BatchNorm2d``, ``SqueezeExcite``) take NCHW views in
-``torch.channels_last`` memory format, which is the NHWC layout itself.
+do. Public image inputs stay NHWC; the CNN layers (``Conv2d``, with TF
+'SAME' padding on request, ``BatchNorm2d``, ``LayerNorm2d``,
+``SqueezeExcite``, ``SEBlock``) take NCHW views in ``torch.channels_last``
+memory format, which is the NHWC layout itself. ``hard_sigmoid``,
+``hard_swish`` and ``make_divisible`` are the JAX package's MobileNetV3
+helpers.
 
 Parameters are initialised as the JAX package initialises them (flax's
 ``lecun_normal`` kernels with zero biases, unit/zero norms) by
@@ -14,7 +17,7 @@ Parameters are initialised as the JAX package initialises them (flax's
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,35 +44,63 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+def tf_same_padding(h: int, w: int, kernel: int, stride: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """TF 'SAME' per-side padding ((top, bottom), (left, right)) of a
+    ``kernel``×``kernel`` conv at ``stride`` on an h×w map: the output is
+    ⌈n / stride⌉ and an odd total puts the extra pixel bottom/right."""
+
+    def side(n: int) -> Tuple[int, int]:
+        out = -(-n // stride)
+        total = max((out - 1) * stride + kernel - n, 0)
+        return total // 2, total - total // 2
+
+    return side(h), side(w)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``dtype`` with f32 parameters (flax
     ``Conv``): input and weight are cast at the call, the weight into
     ``channels_last`` so that cuDNN runs an NHWC convolution without layout
-    transposes."""
+    transposes. With ``tf_same`` the padding is TF 'SAME'
+    (``tf_same_padding``), computed at each call from the input's own H and
+    W: the symmetric part is the convolution's padding, and only an odd
+    pixel bottom/right is padded ahead of it (``F.pad`` keeps the
+    ``channels_last`` layout)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, groups: int = 1, bias: bool = True, dtype: torch.dtype = torch.float32):
+                 padding: int = 0, groups: int = 1, bias: bool = True, tf_same: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
                          groups=groups, bias=bias)
+        self.tf_same = tf_same
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         weight = self.weight.to(dtype=dt, memory_format=torch.channels_last)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), weight, bias, self.stride, self.padding, self.dilation, self.groups)
+        padding = self.padding
+        if self.tf_same:
+            (top, bottom), (left, right) = tf_same_padding(x.shape[2], x.shape[3], self.kernel_size[0],
+                                                           self.stride[0])
+            if bottom > top or right > left:
+                x = F.pad(x, (0, right - left, 0, bottom - top))
+            padding = (top, left)
+        return F.conv2d(x.to(dt), weight, bias, self.stride, padding, self.dilation, self.groups)
 
 
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm``: eps 1e-6 (torch's default is 1e-5), statistics and
-    affine in f32, output in ``dtype``."""
+    affine in f32 (the parameters' dtype; float64 where the input or the
+    model is float64), output in ``dtype``."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=eps)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        y = F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -139,6 +170,54 @@ class SqueezeExcite(nn.Module):
         s = self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3)))))
         s = torch.sigmoid(s.float()).to(x.dtype)
         return x * s[:, :, None, None]
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """clip(x/6 + 0.5, 0, 1) in x's dtype, as the JAX package writes it
+    (``F.hardsigmoid`` rounds differently)."""
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    return x * hard_sigmoid(x)
+
+
+def make_divisible(v: float, divisor: int = 8) -> int:
+    """The nearest multiple of ``divisor`` at or above ``divisor``, raised by
+    one step when rounding lost more than 10% (timm's and the JAX package's
+    ``_make_divisible``)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class SEBlock(nn.Module):
+    """The JAX ``SEBlock`` on an NCHW map: mean over H, W → 1×1 conv to
+    ``reduce_ch`` → ``act`` → 1×1 conv back → ``gate`` in f32 → scale the
+    map. MobileNetV3 uses relu and ``hard_sigmoid``, EfficientNetV2 silu
+    and sigmoid. The 1×1 convs (timm's ``conv_reduce``/``conv_expand``)
+    compute on the pooled [B, C, 1, 1] map what the JAX Dense layers
+    compute on [B, C]."""
+
+    def __init__(self, channels: int, reduce_ch: int, act: Callable = F.relu,
+                 gate: Callable = hard_sigmoid, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act, self.gate = act, gate
+        self.conv_reduce = Conv2d(channels, reduce_ch, 1, dtype=dtype)
+        self.conv_expand = Conv2d(reduce_ch, channels, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.conv_expand(self.act(self.conv_reduce(x.mean(dim=(2, 3), keepdim=True))))
+        return x * self.gate(s.float()).to(x.dtype)
+
+
+class LayerNorm2d(LayerNorm):
+    """``LayerNorm`` over the channels of an NCHW map in ``channels_last``
+    memory (the NHWC layout, so the permutes are views)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -245,7 +245,8 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
     b, d = qkv.shape[0], qkv.shape[-1] // (3 * heads)
     if n > _MAX_WS**2 or d > _MAX_HEAD_DIM:
         raise ValueError(f"{op} kernel takes ws <= {_MAX_WS} and head_dim <= {_MAX_HEAD_DIM}, "
-                         f"got ws² = {n}, head_dim = {d}")
+                         f"got ws² = {n}, head_dim = {d} (swinv2_large_window12to16_192to256's ws 16 "
+                         "is not taken yet)")
     if not 1 <= b <= 65535 or heads > 65535:
         raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={heads}")
     return True
