@@ -15,12 +15,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
              parallel, and prints ptxas' register and spill lines. Reads the
              SASS of all four libraries (cuobjdump): every bf16 instantiation
              of the forward, dq and dkv kernels (head-dim buckets 32, 64, 80,
-             128 x variant), of the window forward (32, 64 x shift regions
-             or none x stash or none) and of the window backward (32, 64 x
-             from P, recompute shifted, recompute unshifted) must issue
-             tensor-core instructions (HMMA, or HGMMA for wgmma), counted per
-             kernel; the float32 CUDA-core kernels must have no bf16
-             instantiation.
+             128 x variant), of the window forward, ws <= 8 and the tiled
+             8 < ws <= 16 (32, 64 x shift regions or none x stash or none)
+             and of the window backward, ws <= 8 and the tiled dq and dkv
+             kernels (32, 64 x from P, recompute shifted, recompute
+             unshifted) must issue tensor-core instructions (HMMA, or HGMMA
+             for wgmma), counted per kernel; the float32 CUDA-core kernels
+             must have no bf16 instantiation.
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
@@ -50,7 +51,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
              shapes (the JAX kernel test's B=4, 8×8, ws 4, 2 heads, shift 2;
              ws 8 with head dim 64 and scale 1.0, SwinV2's call; head dim 12,
              whose rows are not 16-byte aligned: the bf16 kernels load and
-             store them element by element). In bf16 all four run on the
+             store them element by element); then the tiled bodies of
+             8 < ws <= 16 at SwinV2-L's stages at bs 32 (stage 0: 64×64, 6
+             heads, ws 16 shifted by 8; stage 1: 32×32, 12 heads, shifted;
+             stage 2: 16×16, 24 heads, one window; scale 1.0), ws 12 (N =
+             144), ws 16 at head dim 64, ws 9 (the stash's rows not 16-byte
+             aligned) and head dim 12 at ws 16. In bf16 all four run on the
              tensor cores, the forwards over fixed runs of windows per block
              with the stash written through shared memory (its 49 x 49 tiles
              are not 16-byte aligned). O, P and dqkv
@@ -60,7 +66,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              terms over up to 5120 windows in another order. A repeated
              backward from P must return bit-identical dbias. Times all four
              kernels and their plain versions at the stage-0 (unshifted) and
-             stage-2 bf16 shapes, in the order plain, kernel, kernel, plain.
+             stage-2 bf16 shapes and at SwinV2-L's stage 0, in the order plain,
+             kernel, kernel, plain, beside SDPA with the bias as attn_mask on
+             pre-partitioned windows; the SwinV2-L rows get `[bound ws16]`
+             lines at the end.
 5. train   — the training path: the pet_synth model at full width and depth,
              bf16 compute with f32 parameters, bs 128 seeded uint8 images and
              int labels, make_train_step with CE (label smoothing 0.05) and the
@@ -239,10 +248,34 @@ V2. swinv2 run — configs/classification/pet.yaml with SwinV2-B in Swin-B's
              runs A and B in this process, bit-identical, exactly 24 K2s +
              24 K2b a step and 24 K2 a val forward; `validate --ema` on A's
              best reproducing its top1 exactly.
-V2L. swinv2 large — swinv2_large_window12to16_192to256 at 256² attends in
-             16×16 windows (N = 256) in stages 0-2, which the window kernels
-             do not take yet: its bf16 eval forward at bs 1 on the card must
-             raise the kernel wrapper's ValueError and launch nothing.
+V2L. swinv2 large — swinv2_large_window12to16_192to256 at 256² (embed 192,
+             depths (2, 2, 18, 2), full width and depth, seeded weights)
+             attends in 16×16 windows (N = 256) in stages 0-2, on the window
+             kernels' tiled bodies. Serving, bf16, bs 64: exactly 24 K2 a
+             forward, 22 of them on ws-16 windows; logits against the plain
+             path, per-row cosine >= 0.999; images/s of both paths; its
+             profile. Training, bf16, bs 32, pet.yaml's hyp: 3 steps of 24
+             K2s + 24 K2b (22 each on ws-16 windows), one step of 24 K2 + 24
+             K2r with VDK_ATTN_NO_PCACHE=1, every qkv.weight, logit_scale
+             and cpb_mlp.0.weight gradient non-zero after the first;
+             images/s and peak memory (kernel, plain, kernel), its profile;
+             the repeat check (no gradient differs between two identical
+             backward passes); one f32 step at bs 4 against the plain path
+             with phase 5's bars; ws 17 on the card raises the wrapper's
+             ValueError naming the limit. Then the V2 run with SwinV2-L in
+             SwinV2-B's place (2 epochs, A = B bit-identical, exact launches,
+             22 of each 24 on ws-16 windows, validate --ema's top1 exact).
+ST. strategies — configs/classification/pet_synth.yaml (ViT-B/16, bs 128,
+             the device-augment stage) through the port's CLIs with mixup
+             (ratio 0.2, duration 1: live in epoch 1, after warm_ep), OHEM on
+             ([True, 8, 0.7, 255]) and hyp.accumulate 2, 2 epochs, on 33 of
+             the run loop's train JPEGs a class (9 steps an epoch, so epoch
+             0 ends in the middle of an accumulation round): runs A and B
+             bit-identical, exactly 12 K1 (the OHEM forward) + 12 K1s + 12
+             K1b a step and 12 K1 a val forward, the last checkpoint's
+             mini-step, applied-update and EMA counts; run C SIGKILLed in
+             epoch 1 (epoch 0's checkpoint holds the half round) and resumed,
+             bit-identical to A; validate --ema reproduces A's best top1.
 MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              (ArcFace, MagFace, CircleLoss, MV-Softmax AM and Arc), forward
              and gradient, on the card in f32 against the same function in
@@ -309,8 +342,11 @@ bf16 train runs of ViT-B/16, Swin-B and SwinV2-B, the run loop's in-process
 runs (A, B, C's resume, validate), the distillation phase's (teacher runs A,
 B; distill runs A, B), the SwinV2 run's (A, B, validate), the embedding
 runs' (face A, B, C's resume, validate; CBIR,
-validate, cbir_eval) and the vision path, counts set to 0 before each and
-read after), and times at the ViT-B/16 bf16 shape (fused QKV
+validate, cbir_eval), SwinV2-L's serving, training and run (A, B,
+validate), the strategy runs' (A, B, C's resume, validate) and the vision
+path, counts set to 0 before each and
+read after; the window kernels' launches on ws-16 windows counted apart
+in the `[launches]` lines), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
 attention); the last line is {"ok": true, "device": {...}}. The
 device-augment stage has no kernel of its own (plain PyTorch ops on the card),
@@ -344,7 +380,9 @@ import torch
 import torch.nn.functional as F
 
 from visiondk_tpu_torch.engine.state import create_train_state
-from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step, make_train_step
+from visiondk_tpu_torch.engine.steps import (
+    StepConfig, device_preprocess, make_embed_step, make_eval_step, make_train_step,
+)
 from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import get_model
@@ -475,6 +513,21 @@ QKV_CASES = [
     ("n_mult8", 8, 200, 6, 64, 196),
 ]
 
+# The tiled bodies (8 < ws <= 16), same fields: SwinV2-L (swinv2_large_window12to16_192to256
+# at 256², scale 1.0) at bs 32, stage 0 shifted (timed), stage 1 shifted and
+# stage 2 (one window, unshifted); ws 12 (N = 144, no multiple of the 32-key
+# tiles); ws 16 at head dim 64; ws 9 (N = 81: the stash's rows are not
+# 16-byte aligned); head dim 12 at ws 16 (element-by-element loads and stores)
+WINDOW16_CASES = [
+    ("swinv2_l_stage0_shifted", 32, 64, 6, 192, 16, 8, 1.0, True),
+    ("swinv2_l_stage1_shifted", 32, 32, 12, 384, 16, 8, 1.0, False),
+    ("swinv2_l_stage2", 32, 16, 24, 768, 16, 0, 1.0, False),
+    ("ws12_shifted", 4, 24, 4, 128, 12, 6, None, False),
+    ("ws16_hd64", 4, 32, 2, 128, 16, 8, 1.0, False),
+    ("ws9_unaligned_p", 2, 18, 2, 64, 9, 4, None, False),
+    ("ws16_hd12_unaligned", 2, 32, 2, 24, 16, 8, None, False),
+]
+
 # (name, B, H=W, heads, C, ws, shift, scale, timed): Swin-B at bs 80, stage by
 # stage (18 of its 24 blocks run at stage 2), the JAX kernel test's shape,
 # SwinV2's window 8 with scale 1.0 at head dim 64, and head dim 12 (rows not
@@ -487,6 +540,7 @@ WINDOW_CASES = [
     ("jax_test", 4, 8, 2, 32, 4, 2, None, False),
     ("ws8_scale1", 4, 16, 2, 128, 8, 4, 1.0, False),
     ("hd12_unaligned", 2, 14, 2, 24, 7, 3, None, False),
+    *WINDOW16_CASES,
 ]
 
 NAMES = {k: k.__name__ for k in KERNELS}
@@ -600,12 +654,20 @@ def heads_view(qkv: torch.Tensor, heads: int):
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in wattn.KERNELS:
+        k.large_launches = 0
     da.make_device_augment.calls = 0
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
     return {k: k.launches for k in KERNELS}
+
+
+def read_large_counts() -> dict:
+    """The window kernels' launches on windows of N > 64 (ws 16 here), which
+    read_counts also counts."""
+    return {k: k.large_launches for k in wattn.KERNELS}
 
 
 def only(launches: dict) -> dict:
@@ -656,12 +718,16 @@ def sass_mma_counts(lib_path) -> dict:
 TC_KERNELS = {"fused_qkv_attention": ("fused_attention_fwd_tc_kernel", "fused_attention_fwd_kernel"),
               "fused_qkv_attention_bwd": ("attention_bwd_dq_tc_kernel", "attention_bwd_dkv_tc_kernel",
                                           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"),
-              "fused_window_attention": ("window_attention_fwd_tc_kernel", "window_attention_fwd_kernel"),
-              "fused_window_attention_bwd": ("window_attention_bwd_tc_kernel", "window_attention_bwd_kernel")}
+              "fused_window_attention": ("window_attention_fwd_tc_kernel", "window_attention_fwd_kernel",
+                                         "window_attention_fwd_large_tc_kernel", "window_attention_fwd_large_kernel"),
+              "fused_window_attention_bwd": ("window_attention_bwd_tc_kernel", "window_attention_bwd_kernel",
+                                             "window_attention_dq_tc_kernel", "window_attention_dkv_tc_kernel",
+                                             "window_attention_dq_kernel", "window_attention_dkv_kernel")}
 # bf16 instantiations of each tensor-core kernel, per library: head-dim buckets
 # 32, 64, 80, 128 x two variants (fused QKV); 32, 64 x shift regions or none x
-# stash or none (window forward); 32, 64 x three variants (window backward:
-# from P, recompute with and without shift regions)
+# stash or none (window forward, ws <= 8 and the tiled 8 < ws <= 16); 32, 64 x
+# three variants (window backward, and the tiled dq and dkv kernels: from P,
+# recompute with and without shift regions)
 TC_INSTANTIATIONS = {"fused_qkv_attention": 8, "fused_qkv_attention_bwd": 8, "fused_window_attention": 8,
                      "fused_window_attention_bwd": 6}
 
@@ -848,6 +914,10 @@ def window_library(qkv, bias, ids, dout, h: int, ws: int, scale):
     return {kf: fwd, ks: stash, kb: bwd, kr: bwd}, note
 
 
+# the window kernels' rows at SwinV2-L stage 0 (the timed ws-16 case): (tag, bound row), for report()
+WS16_ROWS: dict = {}
+
+
 def phase_window_kernel(dev: torch.device) -> dict:
     """Every window-attention kernel against its plain version; returns, per
     kernel, its max error and times (ms) at the Swin-B stage-0 bf16 shape."""
@@ -927,8 +997,11 @@ def phase_window_kernel(dev: torch.device) -> dict:
                     lib, lib_what = library[k]
                     times = time_row(f"[window kernel] {tag}", NAMES[k], kern, plain, lib,
                                      f"{lib_what}; {lib_note}" if lib is not None else lib_what)
+                    row = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
                     if name == "swin_b_stage0":
-                        summary[k] = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
+                        summary[k] = row
+                    elif ws > 8:
+                        WS16_ROWS[k] = (tag, row)
                 del calls, library
             del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref
             torch.cuda.empty_cache()
@@ -2972,15 +3045,16 @@ def phase_distill(dev: torch.device, pet_data: tuple) -> dict:
 SV2_EPOCHS = 2
 
 
-def swinv2_pet_yaml(root: Path, out: Path) -> tuple:
-    """configs/classification/pet.yaml with SwinV2-B at 256² in Swin-B's
-    place (the model name and the `resize_size` anchor that every resize of
-    the file reads), data.root ``root`` and SV2_EPOCHS epochs, written to
-    ``out``; returns (the config, what the cuts replaced: root, epochs)."""
+def swinv2_pet_yaml(root: Path, out: Path, name: str = SWINV2_NAME) -> tuple:
+    """configs/classification/pet.yaml with the SwinV2 ``name`` at 256² in
+    Swin-B's place (the model name and the `resize_size` anchor that every
+    resize of the file reads), data.root ``root`` and SV2_EPOCHS epochs,
+    written to ``out``; returns (the config, what the cuts replaced: root,
+    epochs)."""
     from visiondk_tpu_torch.config import yaml_dump, yaml_load
 
     text = PET_YAML.read_text()
-    swaps = ((f"name: {PET_MODEL['name']}", f"name: {SWINV2_NAME}"), ("&resize_size 224", "&resize_size 256"))
+    swaps = ((f"name: {PET_MODEL['name']}", f"name: {name}"), ("&resize_size 224", "&resize_size 256"))
     for old, new in swaps:
         check(text.count(old) == 1, f"pet.yaml has {text.count(old)} lines '{old}', want 1")
         text = text.replace(old, new)
@@ -2992,11 +3066,12 @@ def swinv2_pet_yaml(root: Path, out: Path) -> tuple:
     return cfg, was
 
 
-def phase_swinv2_run(dev: torch.device, pet_data: tuple) -> dict:
-    """SwinV2-B classification through the port's CLIs (see the module doc):
-    runs A and B bit-identical, exact K2-family launches, validate on A's
-    best; returns the launches of the in-process runs."""
-    tag = "swinv2 run"
+def phase_swinv2_run(dev: torch.device, pet_data: tuple, name: str = SWINV2_NAME, tag: str = "swinv2 run",
+                     ws16_blocks: int = 0) -> dict:
+    """pet.yaml with a SwinV2 in Swin-B's place through the port's CLIs (see
+    the module doc): runs A and B bit-identical, exact K2-family launches
+    (``ws16_blocks`` of each step's and forward's on ws-16 windows), validate
+    on A's best; returns the launches of the in-process runs."""
     fwd, stash, bwd_p, _ = wattn.KERNELS
     depth = SWINV2.depth
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
@@ -3006,23 +3081,28 @@ def phase_swinv2_run(dev: torch.device, pet_data: tuple) -> dict:
         n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
         n_val = sum(1 for _ in (root / "val").rglob("*.jpg"))
         yaml_path = tmp / "pet_swinv2.yaml"
-        cfg, was = swinv2_pet_yaml(root, yaml_path)
+        cfg, was = swinv2_pet_yaml(root, yaml_path, name)
         bs, val_bs = cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
         steps, val_batches = n_train // bs, -(-n_val // val_bs)
-        print(f"[{tag}] configs/classification/pet.yaml with these cuts: model.name {SWINV2_NAME} and the "
+        print(f"[{tag}] configs/classification/pet.yaml with these cuts: model.name {name} and the "
               f"resize_size anchor 256 (was {PET_MODEL['name']} at 224: model.image_size and every resize of the "
               f"train and val augments read it), data.root the synthetic pet folders (was {was[0]}; {n_train} "
               f"train / {n_val} val JPEGs, {steps} steps of {bs} an epoch), hyp.epochs {SV2_EPOCHS} (was {was[1]}: "
               f"the config check wants more epochs than warm_ep's {cfg['hyp']['warm_ep']}); everything else as "
               f"written (bs {bs}, val bs {val_bs}, bf16)")
         totals, runs = {k: 0 for k in KERNELS}, {}
+        large_want = {fwd: ws16_blocks * val_batches * SV2_EPOCHS, stash: ws16_blocks * steps * SV2_EPOCHS,
+                      bwd_p: ws16_blocks * steps * SV2_EPOCHS}
         for run in ("A", "B"):
             project = tmp / f"run{run}"
             out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project", str(project),
                                                                "--seed", "0"])
+            large = read_large_counts()
             want = only({stash: depth * steps * SV2_EPOCHS, bwd_p: depth * steps * SV2_EPOCHS,
                          fwd: depth * val_batches * SV2_EPOCHS})
-            check(counts == want, f"SwinV2 run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+            check(counts == want, f"{name} run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+            check(all(large[k] == large_want.get(k, 0) for k in wattn.KERNELS),
+                  f"{name} run {run} ws-16 launches {[(NAMES[k], v) for k, v in large.items()]}")
             totals = {k: totals[k] + counts[k] for k in KERNELS}
             runs[run] = metrics
             print(f"[{tag}] run {run}: {secs:.1f} s; per epoch train loss "
@@ -3032,10 +3112,12 @@ def phase_swinv2_run(dev: torch.device, pet_data: tuple) -> dict:
                   + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(SV2_EPOCHS))
                   + f"; launches {NAMES[stash]} {counts[stash]}, {NAMES[bwd_p]} {counts[bwd_p]} (= {depth} x "
                     f"{steps * SV2_EPOCHS} steps), {NAMES[fwd]} {counts[fwd]} (= {depth} x {val_batches} val batches "
-                    f"x {SV2_EPOCHS} epochs), no other attention kernel")
+                    f"x {SV2_EPOCHS} epochs), no other attention kernel"
+                  + (f"; on ws-16 windows {large[stash]}, {large[bwd_p]}, {large[fwd]} ({ws16_blocks} of the "
+                     f"{depth} blocks)" if ws16_blocks else ""))
         same = same_metrics(runs["A"], runs["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(SV2_EPOCHS))
         print(f"[{tag}] run B vs run A: bit-identical {same} (required)")
-        check(same, "seeded SwinV2-B runs A and B are not bit-identical")
+        check(same, f"seeded {name} runs A and B are not bit-identical")
 
         reset_counts()
         out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
@@ -3043,43 +3125,265 @@ def phase_swinv2_run(dev: torch.device, pet_data: tuple) -> dict:
         counts_v = read_counts()
         check(counts_v == only({fwd: depth * val_batches}),
               f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+        check(read_large_counts()[fwd] == ws16_blocks * val_batches, "validate's ws-16 launches")
         top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
         best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
         top1_a = runs["A"]["Val_top1"][best_epoch]
         print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
               f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
         check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+        for k in wattn.KERNELS:
+            LARGE_LAUNCHES[k] = LARGE_LAUNCHES.get(k, 0) + 2 * large_want.get(k, 0) + (
+                ws16_blocks * val_batches if k is fwd else 0)
         return {k: totals[k] + counts_v[k] for k in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 SWINV2_LARGE = "swinv2_large_window12to16_192to256"
+# SwinV2-L at its 256², pet.yaml's model section and hyp otherwise: stages 0-2 (22 of its 24 blocks)
+# attend in 16 x 16 windows (N = 256) on the window kernels' tiled bodies, stage 3 in 8 x 8
+SWINV2_L = Recipe("swinv2 large serving", "swinv2 large train", {**PET_MODEL, "name": SWINV2_LARGE, "image_size": 256},
+                  {"task": "cbir", "backbone": {SWINV2_LARGE: {"pretrained": False, "image_size": 256,
+                                                                "feat_dim": 128}}},
+                  PET_HYP, 32, 4, 3, 24, wattn.KERNELS,
+                  ("attn.qkv.weight", "attn.logit_scale", "attn.cpb_mlp.0.weight"), img=256)
+V2L_WS16_BLOCKS = 22
+V2L_SERVE_BATCH = 64
+# launches on ws-16 windows on the main paths, by window kernel, for report()
+LARGE_LAUNCHES: dict = {}
 
 
-def phase_swinv2_large(dev: torch.device) -> None:
-    """swinv2_large_window12to16_192to256 at its 256²: stages 0-2 attend in
-    16×16 windows (N = 256), which the window kernels do not take yet. Its
-    bf16 eval forward on the card must raise the kernel wrapper's
-    ValueError, launching nothing (no fallback to the plain version)."""
-    tag = "swinv2 large"
-    cfg = {"task": "classification", "name": SWINV2_LARGE, "image_size": 256, "num_classes": 35, "kwargs": {}}
-    model = get_model(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+def phase_swinv2_large(dev: torch.device) -> dict:
+    """swinv2_large_window12to16_192to256 at 256² on the card (see the module
+    doc): serving, training, the repeat check and the f32 step against the
+    plain path. Returns the launches of its bf16 serving and training runs."""
+    tag, recipe = "swinv2 large", SWINV2_L
+    fwd, stash, bwd_p, bwd_r = recipe.kernels
+    depth, img, ws16 = recipe.depth, recipe.img, V2L_WS16_BLOCKS
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [{"image": torch.randint(0, 256, (V2L_SERVE_BATCH, img, img, 3), generator=gen, device=dev,
+                                       dtype=torch.uint8)} for _ in range(2)]
+
+    # serving, bf16, bs 64: the main path, counted
+    model = get_model(recipe.model, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
     eval_step = make_eval_step(model, StepConfig())
-    batch = {"image": torch.zeros((1, 256, 256, 3), device=dev, dtype=torch.uint8)}
     reset_counts()
+    logits = [eval_step(b) for b in batches]
+    counts, large = read_counts(), read_large_counts()
+    check(counts == only({fwd: depth * len(batches)}), f"serving launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    check(large[fwd] == ws16 * len(batches), f"serving launched {large[fwd]} ws-16 forwards, want {ws16} a forward")
+    totals = dict(counts)
+    set_fused(model, False)
+    ref = [eval_step(b) for b in batches]
+    set_fused(model, True)
+    out, ref = torch.cat(logits), torch.cat(ref)
+    check(out.shape == (V2L_SERVE_BATCH * len(batches), recipe.model["num_classes"]) and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), f"logits: shape {tuple(out.shape)}, finite {torch.isfinite(out).all()}")
+    cos = row_cosine(out, ref).min().item()
+    print(f"[{tag}] {SWINV2_LARGE} bf16 eval bs {V2L_SERVE_BATCH}, {img}²: {counts[fwd]} {NAMES[fwd]} launches over "
+          f"{len(batches)} forwards ({large[fwd]} on ws-16 windows: {ws16} of the {depth} blocks a forward), nothing "
+          f"else; logits kernel vs plain path: min row cosine {cos:.6f} (want >= {MIN_COSINE}), max |diff| "
+          f"{(out - ref).abs().max().item():.3e}")
+    check(cos >= MIN_COSINE, f"{SWINV2_LARGE} logits: min row cosine {cos} < {MIN_COSINE}")
+    rates = {True: [], False: []}
+    for fused in (True, False, False, True):
+        set_fused(model, fused)
+        rates[fused].append(images_per_s(eval_step, batches[0]))
+    set_fused(model, True)
+    print(f"[{tag}] eval bs {V2L_SERVE_BATCH} bf16 images/s: kernel path {rates[True][0]:.1f}, {rates[True][1]:.1f} | "
+          f"plain path {rates[False][0]:.1f}, {rates[False][1]:.1f} (order kernel, plain, plain, kernel)")
+    profile_step(f"{SWINV2_LARGE} eval", lambda: eval_step(batches[0]), V2L_SERVE_BATCH)
+    del model, eval_step, logits, ref
+    torch.cuda.empty_cache()
+
+    # training, bf16: the stash forwards and backwards from P, counted, then recomputing
+    bs = recipe.train_batch
+    batch = {"image": torch.randint(0, 256, (bs, img, img, 3), generator=gen, device=dev, dtype=torch.uint8),
+             "label": torch.randint(0, recipe.model["num_classes"], (bs,), generator=gen, device=dev)}
+    model, state, step = build_trainer(recipe, torch.bfloat16, dev)
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    losses = []
+    for i in range(recipe.train_steps):
+        reset_counts()
+        loss = step(state, batch)["loss"]
+        counts, large = read_counts(), read_large_counts()
+        check(counts == only({stash: depth, bwd_p: depth}) and large[stash] == large[bwd_p] == ws16,
+              f"train step {i}: launches {[(NAMES[k], v) for k, v in counts.items()]}, ws-16 {large}")
+        totals = {k: totals[k] + counts[k] for k in KERNELS}
+        losses.append(loss.item())
+        check(math.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+        if i == 0:
+            bad = [n for n, p in model.named_parameters() if p.grad is None or not torch.isfinite(p.grad).all()]
+            check(not bad, f"parameters without a finite gradient: {bad[:5]}")
+            for suffix in recipe.nonzero_grads:
+                named = [(n, p) for n, p in model.named_parameters() if n.endswith(suffix)]
+                zero = [n for n, p in named if not p.grad.abs().sum().item() > 0]
+                check(len(named) == depth and not zero, f"{suffix} gradients that are zero: {zero}")
+    os.environ["VDK_ATTN_NO_PCACHE"] = "1"
+    reset_counts()
+    loss = step(state, batch)["loss"]
+    counts, large = read_counts(), read_large_counts()
+    os.environ.pop("VDK_ATTN_NO_PCACHE")
+    check(counts == only({fwd: depth, bwd_r: depth}) and large[fwd] == large[bwd_r] == ws16 and
+          math.isfinite(loss.item()), f"no-pcache step: launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    totals = {k: totals[k] + counts[k] for k in KERNELS}
+    for k in recipe.kernels:
+        LARGE_LAUNCHES[k] = LARGE_LAUNCHES.get(k, 0) + ws16 * totals[k] // depth
+    print(f"[{tag}] bf16 bs {bs} train, {recipe.train_steps} steps: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"launches per step {depth} {NAMES[stash]} + {depth} {NAMES[bwd_p]} ({ws16} of each on ws-16 windows), "
+          f"with VDK_ATTN_NO_PCACHE=1 {depth} {NAMES[fwd]} + {depth} {NAMES[bwd_r]} (loss {loss.item():.5f}); all "
+          f"{depth} {' and '.join(recipe.nonzero_grads)} gradients non-zero after step 0")
+    for trial, path in enumerate((KERNEL_PATH, PLAIN_PATH, KERNEL_PATH)):
+        train_rate(model, state, step, batch, path, f"[{tag}] bf16 bs {bs} trial {trial}, {path[0]} path")
+    set_fused(model, True)
+    profile_step(f"{SWINV2_LARGE} train", lambda: step(state, batch), bs)
+
+    # the repeat check: two backward passes from the same weights and batch give the same gradients
+    lossfn = create_lossfn("ce", label_smooth=LABEL_SMOOTH)
+    images = device_preprocess(batch["image"], StepConfig().mean, StepConfig().std)
+    model.train()
+    unequal = unequal_gradients(model, lambda: lossfn(model(images), batch["label"]))
+    print(f"[{tag}] gradients unequal between two identical backward passes: "
+          f"{', '.join(unequal[:6]) if unequal else 'none'} (of {sum(1 for _ in model.parameters())} parameters)")
+    check(not unequal, f"{SWINV2_LARGE}: gradients differ between two identical backward passes: {unequal[:6]}")
+    del model, state, step, images
+    torch.cuda.empty_cache()
+
+    # one f32 step on the kernel path against the plain path
+    compare_one_step(recipe, torch.float32, dev, {k: v[:recipe.f32_train_batch] for k, v in batch.items()}, tag=tag)
+    torch.cuda.empty_cache()
+
+    # the wrapper takes ws <= 16 and raises above it, naming the limit
+    x = torch.zeros((1, 17, 17, 3 * 2 * 8), device=dev, dtype=torch.bfloat16)
     try:
-        eval_step(batch)
+        fwd(x, torch.zeros((2, 289, 289), device=dev), None, 2)
         raised = None
     except ValueError as err:
         raised = err
-    counts = read_counts()
-    check(raised is not None and "ws 16 is not taken yet" in str(raised),
-          f"{SWINV2_LARGE}'s forward on the card did not raise the window kernel's ws error: {raised!r}")
-    check(all(v == 0 for v in counts.values()), f"{SWINV2_LARGE} launched {counts}")
-    print(f"[{tag}] {SWINV2_LARGE} bf16 eval forward at bs 1, 256²: raised ValueError({raised}); no kernel launched")
-    del model, eval_step
-    torch.cuda.empty_cache()
+    check(raised is not None and "ws <= 16" in str(raised), f"ws 17 on the card did not raise the limit: {raised!r}")
+    print(f"[{tag}] ws 17 on the card: ValueError({raised})")
+    return totals
+
+
+# ---------------------------------------------------------------- strategies
+
+# pet_synth.yaml with mixup in epoch 1 (the epoch after warm_ep), OHEM on and
+# two mini-batches an update; 33 of the run loop's 40 train JPEGs a class
+# (1,155: 9 steps of 128, so epoch 0 ends in the middle of a round of 2)
+ST_CUTS = {"n_train_per_class": 33, "epochs": 2, "mixup": {"ratio": 0.2, "duration": 1},
+           "ohem": [True, 8, 0.7, 255], "accumulate": 2}
+
+
+def subset_root(root: Path, out: Path, n_train: int) -> Path:
+    """``out`` holding the first ``n_train`` train JPEGs of each class of
+    ``root`` (by name) and all its val JPEGs, as symbolic links."""
+    for split in ("train", "val"):
+        for class_dir in sorted((root / split).iterdir()):
+            files = sorted(class_dir.glob("*.jpg"))
+            dst = out / split / class_dir.name
+            dst.mkdir(parents=True)
+            for f in files[:n_train] if split == "train" else files:
+                (dst / f.name).symlink_to(f)
+    return out
+
+
+def phase_strategies(dev: torch.device, pet_data: tuple) -> dict:
+    """pet_synth's ViT-B/16 with mixup, OHEM and gradient accumulation through
+    the port's CLIs (see the module doc); returns the launches of the
+    in-process runs."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+    from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
+
+    tag = "strategies"
+    fwd, stash, bwd_p, _ = K1_KERNELS
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_strategies_"))
+    try:
+        root = subset_root(synth_pet_root(pet_data, tag), tmp / "data", ST_CUTS["n_train_per_class"])
+        cfg = yaml_load(PET_SYNTH_YAML)
+        was = (cfg["hyp"]["epochs"], cfg["hyp"]["strategy"]["mixup"], cfg["hyp"]["strategy"]["ohem"],
+               cfg["hyp"].get("accumulate"))
+        cfg["data"]["root"] = str(root)
+        cfg["hyp"]["epochs"] = ST_CUTS["epochs"]
+        cfg["hyp"]["strategy"]["mixup"] = dict(ST_CUTS["mixup"])
+        cfg["hyp"]["strategy"]["ohem"] = list(ST_CUTS["ohem"])
+        cfg["hyp"]["accumulate"] = ST_CUTS["accumulate"]
+        yaml_path = tmp / "pet_synth_strategies.yaml"
+        yaml_dump(cfg, yaml_path)
+        n_classes, bs, val_bs = cfg["model"]["num_classes"], cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+        n_train = ST_CUTS["n_train_per_class"] * n_classes
+        n_val = RUN_LOOP_CUTS["n_val_per_class"] * n_classes
+        epochs, k = ST_CUTS["epochs"], ST_CUTS["accumulate"]
+        steps, val_batches = n_train // bs, -(-n_val // val_bs)
+        print(f"[{tag}] configs/classification/pet_synth.yaml with these cuts: hyp.strategy.mixup "
+              f"{ST_CUTS['mixup']} (was {was[1]}), hyp.strategy.ohem {ST_CUTS['ohem']} (was {was[2]}), "
+              f"hyp.accumulate {k} (was {was[3]}), hyp.epochs {epochs} (was {was[0]}), the run loop's JPEGs cut to "
+              f"{ST_CUTS['n_train_per_class']} train a class ({n_train} train / {n_val} val, {steps} steps of {bs} an "
+              f"epoch: epoch 0 ends in the middle of a round of {k}); everything else as written")
+        # a step: the OHEM forward (no stash, no gradient), the stash forward and the backward from P
+        want = only({fwd: DEPTH * (steps + val_batches), stash: DEPTH * steps, bwd_p: DEPTH * steps})
+        totals, runs = {k_: 0 for k_ in KERNELS}, {}
+        for run in ("A", "B"):
+            project = tmp / f"run{run}"
+            out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project", str(project),
+                                                               "--seed", "0"])
+            check(counts == {k_: v * epochs for k_, v in want.items()},
+                  f"run {run} launches {[(NAMES[k_], v) for k_, v in counts.items()]}")
+            check("Mixup start up" in out, f"run {run} logged no 'Mixup start up'")
+            totals = {k_: totals[k_] + counts[k_] for k_ in KERNELS}
+            runs[run] = metrics
+            print(f"[{tag}] run {run}: {secs:.1f} s; per epoch train loss "
+                  + ", ".join(f"{metrics['Train_loss'][e]!r}" for e in range(epochs)) + ", val top1 "
+                  + ", ".join(f"{metrics['Val_top1'][e]!r}" for e in range(epochs)) + ", lr "
+                  + ", ".join(f"{metrics['Train_lr'][e]!r}" for e in range(epochs)) + "; trainer-fed images/s "
+                  + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(epochs))
+                  + f"; launches per epoch {NAMES[fwd]} {counts[fwd] // epochs} (= {DEPTH} x ({steps} OHEM forwards + "
+                    f"{val_batches} val batch)), {NAMES[stash]} and {NAMES[bwd_p]} {counts[stash] // epochs} "
+                    f"(= {DEPTH} x {steps}); 'Mixup start up' logged")
+        saved = CheckpointManager(tmp / "runA").read("last")
+        check((saved["step"], saved["opt_count"], saved["ema_updates"], saved["opt_mini_step"]) ==
+              (steps * epochs, steps * epochs // k, steps * epochs // k, steps * epochs % k),
+              f"run A's last checkpoint counts {saved['step'], saved['opt_count'], saved['ema_updates']}")
+        same = same_metrics(runs["A"], runs["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(epochs))
+        print(f"[{tag}] run B vs run A: bit-identical {same} (required); run A's last checkpoint: {steps * epochs} "
+              f"mini-steps, {saved['opt_count']} applied updates, {saved['ema_updates']} EMA updates")
+        check(same, "seeded strategy runs A and B are not bit-identical")
+        shutil.rmtree(tmp / "runB")
+
+        # run C: killed in epoch 1 once epoch 0's checkpoint (in the middle of a round) is complete, resumed
+        run_c = tmp / "runC"
+        killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
+        ckpt = CheckpointManager(run_c).read("last")
+        check(ckpt["opt_mini_step"] == steps % k and (ckpt["opt_acc_grads"] is not None) == bool(steps % k),
+              f"epoch 0's checkpoint holds mini-step {ckpt['opt_mini_step']}")
+        del ckpt
+        out_c, counts_c, metrics_c, _ = counted_run(run_c, ["--cfgs", str(yaml_path), "--project", str(run_c),
+                                                            "--seed", "0", "--resume"])
+        resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
+        check(resumed == 1 and counts_c == want, f"run C resumed from epoch {resumed}, launches "
+                                                 f"{[(NAMES[k_], v) for k_, v in counts_c.items()]}")
+        same_c = same_metrics(runs["A"], metrics_c, ("Train_loss", "Val_top1", "Val_v_loss"), range(resumed, epochs))
+        print(f"[{tag}] run C: SIGKILL in epoch 1, epoch 0's checkpoint in the middle of a round (mini-step "
+              f"{steps % k} of {k}, its running mean saved), --resume from epoch {resumed}: epoch {epochs} "
+              f"bit-identical to run A: {same_c} (required)")
+        check(same_c, "the resumed strategy run C is not bit-identical to run A")
+
+        reset_counts()
+        out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
+                                                         "--weight", str(tmp / "runA" / "best"), "--ema"])
+        counts_v = read_counts()
+        check(counts_v == only({fwd: DEPTH * val_batches}),
+              f"validate launches {[(NAMES[k_], v) for k_, v in counts_v.items()]}")
+        top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
+        best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
+        top1_a = runs["A"]["Val_top1"][best_epoch]
+        print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
+              f"{top1_a!r}")
+        check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+        return {k_: totals[k_] + counts_c[k_] + counts_v[k_] for k_ in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -3137,10 +3441,21 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
     swinv2_run = timed("swinv2 run", phase_swinv2_run, dev, pet_data)
     print("[launches] swinv2 run (runs A, B; validate): "
           + ", ".join(f"{NAMES[k]} {swinv2_run[k]}" for k in wattn.KERNELS))
-    timed("swinv2 large", phase_swinv2_large, dev)
+    large = timed("swinv2 large", phase_swinv2_large, dev)
+    print("[launches] swinv2 large serving and training: " + ", ".join(f"{NAMES[k]} {large[k]}" for k in wattn.KERNELS)
+          + "; of them on ws-16 windows: " + ", ".join(f"{NAMES[k]} {LARGE_LAUNCHES.get(k, 0)}" for k in wattn.KERNELS))
+    large_run = timed("swinv2 large run", phase_swinv2_run, dev, pet_data, SWINV2_LARGE, "swinv2 large run",
+                      V2L_WS16_BLOCKS)
+    print("[launches] swinv2 large run (runs A, B; validate): " + ", ".join(
+        f"{NAMES[k]} {large_run[k]}" for k in wattn.KERNELS) + "; all three and earlier, on ws-16 windows: "
+        + ", ".join(f"{NAMES[k]} {LARGE_LAUNCHES.get(k, 0)}" for k in wattn.KERNELS))
+    strategies = timed("strategies", phase_strategies, dev, pet_data)
+    print("[launches] strategies (runs A, B, C's resume; validate): "
+          + ", ".join(f"{NAMES[k]} {strategies[k]}" for k in K1_KERNELS))
     embedding_run = timed("embedding run", phase_embedding_run, dev, face_data)
     print("[launches] embedding run: " + ", ".join(f"{NAMES[k]} {embedding_run[k]}" for k in wattn.KERNELS))
-    launches = {k: launches[k] + run_loop[k] + distill[k] + swinv2_run[k] + embedding_run[k] for k in KERNELS}
+    launches = {k: launches[k] + run_loop[k] + distill[k] + swinv2_run[k] + large[k] + large_run[k] + strategies[k]
+                + embedding_run[k] for k in KERNELS}
     vision = timed("vision path", phase_vision_path, dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     return kern, {k: launches[k] + vision[k] for k in KERNELS}
@@ -3188,6 +3503,12 @@ def report(kern: dict, launches: dict) -> None:
         kernels.append({"name": NAMES[k], "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[k], **{key: row[key] for key in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    for k, (tag, row) in WS16_ROWS.items():
+        print(f"[bound ws16] {NAMES[k]} at {tag}: {row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP -> bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}; kernel {row['ms']:.4f} ms = "
+              f"{row['bound_ms'] / row['ms']:.2%} of bound; plain {row['plain_ms']:.4f} ms; library "
+              f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f') + ' ms'}; max|err| "
+              f"{row['max_abs_err']:.3e}; launches on ws-16 windows on the main paths {LARGE_LAUNCHES.get(k, 0)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -304,9 +304,3 @@ def test_cli_flags_of_unported_features_raise(toy, tmp_path, flag):
     assert not (tmp_path / "x").exists()
 
 
-@pytest.mark.parametrize("what", ["mixup", "ohem"])
-def test_unported_strategies_raise(toy, tmp_path, what):
-    cfg = json.loads(json.dumps(toy[0]))
-    cfg["hyp"]["strategy"][what] = [0.2, 1] if what == "mixup" else [True, 8, 0.7, 255]
-    with pytest.raises(NotImplementedError, match=what):
-        CenterProcessor(cfg, project=str(tmp_path), device="cpu")

@@ -12,7 +12,9 @@ on 32×32 images: stage 0 is 8×8 (unshifted and shifted blocks), stage 1 4×4
 (one window, no shift); on 40×40 stage 0 is 10×10, padded to 12×12 and
 shifted by 2, the merge pads the odd edge (5×5 after it), and stage 1 pads
 5×5 to 8×8 and shifts. Window 8 on 64×64: stage 0 16×16 with ws 8 and shift
-4, stage 1 8×8 in one window.
+4, stage 1 8×8 in one window. Window 16 on 128×128 (the windows of
+swinv2_large_window12to16_192to256's stages 0-2, N = 256): stage 0 32×32
+with ws 16 and shift 8, stage 1 16×16 in one window.
 
 Tolerances: outputs and gradients in f32 at rtol 1e-3, atol 3e-4 (of the
 tensor's largest entry for a gradient), the model tests' bar (measured
@@ -62,7 +64,7 @@ from visiondk_tpu_torch.models.convert import load_jax_params, param_paths, stat
 
 RTOL, ATOL = 1e-3, 3e-4
 KWARGS = {"mlp_ratio": 2.0, "stochastic_depth_prob": 0.0}
-TINY = {4: "swinv2_tiny_w4_port_test", 8: "swinv2_tiny_w8_port_test"}
+TINY = {4: "swinv2_tiny_w4_port_test", 8: "swinv2_tiny_w8_port_test", 16: "swinv2_tiny_w16_port_test"}
 REGISTERED = ["swinv2_tiny_window8_256", "swinv2_small_window8_256", "swinv2_base_window8_256",
               "swinv2_large_window12to16_192to256"]
 # the optimizer fields of the `hyp:` section of configs/classification/pet.yaml
@@ -190,7 +192,8 @@ def test_patch_merging_v2_matches_jax(res):
 # ---------------------------------------------------------------- the model
 
 
-@pytest.mark.parametrize("img,ws", [(32, 4), (40, 4), (64, 8)], ids=["32px", "40px_padded_odd_merge", "64px_ws8"])
+@pytest.mark.parametrize("img,ws", [(32, 4), (40, 4), (64, 8), (128, 16)],
+                         ids=["32px", "40px_padded_odd_merge", "64px_ws8", "128px_ws16"])
 def test_tiny_swinv2_logits_match_jax(img, ws):
     cfg = _cls_cfg(img, ws)
     jmodel, tree, port = _bridged(cfg, img, seed=img)
@@ -240,8 +243,18 @@ def test_three_train_steps_match_jax():
     """CE with label smoothing 0.05, pet.yaml's hyp (SGD, clip, EMA), 2
     steps an epoch; the port and the JAX step both in float64 (window ops'
     plain versions in float64 on the port's side)."""
-    cfg = _cls_cfg(40, classes=7)
-    _, tree, port = _bridged(cfg, 40, seed=6)
+    _three_train_steps(40, 4)
+
+
+def test_three_train_steps_match_jax_at_window_16():
+    """The same at window 16 on 128×128: stage 0 shifted at ws 16, stage 1
+    one unshifted window."""
+    _three_train_steps(128, 16)
+
+
+def _three_train_steps(img, ws):
+    cfg = _cls_cfg(img, ws, classes=7)
+    _, tree, port = _bridged(cfg, img, seed=6)
     port = _float64(port)
     theta0 = {k: v.clone() for k, v in port.state_dict().items()}
     tx = build_tx(PET_HYP, 2, True)
@@ -249,7 +262,7 @@ def test_three_train_steps_match_jax():
     step = make_train_step(port, tx, create_lossfn("ce", label_smooth=0.05), StepConfig(),
                            torch.Generator().manual_seed(0))
     rng = np.random.default_rng(7)
-    batches = [{"image": rng.integers(0, 256, size=(4, 40, 40, 3), dtype=np.uint8),
+    batches = [{"image": rng.integers(0, 256, size=(4, img, img, 3), dtype=np.uint8),
                 "label": rng.integers(0, 7, size=4).astype(np.int32)} for _ in range(3)]
     with jax.enable_x64(True):
         jmodel = jax_get_model(cfg, dtype=jnp.float64)

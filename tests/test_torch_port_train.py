@@ -50,7 +50,7 @@ from visiondk_tpu_torch.engine.optim import create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
 from visiondk_tpu_torch.engine.state import create_train_state
 from visiondk_tpu_torch.engine.steps import (
-    OHEMConfig, StepConfig, device_preprocess, make_embed_step, make_eval_step, make_train_step,
+    StepConfig, device_preprocess, make_embed_step, make_eval_step, make_train_step,
 )
 from visiondk_tpu_torch.engine.optim import SAMConfig
 from visiondk_tpu_torch.engine.trainer import build_tx
@@ -341,7 +341,7 @@ def test_build_tx_matches_the_jax_trainer(case):
     _assert_params_close(model, jparams, stats, atol=1e-5 if opt[0] == "adam" else 1e-6)
 
 
-@pytest.mark.parametrize("hyp", [{**PET_SYNTH_HYP, "accumulate": 2}, {**PET_SYNTH_HYP, "optimizer": ["sam", False]}])
+@pytest.mark.parametrize("hyp", [{**PET_SYNTH_HYP, "optimizer": ["sam", False]}])
 def test_build_tx_raises_for_what_is_not_ported(hyp):
     with pytest.raises(NotImplementedError):
         build_tx(hyp, 2, True)
@@ -464,9 +464,7 @@ def test_serving_steps_are_deterministic_after_model_train(kind):
     assert torch.equal(a, ref)
 
 
-@pytest.mark.parametrize("cfg", [
-    StepConfig(mixup=True), StepConfig(sam=SAMConfig()), StepConfig(ohem=OHEMConfig()),
-], ids=["mixup", "sam", "ohem"])
+@pytest.mark.parametrize("cfg", [StepConfig(sam=SAMConfig())], ids=["sam"])
 def test_train_step_variants_not_ported_raise(cfg):
     model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,10 @@ Pallas kernels in interpret mode, as tests/test_pallas_attention.py runs
 them. Inputs, biases and cotangents come from a numpy seed and go to both
 frameworks as the same arrays. Shapes: the JAX kernel test's B=4, 8×8, ws 4,
 2 heads, C=32, unshifted and shifted by 2; Swin's ws 7 at 14×14, head dim
-32, shifted by 3; SwinV2's ws 8 with scale 1.0.
+32, shifted by 3; SwinV2's ws 8 with scale 1.0; the windows of the tiled
+kernel bodies (8 < ws ≤ 16): swinv2_large_window12to16_192to256's ws 16
+shifted by 8 with scale 1.0 (B=1, 32×32, 2 heads, head dim 8), and ws 12
+unshifted (N = 144, no multiple of the kernels' key tiles).
 
 Tolerances. f32: 1e-4, the JAX kernel test's (the algorithm is the same;
 only f32 summation order differs). bf16: O within 1.6e-2 (about two bf16
@@ -52,6 +55,8 @@ SHAPES = {
     "jax_test_shifted": (4, 8, 8, 2, 32, 4, 2, None),
     "swin_ws7_shifted": (2, 14, 14, 2, 64, 7, 3, None),
     "swinv2_ws8_scale1": (2, 16, 16, 2, 64, 8, 4, 1.0),
+    "swinv2_l_ws16_shifted_scale1": (1, 32, 32, 2, 16, 16, 8, 1.0),
+    "ws12_unshifted": (1, 24, 24, 2, 16, 12, 0, None),
 }
 DTYPES = ["float32", "bfloat16"]
 O_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
@@ -165,6 +170,29 @@ def test_autograd_function_gradcheck_f64(pcache, shift, monkeypatch):
     assert torch.autograd.gradcheck(lambda t, b: FusedWindowAttention.apply(t, b, ids, 2, None), (x, bb))
 
 
+@pytest.mark.parametrize("pcache", [True, False], ids=["from_p", "recompute"])
+def test_autograd_function_gradcheck_f64_at_ws16(pcache, monkeypatch):
+    """The same at ws 16 (N = 256, the tiled kernel bodies' windows): B=1,
+    16×16 in one window shifted by 8 (four regions), one head, head dim 2.
+    The bias enters through eight random directions (bias₀ + Σ θᵢ·Dᵢ): a
+    finite difference per bias entry would take 65,536 forwards, and
+    dL/dθᵢ = <dbias, Dᵢ> checks dbias along each direction."""
+    _set_pcache(monkeypatch, pcache)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((1, 16, 16, 3 * 2), generator=gen, dtype=torch.float64, requires_grad=True)
+    b0 = 0.5 * torch.randn((1, 256, 256), generator=gen, dtype=torch.float64)
+    dirs = torch.randn((8, 1, 256, 256), generator=gen, dtype=torch.float64)
+    theta = torch.zeros(8, dtype=torch.float64, requires_grad=True)
+    ids = torch.from_numpy(window_region_ids(16, 16, 16, 8))
+    assert len(ids.unique()) == 4
+
+    def f(t, th):
+        return FusedWindowAttention.apply(t, b0 + (th[:, None, None, None] * dirs).sum(0), ids, 1, 1.0)
+
+    # fast mode: the Jacobian against random vectors (a full one takes a minute a variant here)
+    assert torch.autograd.gradcheck(f, (x, theta), fast_mode=True)
+
+
 def test_gradient_reaches_bias_alone_and_qkv_alone():
     """Either input may be the only one that requires grad; the other gets none."""
     qkv, bias, cot, ids = _arrays(SHAPES["jax_test_shifted"], 5)
@@ -229,6 +257,27 @@ def test_backward_blocks_take_fixed_runs_of_windows():
     assert W.windows_per_chunk(80, 1, 32, bf16, False) == 7   # stage 3: 12 runs × 32 heads = 384
     assert W.windows_per_chunk(80, 64, 4, bf16, True) == 78   # 66 runs × 4 heads = 264
     assert W.windows_per_chunk(80, 4, 16, bf16, True) == 20   # 16 runs × 16 heads = 256
+
+
+@pytest.mark.parametrize(
+    "batch,n_win,heads,n,per_run",
+    [(32, 16, 6, 256, 47),   # SwinV2-L stage 0 at bs 32: 11 runs × 6 heads × 4 runs of rows = 264 blocks
+     (32, 4, 12, 256, 26),   # stage 1: 5 runs × 12 heads × 4 = 240
+     (32, 1, 24, 256, 16),   # stage 2: 2 runs × 24 heads × 4 = 192
+     (4, 4, 2, 144, 1),      # ws 12: 3 runs of rows; 16 windows, one a block
+     (1, 1, 600, 256, 1)],   # more blocks than a wave: one window a block
+)
+def test_tiled_backward_blocks_take_fixed_runs_of_windows(batch, n_win, heads, n, per_run):
+    """For N > 64 the dbias-carrying blocks (dq kernel: one head, one run of
+    64 rows) take a fixed run of windows; the runs cover every window once,
+    and with two blocks an SM they fit one wave where they can."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for recompute in (False, True):
+            assert W.windows_per_chunk(batch, n_win, heads, dtype, recompute, n) == per_run
+    total = batch * n_win
+    n_runs = -(-total // per_run)
+    assert all(min(per_run, total - t0) >= 1 for t0 in range(0, n_runs * per_run, per_run))
+    assert n_runs * heads * -(-n // 64) <= 132 * 2 or n_runs == 1
 
 
 @pytest.mark.parametrize(

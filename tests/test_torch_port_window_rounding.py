@@ -29,8 +29,14 @@ below rounds at exactly the kernel's points:
   dQ = dS·k, dK = dSᵀ·q), so each product carries them to about 16 bits;
 - scale multiplies dQ and dK after the sum; dbias sums dS in f32.
 
-It runs at Swin's window (N = 49, d = 32) unshifted and shifted, and at ws 8
-with d 64 and scale 1.0 (SwinV2's call), against the plain versions, with
+The kernels' tiled bodies for 8 < ws ≤ 16 round at the same points: S, P,
+O, dS and the split are formed the same way; only the row sum of exp2 runs
+over tiles of keys (a running max per thread, rescaled), another f32 order.
+
+It runs at Swin's window (N = 49, d = 32) unshifted and shifted, at ws 8
+with d 64 and scale 1.0 (SwinV2's call), and at ws 16 (N = 256, d 32,
+shifted by 8, scale 1.0: swinv2_large_window12to16_192to256's stage 0, on the
+tiled bodies), against the plain versions, with
 chip_smoke's error measures. The bars are a quarter of chip_smoke's: dqkv
 1.6e-2 / 4 of max(1, |plain|), dbias 1e-4 / 4 of max(1, max |plain|). The
 dqkv bar holds the f32 values before the last rounding to bf16: that
@@ -62,6 +68,7 @@ CASES = [
     ("swin_n49", 4, 14, 2, 64, 7, 0, None),
     ("swin_n49_shifted", 4, 14, 2, 64, 7, 3, None),
     ("ws8_scale1", 2, 16, 2, 128, 8, 4, 1.0),
+    ("ws16_n256_shifted_scale1", 1, 32, 2, 64, 16, 8, 1.0),
 ]
 
 

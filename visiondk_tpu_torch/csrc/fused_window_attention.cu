@@ -96,7 +96,7 @@
 
 namespace {
 
-constexpr int kMaxN = 64;  // ws <= 8
+constexpr int kMaxN = 64;  // ws <= 8 on the bodies below; larger windows on the tiled ones
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskValue = -144.26950408889634f;  // -100 * log2(e), the reference's region mask
 
@@ -109,6 +109,7 @@ struct Args {
   int h_img, w_img, heads, d, ws, n, n_win_x, n_win, total, per_chunk;
   float q_mul;  // scale * log2(e)
   int aligned;  // bf16: qkv and out start on 16 bytes, d and C multiples of 8
+  int p_aligned;  // bf16, N > 64: the stash's rows start on 16 bytes
 };
 
 // ---------------------------------------------------------------- float32
@@ -500,7 +501,415 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
   }
 }
 
+// ---------------------------------------------------------------- windows of N > 64
+//
+// ws 9 to 16 (N up to 256: swinv2_large_window12to16_192to256 attends in 16 x
+// 16 windows in stages 0-2). A window's f32 scores no longer fit a warp's
+// registers (256 keys) nor, in the f32 design above, shared memory (about
+// 356 KB at N = 256), so these bodies tile the query rows over blocks and
+// loop over tiles of keys, as the fused QKV forward does for ViT's N = 197
+// (fused_qkv_attention.cu): a block takes one (window, head) and a run of
+// query rows; two passes over the key tiles (pass 1: each row's max and sum
+// of exp2, a running max per thread combined over the row's four lanes;
+// pass 2: the scores again, P = exp2(S - max) / sum rounded to the input
+// dtype where the reference rounds it, O += P . V). What the window adds:
+// the rows' pixels by index arithmetic (row r of the window is r / ws image
+// rows and r % ws columns from its first pixel), bias_h read at each score,
+// the region mask from the window's ids, and the stash tile [N, N] of
+// (window, head) in [B, nW, heads, N, N].
+//
+// bfloat16: up to 8 warps of 16 query rows a block (rows split over blocks
+// as evenly as 16-row tiles go: N = 256 is 2 blocks of 8 warps, N = 144 2 of
+// 5); keys in tiles of 32 through a two-stage cp.async ring; S = q . k^T and
+// O = P . V on mma.sync m16n8k16 (bf16 in, f32 sum), q's fragments held in
+// registers, P from the score accumulators straight into the A fragments of
+// P . V; the stash through a per-warp shared tile, 16 bytes a store where its
+// rows are 16-byte aligned (N a multiple of 8). Tried on the card and
+// dropped: the window's whole K and V staged once a block (one barrier in
+// place of one a key tile): the same bits, slower (the larger shared memory
+// holds fewer blocks an SM). float32: the CUDA-core structure of the fused
+// QKV forward's f32 kernel (32 query rows a block, 128 threads, key tiles of
+// 64), for the f32 bars.
+//
+// What bounds it on the H100: bytes, as for the small windows. At SwinV2-L
+// stage 0 (bs 32, 64^2, 6 heads, d 32, bf16) q, k, v in and O out are 201
+// MB (0.060 ms at 3.35 TB/s) against 25.8 GFLOP (0.026 ms at the bf16
+// peak); the stash adds 403 MB.
+
+constexpr int kLargeMaxN = 256;   // ws <= 16
+constexpr int kLargeTile = 32;    // keys a tile (bf16)
+constexpr int kLargeMaxWarps = 8;
+constexpr int kF32Rows = 32;      // query rows a block (f32)
+constexpr int kF32Tile = 64;      // keys a tile (f32)
+constexpr int kF32Threads = 128;  // four a row
+
+struct LargeSplit {
+  int blocks, warps;
+};
+// 16-row tiles of a window over ceil(tiles / 8) blocks, as evenly as they go.
+inline LargeSplit large_split(int n) {
+  const int tiles = (n + tc::kWarpRows - 1) / tc::kWarpRows;
+  const int blocks = (tiles + kLargeMaxWarps - 1) / kLargeMaxWarps;
+  return {blocks, (tiles + blocks - 1) / blocks};
+}
+
+// Row r of window t's first pixel `base`, as a row index of [B * H * W].
+__device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
+  const int ry = r / a.ws;
+  return base + static_cast<int64_t>(ry) * a.w_img + (r - ry * a.ws);
+}
+
+// Shared memory of the bf16 kernel: the block's q rows, two stages of K and
+// of V [kLargeTile][DP + 8] bf16, each warp's P tile [16][kLargeTile + 8]
+// (stash), then the window's region ids [kLargeMaxN] int (shifted).
+template <int DP>
+struct LargeSmem {
+  static constexpr int kLd = DP + tc::kPad;
+  static constexpr int kLdP = kLargeTile + tc::kPad;
+  static constexpr size_t bytes(int warps, bool stash, bool masked) {
+    return sizeof(tc::bf16) * (warps * tc::kWarpRows * kLd + 4 * kLargeTile * kLd +
+                               (stash ? warps * tc::kWarpRows * kLdP : 0)) +
+           (masked ? sizeof(int) * kLargeMaxN : 0);
+  }
+};
+
+template <int DP, bool kMasked, bool kStash>
+__global__ void __launch_bounds__(kLargeMaxWarps * 32) window_attention_fwd_large_tc_kernel(Args a) {
+  using namespace tc;
+  constexpr int kLd = LargeSmem<DP>::kLd, kLdP = LargeSmem<DP>::kLdP, kNT = kLargeTile / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + rows * kLd;               // [2][kLargeTile][kLd]
+  bf16* vs = ks + 2 * kLargeTile * kLd;     // [2][kLargeTile][kLd]
+  bf16* ps = vs + 2 * kLargeTile * kLd;     // [warps][16][kLdP], stash
+  int* ids_s = reinterpret_cast<int*>(ps + (kStash ? rows * kLdP : 0));
+
+  const int n = a.n, d = a.d, c = a.heads * d;
+  const int t = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int m_block = blockIdx.z * rows, m0 = m_block + warp * kWarpRows;  // the warp's first row
+  const bool active = m0 < n;
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t base = window_base(a, t);
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
+  auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
+  bf16* q_w = qs + warp * kWarpRows * kLd;
+  bf16* p_w = ps + warp * kWarpRows * kLdP;
+
+  // Stage i of 2 * tiles: pass 1 (i < tiles) needs the K tile, pass 2 K and V.
+  const int tiles = (n + kLargeTile - 1) / kLargeTile;
+  auto load = [&](int i) {
+    const int k0 = (i < tiles ? i : i - tiles) * kLargeTile;
+    stage_rows(ks + (i & 1) * kLargeTile * kLd, kLd, q_src + c, offset, k0, kLargeTile, DP, n, d, a.aligned);
+    if (i >= tiles) {
+      stage_rows(vs + (i & 1) * kLargeTile * kLd, kLd, q_src + 2 * c, offset, k0, kLargeTile, DP, n, d, a.aligned);
+    }
+  };
+  if (kMasked) {
+    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+    for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
+  }
+  stage_rows(qs, kLd, q_src, offset, m_block, rows, DP, n, d, a.aligned);
+  load(0);
+  cp_async_commit();
+
+  // the rows of this thread's fragments; rows past N read row N - 1's bias
+  // and ids (finite scores, never stored)
+  const int rowc[2] = {min(m0 + g, n - 1), min(m0 + g + 8, n - 1)};
+  const float* bias_h = a.bias + static_cast<int64_t>(h) * n * n;
+  uint32_t qa[DP / 16][4];
+  int id_row[2] = {0, 0};
+  float m_loc[2] = {-INFINITY, -INFINITY}, l_loc[2] = {0.f, 0.f};
+  float m_row[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+  float o[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < 2 * tiles; ++i) {
+    if (i + 1 < 2 * tiles) {
+      load(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], q_w + a_row(lane) * kLd + kk * 16 + a_col(lane));
+      if (kMasked) id_row[0] = ids_s[rowc[0]], id_row[1] = ids_s[rowc[1]];
+    }
+    if (i == tiles) {  // combine the row's four lanes (every lane of the warp shuffles)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = row_max(m_loc[r]);
+        const float l = row_sum(m_loc[r] == -INFINITY ? 0.f : l_loc[r] * exp2f(m_loc[r] - m));
+        m_row[r] = m;
+        inv_l[r] = 1.f / l;
+      }
+    }
+    if (active) {
+      const int k0 = (i < tiles ? i : i - tiles) * kLargeTile;
+      const bf16* kt = ks + (i & 1) * kLargeTile * kLd;
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kt + (np * 16 + b_row(lane)) * kLd + kk * 16 + b_col(lane));
+          mma(s[2 * np], qa[kk], kb[0], kb[1]);
+          mma(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+      // log2-domain scores, scaled after the product, + bias [+ region
+      // mask]; keys past N out of the row (-inf)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * tq + (e & 1), r = e >> 1;
+          float x = -INFINITY;
+          if (key < n) {
+            x = s[j][e] * a.q_mul + __ldg(bias_h + rowc[r] * n + key) * kLog2e;
+            if (kMasked && ids_s[key] != id_row[r]) x += kMaskValue;
+          }
+          s[j][e] = x;
+        }
+      }
+      if (i < tiles) {  // pass 1: running max and sum of exp2 of this thread's keys
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float tmax = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+          const float m_new = fmaxf(m_loc[r], tmax);
+          if (m_new != -INFINITY) {
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) sum += exp2f(s[j][2 * r] - m_new) + exp2f(s[j][2 * r + 1] - m_new);
+            l_loc[r] = l_loc[r] * exp2f(m_loc[r] - m_new) + sum;
+            m_loc[r] = m_new;
+          }
+        }
+      } else {  // pass 2: P rounded to bf16 as A fragments, O += P . V
+        uint32_t pa[kLargeTile / 16][4];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m_row[e >> 1]) * inv_l[e >> 1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < kLargeTile / 16; ++kk) a_from_c(pa[kk], s[2 * kk], s[2 * kk + 1]);
+        if (kStash) {
+#pragma unroll
+          for (int kk = 0; kk < kLargeTile / 16; ++kk) {
+            const int col = kk * 16 + 2 * tq;
+            *reinterpret_cast<uint32_t*>(p_w + g * kLdP + col) = pa[kk][0];
+            *reinterpret_cast<uint32_t*>(p_w + (g + 8) * kLdP + col) = pa[kk][1];
+            *reinterpret_cast<uint32_t*>(p_w + g * kLdP + col + 8) = pa[kk][2];
+            *reinterpret_cast<uint32_t*>(p_w + (g + 8) * kLdP + col + 8) = pa[kk][3];
+          }
+          __syncwarp();
+          bf16* p_dst = static_cast<bf16*>(a.p) + ((static_cast<int64_t>(t) * a.heads + h) * n + m0) * n + k0;
+          unstage(p_dst, n, p_w, kLdP, min(kWarpRows, n - m0), n - k0, kLargeTile, a.p_aligned, lane, 32);
+          __syncwarp();
+        }
+        const bf16* vt = vs + (i & 1) * kLargeTile * kLd;
+#pragma unroll
+        for (int kk = 0; kk < kLargeTile / 16; ++kk) accumulate_tn<DP, false>(o, pa[kk], pa[kk], vt, kLd, kk, lane);
+      }
+    }
+    __syncthreads();  // this stage's buffers are free for stage i + 2
+  }
+
+  if (active) {  // O rounded to bf16 into the rows' pixels
+    bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r;
+      if (row >= n) continue;
+      bf16* dst = out + window_row(a, base, row) * c + h * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = j * 8 + 2 * tq;
+        if (a.aligned) {
+          if (col < d) *reinterpret_cast<uint32_t*>(dst + col) = pack(o[j][2 * r], o[j][2 * r + 1]);
+        } else {
+          if (col < d) dst[col] = __float2bfloat16(o[j][2 * r]);
+          if (col + 1 < d) dst[col + 1] = __float2bfloat16(o[j][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a window's q, k or v head slice (src = its column
+// in row 0's pixel; offset(r) the element offset of row r's pixel) into
+// shared memory as f32 times mul (row stride ld), zeros past N and past d.
+template <int DP, int ROWS, typename Offset>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src, Offset offset, int r0, int n,
+                                              int d, float mul) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += blockDim.x) {
+    const int r = idx / DP, cc = idx - r * DP;
+    const int row = r0 + r;
+    dst[r * ld + cc] = row < n && cc < d ? src[offset(row) + cc] * mul : 0.f;
+  }
+}
+
+// Shared memory of the f32 kernel, in floats: q [32][DP + 1] (scaled by
+// scale * log2(e)), K [64][DP + 1], V [64][DP], P [32][65], then the
+// window's region ids [kLargeMaxN] int.
+template <int DP>
+struct F32LargeSmem {
+  static constexpr int kQ = kF32Rows * (DP + 1), kK = kF32Tile * (DP + 1), kV = kF32Tile * DP;
+  static constexpr int kP = kF32Rows * (kF32Tile + 1);
+  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP) + sizeof(int) * kLargeMaxN;
+};
+
+// Thread t owns query row t / 4 and, of each key tile, the keys (t % 4) + 4j,
+// j < 16; for P . V the dims (t % 4) + 4i.
+template <int DP, bool kMasked, bool kStash>
+__global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel(Args a) {
+  using S = F32LargeSmem<DP>;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + S::kQ;
+  float* vs = ks + S::kK;
+  float* ps = vs + S::kV;
+  int* ids_s = reinterpret_cast<int*>(ps + S::kP);
+  constexpr int kLdP = kF32Tile + 1;
+
+  const int n = a.n, d = a.d, c = a.heads * d;
+  const int t = blockIdx.x, h = blockIdx.y, m0 = blockIdx.z * kF32Rows;
+  const int r = threadIdx.x / kLanesPerRow, g = threadIdx.x % kLanesPerRow;
+  const int row = m0 + r, rr = min(row, n - 1);
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t base = window_base(a, t);
+  const float* q_src = static_cast<const float*>(a.qkv) + h * d;
+  auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
+
+  if (kMasked) {
+    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+    for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
+  }
+  load_rows_f32<DP, kF32Rows>(qs, DP + 1, q_src, offset, m0, n, d, a.q_mul);
+  const float* bias_row = a.bias + (static_cast<int64_t>(h) * n + rr) * n;
+
+  // log2-domain scores of row r against the keys k0 + g + 4j (keys past N:
+  // -inf)
+  float s[kColsPerLane];
+  auto scores = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int kd = 0; kd < DP; ++kd) {
+      const float q = qs[r * (DP + 1) + kd];
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) s[j] = fmaf(q, ks[(g + j * kLanesPerRow) * (DP + 1) + kd], s[j]);
+    }
+    const int my_id = kMasked ? ids_s[rr] : 0;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const int key = k0 + g + j * kLanesPerRow;
+      float x = -INFINITY;
+      if (key < n) {
+        x = s[j] + bias_row[key] * kLog2e;
+        if (kMasked && ids_s[key] != my_id) x += kMaskValue;
+      }
+      s[j] = x;
+    }
+  };
+
+  // Pass 1: this thread's running max and sum of exp2 over its keys.
+  float m_loc = -INFINITY, l_loc = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+    __syncthreads();  // the previous tile's readers are done
+    load_rows_f32<DP, kF32Tile>(ks, DP + 1, q_src + c, offset, k0, n, d, 1.f);
+    __syncthreads();
+    scores(k0);
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const float sj = s[j];
+      if (sj == -INFINITY) continue;
+      if (sj > m_loc) {
+        l_loc = l_loc * exp2f(m_loc - sj) + 1.f;
+        m_loc = sj;
+      } else {
+        l_loc += exp2f(sj - m_loc);
+      }
+    }
+  }
+  const float m_row = row_max(m_loc);
+  const float inv_l = 1.f / row_sum(m_loc == -INFINITY ? 0.f : l_loc * exp2f(m_loc - m_row));
+
+  // Pass 2: P, then O += P . V.
+  constexpr int kDimsPerLane = DP / kLanesPerRow;
+  float acc[kDimsPerLane];
+#pragma unroll
+  for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
+  float* p_tile = kStash ? static_cast<float*>(a.p) + ((static_cast<int64_t>(t) * a.heads + h) * n + m0) * n : nullptr;
+  for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+    __syncthreads();
+    load_rows_f32<DP, kF32Tile>(ks, DP + 1, q_src + c, offset, k0, n, d, 1.f);
+    load_rows_f32<DP, kF32Tile>(vs, DP, q_src + 2 * c, offset, k0, n, d, 1.f);
+    __syncthreads();
+    scores(k0);
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) ps[r * kLdP + g + j * kLanesPerRow] = exp2f(s[j] - m_row) * inv_l;
+    __syncthreads();
+    const int kn = min(kF32Tile, n - k0);
+    if (kStash) {
+      for (int idx = threadIdx.x; idx < kF32Rows * kF32Tile; idx += kF32Threads) {
+        const int pr = idx / kF32Tile, pc = idx - pr * kF32Tile;
+        if (m0 + pr < n && pc < kn) p_tile[static_cast<int64_t>(pr) * n + k0 + pc] = ps[pr * kLdP + pc];
+      }
+    }
+    for (int cc = 0; cc < kn; ++cc) {
+      const float p = ps[r * kLdP + cc];
+      const float* vrow = vs + cc * DP;
+#pragma unroll
+      for (int i = 0; i < kDimsPerLane; ++i) acc[i] = fmaf(p, vrow[g + i * kLanesPerRow], acc[i]);
+    }
+  }
+  if (row < n) {
+    float* o = static_cast<float*>(a.out) + window_row(a, base, row) * c + h * d;
+#pragma unroll
+    for (int i = 0; i < kDimsPerLane; ++i) {
+      const int dd = g + i * kLanesPerRow;
+      if (dd < d) o[dd] = acc[i];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launches
+
+template <int DP, bool kMasked, bool kStash>
+cudaError_t launch_f32_large(const Args& a, cudaStream_t stream) {
+  auto kernel = window_attention_fwd_large_kernel<DP, kMasked, kStash>;
+  constexpr size_t bytes = F32LargeSmem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.total, a.heads, (a.n + kF32Rows - 1) / kF32Rows), kF32Threads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A grid of (window, head, run of query rows).
+template <int DP, bool kMasked, bool kStash>
+cudaError_t launch_tc_large(const Args& a, cudaStream_t stream) {
+  auto kernel = window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>;
+  const LargeSplit sp = large_split(a.n);
+  const size_t bytes = LargeSmem<DP>::bytes(sp.warps, kStash, kMasked);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.total, a.heads, sp.blocks), sp.warps * 32, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
 
 template <int DP, bool kMasked, bool kStash>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
@@ -532,6 +941,12 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
 // the head-dim bucket, then shift regions or none, stash or none.
 template <int DP, bool kMasked>
 cudaError_t dispatch_stash(const Args& a, int dtype, cudaStream_t s) {
+  if (a.n > kMaxN) {  // ws 9 to 16
+    if (dtype == 0) {
+      return a.p != nullptr ? launch_f32_large<DP, kMasked, true>(a, s) : launch_f32_large<DP, kMasked, false>(a, s);
+    }
+    return a.p != nullptr ? launch_tc_large<DP, kMasked, true>(a, s) : launch_tc_large<DP, kMasked, false>(a, s);
+  }
   if (dtype == 0) return a.p != nullptr ? launch_f32<DP, kMasked, true>(a, s) : launch_f32<DP, kMasked, false>(a, s);
   return a.p != nullptr ? launch_tc<DP, kMasked, true>(a, s) : launch_tc<DP, kMasked, false>(a, s);
 }
@@ -550,15 +965,16 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
 // windows; out: [b, h_img, w_img, heads * head_dim] of `dtype`; p: [b, nW,
 // heads, ws^2, ws^2] of `dtype` or NULL (no stash). All contiguous, on the
 // current device. per_chunk: windows each bf16 block takes, in batch-row-major
-// order, for one head (the f32 kernel takes one). q_mul = scale * log2(e).
-// Takes ws <= 8 and head_dim <= 64. Returns the CUDA error code of the launch
-// (0 on success).
+// order, for one head (the f32 kernel and windows of N > 64 take one).
+// q_mul = scale * log2(e). Takes ws <= 16 and head_dim <= 64 (ws <= 8 on the
+// bodies above, 8 < ws <= 16 on the tiled ones). Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias, const int* ids,
                                               void* out, void* p, int b, int h_img, int w_img,
                                               int heads, int head_dim, int ws, int per_chunk, float q_mul,
                                               int dtype, void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || head_dim < 1 || head_dim > 64 ||
-      ws < 1 || ws * ws > kMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
+      ws < 1 || ws * ws > kLargeMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
       per_chunk < 1 || bias == nullptr || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -567,8 +983,9 @@ extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias
   const int c = heads * head_dim;
   const int aligned = reinterpret_cast<uintptr_t>(qkv) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                       head_dim % 8 == 0 && c % 8 == 0;
+  const int p_aligned = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ws * ws % 8 == 0;
   const Args a{qkv,   bias,     ids, out,     p,     h_img,     w_img,     heads, head_dim,
-               ws,    ws * ws,  n_win_x, n_win, b * n_win, per_chunk, q_mul, aligned};
+               ws,    ws * ws,  n_win_x, n_win, b * n_win, per_chunk, q_mul, aligned, p_aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dtype, s) : dispatch<64>(a, dtype, s);
   return static_cast<int>(err);

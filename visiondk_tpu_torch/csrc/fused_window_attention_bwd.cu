@@ -108,7 +108,7 @@
 
 namespace {
 
-constexpr int kMaxN = 64;  // ws <= 8
+constexpr int kMaxN = 64;  // ws <= 8 on the bodies below; larger windows on the tiled ones
 constexpr int kSumThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskValue = -144.26950408889634f;  // -100 * log2(e), the reference's region mask
@@ -125,6 +125,8 @@ struct Args {
   float q_mul;  // scale * log2(e)
   float scale;
   int aligned;  // bf16: qkv, dout and dqkv start on 16 bytes, d and C multiples of 8
+  float* stats;   // N > 64: [3][B * nW, heads, N] delta, row max, 1 / row sum (the last two recomputing)
+  int p_aligned;  // bf16, N > 64: the stash's rows start on 16 bytes
 };
 
 // ---------------------------------------------------------------- float32
@@ -662,6 +664,769 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
   }
 }
 
+// ---------------------------------------------------------------- windows of N > 64
+//
+// ws 9 to 16 (N up to 256). A whole (window, head) no longer fits one block:
+// at N = 256 its P and dS tiles alone are 384 KB in bf16 hi + lo. So these
+// bodies take the structure of the fused QKV backward for long sequences
+// (fused_qkv_attention_bwd.cu): two kernels on the same stream, no atomics.
+//   (a) dq kernel, per run of query rows: one pass over tiles of keys for
+//       delta = rowsum(P o dP), one for dS and dQ += dS . k; recomputing,
+//       a pass before them finds each row's max and sum of exp2. It writes
+//       delta (and the max and 1 / sum) per (window, head, row) to `stats`.
+//       It also carries the bias gradient: a block takes one head, one run
+//       of query rows and a fixed run of `per_chunk` consecutive windows,
+//       and adds each dS it forms, in window order, to its own entry of a
+//       [rows][N] f32 sum in shared memory (the thread that forms dS[q, k]
+//       is the one that owns that entry); at the end of the run it writes its
+//       rows of dbias_part [n_chunks, heads, N, N], which the fixed-order sum
+//       below adds up over runs, so dbias is the same bits on every run.
+//   (b) dkv kernel, per (window, head, run of key rows): one pass over tiles
+//       of queries with the stats that (a) wrote: P^T (from the stash, or
+//       recomputed from the scores, bias and mask), dP^T, dS^T, dV += P^T .
+//       dO and dK += dS^T . q.
+// What the window adds to that structure: the rows' pixels by index
+// arithmetic, bias_h and the region mask in the recomputed scores, the stash
+// tile [N, N] of (window, head) in [B, nW, heads, N, N], and dbias.
+//
+// bfloat16: up to 4 warps of 16 rows a block (the dbias sum takes 64 KB of
+// shared memory at N = 256); tiles of 32 keys in (a), 16 queries in (b); every
+// product mma.sync m16n8k16 on ldmatrix fragments, dS and the recomputed P
+// split into bf16 hi + lo as in the small-window kernel; cp.async rings of
+// two stages. float32: the fused QKV backward's CUDA-core structure (32 rows
+// a block, 128 threads, tiles of 64).
+//
+// What bounds it on the H100: bytes. At SwinV2-L stage 0 (bs 32, 64^2, 6
+// heads, d 32, bf16) the backward from P reads qkv, dO and the 403 MB stash
+// and writes dqkv: 806 MB (0.241 ms at 3.35 TB/s), against 103 GFLOP of its
+// four products (0.104 ms at the bf16 tensor-core peak).
+
+constexpr int kLargeMaxN = 256;   // ws <= 16
+constexpr int kBwdMaxWarps = 4;   // 16-row tiles a bf16 block
+constexpr int kDqTile = 32;       // keys a tile of the bf16 dq kernel
+constexpr int kDkvTile = 16;      // queries a tile of the bf16 dkv kernel
+constexpr int kF32Rows = 32;      // rows a block (f32)
+constexpr int kF32Tile = 64;      // columns a tile (f32)
+constexpr int kF32Threads = 128;  // four a row
+constexpr float kInvLog2e = 0.6931471805599453f;
+
+struct LargeSplit {
+  int blocks, warps;
+};
+// 16-row tiles of a window over ceil(tiles / 4) blocks, as evenly as they go.
+inline LargeSplit large_split(int n) {
+  const int tiles = (n + tc::kWarpRows - 1) / tc::kWarpRows;
+  const int blocks = (tiles + kBwdMaxWarps - 1) / kBwdMaxWarps;
+  return {blocks, (tiles + blocks - 1) / blocks};
+}
+
+// Row r of the window whose first pixel is `base`, as a row index of [B * H * W].
+__device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
+  const int ry = r / a.ws;
+  return base + static_cast<int64_t>(ry) * a.w_img + (r - ry * a.ws);
+}
+
+// A warp's 16-row C tiles (rows row0 + g, + 8 of a window), times mul, into
+// column block blk (0: q, 1: k, 2: v) of their pixels in dqkv.
+template <int DP>
+__device__ __forceinline__ void store_rows(const Args& a, int64_t base, int row0, int h, int blk,
+                                           const float (&acc)[DP / 8][4], float mul, int lane) {
+  const int g = lane >> 2, tq = lane & 3, c = a.heads * a.d;
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= a.n) continue;
+    tc::bf16* dst = static_cast<tc::bf16*>(a.dqkv) + window_row(a, base, row) * row_stride + blk * c + h * a.d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * tq;
+      const float x0 = acc[j][2 * r] * mul, x1 = acc[j][2 * r + 1] * mul;
+      if (a.aligned) {
+        if (col < a.d) *reinterpret_cast<uint32_t*>(dst + col) = tc::pack(x0, x1);
+      } else {
+        if (col < a.d) dst[col] = __float2bfloat16(x0);
+        if (col + 1 < a.d) dst[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// Shared memory of the bf16 dq kernel: the f32 dbias sum [rows][N]; then in
+// bf16 the block's dO rows and, recomputing, its q rows [rows][DP + 8]; two
+// stages of K and V [kDqTile][DP + 8]; from P, two stages of the stash's
+// rows x kDqTile keys; then (shifted, recomputing) the window's region ids.
+template <int DP, bool kMasked, bool kRecompute>
+struct DqSmem {
+  static constexpr int kLd = DP + tc::kPad;
+  static constexpr int kLdP = kDqTile + tc::kPad;
+  static constexpr size_t bytes(int warps, int n) {
+    const int rows = warps * tc::kWarpRows;
+    return sizeof(float) * rows * n +
+           sizeof(tc::bf16) * ((kRecompute ? 2 : 1) * rows * kLd + 4 * kDqTile * kLd +
+                               (kRecompute ? 0 : 2 * rows * kLdP)) +
+           (kMasked ? sizeof(int) * kLargeMaxN : 0);
+  }
+};
+
+template <int DP, bool kMasked, bool kRecompute>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32) window_attention_dq_tc_kernel(Args a) {
+  using namespace tc;
+  using Smem = DqSmem<DP, kMasked, kRecompute>;
+  constexpr int kLd = Smem::kLd, kLdP = Smem::kLdP, kNT = kDqTile / 8;
+  constexpr int kFirst = kRecompute ? 0 : 1;  // passes kFirst..2
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, d = a.d, c = a.heads * d;
+  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
+  float* db = reinterpret_cast<float*>(smem_raw);         // [rows][n]
+  bf16* dos = reinterpret_cast<bf16*>(db + rows * n);     // [rows][kLd]
+  bf16* qs = dos + rows * kLd;                            // [rows][kLd], recompute
+  bf16* ks = qs + (kRecompute ? rows * kLd : 0);          // [2][kDqTile][kLd]
+  bf16* vs = ks + 2 * kDqTile * kLd;                      // [2][kDqTile][kLd]
+  bf16* ps = vs + 2 * kDqTile * kLd;                      // [2][rows][kLdP], from P
+  int* ids_s = reinterpret_cast<int*>(ps + (kRecompute ? 0 : 2 * rows * kLdP));
+
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int m_block = blockIdx.z * rows, m0 = m_block + warp * kWarpRows;
+  const bool active = m0 < n;
+  const int t0 = chunk * a.per_chunk, count = min(a.per_chunk, a.total - t0);
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
+  const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
+  const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
+  bf16* do_w = dos + warp * kWarpRows * kLd;
+  const bf16* q_w = qs + warp * kWarpRows * kLd;
+  const int rowc[2] = {min(m0 + g, n - 1), min(m0 + g + 8, n - 1)};
+
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) db[i] = 0.f;
+  const int tiles = (n + kDqTile - 1) / kDqTile;
+  const int stages = (3 - kFirst) * tiles;
+  for (int wi = 0; wi < count; ++wi) {
+    const int t = t0 + wi;
+    const int64_t base = window_base(a, t);
+    auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
+    auto do_offset = [&](int r) { return window_row(a, base, r) * c; };
+    const bf16* p_src = kRecompute ? nullptr : stash_tile(a, t, h) + static_cast<int64_t>(m_block) * n;
+    auto load = [&](int i) {
+      const int pass = kFirst + i / tiles, k0 = (i % tiles) * kDqTile, buf = i & 1;
+      if (kRecompute || pass == 2) {
+        stage_rows(ks + buf * kDqTile * kLd, kLd, q_src + c, offset, k0, kDqTile, DP, n, d, a.aligned);
+      }
+      if (pass >= 1) {
+        stage_rows(vs + buf * kDqTile * kLd, kLd, q_src + 2 * c, offset, k0, kDqTile, DP, n, d, a.aligned);
+      }
+      if (!kRecompute) {
+        stage(ps + buf * rows * kLdP, kLdP, p_src + k0, n, rows, kDqTile, n - m_block, n - k0, a.p_aligned);
+      }
+    };
+    __syncthreads();  // every warp is done with the previous window's tiles
+    if (kMasked) {
+      const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+      for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
+    }
+    stage_rows(dos, kLd, do_src, do_offset, m_block, rows, DP, n, d, a.aligned);
+    if (kRecompute) stage_rows(qs, kLd, q_src, offset, m_block, rows, DP, n, d, a.aligned);
+    load(0);
+    cp_async_commit();
+
+    float m_loc[2] = {-INFINITY, -INFINITY}, l_loc[2] = {0.f, 0.f};  // rows g, g + 8
+    float m_row[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+    float dq[DP / 8][4];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+    for (int i = 0; i < stages; ++i) {
+      if (i + 1 < stages) {
+        load(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int pass = kFirst + i / tiles, k0 = (i % tiles) * kDqTile, buf = i & 1;
+      if (kRecompute && i == tiles) {  // the row's max and 1 / sum over its four lanes
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m = row_max(m_loc[r]);
+          const float l = row_sum(m_loc[r] == -INFINITY ? 0.f : l_loc[r] * exp2f(m_loc[r] - m));
+          m_row[r] = m;
+          inv_l[r] = 1.f / l;
+        }
+      }
+      if (pass == 2 && k0 == 0) {  // delta is complete: sum the four lanes, write the row stats
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dlt[r] = row_sum(dlt[r]);
+          const int row = m0 + g + 8 * r;
+          if (tq == 0 && row < n) {
+            const int64_t at = (static_cast<int64_t>(t) * a.heads + h) * n + row;
+            a.stats[at] = dlt[r];
+            if (kRecompute) {
+              a.stats[stats_n + at] = m_row[r];
+              a.stats[2 * stats_n + at] = inv_l[r];
+            }
+          }
+        }
+      }
+      if (active) {
+        const bf16* kt = ks + buf * kDqTile * kLd;
+        float s[kNT][4];  // scores, then P
+        if (kRecompute) {
+          product_nt<DP, kNT>(s, q_w, kt, kLd, lane);
+          const int id_row[2] = {kMasked ? ids_s[rowc[0]] : 0, kMasked ? ids_s[rowc[1]] : 0};
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + j * 8 + 2 * tq + (e & 1), r = e >> 1;
+              float x = -INFINITY;  // keys past N: out of the row
+              if (key < n) {
+                x = s[j][e] * a.q_mul + __ldg(bias_h + rowc[r] * n + key) * kLog2e;
+                if (kMasked && ids_s[key] != id_row[r]) x += kMaskValue;
+              }
+              s[j][e] = x;
+            }
+          }
+        }
+        if (kRecompute && pass == 0) {  // running max and sum of exp2 of this thread's keys
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float tmax = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+            const float m_new = fmaxf(m_loc[r], tmax);
+            if (m_new != -INFINITY) {
+              float sum = 0.f;
+#pragma unroll
+              for (int j = 0; j < kNT; ++j) sum += exp2f(s[j][2 * r] - m_new) + exp2f(s[j][2 * r + 1] - m_new);
+              l_loc[r] = l_loc[r] * exp2f(m_loc[r] - m_new) + sum;
+              m_loc[r] = m_new;
+            }
+          }
+        } else {
+          if (kRecompute) {
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m_row[e >> 1]) * inv_l[e >> 1];
+            }
+          } else {
+            const bf16* pt = ps + buf * rows * kLdP + warp * kWarpRows * kLdP;
+#pragma unroll
+            for (int kk = 0; kk < kDqTile / 16; ++kk) {
+              uint32_t pa[4];
+              ldmatrix_x4(pa, pt + a_row(lane) * kLdP + kk * 16 + a_col(lane));
+              c_from_a(s[2 * kk], s[2 * kk + 1], pa);
+            }
+          }
+          float dp[kNT][4];  // dP = dO . v^T, then dS
+          product_nt<DP, kNT>(dp, do_w, vs + buf * kDqTile * kLd, kLd, lane);
+          if (pass == 1) {
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dlt[e >> 1] = fmaf(s[j][e], dp[j][e], dlt[e >> 1]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                dp[j][e] = s[j][e] * (dp[j][e] - dlt[e >> 1]);
+                const int key = k0 + j * 8 + 2 * tq + (e & 1), row = m0 + g + 8 * (e >> 1);
+                if (row < n && key < n) db[(row - m_block) * n + key] += dp[j][e];
+              }
+            }
+#pragma unroll
+            for (int kk = 0; kk < kDqTile / 16; ++kk) {
+              uint32_t hi[4], lo[4];
+              a_from_c_split(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
+              accumulate_tn<DP, true>(dq, hi, lo, kt, kLd, kk, lane);
+            }
+          }
+        }
+      }
+      __syncthreads();  // this stage's buffers are free for stage i + 2
+    }
+    if (active) store_rows<DP>(a, base, m0, h, 0, dq, a.scale, lane);
+  }
+  __syncthreads();
+  float* part = a.dbias_part + (static_cast<int64_t>(chunk) * a.heads + h) * n * n + static_cast<int64_t>(m_block) * n;
+  const int real = min(rows, n - m_block) * n;
+  for (int i = threadIdx.x; i < real; i += blockDim.x) part[i] = db[i];
+}
+
+// Shared memory of the bf16 dkv kernel: the block's v rows and, recomputing,
+// its k rows [rows][DP + 8]; two stages of q and dO [kDkvTile][DP + 8]; from
+// P, two stages of kDkvTile stash rows x the block's keys; two stages of
+// those queries' delta (and max and 1 / sum) in f32; then (shifted,
+// recomputing) the window's region ids.
+template <int DP, bool kMasked, bool kRecompute>
+struct DkvSmem {
+  static constexpr int kLd = DP + tc::kPad;
+  static constexpr int kStats = kRecompute ? 3 : 1;
+  __host__ __device__ static constexpr int ldp(int warps) { return warps * tc::kWarpRows + tc::kPad; }
+  static constexpr size_t bytes(int warps) {
+    const int rows = warps * tc::kWarpRows;
+    return sizeof(tc::bf16) * ((kRecompute ? 2 : 1) * rows * kLd + 4 * kDkvTile * kLd +
+                               (kRecompute ? 0 : 2 * kDkvTile * ldp(warps))) +
+           sizeof(float) * 2 * kStats * kDkvTile + (kMasked ? sizeof(int) * kLargeMaxN : 0);
+  }
+};
+
+template <int DP, bool kMasked, bool kRecompute>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32) window_attention_dkv_tc_kernel(Args a) {
+  using namespace tc;
+  using Smem = DkvSmem<DP, kMasked, kRecompute>;
+  constexpr int kLd = Smem::kLd, kNT = kDkvTile / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, d = a.d, c = a.heads * d;
+  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
+  const int kLdP = Smem::ldp(warps);
+  bf16* vs_own = reinterpret_cast<bf16*>(smem_raw);      // [rows][kLd]
+  bf16* ks_own = vs_own + rows * kLd;                    // [rows][kLd], recompute
+  bf16* qs = ks_own + (kRecompute ? rows * kLd : 0);     // [2][kDkvTile][kLd]
+  bf16* dos = qs + 2 * kDkvTile * kLd;                   // [2][kDkvTile][kLd]
+  bf16* pts = dos + 2 * kDkvTile * kLd;                  // [2][kDkvTile][kLdP], from P
+  float* st = reinterpret_cast<float*>(pts + (kRecompute ? 0 : 2 * kDkvTile * kLdP));  // [2][kStats][kDkvTile]
+  int* ids_s = reinterpret_cast<int*>(st + 2 * Smem::kStats * kDkvTile);
+
+  const int t = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int n_block = blockIdx.z * rows, n0 = n_block + warp * kWarpRows;  // the warp's first key
+  const bool active = n0 < n;
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;  // this (window, head)'s rows
+  const int64_t base = window_base(a, t);
+  auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
+  auto do_offset = [&](int r) { return window_row(a, base, r) * c; };
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
+  const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
+  const bf16* p_src = kRecompute ? nullptr : stash_tile(a, t, h) + n_block;
+  const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
+  bf16* v_w = vs_own + warp * kWarpRows * kLd;
+  const bf16* k_w = ks_own + warp * kWarpRows * kLd;
+  const int keyc[2] = {min(n0 + g, n - 1), min(n0 + g + 8, n - 1)};
+
+  const int tiles = (n + kDkvTile - 1) / kDkvTile;
+  auto load = [&](int i) {
+    const int q0 = i * kDkvTile, buf = i & 1;
+    stage_rows(qs + buf * kDkvTile * kLd, kLd, q_src, offset, q0, kDkvTile, DP, n, d, a.aligned);
+    stage_rows(dos + buf * kDkvTile * kLd, kLd, do_src, do_offset, q0, kDkvTile, DP, n, d, a.aligned);
+    if (!kRecompute) {
+      stage(pts + buf * kDkvTile * kLdP, kLdP, p_src + static_cast<int64_t>(q0) * n, n, kDkvTile, rows, n - q0,
+            n - n_block, a.p_aligned);
+    }
+    for (int idx = threadIdx.x; idx < Smem::kStats * kDkvTile; idx += blockDim.x) {
+      const int which = idx / kDkvTile, qq = idx - which * kDkvTile;
+      const bool in = q0 + qq < n;  // 0 past N: 1 / sum = 0 gives those queries no probability
+      cp_async4(st + buf * Smem::kStats * kDkvTile + idx, in ? a.stats + which * stats_n + stats0 + q0 + qq : a.stats,
+                in ? 4 : 0);
+    }
+  };
+  if (kMasked) {
+    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+    for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
+  }
+  stage_rows(vs_own, kLd, q_src + 2 * c, offset, n_block, rows, DP, n, d, a.aligned);
+  if (kRecompute) stage_rows(ks_own, kLd, q_src + c, offset, n_block, rows, DP, n, d, a.aligned);
+  load(0);
+  cp_async_commit();
+
+  float dv[DP / 8][4], dk[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+  }
+
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) {
+      load(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int buf = i & 1, q0 = i * kDkvTile;
+      const bf16* qt = qs + buf * kDkvTile * kLd;
+      const bf16* dot = dos + buf * kDkvTile * kLd;
+      const float* st_delta = st + buf * Smem::kStats * kDkvTile;
+      float p[kNT][4];  // P^T: key rows g, g + 8 of the warp; query columns
+      if (kRecompute) {
+        const float* st_m = st_delta + kDkvTile;
+        const float* st_il = st_m + kDkvTile;
+        const int id_key[2] = {kMasked ? ids_s[keyc[0]] : 0, kMasked ? ids_s[keyc[1]] : 0};
+        product_nt<DP, kNT>(p, k_w, qt, kLd, lane);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qq = j * 8 + 2 * tq + (e & 1), r = e >> 1;
+            const int query = min(q0 + qq, n - 1), key = n0 + g + 8 * r;
+            float x = p[j][e] * a.q_mul + __ldg(bias_h + query * n + keyc[r]) * kLog2e;
+            if (kMasked && ids_s[query] != id_key[r]) x += kMaskValue;
+            p[j][e] = key < n ? exp2f(x - st_m[qq]) * st_il[qq] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // dV += P^T . dO
+          uint32_t hi[4], lo[4];
+          a_from_c_split(hi, lo, p[2 * kk], p[2 * kk + 1]);
+          accumulate_tn<DP, true>(dv, hi, lo, dot, kLd, kk, lane);
+        }
+      } else {
+        const bf16* pt = pts + buf * kDkvTile * kLdP + warp * kWarpRows;
+#pragma unroll
+        for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // P^T fragments straight from the [query][key] tile
+          uint32_t pa[4];
+          ldmatrix_x4_trans(pa, pt + (kk * 16 + b_row(lane)) * kLdP + b_col(lane));
+          c_from_a(p[2 * kk], p[2 * kk + 1], pa);
+          accumulate_tn<DP, false>(dv, pa, pa, dot, kLd, kk, lane);  // dV += P^T . dO
+        }
+      }
+      float ds[kNT][4];  // dP^T = v . dO^T, then dS^T
+      product_nt<DP, kNT>(ds, v_w, dot, kLd, lane);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - st_delta[j * 8 + 2 * tq + (e & 1)]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // dK += dS^T . q
+        uint32_t hi[4], lo[4];
+        a_from_c_split(hi, lo, ds[2 * kk], ds[2 * kk + 1]);
+        accumulate_tn<DP, true>(dk, hi, lo, qt, kLd, kk, lane);
+      }
+    }
+    __syncthreads();  // this stage's buffers are free for stage i + 2
+  }
+  if (active) {
+    store_rows<DP>(a, base, n0, h, 1, dk, a.scale, lane);
+    store_rows<DP>(a, base, n0, h, 2, dv, 1.f, lane);
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a window's head slice (src its column in row 0's
+// pixel; offset(r) the element offset of row r's pixel) into shared memory
+// as f32 times mul (row stride DP + 1), zeros past N and past d.
+template <int DP, int ROWS, typename T, typename Offset>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, Offset offset, int r0, int n, int d,
+                                              float mul) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += blockDim.x) {
+    const int r = idx / DP, cc = idx - r * DP;
+    const int row = r0 + r;
+    dst[r * (DP + 1) + cc] = row < n && cc < d ? src[offset(row) + cc] * mul : 0.f;
+  }
+}
+
+// s[j] = <row r of a, row g + 4j of b>; both in shared memory, stride DP + 1.
+template <int DP>
+__device__ __forceinline__ void row_dots(const float* a, const float* b, int r, int g, float (&s)[kColsPerLane]) {
+#pragma unroll
+  for (int j = 0; j < kColsPerLane; ++j) s[j] = 0.f;
+#pragma unroll 4
+  for (int kd = 0; kd < DP; ++kd) {
+    const float x = a[r * (DP + 1) + kd];
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) s[j] = fmaf(x, b[(g + j * kLanesPerRow) * (DP + 1) + kd], s[j]);
+  }
+}
+
+// acc[i] += sum over cc < cols of w[r, cc] * m[cc, g + 4i]; w has stride
+// kF32Tile + 1, m stride DP + 1.
+template <int DP>
+__device__ __forceinline__ void accumulate_rows(const float* w, const float* m, int r, int g, int cols,
+                                                float (&acc)[DP / kLanesPerRow]) {
+  for (int cc = 0; cc < cols; ++cc) {
+    const float x = w[r * (kF32Tile + 1) + cc];
+    const float* mrow = m + cc * (DP + 1);
+#pragma unroll
+    for (int i = 0; i < DP / kLanesPerRow; ++i) acc[i] = fmaf(x, mrow[g + i * kLanesPerRow], acc[i]);
+  }
+}
+
+// Shared memory of the f32 dq kernel, in floats: the dbias sum [32][N], q
+// (scaled by scale * log2(e), recomputing) and dO [32][DP + 1], K and V
+// [64][DP + 1], the P (then dS) tile [32][65]; then the region ids.
+template <int DP>
+constexpr size_t dq_f32_bytes(int n) {
+  return sizeof(float) * (kF32Rows * n + 2 * kF32Rows * (DP + 1) + 2 * kF32Tile * (DP + 1) +
+                          kF32Rows * (kF32Tile + 1)) + sizeof(int) * kLargeMaxN;
+}
+
+// Thread t owns query row t / 4 and, of each key tile, the keys (t % 4) + 4j;
+// for dQ the dims (t % 4) + 4i. Blocks: (run of windows, head, 32 rows).
+template <int DP, bool kMasked, bool kRecompute>
+__global__ void __launch_bounds__(kF32Threads) window_attention_dq_kernel(Args a) {
+  constexpr int ld = DP + 1, lw = kF32Tile + 1;
+  extern __shared__ float smem[];
+  const int n = a.n, d = a.d, c = a.heads * d;
+  float* db = smem;                  // [32][n]
+  float* qs = db + kF32Rows * n;     // recompute
+  float* dos = qs + kF32Rows * ld;
+  float* ks = dos + kF32Rows * ld;
+  float* vs = ks + kF32Tile * ld;
+  float* ws = vs + kF32Tile * ld;    // P, then dS
+  int* ids_s = reinterpret_cast<int*>(ws + kF32Rows * lw);
+
+  const int chunk = blockIdx.x, h = blockIdx.y, m0 = blockIdx.z * kF32Rows;
+  const int r = threadIdx.x / kLanesPerRow, g = threadIdx.x % kLanesPerRow;
+  const int row = m0 + r, rr = min(row, n - 1);
+  const int t0 = chunk * a.per_chunk, t1 = min(t0 + a.per_chunk, a.total);
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const float* q_src = static_cast<const float*>(a.qkv) + h * d;
+  const float* do_src = static_cast<const float*>(a.dout) + h * d;
+  const float* bias_row = kRecompute ? a.bias + (static_cast<int64_t>(h) * n + rr) * n : nullptr;
+  constexpr int kDimsPerLane = DP / kLanesPerRow;
+
+  for (int i = threadIdx.x; i < kF32Rows * n; i += kF32Threads) db[i] = 0.f;
+  for (int t = t0; t < t1; ++t) {
+    const int64_t base = window_base(a, t);
+    auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
+    auto do_offset = [&](int x) { return window_row(a, base, x) * c; };
+    const float* p_rows = kRecompute ? nullptr
+                                     : static_cast<const float*>(a.p) + ((static_cast<int64_t>(t) * a.heads + h) * n + m0) * n;
+    __syncthreads();  // the previous window's readers are done
+    load_rows_f32<DP, kF32Rows>(dos, do_src, do_offset, m0, n, d, 1.f);
+    if (kMasked) {
+      const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+      for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
+    }
+    float s[kColsPerLane], pv[kColsPerLane], dp[kColsPerLane];
+    float m_row = 0.f, inv_l = 0.f;
+    // log2-domain scores of row r against the keys k0 + g + 4j (-inf past N)
+    auto scores = [&](int k0) {
+      row_dots<DP>(qs, ks, r, g, s);
+      const int my_id = kMasked ? ids_s[rr] : 0;
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) {
+        const int key = k0 + g + j * kLanesPerRow;
+        float x = -INFINITY;
+        if (key < n) {
+          x = s[j] + bias_row[key] * kLog2e;
+          if (kMasked && ids_s[key] != my_id) x += kMaskValue;
+        }
+        s[j] = x;
+      }
+    };
+    if (kRecompute) {
+      load_rows_f32<DP, kF32Rows>(qs, q_src, offset, m0, n, d, a.q_mul);
+      float m_loc = -INFINITY, l_loc = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+        __syncthreads();
+        load_rows_f32<DP, kF32Tile>(ks, q_src + c, offset, k0, n, d, 1.f);
+        __syncthreads();
+        scores(k0);
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) {
+          const float sj = s[j];
+          if (sj == -INFINITY) continue;
+          if (sj > m_loc) {
+            l_loc = l_loc * exp2f(m_loc - sj) + 1.f;
+            m_loc = sj;
+          } else {
+            l_loc += exp2f(sj - m_loc);
+          }
+        }
+      }
+      m_row = row_max(m_loc);
+      inv_l = 1.f / row_sum(m_loc == -INFINITY ? 0.f : l_loc * exp2f(m_loc - m_row));
+    }
+    // this thread's P[row, k0 + g + 4j] and dP, the key tile's K (recompute), V and P (stash) loaded
+    auto tile_p_dp = [&](int k0) {
+      row_dots<DP>(dos, vs, r, g, dp);
+      if (kRecompute) {
+        scores(k0);
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) pv[j] = exp2f(s[j] - m_row) * inv_l;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) pv[j] = ws[r * lw + g + j * kLanesPerRow];
+      }
+    };
+    auto load_tile = [&](int k0, bool with_k) {
+      load_rows_f32<DP, kF32Tile>(vs, q_src + 2 * c, offset, k0, n, d, 1.f);
+      if (with_k) load_rows_f32<DP, kF32Tile>(ks, q_src + c, offset, k0, n, d, 1.f);
+      if (!kRecompute) {  // the stash, zero outside [:n, :n]
+        for (int idx = threadIdx.x; idx < kF32Rows * kF32Tile; idx += kF32Threads) {
+          const int pr = idx / kF32Tile, pc = idx - pr * kF32Tile;
+          ws[pr * lw + pc] = m0 + pr < n && k0 + pc < n ? p_rows[static_cast<int64_t>(pr) * n + k0 + pc] : 0.f;
+        }
+      }
+    };
+    // pass 1: delta = rowsum(P o dP)
+    float dlt = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+      __syncthreads();
+      load_tile(k0, kRecompute);
+      __syncthreads();
+      tile_p_dp(k0);
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) dlt = fmaf(pv[j], dp[j], dlt);
+    }
+    dlt = row_sum(dlt);
+    if (g == 0 && row < n) {
+      const int64_t at = (static_cast<int64_t>(t) * a.heads + h) * n + row;
+      a.stats[at] = dlt;
+      if (kRecompute) {
+        a.stats[stats_n + at] = m_row;
+        a.stats[2 * stats_n + at] = inv_l;
+      }
+    }
+    // pass 2: dS = P o (dP - delta), dbias += dS, dQ = scale * dS . k
+    float acc[kDimsPerLane];
+#pragma unroll
+    for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+      __syncthreads();
+      load_tile(k0, true);
+      __syncthreads();
+      tile_p_dp(k0);
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) {  // each thread overwrites only the P entries it has read
+        const int key = k0 + g + j * kLanesPerRow;
+        const float ds = key < n ? pv[j] * (dp[j] - dlt) : 0.f;
+        ws[r * lw + g + j * kLanesPerRow] = ds;
+        if (row < n && key < n) db[r * n + key] += ds;
+      }
+      __syncthreads();
+      accumulate_rows<DP>(ws, ks, r, g, min(kF32Tile, n - k0), acc);
+    }
+    if (row < n) {
+      float* dst = static_cast<float*>(a.dqkv) + window_row(a, base, row) * row_stride + h * d;
+#pragma unroll
+      for (int i = 0; i < kDimsPerLane; ++i) {
+        const int dd = g + i * kLanesPerRow;
+        if (dd < d) dst[dd] = acc[i] * a.scale;
+      }
+    }
+  }
+  __syncthreads();
+  float* part = a.dbias_part + (static_cast<int64_t>(chunk) * a.heads + h) * n * n + static_cast<int64_t>(m0) * n;
+  const int real = min(kF32Rows, n - m0) * n;
+  for (int i = threadIdx.x; i < real; i += kF32Threads) part[i] = db[i];
+}
+
+// Shared memory of the f32 dkv kernel, in floats: k (recompute) and v
+// [32][DP + 1], q (scaled by scale * log2(e) recomputing, by scale from P)
+// and dO [64][DP + 1], P^T and dS^T [32][65], the queries' delta, max and
+// 1 / sum [3][64]; then the region ids.
+template <int DP>
+constexpr size_t dkv_f32_bytes() {
+  return sizeof(float) * (2 * kF32Rows * (DP + 1) + 2 * kF32Tile * (DP + 1) + 2 * kF32Rows * (kF32Tile + 1) +
+                          3 * kF32Tile) + sizeof(int) * kLargeMaxN;
+}
+
+// Thread t owns key row t / 4 and, of each query tile, the queries (t % 4) +
+// 4j; for dK and dV the dims (t % 4) + 4i. Blocks: (window, head, 32 keys).
+template <int DP, bool kMasked, bool kRecompute>
+__global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args a) {
+  constexpr int ld = DP + 1, lw = kF32Tile + 1;
+  extern __shared__ float smem[];
+  const int n = a.n, d = a.d, c = a.heads * d;
+  float* ks = smem;
+  float* vs = ks + kF32Rows * ld;
+  float* qs = vs + kF32Rows * ld;
+  float* dos = qs + kF32Tile * ld;
+  float* pt = dos + kF32Tile * ld;   // P^T [key][query]
+  float* dst = pt + kF32Rows * lw;   // dS^T
+  float* st_delta = dst + kF32Rows * lw;
+  float* st_m = st_delta + kF32Tile;
+  float* st_il = st_m + kF32Tile;
+  int* ids_s = reinterpret_cast<int*>(st_il + kF32Tile);
+
+  const int t = blockIdx.x, h = blockIdx.y, n0 = blockIdx.z * kF32Rows;
+  const int r = threadIdx.x / kLanesPerRow, g = threadIdx.x % kLanesPerRow;
+  const int key = n0 + r, kc = min(key, n - 1);
+  const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;
+  const int64_t base = window_base(a, t);
+  auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
+  auto do_offset = [&](int x) { return window_row(a, base, x) * c; };
+  const float* q_src = static_cast<const float*>(a.qkv) + h * d;
+  const float* do_src = static_cast<const float*>(a.dout) + h * d;
+  const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
+  const float* p_tile = kRecompute ? nullptr : static_cast<const float*>(a.p) + stats0 * n;
+  // q is the score operand recomputing (scale * log2(e)), else dK's (scale)
+  const float q_mul = kRecompute ? a.q_mul : a.scale;
+
+  if (kMasked) {
+    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+    for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
+  }
+  if (kRecompute) load_rows_f32<DP, kF32Rows>(ks, q_src + c, offset, n0, n, d, 1.f);
+  load_rows_f32<DP, kF32Rows>(vs, q_src + 2 * c, offset, n0, n, d, 1.f);
+
+  constexpr int kDimsPerLane = DP / kLanesPerRow;
+  float acc_dv[kDimsPerLane], acc_dk[kDimsPerLane];
+#pragma unroll
+  for (int i = 0; i < kDimsPerLane; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+  float s[kColsPerLane], dp[kColsPerLane];
+  for (int q0 = 0; q0 < n; q0 += kF32Tile) {
+    __syncthreads();
+    load_rows_f32<DP, kF32Tile>(qs, q_src, offset, q0, n, d, q_mul);
+    load_rows_f32<DP, kF32Tile>(dos, do_src, do_offset, q0, n, d, 1.f);
+    for (int qq = threadIdx.x; qq < kF32Tile; qq += kF32Threads) {
+      const bool in = q0 + qq < n;
+      st_delta[qq] = in ? a.stats[stats0 + q0 + qq] : 0.f;
+      if (kRecompute) {
+        st_m[qq] = in ? a.stats[stats_n + stats0 + q0 + qq] : 0.f;
+        st_il[qq] = in ? a.stats[2 * stats_n + stats0 + q0 + qq] : 0.f;  // 0: no probability for pad rows
+      }
+    }
+    if (!kRecompute) {  // P^T tile; neighbouring threads read neighbouring keys of one query row
+      for (int idx = threadIdx.x; idx < kF32Tile * kF32Rows; idx += kF32Threads) {
+        const int qq = idx / kF32Rows, kr = idx - qq * kF32Rows;
+        pt[kr * lw + qq] = q0 + qq < n && n0 + kr < n ? p_tile[static_cast<int64_t>(q0 + qq) * n + n0 + kr] : 0.f;
+      }
+    }
+    __syncthreads();
+    row_dots<DP>(vs, dos, r, g, dp);  // dP[query, key] = dO[query] . v[key]
+    if (kRecompute) row_dots<DP>(ks, qs, r, g, s);
+    const int my_id = kMasked ? ids_s[kc] : 0;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const int qq = g + j * kLanesPerRow;
+      float p;
+      if (kRecompute) {
+        const int query = min(q0 + qq, n - 1);
+        float x = s[j] + bias_h[static_cast<int64_t>(query) * n + kc] * kLog2e;
+        if (kMasked && ids_s[query] != my_id) x += kMaskValue;
+        p = key < n ? exp2f(x - st_m[qq]) * st_il[qq] : 0.f;
+        pt[r * lw + qq] = p;
+      } else {
+        p = pt[r * lw + qq];
+      }
+      dst[r * lw + qq] = p * (dp[j] - st_delta[qq]);
+    }
+    __syncthreads();
+    const int cols = min(kF32Tile, n - q0);
+    accumulate_rows<DP>(pt, dos, r, g, cols, acc_dv);  // dV[key] += P[query, key] dO[query]
+    accumulate_rows<DP>(dst, qs, r, g, cols, acc_dk);  // dK[key] += dS[query, key] q'[query]
+  }
+  if (key < n) {
+    float* out = static_cast<float*>(a.dqkv) + window_row(a, base, key) * row_stride + h * d;
+    const float dk_mul = kRecompute ? kInvLog2e : 1.f;
+#pragma unroll
+    for (int i = 0; i < kDimsPerLane; ++i) {
+      const int dd = g + i * kLanesPerRow;
+      if (dd < d) {
+        out[c + dd] = acc_dk[i] * dk_mul;
+        out[2 * c + dd] = acc_dv[i];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launches
 
 // dbias[i] = sum over chunks k, in order, of part[k][i].
@@ -708,11 +1473,55 @@ cudaError_t launch_tc(const Args& a, float* dbias, cudaStream_t stream) {
   return launch(kernel, kTcThreads, TcSmem<DP, kMasked, kRecompute>::bytes(a.n), a, dbias, stream);
 }
 
-// float32 -> the CUDA-core kernel, bfloat16 -> the tensor-core kernel; DP is
-// the head-dim bucket, then the variant: from P, recompute with shift
-// regions, recompute without.
+// N > 64: the dq kernel on a grid of (run of windows, head, run of rows),
+// the dkv kernel on (window, head, run of rows), then the dbias sum.
+template <typename Kernel>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t bytes, const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP, bool kMasked, bool kRecompute>
+cudaError_t launch_large(const Args& a, float* dbias, int dtype, cudaStream_t stream) {
+  const int n_chunks = (a.total + a.per_chunk - 1) / a.per_chunk;
+  cudaError_t err;
+  if (dtype == 0) {
+    const int blocks = (a.n + kF32Rows - 1) / kF32Rows;
+    err = launch_one(window_attention_dq_kernel<DP, kMasked, kRecompute>, dim3(n_chunks, a.heads, blocks),
+                     kF32Threads, dq_f32_bytes<DP>(a.n), a, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_one(window_attention_dkv_kernel<DP, kMasked, kRecompute>, dim3(a.total, a.heads, blocks),
+                     kF32Threads, dkv_f32_bytes<DP>(), a, stream);
+  } else {
+    const LargeSplit sp = large_split(a.n);
+    err = launch_one(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, dim3(n_chunks, a.heads, sp.blocks),
+                     sp.warps * 32, DqSmem<DP, kMasked, kRecompute>::bytes(sp.warps, a.n), a, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_one(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, dim3(a.total, a.heads, sp.blocks),
+                     sp.warps * 32, DkvSmem<DP, kMasked, kRecompute>::bytes(sp.warps), a, stream);
+  }
+  if (err != cudaSuccess) return err;
+  const int count = a.heads * a.n * a.n;
+  dbias_sum_kernel<<<(count + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
+      a.dbias_part, dbias, n_chunks, count);
+  return cudaGetLastError();
+}
+
+// float32 -> the CUDA-core kernels, bfloat16 -> the tensor-core kernels; N
+// above 64 -> the tiled ones; DP is the head-dim bucket, then the variant:
+// from P, recompute with shift regions, recompute without.
 template <int DP>
 cudaError_t dispatch(const Args& a, float* dbias, int dtype, cudaStream_t s) {
+  if (a.n > kMaxN) {
+    if (a.p != nullptr) return launch_large<DP, false, false>(a, dbias, dtype, s);
+    if (a.ids != nullptr) return launch_large<DP, true, true>(a, dbias, dtype, s);
+    return launch_large<DP, false, true>(a, dbias, dtype, s);
+  }
   if (dtype == 0) {
     if (a.p != nullptr) return launch_f32<DP, false, false>(a, dbias, s);
     if (a.ids != nullptr) return launch_f32<DP, true, true>(a, dbias, s);
@@ -732,18 +1541,21 @@ cudaError_t dispatch(const Args& a, float* dbias, int dtype, cudaStream_t s) {
 // windows); qkv, dout, dqkv and p of `dtype` (0: float32, 1: bfloat16), all
 // contiguous, on the current device. dbias_part: f32 [ceil(b * nW /
 // per_chunk), heads, ws^2, ws^2] scratch; dbias: f32 [heads, ws^2, ws^2].
-// q_mul = scale * log2(e). Takes ws <= 8 and head_dim <= 64. Launches the
-// backward kernel, then the dbias sum, on `stream`. Returns the CUDA error
-// code of the launches (0 on success).
+// stats: for ws^2 > 64, f32 [3, b * nW, heads, ws^2] scratch (else NULL).
+// q_mul = scale * log2(e). per_chunk: windows each block of the dbias-
+// carrying kernel takes, in batch-row-major order. Takes ws <= 16 and
+// head_dim <= 64 (ws <= 8 on the bodies above, 8 < ws <= 16 on the tiled
+// ones). Launches the backward kernels, then the dbias sum, on `stream`.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int vdk_fused_window_attention_bwd(const void* qkv, const float* bias, const int* ids,
                                               const void* p, const void* dout, void* dqkv,
-                                              float* dbias_part, float* dbias, int b, int h_img,
+                                              float* dbias_part, float* dbias, float* stats, int b, int h_img,
                                               int w_img, int heads, int head_dim, int ws,
                                               int per_chunk, float q_mul, float scale, int dtype,
                                               void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || head_dim < 1 || head_dim > 64 ||
-      ws < 1 || ws * ws > kMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
-      per_chunk < 1 || dbias_part == nullptr || dbias == nullptr ||
+      ws < 1 || ws * ws > kLargeMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
+      per_chunk < 1 || dbias_part == nullptr || dbias == nullptr || (ws * ws > kMaxN && stats == nullptr) ||
       (p == nullptr && bias == nullptr) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -752,9 +1564,10 @@ extern "C" int vdk_fused_window_attention_bwd(const void* qkv, const float* bias
   const int c = heads * head_dim;
   const int aligned = reinterpret_cast<uintptr_t>(qkv) % 16 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dqkv) % 16 == 0 && head_dim % 8 == 0 && c % 8 == 0;
+  const int p_aligned = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ws * ws % 8 == 0;
   const Args a{qkv,   bias,  ids,   p,        dout,    dqkv,  dbias_part, h_img,     w_img,
                heads, head_dim, ws, ws * ws, n_win_x, n_win, b * n_win,  per_chunk, q_mul,
-               scale, aligned};
+               scale, aligned, stats, p_aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dbias, dtype, s) : dispatch<64>(a, dbias, dtype, s);
   return static_cast<int>(err);

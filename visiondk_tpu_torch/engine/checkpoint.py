@@ -7,8 +7,10 @@ A checkpoint ``name`` (``last``, ``best``, the embedding loop's
 caller adds). ``state.pt`` holds everything a resumed run needs to
 continue as the uninterrupted run would: the model's and the EMA module's
 state dicts, the optimizer's state, ``step``, ``ema_updates``, the count of
-applied updates, and the state of the train step's CPU generator (without
-it a resumed run would draw other dropout masks).
+applied updates, with gradient accumulation the round's running mean of
+gradients and its mini-step count (a run killed in the middle of a round
+resumes it), and the state of the train step's CPU generator (without it a
+resumed run would draw other dropout masks).
 
 Saves are asynchronous: ``save`` copies every tensor of the state to host
 memory before it returns (the next step may then update the live tensors),
@@ -70,6 +72,8 @@ def _snapshot(state: TrainState) -> Dict[str, Any]:
         "step": state.step,
         "ema_updates": state.ema_updates,
         "opt_count": state.optimizer.count,
+        "opt_acc_grads": _to_host(state.optimizer.acc_grads),
+        "opt_mini_step": state.optimizer.mini_step,
         "generator": None if state.generator is None else state.generator.get_state(),
     }
 
@@ -209,6 +213,10 @@ class CheckpointManager:
         state.optimizer.optimizer.load_state_dict(saved["optimizer"])
         state.step, state.ema_updates = saved["step"], saved["ema_updates"]
         state.optimizer.count = saved["opt_count"]
+        acc = saved.get("opt_acc_grads")
+        state.optimizer.acc_grads = None if acc is None else [
+            a.to(p.device) for a, p in zip(acc, state.optimizer.params)]
+        state.optimizer.mini_step = saved.get("opt_mini_step", 0)
         if state.generator is not None and saved["generator"] is not None:
             state.generator.set_state(saved["generator"])
         return state, self._read_meta(name)

@@ -154,7 +154,10 @@ class DistillCenterProcessor(CenterProcessor):
                              f"({'EMA' if tcfg.get('ema', True) else 'live'} weights)")
         self.teacher_model.requires_grad_(False).eval()
 
-    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool) -> Callable:
+    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool,
+                        mixup: bool = False) -> Callable:
+        """The distillation step, whatever the mixup window says: it takes λ
+        and leaves it unused, as the JAX distillation step does."""
         key = ("distill", key)
         if key not in self._step_cache:
             self._step_cache[key] = make_distill_step(

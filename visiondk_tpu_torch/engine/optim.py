@@ -27,6 +27,12 @@ from the gradients in ``.grad``:
 - ``SGD`` below (g ← g + wd·p; v ← μ·v + g; p ← p − lr·v, the trace kept
   through μ = 0 steps as optax's) and torch ``Adam`` with L2-coupled weight
   decay are the optax chains' math; both run ``foreach``.
+- **Gradient accumulation** (``accumulate`` = k > 1, ``optax.MultiSteps``
+  around the chain): each ``update`` folds the gradients into the running
+  mean of this round's, ``acc ← acc + (g − acc) / (n + 1)`` (optax's Welford
+  form), and only the k-th applies it, as one update through the whole chain
+  (clip included) at the count of applied updates; the buffer and the
+  mini-step count live in ``OptState`` and in checkpoints.
 
 Not ported yet: SAM (``sam_perturb`` and its two-pass step; ``create_optimizer``
 raises for ``sam``).
@@ -35,7 +41,7 @@ raises for ``sam``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -148,6 +154,10 @@ class OptState:
     optimizer: torch.optim.Optimizer
     params: List[nn.Parameter]
     count: int = 0
+    # gradient accumulation: the running mean of this round's gradients (None
+    # before its first mini-step) and how many it holds
+    acc_grads: Optional[List[torch.Tensor]] = None
+    mini_step: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +173,7 @@ class OptimizerSpec:
     head_multiplier: float = 10.0
     backbone_freeze: bool = False
     bn_freeze_affine: bool = False
+    accumulate: int = 1  # mini-steps an applied update averages (optax.MultiSteps' every_k)
 
     def labels(self, model: nn.Module) -> Dict[str, float]:
         """Trainable parameter name → its lr multiplier; frozen ones absent."""
@@ -185,14 +196,31 @@ class OptimizerSpec:
         optimizer = OPTIMIZER.create(self.name, param_groups, self.weight_decay)
         return OptState(optimizer=optimizer, params=list(model.parameters()))
 
-    def update(self, state: OptState) -> None:
+    def update(self, state: OptState) -> bool:
         """One update, in place, from the gradients in ``.grad`` (a parameter
         without one gets a zero gradient, as every leaf of a JAX gradient
         tree exists): clip, set lr and momentum at ``state.count``, step,
-        count += 1."""
+        count += 1. With ``accumulate`` = k > 1 the gradients first join the
+        round's running mean, and only the k-th mini-step of a round applies
+        that mean (in ``.grad``) as the update. Returns whether an update was
+        applied."""
         for p in state.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.accumulate > 1:
+            grads = [p.grad for p in state.params]
+            if state.acc_grads is None:
+                state.acc_grads = [torch.zeros_like(g) for g in grads]
+            with torch.no_grad():
+                step = torch._foreach_sub(grads, state.acc_grads)
+                torch._foreach_div_(step, float(state.mini_step + 1))
+                torch._foreach_add_(state.acc_grads, step)
+            if state.mini_step + 1 < self.accumulate:
+                state.mini_step += 1
+                return False
+            for p, acc in zip(state.params, state.acc_grads):
+                p.grad = acc
+            state.acc_grads, state.mini_step = None, 0
         clip_by_global_norm_([p.grad for p in state.params], GRAD_CLIP_NORM)
         lr = self.lr_schedule(state.count)
         momentum = self.momentum_schedule(state.count)
@@ -202,6 +230,7 @@ class OptimizerSpec:
                 group["momentum"] = momentum
         state.optimizer.step()
         state.count += 1
+        return True
 
 
 def create_optimizer(
@@ -213,15 +242,19 @@ def create_optimizer(
     head_multiplier: float = 10.0,
     backbone_freeze: bool = False,
     bn_freeze_affine: bool = False,
+    accumulate: int = 1,
 ) -> OptimizerSpec:
     """The JAX ``create_optimizer``: base optimizer, clip, freezes and
-    layer-wise lr. An unknown name raises, and so does ``sam`` (not ported)."""
+    layer-wise lr; ``accumulate`` > 1 wraps it as ``optax.MultiSteps`` does.
+    An unknown name raises, and so does ``sam`` (not ported)."""
     if name == "sam":
         raise NotImplementedError("the SAM optimizer (sam_perturb and its two-pass step) is not ported yet")
     OPTIMIZER.get(name)
+    if accumulate < 1:
+        raise ValueError(f"accumulate must be at least 1, got {accumulate}")
     return OptimizerSpec(
         name, lr_schedule, weight_decay, momentum_schedule, layer_wise_lr, head_multiplier,
-        backbone_freeze, bn_freeze_affine,
+        backbone_freeze, bn_freeze_affine, accumulate,
     )
 
 

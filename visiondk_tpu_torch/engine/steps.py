@@ -5,10 +5,15 @@
 step's chain, uint8 batch → the device-augment stage where one is given →
 normalise on the device → forward in train mode
 → loss → backward → clip → optimizer → EMA, run eagerly and in place on the
-state (see ``make_train_step``). Ported: the plain classification variant
-and the embedding task (``task="embedding"``: the model's margin head gives
-``(logits, aux)`` and the loss is ``lossfn(logits, labels) + aux``). Mixup,
-SAM and OHEM raise ``NotImplementedError``.
+state (see ``make_train_step``). Ported: the plain classification variant,
+the embedding task (``task="embedding"``: the model's margin head gives
+``(logits, aux)`` and the loss is ``lossfn(logits, labels) + aux``), mixup
+(``cfg.mixup``: the batch mixed with a permutation of itself at weight
+``lam``, the loss ``lam·L(y) + (1 − lam)·L(y[perm])``) and OHEM
+(``cfg.ohem``: a per-sample weight from a no-grad forward of the clean batch,
+``ohem_mask``), alone or together, and gradient accumulation (the optimizer's
+``accumulate``: the EMA ticks only on the mini-steps that apply an update).
+SAM raises ``NotImplementedError``.
 
 ``make_eval_step`` and ``make_embed_step`` return callables ``step(batch)``
 that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
@@ -21,9 +26,11 @@ serving is not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,6 +73,40 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def ohem_mask(logits: torch.Tensor, labels: torch.Tensor, cfg: OHEMConfig) -> torch.Tensor:
+    """Keep the samples whose true-class probability is below max(the k-th
+    smallest of them, ``thresh``), k = ``min_kept`` (at most B − 1), and
+    whose label is not ``ignore_index``: an f32 weight [B] of 0s and 1s (the
+    JAX ``ohem_mask``). An ignored label's probability is never read."""
+    probs = torch.softmax(logits.float(), dim=1)
+    b = labels.shape[0]
+    index = labels.long().clamp(0, probs.shape[1] - 1)  # ignored labels may lie past the classes
+    tp = probs.gather(1, index[:, None])[:, 0]
+    valid = labels != cfg.ignore_index
+    sorted_tp = torch.sort(torch.where(valid, tp, torch.inf)).values
+    threshold = sorted_tp[min(cfg.min_kept, b - 1)].clamp_min(cfg.thresh)
+    return (valid & (tp < threshold)).float()
+
+
+def mixup_permutation(batch: int, generator: torch.Generator) -> torch.Tensor:
+    """The rows each row is mixed with: a permutation drawn from the step's
+    generator (on the CPU), so a seeded or resumed run draws the same ones."""
+    return torch.randperm(batch, generator=generator)
+
+
+@contextlib.contextmanager
+def _buffers_kept(model: nn.Module):
+    """Restores every buffer of ``model`` on exit: a train-mode forward that
+    must not update the BatchNorm statistics (flax's ``mutable=False``)."""
+    saved = [b.clone() for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, kept in zip(model.buffers(), saved):
+                b.copy_(kept)
+
+
 def make_train_step(
     model: nn.Module,
     tx: OptimizerSpec,
@@ -78,11 +119,13 @@ def make_train_step(
 
     Each call, on ``state.model`` (which must be ``model``): train mode,
     normalise the uint8 batch on the model's device, forward, ``lossfn``,
-    backward, then ``tx.update`` (clip, schedules, optimizer step) and the
-    EMA update, and ``state.step += 1`` (for ``task="embedding"`` the
-    forward is ``model(images, labels)``, the margin head's ``(logits, aux)``,
-    and the loss ``lossfn(logits, labels) + aux``). The state is updated in place; the
-    clipped gradients stay in ``.grad`` until the next call clears them.
+    backward, then ``tx.update`` (clip, schedules, optimizer step; with
+    accumulation, one update every ``accumulate`` calls) and, where an update
+    was applied, the EMA update, and ``state.step += 1`` (for
+    ``task="embedding"`` the forward is ``model(images, labels)``, the margin
+    head's ``(logits, aux)``, and the loss ``lossfn(logits, labels) + aux``).
+    The state is updated in place; the clipped gradients stay in ``.grad``
+    until the next call clears them.
     Dropout and DropPath draw from a seed taken from ``generator`` (a CPU
     ``torch.Generator``) on every call (the JAX step folds the step into its
     key), so two runs from the same generator state draw the same masks.
@@ -90,11 +133,17 @@ def make_train_step(
     the uint8 batch on the model's device before normalisation, seeded by a
     second draw from ``generator`` after the dropout seed's: a checkpoint
     carries the generator, so a resumed run draws the same augments.
-    ``lam`` is the mixup weight, unused until mixup is ported.
+    With ``cfg.ohem`` the step first runs the model on the clean batch in
+    train mode without gradient (the same dropout draws as the loss forward,
+    the BatchNorm statistics left as they were) and weights the loss by
+    ``ohem_mask`` of those logits. With ``cfg.mixup`` the images become
+    ``lam·x + (1 − lam)·x[perm]`` (``perm`` from ``mixup_permutation``, drawn
+    after the dropout and augment seeds) and the loss ``lam·L(y) + (1 −
+    lam)·L(y[perm])``, both terms with the OHEM weight; ``lam`` and ``1 −
+    lam`` are taken in f32, as the JAX step's traced scalar.
     """
-    for what, on in (("mixup", cfg.mixup), ("SAM", cfg.sam is not None), ("OHEM", cfg.ohem is not None)):
-        if on:
-            raise NotImplementedError(f"{what} in the train step is not ported yet")
+    if cfg.sam is not None:
+        raise NotImplementedError("SAM in the train step is not ported yet")
     device = _device(model)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], lam: float = 0.0):
@@ -107,15 +156,28 @@ def make_train_step(
         if device_augment is not None:
             images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
         images = device_preprocess(images, cfg.mean, cfg.std)
+        perm = mixup_permutation(images.shape[0], generator).to(device) if cfg.mixup else None
         for p in model.parameters():
             p.grad = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+            loss_of = lossfn
+            if cfg.ohem is not None:
+                # the mask from the CLEAN images, before any mixing
+                torch.manual_seed(seed)
+                with torch.no_grad(), _buffers_kept(model):
+                    sw = ohem_mask(model(images), labels, cfg.ohem)
+                loss_of = lambda logits, y: lossfn(logits, y, sw)  # noqa: E731
             torch.manual_seed(seed)
             if cfg.task == "embedding":
                 logits, aux = model(images, labels)
-                loss = lossfn(logits, labels) + aux
+                loss = loss_of(logits, labels) + aux
+            elif cfg.mixup:
+                lam32 = np.float32(lam)
+                rest = np.float32(1.0) - lam32
+                logits = model(float(lam32) * images + float(rest) * images[perm])
+                loss = float(lam32) * loss_of(logits, labels) + float(rest) * loss_of(logits, labels[perm])
             else:
-                loss = lossfn(model(images), labels)
+                loss = loss_of(model(images), labels)
         loss.backward()
         apply_update(state, tx, cfg)
         return {"loss": loss.detach()}
@@ -125,10 +187,13 @@ def make_train_step(
 
 def apply_update(state: TrainState, tx: OptimizerSpec, cfg: StepConfig) -> None:
     """The end of every train step, from the gradients in ``.grad``: the
-    optimizer update (clip, schedules, step), the EMA update, step += 1."""
-    tx.update(state.optimizer)
-    state.ema_updates += 1
-    update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
+    optimizer update (clip, schedules, step; with accumulation, only on the
+    mini-step that completes it), the EMA update where one was applied (the
+    EMA ticks on applied updates, or its horizon would shrink k-fold), step
+    += 1."""
+    if tx.update(state.optimizer):
+        state.ema_updates += 1
+        update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
     state.step += 1
 
 

@@ -8,10 +8,15 @@ epoch, as the JAX loop does:
 
 - the epoch strategy (``_epoch_strategy``): epoch 0 trains on the val
   augments, ``warm_ep`` restores the train augments (and swaps in the
-  focal loss where configured), ``aug_epoch`` weakens them to the val
-  augments, progressive resize rewrites the pipeline's sizes; a resumed run
-  replays the skipped epochs' strategy so its pipeline matches the
-  uninterrupted run's;
+  focal loss where configured), mixup is live in the epochs
+  ``[warm_ep, warm_ep + duration)`` (its λ per step from
+  ``np.random.default_rng([seed, epoch, i]).beta(ratio, ratio)``),
+  ``aug_epoch`` weakens the augments to the val augments, progressive resize
+  rewrites the pipeline's sizes; a resumed run replays the skipped epochs'
+  strategy so its pipeline matches the uninterrupted run's;
+- OHEM (``hyp.strategy.ohem``, CE only) in every train step, and gradient
+  accumulation (``hyp.accumulate``: k mini-batches an applied update, the
+  schedules on applied counts with ``steps_per_epoch / k`` of them an epoch);
 - each step through the port's ``make_train_step``, fed by a
   ``DevicePrefetcher`` (batch N+1 is copied to the card while step N runs);
   per-step losses stay on the device, with one host read per epoch;
@@ -36,8 +41,7 @@ A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
 with f32 parameters by default (``compute_dtype``). On the card the run
 selects cuDNN's deterministic algorithms (no autotuner), so seeded runs are
-bit-identical. Not ported yet, and
-raising ``NotImplementedError``: mixup, OHEM, SAM and gradient accumulation.
+bit-identical. Not ported yet, and raising ``NotImplementedError``: SAM.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.engine.optim import OptimizerSpec, create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
 from visiondk_tpu_torch.engine.state import TrainState, create_train_state
-from visiondk_tpu_torch.engine.steps import StepConfig, make_embed_step, make_eval_step, make_train_step
+from visiondk_tpu_torch.engine.steps import OHEMConfig, StepConfig, make_embed_step, make_eval_step, make_train_step
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models.convert import load_converted, merge_converted
 from visiondk_tpu_torch.models.factory import get_model
@@ -80,13 +84,16 @@ def build_tx(
     model_cfg: Optional[Dict[str, Any]] = None,
 ) -> OptimizerSpec:
     """The optimizer of a config's ``hyp:`` section (and the freeze flags of
-    its ``model:`` section). The schedules run on epochs ``count /
-    steps_per_epoch`` of the applied-update count, floored when
-    ``discrete_per_epoch`` (classification steps its schedule per epoch,
-    the embedding tasks per batch). ``hyp.accumulate > 1`` and the ``sam``
-    optimizer raise: neither is ported yet."""
-    if normalize_accumulate(hyp) > 1:
-        raise NotImplementedError("hyp.accumulate > 1 (optax.MultiSteps) is not ported yet")
+    its ``model:`` section). With ``hyp.accumulate`` = k the optimizer
+    applies one update every k mini-steps (``optax.MultiSteps``), and an
+    epoch is ``steps_per_epoch / k`` applied updates, kept fractional. The
+    schedules run on epochs ``count / (steps_per_epoch / k)`` of the
+    applied-update count, computed in f32 as the JAX schedule computes them,
+    floored when ``discrete_per_epoch`` (classification steps its schedule
+    per epoch, the embedding tasks per batch). The ``sam`` optimizer raises:
+    it is not ported yet."""
+    accumulate = normalize_accumulate(hyp)
+    spe_applied = np.float32(steps_per_epoch / accumulate)
     optimizer = hyp["optimizer"]
     opt_name = optimizer[0]
     layer_wise = bool(optimizer[1]) if isinstance(optimizer, (list, tuple)) and len(optimizer) > 1 else False
@@ -98,7 +105,7 @@ def build_tx(
     )
 
     def to_epochs(count: int) -> float:
-        t = count / steps_per_epoch
+        t = float(np.float32(count) / spe_applied)
         return math.floor(t) if discrete_per_epoch else t
 
     model_cfg = model_cfg or {}
@@ -110,7 +117,14 @@ def build_tx(
         layer_wise_lr=layer_wise,
         backbone_freeze=bool(model_cfg.get("backbone_freeze")),
         bn_freeze_affine=bool(model_cfg.get("bn_freeze_affine")),
+        accumulate=accumulate,
     )
+
+
+def logged_lr(tx: OptimizerSpec, mini_count: int) -> float:
+    """The lr a run logs after ``mini_count`` mini-steps: the schedule at the
+    applied count ``mini_count // accumulate`` (the JAX trainer's ``_lr_fn``)."""
+    return tx.lr_schedule(mini_count // tx.accumulate)
 
 
 def resolve_device(device) -> torch.device:
@@ -156,15 +170,15 @@ class CenterProcessor:
         strategy = self.hyp_cfg.get("strategy", {})
         loss_cfg = self.hyp_cfg["loss"]
         self.loss_choice = "ce" if loss_cfg.get("ce") else "bce"
+        # OHEM (CE only), weighting both loss terms where mixup is on too
+        ohem = strategy.get("ohem", [False])
+        self.ohem_cfg = (OHEMConfig(*ohem[1:4]) if ohem and ohem[0] and self.loss_choice == "ce"
+                         and self.task == "classification" else None)
+        # the mixup window [warm_ep, warm_ep + duration)
         mix = strategy.get("mixup", [0.0, 0])
         if isinstance(mix, dict):
             mix = [mix["ratio"], mix["duration"]]
-        ohem = strategy.get("ohem", [False])
-        if train:
-            for what, on in (("mixup", float(mix[0]) > 0 and int(mix[1]) > 0),
-                             ("OHEM", bool(ohem and ohem[0] and self.loss_choice == "ce"))):
-                if on:
-                    raise NotImplementedError(f"hyp.strategy.{what.lower()} is not ported to visiondk_tpu_torch yet")
+        self.mixup_ratio, self.mixup_duration = float(mix[0]), int(mix[1])
 
         self.model = get_model(self.model_cfg, dtype=compute_dtype, device=self.device,
                                generator=torch.Generator().manual_seed(seed))
@@ -239,29 +253,45 @@ class CenterProcessor:
             f" --weight {self.project / 'best'} --ema{device_flag}"
         )
 
-    def step_config(self) -> StepConfig:
+    def step_config(self, mixup: bool = False) -> StepConfig:
+        """The train step's variant (the serving steps read only its
+        normalisation): the task, mixup on or off, and the run's OHEM."""
         mean, std = self.data_processor.normalization
         task = "classification" if self.task == "classification" else "embedding"
-        return StepConfig(task=task, mean=mean, std=std)
+        return StepConfig(task=task, mixup=mixup, ohem=self.ohem_cfg, mean=mean, std=std)
 
-    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool) -> Callable:
+    def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool,
+                        mixup: bool = False) -> Callable:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
-                self.model, tx, lossfn, self.step_config(), state.generator,
+                self.model, tx, lossfn, self.step_config(mixup), state.generator,
                 device_augment=self.device_augment_fn if device_aug else None)
         return self._step_cache[key]
 
+    def mixup_lambda(self, epoch: int, i: int) -> float:
+        """Step i's mixup weight in ``epoch``: a Beta(ratio, ratio) draw
+        seeded by (seed, epoch, i), the same on every host and every run."""
+        return float(np.random.default_rng([self.seed, epoch, i]).beta(self.mixup_ratio, self.mixup_ratio))
+
     def _epoch_strategy(self, epoch: int, lossfn, aug_epoch: int, log: bool = True):
         """Apply this epoch's strategy to the data processor and the loss and
-        return the loss. A function of the epoch number and the config, so a
-        resume replays epochs [0, start) with ``log=False``."""
+        return (the loss, whether mixup is live). A function of the epoch
+        number and the config, so a resume replays epochs [0, start) with
+        ``log=False``."""
         dp = self.data_processor
+        warm_ep = self.hyp_cfg["warm_ep"]
+        mixup_on = self.mixup_ratio > 0 and self.mixup_duration > 0
         if epoch == 0:
             dp.set_augment("train", None)
-        if epoch == self.hyp_cfg["warm_ep"]:
+        if epoch == warm_ep:
             dp.restore_train_augment()
             if self.focal_fn is not None:
                 lossfn = self.focal_fn
+            if log and mixup_on:
+                self.logger.both("Mixup start up")
+        mixup_active = mixup_on and warm_ep <= epoch < warm_ep + self.mixup_duration
+        if log and mixup_on and epoch == warm_ep + self.mixup_duration:
+            self.logger.both("Mixup end")
         dp.auto_aug_weaken(epoch, milestone=aug_epoch)
         if self.prog_learn:
             for node, size in zip(self.resize_chnodes, self.imgsz_milestone):
@@ -274,7 +304,7 @@ class CenterProcessor:
                         self._step_cache.clear()
                     if log:
                         self.logger.both(f"progressive resize -> {size}")
-        return lossfn
+        return lossfn, mixup_active
 
     # --------------------------------------------------------- classification
 
@@ -332,18 +362,19 @@ class CenterProcessor:
         # a resumed run replays the strategy of the skipped epochs, so its
         # augment pipeline / focal swap / progressive size match the uninterrupted run's
         for past in range(min(start_epoch, epochs)):
-            lossfn = self._epoch_strategy(past, lossfn, aug_epoch, log=False)
+            lossfn, _ = self._epoch_strategy(past, lossfn, aug_epoch, log=False)
 
         t0 = time.time()
         last_metrics: Dict[str, Any] = {}
         for epoch in range(start_epoch, epochs):
-            lossfn = self._epoch_strategy(epoch, lossfn, aug_epoch)
+            lossfn, mixup_active = self._epoch_strategy(epoch, lossfn, aug_epoch)
             # device augments are live exactly when the host train augments
             # are: epochs [warm_ep, aug_epoch) (before: val augments, the
             # warm-up; from aug_epoch on: weakened to the val augments)
             dev_aug = self.device_augment_fn is not None and hyp["warm_ep"] <= epoch < aug_epoch
             loss_key = "focal" if lossfn is self.focal_fn else self.loss_choice
-            step = self._get_train_step(tx, state, (loss_key, dev_aug), lossfn, dev_aug)
+            step = self._get_train_step(tx, state, (loss_key, mixup_active, dev_aug), lossfn, dev_aug,
+                                        mixup=mixup_active)
 
             train_loader.set_epoch(epoch)
             epoch_t0 = time.time()
@@ -351,8 +382,9 @@ class CenterProcessor:
             # losses stay on the device; ONE host read per epoch. A per-step
             # .item() would sync the host with the card every step.
             step_losses = []
-            for batch in DevicePrefetcher(train_loader, self.device, self.device_prefetch_depth):
-                step_losses.append(step(state, batch)["loss"])
+            for i, batch in enumerate(DevicePrefetcher(train_loader, self.device, self.device_prefetch_depth)):
+                lam = self.mixup_lambda(epoch, i) if mixup_active else 0.0
+                step_losses.append(step(state, batch, lam)["loss"])
                 n_images += batch["image"].shape[0]
             tloss = torch.stack(step_losses).mean().item() if step_losses else 0.0
             epoch_secs = time.time() - epoch_t0
@@ -387,7 +419,7 @@ class CenterProcessor:
                 w = self.metrics_writer
                 w.add_scalar("Train_loss", tloss, epoch)
                 w.add_scalar("Train_images_per_sec", rate, epoch)
-                w.add_scalar("Train_lr", tx.lr_schedule(state.optimizer.count), epoch)
+                w.add_scalar("Train_lr", logged_lr(tx, state.step), epoch)
                 for k in ("top1", "top5", "precision", "recall", "f1score", "v_loss"):
                     if k in val_metrics:
                         w.add_scalar(f"Val_{k}", float(val_metrics[k]), epoch)
@@ -437,9 +469,9 @@ class CenterProcessor:
         embed_step = make_embed_step(state.ema_model, self.step_config())
 
         # no warm-up or weakening of the augments (vision_engine.py:438-561):
-        # the device-augment stage is live in every epoch
+        # the device-augment stage is live in every epoch; no mixup (λ = 0)
         dev_aug = self.device_augment_fn is not None
-        step = self._get_train_step(tx, state, ("embed", dev_aug), self.lossfn, dev_aug)
+        step = self._get_train_step(tx, state, ("embed", False, dev_aug), self.lossfn, dev_aug, mixup=False)
         logger.both(
             f"device {self.device}, compute {str(self.compute_dtype).replace('torch.', '')}; loaders: train "
             f"{loader_kind(train_loader)} ({len(train_loader)} batches of {data_cfg['train']['bs']})"
@@ -454,14 +486,14 @@ class CenterProcessor:
             pending = []  # device losses, read at print_freq and at the epoch's end
             for i, batch in enumerate(DevicePrefetcher(train_loader, self.device, self.device_prefetch_depth)):
                 rows = batch["image"].shape[0]
-                pending.append((step(state, batch)["loss"], rows))
+                pending.append((step(state, batch, 0.0)["loss"], rows))
                 n_images += rows
                 if (i + 1) % print_freq == 0:
                     for dev_loss, n in pending:
                         loss_meter.update(float(dev_loss), n=n)
                     pending.clear()
                     steps_done = epoch * steps_per_epoch + i + 1
-                    lr = tx.lr_schedule(state.optimizer.count)
+                    lr = logged_lr(tx, steps_done)
                     logger.console(f"epoch:{epoch + 1}/{epochs} batch:{i + 1} loss:{loss_meter.avg:.4f} lr:{lr:.3g}")
                     if self.metrics_writer is not None:
                         self.metrics_writer.add_scalar("Train_loss", loss_meter.avg, steps_done)

@@ -26,7 +26,9 @@ backward. The bias gradient is the sum of dS over every window and batch row.
 Without grad it runs the no-stash forward.
 
 Four kernels, each behind a wrapper with its own launch count
-(``<wrapper>.launches``, counted only where the kernel is launched):
+(``<wrapper>.launches``, counted only where the kernel is launched, and
+``<wrapper>.large_launches``, the launches on windows of N > 64, which the
+kernels' tiled bodies take):
 
 - ``fused_window_attention_fwd``: no-stash forward (``csrc/fused_window_attention.cu``, K2);
 - ``fused_window_attention_fwd_stash``: the same kernel, also writing P (K2s);
@@ -61,7 +63,8 @@ from visiondk_tpu_torch.ops.attention import (
 _MASK_VALUE = -100.0 * _LOG2E  # the reference's region mask, in the log2 domain
 _FWD_LIB = "fused_window_attention"
 _BWD_LIB = "fused_window_attention_bwd"
-_MAX_WS = 8
+_MAX_WS = 16
+_SMALL_N = 64  # ws <= 8: a window's rows in one block; above it the tiled bodies
 _MAX_HEAD_DIM = 64
 # The backward's blocks, and the bf16 forward's, each take a fixed run of
 # windows for one head; the runs are as short as keep every head's blocks
@@ -74,6 +77,11 @@ _SMS = 132
 _BWD_BLOCKS_PER_SM = {(torch.float32, False): 8, (torch.float32, True): 8,
                       (torch.bfloat16, False): 3, (torch.bfloat16, True): 2}
 _FWD_BLOCKS_PER_SM = 4
+# Windows of N > 64: the backward's dq kernel carries dbias over a run of
+# windows per (head, run of 64 rows); two of its blocks fit an SM (about 90 KB
+# of shared memory each at N = 256).
+_LARGE_ROWS = 64
+_LARGE_BLOCKS_PER_SM = 2
 
 
 def _window_size(bias: torch.Tensor, heads: int) -> int:
@@ -245,8 +253,7 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
     b, d = qkv.shape[0], qkv.shape[-1] // (3 * heads)
     if n > _MAX_WS**2 or d > _MAX_HEAD_DIM:
         raise ValueError(f"{op} kernel takes ws <= {_MAX_WS} and head_dim <= {_MAX_HEAD_DIM}, "
-                         f"got ws² = {n}, head_dim = {d} (swinv2_large_window12to16_192to256's ws 16 "
-                         "is not taken yet)")
+                         f"got ws² = {n}, head_dim = {d}")
     if not 1 <= b <= 65535 or heads > 65535:
         raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={heads}")
     return True
@@ -255,7 +262,7 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _FWD_ARGS = [_P, _P, _P, _P, _P,  # qkv bias ids out p
              _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul dtype stream
-_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P,  # qkv bias ids p dout dqkv dbias_part dbias
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,  # qkv bias ids p dout dqkv dbias_part dbias stats
              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul scale dtype stream
 
 
@@ -287,8 +294,12 @@ def _windows_per_run(windows: int, heads: int, blocks_per_sm: int) -> int:
     return -(-windows // runs)
 
 
-def windows_per_chunk(batch: int, n_win: int, heads: int, dtype: torch.dtype, recompute: bool) -> int:
-    """Windows each backward block takes, in a fixed order, for one head."""
+def windows_per_chunk(batch: int, n_win: int, heads: int, dtype: torch.dtype, recompute: bool,
+                      n: int = _SMALL_N) -> int:
+    """Windows each backward block takes, in a fixed order, for one head (and,
+    for N > 64, one run of rows: the dq kernel's blocks, which carry dbias)."""
+    if n > _SMALL_N:
+        return _windows_per_run(batch * n_win, heads * -(-n // _LARGE_ROWS), _LARGE_BLOCKS_PER_SM)
     return _windows_per_run(batch * n_win, heads, _BWD_BLOCKS_PER_SM[dtype, recompute])
 
 
@@ -299,24 +310,35 @@ def forward_windows_per_chunk(batch: int, n_win: int, heads: int) -> int:
 
 
 def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
-    """The backward kernel (from P when ``p`` is given, else recomputing it
-    from bias and ids), then the fixed-order sum of its dbias partials."""
+    """The backward kernels (from P when ``p`` is given, else recomputing it
+    from bias and ids), then the fixed-order sum of their dbias partials.
+    For N > 64 the row statistics the dq kernel hands the dkv kernel (delta,
+    and recomputing the row max and 1 / sum) go through ``stats``."""
     b, hh, ww, _, d, ws, n_win = _layout(qkv, heads, n, ids)
-    per_chunk = windows_per_chunk(b, n_win, heads, qkv.dtype, p is None)
+    per_chunk = windows_per_chunk(b, n_win, heads, qkv.dtype, p is None, n)
     n_chunks = -(-b * n_win // per_chunk)
     dqkv = torch.empty_like(qkv)
     dbias_part = torch.empty((n_chunks, heads, n, n), dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
+    stats = (torch.empty((3, b * n_win, heads, n), dtype=torch.float32, device=qkv.device)
+             if n > _SMALL_N else None)
     lib = _lib(_BWD_LIB, "vdk_fused_window_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_window_attention_bwd(
             qkv.data_ptr(), _ptr(bias), _ptr(ids), _ptr(p), dout.data_ptr(), dqkv.data_ptr(),
-            dbias_part.data_ptr(), dbias.data_ptr(), b, hh, ww, heads, d, ws, per_chunk,
+            dbias_part.data_ptr(), dbias.data_ptr(), _ptr(stats), b, hh, ww, heads, d, ws, per_chunk,
             _scale(d, scale) * _LOG2E, _scale(d, scale), _DTYPE_CODES[qkv.dtype], stream,
         )
     _check_err(lib, err, "fused_window_attention backward")
     return dqkv, dbias
+
+
+def _count(wrapper, n: int) -> None:
+    """One launch of ``wrapper``'s kernel on windows of N tokens."""
+    wrapper.launches += 1
+    if n > _SMALL_N:
+        wrapper.large_launches += 1
 
 
 def fused_window_attention_fwd(
@@ -324,7 +346,7 @@ def fused_window_attention_fwd(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """No-stash forward: qkv [B, H, W, 3C] → O [B, H, W, C]. CUDA tensors
-    (qkv float32 or bfloat16, bias float32, ids int32, all contiguous, ws ≤ 8,
+    (qkv float32 or bfloat16, bias float32, ids int32, all contiguous, ws ≤ 16,
     head_dim ≤ 64) launch the kernel, built at first use; CPU tensors run
     ``fused_window_attention_plain``. Anything else raises."""
     n = _window_size(bias, heads)
@@ -332,7 +354,7 @@ def fused_window_attention_fwd(
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_fwd"):
         return fused_window_attention_plain(qkv, bias, ids, heads, scale)
     out, _ = _launch_fwd(qkv, bias, ids, heads, scale, stash=False)
-    fused_window_attention_fwd.launches += 1
+    _count(fused_window_attention_fwd, n)
     return out
 
 
@@ -348,7 +370,7 @@ def fused_window_attention_fwd_stash(
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_fwd_stash"):
         return fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale)
     out, p = _launch_fwd(qkv, bias, ids, heads, scale, stash=True)
-    fused_window_attention_fwd_stash.launches += 1
+    _count(fused_window_attention_fwd_stash, n)
     return out, p
 
 
@@ -368,7 +390,7 @@ def fused_window_attention_bwd_from_p(
     if not _runs_kernel(qkv, heads, n, None, None, "fused_window_attention_bwd_from_p"):
         return fused_window_attention_bwd_from_p_plain(qkv, p, dout, heads, scale)
     dqkv, dbias = _launch_bwd(qkv, n, None, None, p, dout, heads, scale)
-    fused_window_attention_bwd_from_p.launches += 1
+    _count(fused_window_attention_bwd_from_p, n)
     return dqkv, dbias
 
 
@@ -384,7 +406,7 @@ def fused_window_attention_bwd_recompute(
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_bwd_recompute"):
         return fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, heads, scale)
     dqkv, dbias = _launch_bwd(qkv, n, bias, ids, None, dout, heads, scale)
-    fused_window_attention_bwd_recompute.launches += 1
+    _count(fused_window_attention_bwd_recompute, n)
     return dqkv, dbias
 
 
@@ -395,7 +417,7 @@ KERNELS = (
     fused_window_attention_bwd_recompute,
 )
 for _k in KERNELS:
-    _k.launches = 0
+    _k.launches = _k.large_launches = 0
 
 
 # ---------------------------------------------------------------- the op
