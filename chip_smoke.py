@@ -21,7 +21,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
              kernels (32, 64 x from P, recompute shifted, recompute
              unshifted) must issue tensor-core instructions (HMMA, or HGMMA
              for wgmma), counted per kernel; the float32 CUDA-core kernels
-             must have no bf16 instantiation.
+             must have no bf16 instantiation. For every instantiation of the
+             tiled bf16 kernels (window forward, dq, dkv): registers, stack
+             and static shared memory (cuobjdump --dump-resource-usage), spill
+             bytes (ptxas), its dynamic shared memory (held equal to the
+             wrapper's planning figure) and blocks an SM
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at least the
+             blocks the wrapper plans its runs of windows for).
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
@@ -57,10 +63,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
              stage 2: 16×16, 24 heads, one window; scale 1.0), ws 12 (N =
              144), ws 16 at head dim 64, ws 9 (the stash's rows not 16-byte
              aligned) and head dim 12 at ws 16. In bf16 all four run on the
-             tensor cores, the forwards over fixed runs of windows per block
-             with the stash written through shared memory (its 49 x 49 tiles
-             are not 16-byte aligned). O, P and dqkv
-             are held to phase 3's bars; the stash forward's O must be
+             tensor cores, over fixed runs of windows per block. O, P and dqkv
+             are held to phase 3's bars, but O in bf16 element by element to
+             max(1.6e-2, one bf16 ulp of |plain|): the same bar where |plain|
+             < 4 and one ulp above it (SwinV2's scale 1.0 reaches |o| ≈ 5 at
+             ws 16, where the kernel's f32 summation order can flip the last
+             rounding); the stash forward's O must be
              bit-equal to the no-stash kernel's; dbias (f32 in both dtypes)
              within 1e-4 · max(1, max |plain|): both sides sum the same f32
              terms over up to 5120 windows in another order. A repeated
@@ -68,7 +76,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              kernels and their plain versions at the stage-0 (unshifted) and
              stage-2 bf16 shapes and at SwinV2-L's stage 0, in the order plain,
              kernel, kernel, plain, beside SDPA with the bias as attn_mask on
-             pre-partitioned windows; the SwinV2-L rows get `[bound ws16]`
+             pre-partitioned windows; the SwinV2-L rows print the first tiled
+             bodies' times (PERF.md) beside their own and get `[bound ws16]`
              lines at the end.
 5. train   — the training path: the pet_synth model at full width and depth,
              bf16 compute with f32 parameters, bs 128 seeded uint8 images and
@@ -333,7 +342,9 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
 
 With --swin-train-trials it runs only the Swin-B bf16 train step's timed
 trials, device-time split and bf16 one-step comparison (swin_train_trials);
-with --determinism-probe, phase DT's subprocess. Every phase prints its
+with --determinism-probe, phase DT's subprocess; with --tiled-variants, the
+variants of the tiled window kernels that were tried and dropped
+(TILED_VARIANTS) against the committed ones at SwinV2-L stage 0. Every phase prints its
 seconds ([time] lines) and the run its total.
 
 The line before the last is a JSON summary of the ten kernels, with each
@@ -357,6 +368,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import gc
 import io
@@ -754,6 +766,83 @@ def check_sass(built) -> None:
                       f"HMMA/HGMMA {sum(found.values())}")
 
 
+def resource_usage(lib_path) -> dict:
+    """Registers, stack, static shared and local memory per kernel of a built
+    library, read with the toolkit's cuobjdump --dump-resource-usage."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib_path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    usage, function = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function (\S+):", line)
+        if found:
+            function = found.group(1)
+        elif function is not None and "REG:" in line:
+            usage[function] = {k: int(v) for k, v in re.findall(r"\b(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+            function = None
+    return usage
+
+
+def spill_bytes(ptxas_log: str) -> dict:
+    """(spill stores, spill loads) in bytes per kernel, from ptxas' -v report."""
+    spills, function = {}, ""
+    for line in ptxas_log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            function = found.group(1)
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and function:
+            spills[function] = (int(found.group(1)), int(found.group(2)))
+    return spills
+
+
+# the tiled bf16 kernels (8 < ws <= 16): (library, kernel, its name in ops.window_attention.tiled_smem_bytes);
+# their template arguments are the head-dim bucket, shift regions or none, stash (or recompute) or none
+TILED_KERNELS = (("fused_window_attention", "window_attention_fwd_large_tc_kernel", "fwd"),
+                 ("fused_window_attention_bwd", "window_attention_dq_tc_kernel", "dq"),
+                 ("fused_window_attention_bwd", "window_attention_dkv_tc_kernel", "dkv"))
+
+
+def tiled_occupancy(lib, kind: str, dp: int, masked: bool, variant: bool) -> tuple:
+    """(threads, dynamic shared bytes, blocks an SM) of a tiled bf16 kernel at
+    N = 256, from the library's own occupancy entry."""
+    out = [ctypes.c_int() for _ in range(3)]
+    refs = [ctypes.byref(x) for x in out]
+    if kind == "fwd":
+        fn = lib.vdk_fused_window_attention_fwd_tiled_occupancy
+        err = fn(dp, int(masked), int(variant), 256, *refs)
+    else:
+        fn = lib.vdk_fused_window_attention_bwd_tiled_occupancy
+        err = fn(0 if kind == "dq" else 1, dp, int(masked), int(variant), 256, *refs)
+    check(err == 0, f"tiled {kind} occupancy query failed with CUDA error {err}")
+    return tuple(x.value for x in out)
+
+
+def report_tiled_resources(built) -> None:
+    """Each instantiation of the tiled bf16 kernels: registers, spills, stack,
+    static and dynamic shared memory, threads and blocks an SM."""
+    libs = {b.path.name.split("-")[0][len("lib"):]: b for b in built}
+    for name, kernel, kind in TILED_KERNELS:
+        b = libs[name]
+        usage, spills = resource_usage(b.path), spill_bytes(b.ptxas_log)
+        for function, res in sorted(usage.items()):
+            found = re.search(rf"\d{kernel}ILi(\d+)ELb(\d)ELb(\d)", function)
+            if not found:
+                continue
+            dp, masked, variant = int(found.group(1)), found.group(2) == "1", found.group(3) == "1"
+            threads, dyn, blocks = tiled_occupancy(b.lib, kind, dp, masked, variant)
+            planned = wattn.tiled_smem_bytes(kind, dp, masked, variant)
+            check(dyn == planned, f"{kernel}<{dp},{masked},{variant}>: {dyn} bytes of shared memory, the wrapper "
+                                  f"plans for {planned}")
+            check(blocks >= wattn.tiled_blocks_per_sm(kind, dp, masked, variant),
+                  f"{kernel}<{dp},{masked},{variant}>: {blocks} blocks an SM, below the wrapper's plan")
+            store, load = spills.get(function, (0, 0))
+            print(f"[build] tiled {kernel}<DP {dp}, {'shifted' if masked else 'unshifted'}, "
+                  f"{('stash' if variant else 'no stash') if kind == 'fwd' else ('recompute' if variant else 'from P')}>: "
+                  f"{res['REG']} registers, spills {store} B stored / {load} B loaded, stack {res['STACK']} B, "
+                  f"shared {res['SHARED']} B static + {dyn} B dynamic, {threads} threads, {blocks} blocks an SM")
+
+
 def phase_build() -> None:
     names = ("fused_qkv_attention", "fused_qkv_attention_bwd",
              "fused_window_attention", "fused_window_attention_bwd")
@@ -770,6 +859,7 @@ def phase_build() -> None:
             elif "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {function}: {line.split(':', 1)[-1].strip()}")
     check_sass(built)
+    report_tiled_resources(built)
 
 
 def max_err(out: torch.Tensor, ref: torch.Tensor, scaled: bool = False) -> float:
@@ -777,6 +867,18 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, scaled: bool = False) -> float
     if scaled:
         diff = diff / ref.float().abs().clamp_min(1.0)
     return diff.max().item()
+
+
+def o_bar_ratio(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
+    """The largest |kernel − plain| over O as a share of its bar: TOL[dtype]
+    in f32; in bf16, element by element, max(TOL, one bf16 ulp of |plain|)
+    (2⁻⁷ of the power of two at or below |plain|)."""
+    ref = ref.float()
+    bar = torch.full_like(ref, TOL[dtype])
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+        bar = torch.maximum(bar, ulp)
+    return ((out.float() - ref).abs() / bar).max().item()
 
 
 def phase_kernel(dev: torch.device) -> dict:
@@ -916,6 +1018,10 @@ def window_library(qkv, bias, ids, dout, h: int, ws: int, scale):
 
 # the window kernels' rows at SwinV2-L stage 0 (the timed ws-16 case): (tag, bound row), for report()
 WS16_ROWS: dict = {}
+# the first tiled bodies' times at that shape, bf16 ms, before their redesign (PERF.md §6: NVIDIA H100
+# 80GB HBM3, 700 W)
+WS16_FIRST_MS = {wattn.fused_window_attention_fwd: 1.1214, wattn.fused_window_attention_fwd_stash: 1.3357,
+                wattn.fused_window_attention_bwd_from_p: 1.6965, wattn.fused_window_attention_bwd_recompute: 4.1546}
 
 
 def phase_window_kernel(dev: torch.device) -> dict:
@@ -957,17 +1063,20 @@ def phase_window_kernel(dev: torch.device) -> dict:
                          kr: max_err(db_r, db_r_ref) / max(1.0, db_r_ref.abs().max().item())}
             errs = {kf: max_err(out, ref), ks: max(max_err(o_s, o_r), p_err),
                     kb: max_err(g_p, g_p_ref, scaled=True), kr: max_err(g_r, g_r_ref, scaled=True)}
+            o_ratio = {kf: o_bar_ratio(out, ref, dtype), ks: o_bar_ratio(o_s, o_r, dtype)}
             check(p_err <= P_TOL[dtype], f"{tag}: P max |kernel - plain| {p_err} > {P_TOL[dtype]}")
-            for k, err in errs.items():
-                check(err <= tol, f"{tag}: {NAMES[k]} error {err} > {tol}")
+            for k, ratio in o_ratio.items():
+                check(ratio <= 1.0, f"{tag}: {NAMES[k]} O error {errs[k]} is {ratio:.3f} of its bar (> 1)")
+            for k in (kb, kr):
+                check(errs[k] <= tol, f"{tag}: {NAMES[k]} error {errs[k]} > {tol}")
             for k, err in dbias_err.items():
                 check(err <= DBIAS_TOL, f"{tag}: {NAMES[k]} dbias error {err} of max(1, |plain|) > {DBIAS_TOL}")
-            print(f"[window kernel] {tag}: max|err| fwd {errs[kf]:.3e}, stash O/P "
+            print(f"[window kernel] {tag}: max|err| fwd {errs[kf]:.3e} ({o_ratio[kf]:.3f} of the O bar), stash O/P "
                   f"{max_err(o_s, o_r):.3e}/{p_err:.3e} (O bit-equal to fwd), bwd_from_p dqkv "
                   f"{errs[kb]:.3e} dbias {dbias_err[kb]:.3e} (bit-identical on repeat), bwd_recompute "
                   f"dqkv {errs[kr]:.3e} dbias {dbias_err[kr]:.3e}, max|dbias| {db_p_ref.abs().max().item():.3e} "
-                  f"(tol {tol}, P {P_TOL[dtype]:.3e}, dbias {DBIAS_TOL} of max(1, |plain|); dqkv scaled by "
-                  f"max(1, |plain|))")
+                  f"(O bar {tol}{' or one bf16 ulp of |plain|, the larger' if dtype == torch.bfloat16 else ''}, "
+                  f"P {P_TOL[dtype]:.3e}, dbias {DBIAS_TOL} of max(1, |plain|); dqkv {tol} scaled by max(1, |plain|))")
 
             if timed and dtype == torch.bfloat16:
                 calls = {
@@ -997,6 +1106,10 @@ def phase_window_kernel(dev: torch.device) -> dict:
                     lib, lib_what = library[k]
                     times = time_row(f"[window kernel] {tag}", NAMES[k], kern, plain, lib,
                                      f"{lib_what}; {lib_note}" if lib is not None else lib_what)
+                    if ws > 8:
+                        print(f"[window kernel] {tag} {NAMES[k]}: tiled body {times['ms']:.4f} ms against the first "
+                              f"tiled body's {WS16_FIRST_MS[k]:.4f} ms ({WS16_FIRST_MS[k] / times['ms']:.2f}x; PERF.md, "
+                              f"NVIDIA H100 80GB HBM3 at 700 W)")
                     row = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
                     if name == "swin_b_stage0":
                         summary[k] = row
@@ -2445,7 +2558,7 @@ CNN_PROFILED = ("resnet50", "convnext_base", "mobilenetv3_large_100", "efficient
 CNN_PROBED = ("convnext_base", "mobilenetv3_large_100")
 # the rows whose card-vs-CPU step is also printed in f32 (the float64 step is held for every row)
 CNN_F32_PRINTED = ("resnet50", "resnet18")
-CNN_F32_BATCH = 16
+CNN_F32_BATCH = 8  # was 16: the CPU float64 steps of six CNNs set much of phase CN's time
 CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
 # device-time classes of a CNN step, by kernel name (lower case), first match wins
 CNN_KERNEL_CLASSES = (
@@ -3489,6 +3602,87 @@ def swin_train_trials(dev: torch.device, trials: int = 3) -> None:
     compare_one_step(SWIN, torch.bfloat16, dev, batch, tag="swin trials")
 
 
+# Variants of the tiled bf16 window kernels that were tried and dropped, each a few lines' edit of the
+# committed source: (library, label, [(committed text, variant text), ...])
+TILED_VARIANTS = (
+    ("fused_window_attention", "exp2f in place of ex2.approx.ftz",
+     [("s[j][e] = wtc::exp2_ftz(s[j][e] - mx[e >> 1]);", "s[j][e] = exp2f(s[j][e] - mx[e >> 1]);")]),
+    ("fused_window_attention", "no __syncwarp() fences in the products",
+     [("          if ((np & 3) == 3) __syncwarp();  // keeps ptxas from hoisting every step's loads\n", ""),
+      ("        if ((kk & 3) == 3) __syncwarp();\n", "")]),
+    ("fused_window_attention_bwd", "no __syncwarp() fences (dq, dkv from P)",
+     [("      __syncwarp();  // keeps ptxas from hoisting every step's loads (255 registers and spills without)\n", ""),
+      ("pa[kk], vs, lanes, kk);\n        __syncwarp();\n", "pa[kk], vs, lanes, kk);\n"),
+      ("        }\n        __syncwarp();\n      }\n#pragma unroll\n      for (int r = 0; r < 2; ++r) dlt[r] =",
+       "        }\n      }\n#pragma unroll\n      for (int r = 0; r < 2; ++r) dlt[r] ="),
+      ("        tile(qc);\n        __syncwarp();\n", "        tile(qc);\n")]),
+    ("fused_window_attention_bwd", "dkv recomputing unrolled whole, dkv from P in pairs",
+     [("#pragma unroll 2\n      for (int qc = 0; qc < kQ / 16; ++qc) tile(qc);",
+       "#pragma unroll\n      for (int qc = 0; qc < kQ / 16; ++qc) tile(qc);"),
+      ("#pragma unroll\n      for (int qc = 0; qc < kQ / 16; ++qc) {\n        tile(qc);",
+       "#pragma unroll 2\n      for (int qc = 0; qc < kQ / 16; ++qc) {\n        tile(qc);")]),
+    ("fused_window_attention_bwd", "delta through a split P . V when recomputing (as from P)",
+     [("    if (active && kRecompute) {", "    if (false) {"),
+      ("        wtc::accumulate<DP, false>(o[kk & 1], pa[kk], pa[kk], vs, lanes, kk);\n",
+       "        if (kRecompute) {\n          uint32_t hi[4], lo[4];\n"
+       "          a_from_c_split(hi, lo, s[2 * kk], s[2 * kk + 1]);\n"
+       "          wtc::accumulate<DP, true>(o[kk & 1], hi, lo, vs, lanes, kk);\n"
+       "        } else {\n          wtc::accumulate<DP, false>(o[kk & 1], pa[kk], pa[kk], vs, lanes, kk);\n        }\n")]),
+)
+
+
+def build_variant(name: str, label: str, edits) -> "_build.Built":
+    """The committed csrc/<name>.cu with ``edits`` applied, built as _build
+    builds it into a directory of its own under the build directory."""
+    out = _build.BUILD_DIR / "variants" / re.sub(r"\W+", "_", f"{name}_{label}")
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, out)
+    text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    for old, new in edits:
+        check(text.count(old) == 1, f"variant {label!r}: its edit does not match {name}.cu once: {old[:60]!r}")
+        text = text.replace(old, new)
+    (out / f"{name}.cu").write_text(text)
+    lib = out / f"lib{name}.so"
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / f"{name}.cu")], check=True,
+                   capture_output=True, timeout=600)
+    return _build.Built(lib=ctypes.CDLL(str(lib)), path=lib, command=[], seconds=time.perf_counter() - t0,
+                        ptxas_log="")
+
+
+def tiled_variants(dev: torch.device) -> None:
+    """Each variant of TILED_VARIANTS against the committed kernels at
+    SwinV2-L stage 0 (bf16, the timed WINDOW16_CASES row): CUDA-event ms in the
+    order committed, variant, variant, committed, one process and one card."""
+    names = ("fused_window_attention", "fused_window_attention_bwd")
+    with ThreadPoolExecutor(len(names) + len(TILED_VARIANTS)) as pool:
+        committed = dict(zip(names, pool.map(_build.build, names)))
+        variants = list(pool.map(lambda v: build_variant(*v), TILED_VARIANTS))
+    name, b, hw, h, c, ws, shift, scale, _ = WINDOW16_CASES[0]
+    n = ws * ws
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.from_numpy(window_region_ids(hw, hw, ws, shift)).to(dev)
+    qkv = torch.randn((b, hw, hw, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((b, hw, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+    bias = 0.5 * torch.randn((h, n, n), generator=gen, device=dev)
+    kf, ks, kb, kr = wattn.KERNELS
+    _, p = ks(qkv, bias, ids, h, scale)
+    calls = {"fused_window_attention": {kf: lambda: kf(qkv, bias, ids, h, scale), ks: lambda: ks(qkv, bias, ids, h, scale)},
+             "fused_window_attention_bwd": {kb: lambda: kb(qkv, p, dout, h, scale),
+                                            kr: lambda: kr(qkv, bias, ids, dout, h, scale)}}
+    for (lib, label, _), built in zip(TILED_VARIANTS, variants):
+        for k, fn in calls[lib].items():
+            ms = []
+            for which in (committed[lib], built, built, committed[lib]):
+                _build._loaded[lib] = which
+                ms.append(cuda_ms(fn, iters=10))
+            _build._loaded[lib] = committed[lib]
+            print(f"[tiled variants] {name} bf16 {NAMES[k]}: committed {ms[0]:.4f}, {ms[3]:.4f} ms | {label}: "
+                  f"{ms[1]:.4f}, {ms[2]:.4f} ms (order committed, variant, variant, committed)")
+
+
 def report(kern: dict, launches: dict) -> None:
     """Each kernel's bound line and the two JSON lines that end the run."""
     kernels = []
@@ -3522,5 +3716,9 @@ if __name__ == "__main__":
         swin_train_trials(torch.device("cuda", 0))
     elif sys.argv[1:] == ["--determinism-probe"]:
         determinism_probe()
+    elif sys.argv[1:] == ["--tiled-variants"]:
+        phase_device()
+        torch.cuda.set_device(0)
+        tiled_variants(torch.device("cuda", 0))
     else:
         main()

@@ -284,36 +284,6 @@ __device__ __forceinline__ void stage(bf16* dst, int ld, const bf16* src, int64_
   }
 }
 
-// As stage, for a tile whose rows are not equally strided (a window's rows
-// lie ws pixels apart, then jump to the next image row): tile row r is row
-// r0 + r of the source, at src + offset(r0 + r) elements; rows at or past
-// n_rows and cols at or past n_cols are zeros.
-template <typename Offset>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, Offset offset, int r0, int rows,
-                                           int cols, int n_rows, int n_cols, bool aligned) {
-  const int chunks = cols >> 3;
-  for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
-    const int r = c / chunks;
-    const int col = (c - r * chunks) << 3;
-    bf16* d = dst + r * ld + col;
-    const bool row_in = r0 + r < n_rows;
-    const bf16* s = src + (row_in ? offset(r0 + r) : 0) + col;
-    if (aligned) {
-      const bool in = row_in && col < n_cols;
-      cp_async16(d, in ? s : src, in ? 16 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t x0 = row_in && col + 2 * e < n_cols ? __bfloat16_as_ushort(s[2 * e]) : 0u;
-        const uint32_t x1 = row_in && col + 2 * e + 1 < n_cols ? __bfloat16_as_ushort(s[2 * e + 1]) : 0u;
-        w[e] = x0 | (x1 << 16);
-      }
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
 // Writes rows [0, n_rows) x cols [0, n_cols) of a shared-memory tile (row
 // stride ld, cols a multiple of 8 wide) to a row-major bf16 matrix at dst
 // (row stride dst_ld): 16 bytes a thread where aligned, else one element a

@@ -88,7 +88,7 @@
 // reaches these kernels.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//   -shared -Xcompiler -fPIC (see visiondk_tpu_torch/ops/_build.py).
+//   -shared -Xcompiler -fPIC --split-compile=0 (see visiondk_tpu_torch/ops/_build.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -85,7 +85,7 @@
 // never reaches it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//   -shared -Xcompiler -fPIC (see visiondk_tpu_torch/ops/_build.py).
+//   -shared -Xcompiler -fPIC --split-compile=0 (see visiondk_tpu_torch/ops/_build.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +93,7 @@
 #include <stdint.h>
 
 #include "attention_tc.cuh"
+#include "window_tc.cuh"
 
 namespace {
 
@@ -504,54 +505,74 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
 // ---------------------------------------------------------------- windows of N > 64
 //
 // ws 9 to 16 (N up to 256: swinv2_large_window12to16_192to256 attends in 16 x
-// 16 windows in stages 0-2). A window's f32 scores no longer fit a warp's
-// registers (256 keys) nor, in the f32 design above, shared memory (about
-// 356 KB at N = 256), so these bodies tile the query rows over blocks and
-// loop over tiles of keys, as the fused QKV forward does for ViT's N = 197
-// (fused_qkv_attention.cu): a block takes one (window, head) and a run of
-// query rows; two passes over the key tiles (pass 1: each row's max and sum
-// of exp2, a running max per thread combined over the row's four lanes;
-// pass 2: the scores again, P = exp2(S - max) / sum rounded to the input
-// dtype where the reference rounds it, O += P . V). What the window adds:
-// the rows' pixels by index arithmetic (row r of the window is r / ws image
-// rows and r % ws columns from its first pixel), bias_h read at each score,
-// the region mask from the window's ids, and the stash tile [N, N] of
-// (window, head) in [B, nW, heads, N, N].
+// 16 windows in stages 0-2). Replaces the same Pallas kernel
+// (_wattn_fwd_kernel, window_attention.py:246-290) for those windows, in both
+// launches (K2 and K2s). A window's f32 scores no longer fit one warp's
+// registers nor, in the f32 design above, shared memory (about 356 KB at
+// N = 256), so these bodies split a window's query rows over blocks.
 //
-// bfloat16: up to 8 warps of 16 query rows a block (rows split over blocks
-// as evenly as 16-row tiles go: N = 256 is 2 blocks of 8 warps, N = 144 2 of
-// 5); keys in tiles of 32 through a two-stage cp.async ring; S = q . k^T and
-// O = P . V on mma.sync m16n8k16 (bf16 in, f32 sum), q's fragments held in
-// registers, P from the score accumulators straight into the A fragments of
-// P . V; the stash through a per-warp shared tile, 16 bytes a store where its
-// rows are 16-byte aligned (N a multiple of 8). Tried on the card and
-// dropped: the window's whole K and V staged once a block (one barrier in
-// place of one a key tile): the same bits, slower (the larger shared memory
-// holds fewer blocks an SM). float32: the CUDA-core structure of the fused
-// QKV forward's f32 kernel (32 query rows a block, 128 threads, key tiles of
-// 64), for the f32 bars.
+// What bounds it on the H100: bytes by the roofline; in practice the rate
+// of instructions for the per-score work. At SwinV2-L stage 0 (bs 32, 64^2,
+// ws 16 shifted by 8, 6 heads, d 32, bf16) q, k, v and the bias in and O out
+// are 203 MB (0.061 ms at 3.35 TB/s) against 25.8 GFLOP (0.026 ms at the bf16
+// peak); the stash adds 403 MB. But each of the 201 M scores also takes a scale and bias add,
+// a max, an exp2, a sum, a normalisation and a rounding: about 7 instructions
+// a score, and the 128 scores a thread holds leave registers for 8 warps an
+// SM, so the instruction rate, not a unit's throughput, sets the time.
 //
-// What bounds it on the H100: bytes, as for the small windows. At SwinV2-L
-// stage 0 (bs 32, 64^2, 6 heads, d 32, bf16) q, k, v in and O out are 201
-// MB (0.060 ms at 3.35 TB/s) against 25.8 GFLOP (0.026 ms at the bf16
-// peak); the stash adds 403 MB.
+// bfloat16 (the main path). The first design (one block a window, the f32
+// bias read from L2 at every score, two passes over 16 barrier-separated
+// 32-key tiles so that P rounds where the reference rounds it) took 1.12 ms
+// (K2) and 1.34 ms (K2s) at stage 0 (PERF.md). This design, against each of
+// its limits:
+//   - the bias at every score: a block takes one head, a run of 64 query rows
+//     (4 warps of 16) and a fixed run of `per_chunk` windows in batch-row-
+//     major order; the bias rows of its queries times log2(e) (-inf past N)
+//     are read once a block into shared memory in fragment order, each
+//     thread's own values in 16-byte pieces that neighbouring lanes read side
+//     by side (64 KB): no bias byte comes from L2 after the first window.
+//   - two passes: a warp forms each score once. Its 16 rows x 256 keys stay in
+//     registers (128 f32 a thread), so the row max, exp2, row sum,
+//     normalisation and bf16 rounding of P follow with no second product,
+//     bias add, mask or exp2. P = exp2(S - max) * (1 / sum) is rounded to bf16
+//     after normalisation, where the reference rounds it, and repacked C -> A
+//     in registers for O += P . V. Maxima and sums over four partials a row,
+//     P . V over two: no long dependent chains.
+//   - one window a block: the wrapper sizes the runs so that one wave of two
+//     blocks an SM covers the call (stage 0: 11 runs x 6 heads x 4 runs of
+//     rows). Two barriers a window overlap the loads with the products: V of
+//     window t arrives during its Q . K^T and softmax, q and K of window
+//     t + 1 during its P . V.
+//   - every window takes 256 keys (past N: zero K and V, -inf bias), so every
+//     loop is unrolled with no bound to test; each lane's ldmatrix offsets
+//     are computed once (window_tc.cuh), every tile offset an immediate. With
+//     N and the swizzled addresses computed at run time, branches and integer
+//     work were half of the instructions.
+//   - the key order of window_tc.cuh puts a thread's P for eight consecutive
+//     keys of a row in one register quad: the stash is written straight from
+//     the fragments in 16-byte stores (N a multiple of 8; else element by
+//     element). The stash adds only stores, so O is bit for bit the no-stash
+//     kernel's.
+//   - exp2 is ex2.approx.ftz (window_tc.cuh::exp2_ftz); the region mask is
+//     added only in windows whose ids differ (a warp vote a window); a
+//     __syncwarp() every few steps of the products keeps ptxas from hoisting
+//     all their loads, which spilled.
+// Tried on the card and dropped: exp2f in place of exp2_ftz, and no fences
+// (chip_smoke.py --tiled-variants times both against this file); with no
+// time kept here, all slower: a third barrier a window, so that q and K of
+// window t + 1 are issued right after window t's Q . K^T (with a second
+// buffer of ids; 255 registers); the bias read from L2 at every score for
+// three blocks an SM at 170 registers (it spilled); each row tile split over
+// a pair of warps with half the keys each (max, sum and O exchanged through
+// shared memory; 8 warps a block; capped at 128 registers it spilled).
+// float32: the CUDA-core structure of the fused QKV forward's f32 kernel (32
+// query rows a block, 128 threads, key tiles of 64, two passes), for the f32
+// bars.
 
-constexpr int kLargeMaxN = 256;   // ws <= 16
-constexpr int kLargeTile = 32;    // keys a tile (bf16)
-constexpr int kLargeMaxWarps = 8;
-constexpr int kF32Rows = 32;      // query rows a block (f32)
-constexpr int kF32Tile = 64;      // keys a tile (f32)
-constexpr int kF32Threads = 128;  // four a row
-
-struct LargeSplit {
-  int blocks, warps;
-};
-// 16-row tiles of a window over ceil(tiles / 8) blocks, as evenly as they go.
-inline LargeSplit large_split(int n) {
-  const int tiles = (n + tc::kWarpRows - 1) / tc::kWarpRows;
-  const int blocks = (tiles + kLargeMaxWarps - 1) / kLargeMaxWarps;
-  return {blocks, (tiles + blocks - 1) / blocks};
-}
+constexpr int kLargeMaxN = wtc::kMaxN;  // ws <= 16
+constexpr int kF32Rows = 32;            // query rows a block (f32)
+constexpr int kF32Tile = 64;            // keys a tile (f32)
+constexpr int kF32Threads = 128;        // four a row
 
 // Row r of window t's first pixel `base`, as a row index of [B * H * W].
 __device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
@@ -559,100 +580,115 @@ __device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r
   return base + static_cast<int64_t>(ry) * a.w_img + (r - ry * a.ws);
 }
 
-// Shared memory of the bf16 kernel: the block's q rows, two stages of K and
-// of V [kLargeTile][DP + 8] bf16, each warp's P tile [16][kLargeTile + 8]
-// (stash), then the window's region ids [kLargeMaxN] int (shifted).
+// Shared memory of the bf16 kernel: the bias in fragment order (per warp and
+// group of 32 keys, 2 row halves x 2 pieces x 32 lanes of float4), the q
+// rows [64][DP], K and V [256][DP] in the key order (keys past N zeros), the
+// rows' pixel offsets [N] int, then the window's region ids [N] int
+// (shifted).
 template <int DP>
 struct LargeSmem {
-  static constexpr int kLd = DP + tc::kPad;
-  static constexpr int kLdP = kLargeTile + tc::kPad;
-  static constexpr size_t bytes(int warps, bool stash, bool masked) {
-    return sizeof(tc::bf16) * (warps * tc::kWarpRows * kLd + 4 * kLargeTile * kLd +
-                               (stash ? warps * tc::kWarpRows * kLdP : 0)) +
-           (masked ? sizeof(int) * kLargeMaxN : 0);
+  static constexpr size_t bytes(bool masked) {
+    return sizeof(float4) * wtc::kMaxWarps * wtc::kMaxGroups * 128 +
+           sizeof(tc::bf16) * (wtc::kRows + 2 * wtc::kMaxN) * DP + sizeof(int) * kLargeMaxN * (masked ? 2 : 1);
   }
 };
 
 template <int DP, bool kMasked, bool kStash>
-__global__ void __launch_bounds__(kLargeMaxWarps * 32) window_attention_fwd_large_tc_kernel(Args a) {
+__global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_tc_kernel(Args a) {
   using namespace tc;
-  constexpr int kLd = LargeSmem<DP>::kLd, kLdP = LargeSmem<DP>::kLdP, kNT = kLargeTile / 8;
+  constexpr int kNT = wtc::kNT, kG = wtc::kMaxGroups, kKeys = wtc::kMaxN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + rows * kLd;               // [2][kLargeTile][kLd]
-  bf16* vs = ks + 2 * kLargeTile * kLd;     // [2][kLargeTile][kLd]
-  bf16* ps = vs + 2 * kLargeTile * kLd;     // [warps][16][kLdP], stash
-  int* ids_s = reinterpret_cast<int*>(ps + (kStash ? rows * kLdP : 0));
+  float4* bias_s = reinterpret_cast<float4*>(smem_raw);                          // [4][kG][2][2][32]
+  bf16* qs = reinterpret_cast<bf16*>(bias_s + wtc::kMaxWarps * kG * 128);       // [64][DP]
+  bf16* ks = qs + wtc::kRows * DP;                                               // [256][DP], key order
+  bf16* vs = ks + kKeys * DP;                                                    // [256][DP], key order
+  int* off_s = reinterpret_cast<int*>(vs + kKeys * DP);                          // [N]
+  int* ids_s = off_s + kLargeMaxN;                                               // [N], shifted
 
   const int n = a.n, d = a.d, c = a.heads * d;
-  const int t = blockIdx.x, h = blockIdx.y;
+  const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int m_block = blockIdx.z * rows, m0 = m_block + warp * kWarpRows;  // the warp's first row
+  const int m_block = blockIdx.z * wtc::kRows, m0 = m_block + warp * kWarpRows;  // the block's and the warp's first row
   const bool active = m0 < n;
+  const int t0 = blockIdx.x * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
-  const int64_t base = window_base(a, t);
-  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
-  auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
-  bf16* q_w = qs + warp * kWarpRows * kLd;
-  bf16* p_w = ps + warp * kWarpRows * kLdP;
-
-  // Stage i of 2 * tiles: pass 1 (i < tiles) needs the K tile, pass 2 K and V.
-  const int tiles = (n + kLargeTile - 1) / kLargeTile;
-  auto load = [&](int i) {
-    const int k0 = (i < tiles ? i : i - tiles) * kLargeTile;
-    stage_rows(ks + (i & 1) * kLargeTile * kLd, kLd, q_src + c, offset, k0, kLargeTile, DP, n, d, a.aligned);
-    if (i >= tiles) {
-      stage_rows(vs + (i & 1) * kLargeTile * kLd, kLd, q_src + 2 * c, offset, k0, kLargeTile, DP, n, d, a.aligned);
-    }
-  };
-  if (kMasked) {
-    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
-    for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
-  }
-  stage_rows(qs, kLd, q_src, offset, m_block, rows, DP, n, d, a.aligned);
-  load(0);
-  cp_async_commit();
-
-  // the rows of this thread's fragments; rows past N read row N - 1's bias
-  // and ids (finite scores, never stored)
+  const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
+  const wtc::Lanes<DP> lanes(lane);
+  // the rows of this thread's fragments; rows past N take row N - 1's bias
+  // and id (finite scores, never stored)
   const int rowc[2] = {min(m0 + g, n - 1), min(m0 + g + 8, n - 1)};
-  const float* bias_h = a.bias + static_cast<int64_t>(h) * n * n;
-  uint32_t qa[DP / 16][4];
-  int id_row[2] = {0, 0};
-  float m_loc[2] = {-INFINITY, -INFINITY}, l_loc[2] = {0.f, 0.f};
-  float m_row[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
-  float o[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
-  for (int i = 0; i < 2 * tiles; ++i) {
-    if (i + 1 < 2 * tiles) {
-      load(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], q_w + a_row(lane) * kLd + kk * 16 + a_col(lane));
-      if (kMasked) id_row[0] = ids_s[rowc[0]], id_row[1] = ids_s[rowc[1]];
-    }
-    if (i == tiles) {  // combine the row's four lanes (every lane of the warp shuffles)
+  // bias * log2(e) at this thread's fragment positions, read and written by
+  // this thread alone: slot ((m * 2 + r) * 2 + jp) * 32 + lane holds keys
+  // 32m + 8tq + 4jp .. + 3 of row half r (C tiles 4m + 2jp and 4m + 2jp + 1);
+  // -inf past N
+  float4* bias_t = bias_s + warp * kG * 128 + lane;
+  if (active) {
+    const float* bias_h = a.bias + static_cast<int64_t>(h) * n * n;
+    for (int m = 0; m < kG; ++m) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float m = row_max(m_loc[r]);
-        const float l = row_sum(m_loc[r] == -INFINITY ? 0.f : l_loc[r] * exp2f(m_loc[r] - m));
-        m_row[r] = m;
-        inv_l[r] = 1.f / l;
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int key = m * wtc::kGroup + 8 * tq + 4 * jp;
+          const float* row = bias_h + static_cast<int64_t>(rowc[r]) * n + key;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = key + e < n ? __ldg(row + e) * kLog2e : -INFINITY;
+          bias_t[((m * 2 + r) * 2 + jp) * 32] = make_float4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
+  }
+  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+  __syncthreads();
+
+  // a window's q rows and K (and its region ids), and its V
+  auto load_qk = [&](const wtc::WindowWalk& win_t) {
+    const bf16* win = src + win_t.base * row_stride;
+    wtc::stage<DP, wtc::kRows>(qs, win, off_s, row_stride, [&](int r) { return m_block + r; }, n, d, a.aligned);
+    wtc::stage<DP, kKeys>(ks, win + c, off_s, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
+    if (kMasked) {
+      const int* ids = a.ids + static_cast<int64_t>(win_t.w) * n;
+      for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
+    }
+  };
+  auto load_v = [&](const wtc::WindowWalk& win_t) {
+    const bf16* win = src + win_t.base * row_stride;
+    wtc::stage<DP, kKeys>(vs, win + 2 * c, off_s, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
+  };
+
+  // Two barriers a window: V of window t arrives during its Q . K^T and
+  // softmax, q and K of window t + 1 during its P . V.
+  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
+  load_qk(walk);
+  cp_async_commit();
+  for (int i = 0; i < count; ++i) {
+    const int t = t0 + i;
+    const int* ids = ids_s;
+    wtc::WindowWalk next = walk;
+    next.next(a.n_win, a.n_win_x, a.ws, a.w_img);
+    cp_async_wait<0>();
+    __syncthreads();  // q, K and ids of window t have arrived; every warp is done with V of window t - 1
+    load_v(walk);
+    cp_async_commit();
+
+    float s[kNT][4];  // this warp's scores, then P, in the key order
+    bool mixed = false;  // region ids that differ within the window
+    int id_row[2] = {0, 0};
     if (active) {
-      const int k0 = (i < tiles ? i : i - tiles) * kLargeTile;
-      const bf16* kt = ks + (i & 1) * kLargeTile * kLd;
-      float s[kNT][4];
+      uint32_t qa[DP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], qs + lanes.a[kk] + warp * kWarpRows * DP);
+      if (kMasked) {
+        const int id0 = ids[0];
+        bool diff = false;
+        for (int r = lane; r < n; r += 32) diff |= ids[r] != id0;
+        mixed = __any_sync(0xffffffffu, diff);
+        id_row[0] = ids[rowc[0]];
+        id_row[1] = ids[rowc[1]];
+      }
+      // S = q . K^T in the key order
 #pragma unroll
       for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
@@ -660,90 +696,145 @@ __global__ void __launch_bounds__(kLargeMaxWarps * 32) window_attention_fwd_larg
 #pragma unroll
         for (int np = 0; np < kNT / 2; ++np) {
           uint32_t kb[4];
-          ldmatrix_x4(kb, kt + (np * 16 + b_row(lane)) * kLd + kk * 16 + b_col(lane));
+          ldmatrix_x4(kb, ks + lanes.b[kk] + np * 16 * DP);
           mma(s[2 * np], qa[kk], kb[0], kb[1]);
           mma(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+          if ((np & 3) == 3) __syncwarp();  // keeps ptxas from hoisting every step's loads
         }
       }
-      // log2-domain scores, scaled after the product, + bias [+ region
-      // mask]; keys past N out of the row (-inf)
+    }
+
+    uint32_t pa[kNT / 2][4];  // P in A fragments, 16 positions of the key order each
+    if (active) {
+      // scaled after the sum, + bias [+ region mask]; row max over four
+      // partial maxima (past N the bias is -inf, whatever the ids there add)
+      float mp[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY}, {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};
+#pragma unroll
+      for (int m = 0; m < kG; ++m) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            const float4 b = bias_t[((m * 2 + r) * 2 + jp) * 32];
+            const float bv[4] = {b.x, b.y, b.z, b.w};
+            const int j = 4 * m + 2 * jp;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& x = s[j + (e >> 1)][2 * r + (e & 1)];
+              x = x * a.q_mul + bv[e];
+            }
+            if (kMasked && mixed) {
+              const int4 v = *reinterpret_cast<const int4*>(ids + m * wtc::kGroup + 8 * tq + 4 * jp);
+              const int id[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                if (id[e] != id_row[r]) s[j + (e >> 1)][2 * r + (e & 1)] += kMaskValue;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mp[r][e] = fmaxf(mp[r][e], s[j + (e >> 1)][2 * r + (e & 1)]);
+          }
+        }
+      }
+      // P = exp2(S - max) * (1 / sum) over four partial sums, rounded to bf16
+      // into A fragments
+      float mx[2], lp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] = row_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])));
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * tq + (e & 1), r = e >> 1;
-          float x = -INFINITY;
-          if (key < n) {
-            x = s[j][e] * a.q_mul + __ldg(bias_h + rowc[r] * n + key) * kLog2e;
-            if (kMasked && ids_s[key] != id_row[r]) x += kMaskValue;
-          }
-          s[j][e] = x;
+          s[j][e] = wtc::exp2_ftz(s[j][e] - mx[e >> 1]);
+          lp[e >> 1][(j & 1) * 2 + (e & 1)] += s[j][e];
         }
       }
-      if (i < tiles) {  // pass 1: running max and sum of exp2 of this thread's keys
+      float il[2];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float tmax = -INFINITY;
+      for (int r = 0; r < 2; ++r) il[r] = 1.f / row_sum((lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-          const float m_new = fmaxf(m_loc[r], tmax);
-          if (m_new != -INFINITY) {
-            float sum = 0.f;
+      for (int kk = 0; kk < kNT / 2; ++kk) {
 #pragma unroll
-            for (int j = 0; j < kNT; ++j) sum += exp2f(s[j][2 * r] - m_new) + exp2f(s[j][2 * r + 1] - m_new);
-            l_loc[r] = l_loc[r] * exp2f(m_loc[r] - m_new) + sum;
-            m_loc[r] = m_new;
-          }
+        for (int e = 0; e < 4; ++e) {
+          s[2 * kk][e] *= il[e >> 1];
+          s[2 * kk + 1][e] *= il[e >> 1];
         }
-      } else {  // pass 2: P rounded to bf16 as A fragments, O += P . V
-        uint32_t pa[kLargeTile / 16][4];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m_row[e >> 1]) * inv_l[e >> 1];
-        }
-#pragma unroll
-        for (int kk = 0; kk < kLargeTile / 16; ++kk) a_from_c(pa[kk], s[2 * kk], s[2 * kk + 1]);
-        if (kStash) {
-#pragma unroll
-          for (int kk = 0; kk < kLargeTile / 16; ++kk) {
-            const int col = kk * 16 + 2 * tq;
-            *reinterpret_cast<uint32_t*>(p_w + g * kLdP + col) = pa[kk][0];
-            *reinterpret_cast<uint32_t*>(p_w + (g + 8) * kLdP + col) = pa[kk][1];
-            *reinterpret_cast<uint32_t*>(p_w + g * kLdP + col + 8) = pa[kk][2];
-            *reinterpret_cast<uint32_t*>(p_w + (g + 8) * kLdP + col + 8) = pa[kk][3];
-          }
-          __syncwarp();
-          bf16* p_dst = static_cast<bf16*>(a.p) + ((static_cast<int64_t>(t) * a.heads + h) * n + m0) * n + k0;
-          unstage(p_dst, n, p_w, kLdP, min(kWarpRows, n - m0), n - k0, kLargeTile, a.p_aligned, lane, 32);
-          __syncwarp();
-        }
-        const bf16* vt = vs + (i & 1) * kLargeTile * kLd;
-#pragma unroll
-        for (int kk = 0; kk < kLargeTile / 16; ++kk) accumulate_tn<DP, false>(o, pa[kk], pa[kk], vt, kLd, kk, lane);
+        a_from_c(pa[kk], s[2 * kk], s[2 * kk + 1]);
       }
-    }
-    __syncthreads();  // this stage's buffers are free for stage i + 2
-  }
 
-  if (active) {  // O rounded to bf16 into the rows' pixels
-    bf16* out = static_cast<bf16*>(a.out);
+      if (kStash) {  // this (window, head)'s N x N tile, contiguous in [B, nW, heads, N, N]
+        bf16* ptile = static_cast<bf16*>(a.p) + (static_cast<int64_t>(t) * a.heads + h) * n * n;
+        if (a.p_aligned) {  // N a multiple of 8: a piece's 8 keys are all < N or all past it
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + g + 8 * r;
-      if (row >= n) continue;
-      bf16* dst = out + window_row(a, base, row) * c + h * d;
+          for (int r = 0; r < 2; ++r) {
+            const int row = m0 + g + 8 * r;
+            bf16* dst = ptile + static_cast<int64_t>(row) * n + 8 * tq;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        const int col = j * 8 + 2 * tq;
-        if (a.aligned) {
-          if (col < d) *reinterpret_cast<uint32_t*>(dst + col) = pack(o[j][2 * r], o[j][2 * r + 1]);
+            for (int m = 0; m < kG; ++m) {
+              if (row < n && m * wtc::kGroup + 8 * tq < n) {
+                *reinterpret_cast<uint4*>(dst + m * wtc::kGroup) = wtc::p_piece(pa, m, r);
+              }
+            }
+          }
         } else {
-          if (col < d) dst[col] = __float2bfloat16(o[j][2 * r]);
-          if (col + 1 < d) dst[col + 1] = __float2bfloat16(o[j][2 * r + 1]);
+#pragma unroll
+          for (int m = 0; m < kG; ++m) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = m0 + g + 8 * r, key = m * wtc::kGroup + 8 * tq;
+              const uint4 v = wtc::p_piece(pa, m, r);
+              const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+              bf16* dst = ptile + static_cast<int64_t>(row) * n + key;
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                if (row < n && key + e < n) {
+                  dst[e] = __ushort_as_bfloat16(static_cast<unsigned short>(w[e >> 1] >> (16 * (e & 1))));
+                }
+              }
+            }
+          }
         }
       }
     }
+
+    cp_async_wait<0>();
+    __syncthreads();  // V of window t has arrived; every warp is done with q, K and ids of window t
+    if (i + 1 < count) load_qk(next);
+    cp_async_commit();
+
+    if (active) {  // O = P . V over two partial sums, rounded to bf16 into the rows' pixels
+      float o[2][DP / 8][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) o[x][j][0] = o[x][j][1] = o[x][j][2] = o[x][j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        wtc::accumulate<DP, false>(o[kk & 1], pa[kk], pa[kk], vs, lanes, kk);
+        if ((kk & 3) == 3) __syncwarp();
+      }
+      const int64_t base = walk.base;
+      bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + g + 8 * r;
+        if (row >= n) continue;
+        bf16* dst = out + (base + off_s[row]) * c + h * d;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int col = j * 8 + 2 * tq;
+          const float x0 = o[0][j][2 * r] + o[1][j][2 * r], x1 = o[0][j][2 * r + 1] + o[1][j][2 * r + 1];
+          if (a.aligned) {
+            if (col < d) *reinterpret_cast<uint32_t*>(dst + col) = pack(x0, x1);
+          } else {
+            if (col < d) dst[col] = __float2bfloat16(x0);
+            if (col + 1 < d) dst[col + 1] = __float2bfloat16(x1);
+          }
+        }
+      }
+    }
+    walk = next;
   }
 }
 
@@ -898,16 +989,29 @@ cudaError_t launch_f32_large(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A grid of (window, head, run of query rows).
+// The bf16 tiled kernel's block: threads and shared-memory bytes, with the
+// attributes that let two blocks share an SM set.
+template <int DP, bool kMasked, bool kStash>
+cudaError_t prepare_tc_large(int* threads, size_t* bytes) {
+  auto kernel = window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>;
+  *threads = wtc::kThreads;
+  *bytes = LargeSmem<DP>::bytes(kMasked);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*bytes));
+}
+
+// A grid of (run of windows, head, run of query rows).
 template <int DP, bool kMasked, bool kStash>
 cudaError_t launch_tc_large(const Args& a, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>;
-  const LargeSplit sp = large_split(a.n);
-  const size_t bytes = LargeSmem<DP>::bytes(sp.warps, kStash, kMasked);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  int threads;
+  size_t bytes;
+  const cudaError_t err = prepare_tc_large<DP, kMasked, kStash>(&threads, &bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.total, a.heads, sp.blocks), sp.warps * 32, bytes, stream>>>(a);
+  const int n_chunks = (a.total + a.per_chunk - 1) / a.per_chunk;
+  window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>
+      <<<dim3(n_chunks, a.heads, (a.n + wtc::kRows - 1) / wtc::kRows), threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -965,7 +1069,8 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
 // windows; out: [b, h_img, w_img, heads * head_dim] of `dtype`; p: [b, nW,
 // heads, ws^2, ws^2] of `dtype` or NULL (no stash). All contiguous, on the
 // current device. per_chunk: windows each bf16 block takes, in batch-row-major
-// order, for one head (the f32 kernel and windows of N > 64 take one).
+// order, for one head (and, for N > 64, one run of query rows; the f32
+// kernels take one).
 // q_mul = scale * log2(e). Takes ws <= 16 and head_dim <= 64 (ws <= 8 on the
 // bodies above, 8 < ws <= 16 on the tiled ones). Returns the CUDA error code
 // of the launch (0 on success).
@@ -989,6 +1094,38 @@ extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dtype, s) : dispatch<64>(a, dtype, s);
   return static_cast<int>(err);
+}
+
+// The bf16 tiled body (N > 64) at head dim `head_dim`, shift regions or none,
+// stash or none, for windows of n tokens: its threads a block, dynamic shared
+// memory a block, and blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns the CUDA error code (0 on success).
+extern "C" int vdk_fused_window_attention_fwd_tiled_occupancy(int head_dim, int masked, int stash, int n,
+                                                              int* threads, int* smem_bytes, int* blocks_per_sm) {
+  if (head_dim < 1 || head_dim > 64 || n <= kMaxN || n > kLargeMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  size_t bytes = 0;
+  cudaError_t err;
+  const void* kernel;
+#define VDK_CASE(DP, M, S)                                                                  \
+  err = prepare_tc_large<DP, M, S>(threads, &bytes);                                        \
+  kernel = reinterpret_cast<const void*>(window_attention_fwd_large_tc_kernel<DP, M, S>);
+  if (head_dim <= 32) {
+    if (masked) {
+      if (stash) { VDK_CASE(32, true, true) } else { VDK_CASE(32, true, false) }
+    } else {
+      if (stash) { VDK_CASE(32, false, true) } else { VDK_CASE(32, false, false) }
+    }
+  } else {
+    if (masked) {
+      if (stash) { VDK_CASE(64, true, true) } else { VDK_CASE(64, true, false) }
+    } else {
+      if (stash) { VDK_CASE(64, false, true) } else { VDK_CASE(64, false, false) }
+    }
+  }
+#undef VDK_CASE
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_bytes = static_cast<int>(bytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, *threads, bytes));
 }
 
 extern "C" const char* vdk_cuda_error_string(int code) {

@@ -97,7 +97,7 @@
 // A bf16 tensor never reaches it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//   -shared -Xcompiler -fPIC (see visiondk_tpu_torch/ops/_build.py).
+//   -shared -Xcompiler -fPIC --split-compile=0 (see visiondk_tpu_torch/ops/_build.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,6 +105,7 @@
 #include <stdint.h>
 
 #include "attention_tc.cuh"
+#include "window_tc.cuh"
 
 namespace {
 
@@ -666,59 +667,85 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
 
 // ---------------------------------------------------------------- windows of N > 64
 //
-// ws 9 to 16 (N up to 256). A whole (window, head) no longer fits one block:
-// at N = 256 its P and dS tiles alone are 384 KB in bf16 hi + lo. So these
-// bodies take the structure of the fused QKV backward for long sequences
-// (fused_qkv_attention_bwd.cu): two kernels on the same stream, no atomics.
-//   (a) dq kernel, per run of query rows: one pass over tiles of keys for
-//       delta = rowsum(P o dP), one for dS and dQ += dS . k; recomputing,
-//       a pass before them finds each row's max and sum of exp2. It writes
-//       delta (and the max and 1 / sum) per (window, head, row) to `stats`.
-//       It also carries the bias gradient: a block takes one head, one run
-//       of query rows and a fixed run of `per_chunk` consecutive windows,
-//       and adds each dS it forms, in window order, to its own entry of a
-//       [rows][N] f32 sum in shared memory (the thread that forms dS[q, k]
-//       is the one that owns that entry); at the end of the run it writes its
-//       rows of dbias_part [n_chunks, heads, N, N], which the fixed-order sum
-//       below adds up over runs, so dbias is the same bits on every run.
-//   (b) dkv kernel, per (window, head, run of key rows): one pass over tiles
-//       of queries with the stats that (a) wrote: P^T (from the stash, or
-//       recomputed from the scores, bias and mask), dP^T, dS^T, dV += P^T .
-//       dO and dK += dS^T . q.
-// What the window adds to that structure: the rows' pixels by index
-// arithmetic, bias_h and the region mask in the recomputed scores, the stash
-// tile [N, N] of (window, head) in [B, nW, heads, N, N], and dbias.
+// ws 9 to 16 (N up to 256). Replaces the same Pallas kernels for those
+// windows (K2b: _wattn_bwd_from_p_kernel, window_attention.py:350-396; K2r:
+// _wattn_bwd_kernel, :293-347). A whole (window, head) no longer fits one
+// block: at N = 256 its P and dS tiles alone are 384 KB in bf16 hi + lo. So
+// these bodies take the structure of the fused QKV backward for long
+// sequences (fused_qkv_attention_bwd.cu): two kernels on the same stream, no
+// atomics.
+//   (a) dq kernel, per run of 64 query rows: P (the stash, or recomputed from
+//       the scores, bias and mask), delta = rowsum(P o dP), dS, dQ += dS . k;
+//       it writes delta (and, recomputing, the row max and 1 / sum) per
+//       (window, head, row) to `stats`, and carries the bias gradient.
+//   (b) dkv kernel, per run of 64 keys: P^T (from the stash, or recomputed
+//       with the stats that (a) wrote), dP^T, dS^T, dV += P^T . dO and
+//       dK += dS^T . q.
+// Both take one head, a run of 64 rows (4 warps of 16) and a fixed run of
+// `per_chunk` windows in batch-row-major order, on the same grid; the wrapper
+// sizes the runs so that one wave of two blocks an SM covers the call.
 //
-// bfloat16: up to 4 warps of 16 rows a block (the dbias sum takes 64 KB of
-// shared memory at N = 256); tiles of 32 keys in (a), 16 queries in (b); every
-// product mma.sync m16n8k16 on ldmatrix fragments, dS and the recomputed P
-// split into bf16 hi + lo as in the small-window kernel; cp.async rings of
-// two stages. float32: the fused QKV backward's CUDA-core structure (32 rows
-// a block, 128 threads, tiles of 64).
+// What bounds it on the H100: bytes by the roofline. At SwinV2-L stage 0 (bs
+// 32, 64^2, 6 heads, d 32, bf16) the backward from P reads qkv, dO and the
+// 403 MB stash and writes dqkv: 757 MB (0.226 ms at 3.35 TB/s), against 51.5
+// GFLOP of its four products (0.052 ms at the bf16 tensor-core peak); the
+// recompute variant moves 356 MB (0.106 ms) for 64.4 GFLOP. In practice, as
+// in the forward, the rate of instructions for the per-score work at 8 warps
+// an SM (each holds a row's 256 scores or probabilities), and the loads of
+// each window, which a block makes once the previous window is done.
 //
-// What bounds it on the H100: bytes. At SwinV2-L stage 0 (bs 32, 64^2, 6
-// heads, d 32, bf16) the backward from P reads qkv, dO and the 403 MB stash
-// and writes dqkv: 806 MB (0.241 ms at 3.35 TB/s), against 103 GFLOP of its
-// four products (0.104 ms at the bf16 tensor-core peak).
+// bfloat16 (the main path). The first design took 1.70 ms (K2b) and 4.15 ms
+// (K2r) at stage 0 (PERF.md). This design, against each of its limits:
+//   - dbias: the first design kept a [64][N] f32 tile whose rows, at
+//     N = 256, put the 8 rows of an MMA fragment in one bank group (an 8-way
+//     conflict at every dS) and held it to 2 blocks of 4 warps an SM. Now each
+//     thread adds the dS values of its own fragment positions, in window
+//     order, to f32 slots in shared memory laid out in fragment order
+//     (16-byte pieces, neighbouring lanes side by side: no bank conflict); at
+//     the end of its run the block writes its rows of dbias_part, and the
+//     fixed-order sum below adds the runs, so dbias is the same bits on every
+//     run. Still 64 KB a block: the unpadded, swizzled K and V tiles
+//     (window_tc.cuh) are what keep two blocks an SM.
+//   - dP twice and the stash read twice: in dq each warp holds P for all 256
+//     keys in registers (from P: the stash's bf16 read as 16-byte pieces of
+//     each row, straight into the A fragments of the key order; recomputing:
+//     each score formed once, 128 f32 a thread, with the bias read as 16-byte
+//     pieces from L2), so the stash is read once. From P, delta =
+//     rowsum(dO o (P . V)), the same sum as rowsum(P o dP) in another order,
+//     costs one P . V product, and dP = dO . V^T is formed once, where dS
+//     needs it. Recomputing, a P . V product would need P split in hi + lo
+//     (two products and the splits); forming dP for delta and again for dS
+//     costs less.
+//   - three passes and the bias at every score, recomputing: the scores are
+//     formed once (as in the forward); dkv reads the bias of its keys once a
+//     block into shared memory in fragment order.
+//   - dkv's 16 barrier-separated 16-query stages: the window's q and dO (all
+//     queries), the block's k and v rows, its columns of the stash and the
+//     query stats arrive at once, one barrier, then each warp walks the
+//     queries in 16s with none.
+//   - as in the forward: 256 keys a window with no bound to test, lane
+//     offsets computed once, partial sums for every long accumulation
+//     (delta's P . V, dQ, dK, dV), and a __syncwarp() a step where ptxas
+//     would otherwise hoist every step's loads and spill (dq; dkv from P);
+//     dkv recomputing is unrolled in pairs instead, as unrolled whole it
+//     spilled. dq's loads come in two groups, the second arriving during the
+//     first phase.
+//   - rounding as in the small-window kernel: dS, and the recomputed P, are
+//     split into bf16 hi + lo and multiplied twice; the stashed P once.
+// Tried on the card and dropped: no fences; dkv recomputing unrolled whole
+// and dkv from P in pairs; recomputing, delta through a split P . V
+// (chip_smoke.py --tiled-variants times them against this file); with no
+// time kept here, both slower: the next window's rows
+// prefetched into L2 during the current one, and the element-by-element loads
+// moved out of line.
+// float32: the fused QKV backward's CUDA-core structure (32 rows a block, 128
+// threads, tiles of 64), for the f32 bars.
 
-constexpr int kLargeMaxN = 256;   // ws <= 16
-constexpr int kBwdMaxWarps = 4;   // 16-row tiles a bf16 block
-constexpr int kDqTile = 32;       // keys a tile of the bf16 dq kernel
-constexpr int kDkvTile = 16;      // queries a tile of the bf16 dkv kernel
-constexpr int kF32Rows = 32;      // rows a block (f32)
-constexpr int kF32Tile = 64;      // columns a tile (f32)
-constexpr int kF32Threads = 128;  // four a row
+constexpr int kLargeMaxN = wtc::kMaxN;  // ws <= 16
+constexpr int kF32Rows = 32;            // rows a block (f32)
+constexpr int kF32Tile = 64;            // columns a tile (f32)
+constexpr int kF32Threads = 128;        // four a row
 constexpr float kInvLog2e = 0.6931471805599453f;
-
-struct LargeSplit {
-  int blocks, warps;
-};
-// 16-row tiles of a window over ceil(tiles / 4) blocks, as evenly as they go.
-inline LargeSplit large_split(int n) {
-  const int tiles = (n + tc::kWarpRows - 1) / tc::kWarpRows;
-  const int blocks = (tiles + kBwdMaxWarps - 1) / kBwdMaxWarps;
-  return {blocks, (tiles + blocks - 1) / blocks};
-}
 
 // Row r of the window whose first pixel is `base`, as a row index of [B * H * W].
 __device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
@@ -752,364 +779,562 @@ __device__ __forceinline__ void store_rows(const Args& a, int64_t base, int row0
   }
 }
 
-// Shared memory of the bf16 dq kernel: the f32 dbias sum [rows][N]; then in
-// bf16 the block's dO rows and, recomputing, its q rows [rows][DP + 8]; two
-// stages of K and V [kDqTile][DP + 8]; from P, two stages of the stash's
-// rows x kDqTile keys; then (shifted, recomputing) the window's region ids.
+// Shared memory of the bf16 dq kernel: the dbias sum in fragment order (per
+// warp and group of 32 keys, 2 row halves x 2 pieces x 32 lanes of float4),
+// K and V [256][DP] in the key order (keys past N zeros), the block's dO rows
+// and, recomputing, its q rows [64][DP]; the rows' pixel offsets [N] int;
+// then (shifted, recomputing) the window's region ids [N] int.
 template <int DP, bool kMasked, bool kRecompute>
 struct DqSmem {
-  static constexpr int kLd = DP + tc::kPad;
-  static constexpr int kLdP = kDqTile + tc::kPad;
-  static constexpr size_t bytes(int warps, int n) {
-    const int rows = warps * tc::kWarpRows;
-    return sizeof(float) * rows * n +
-           sizeof(tc::bf16) * ((kRecompute ? 2 : 1) * rows * kLd + 4 * kDqTile * kLd +
-                               (kRecompute ? 0 : 2 * rows * kLdP)) +
-           (kMasked ? sizeof(int) * kLargeMaxN : 0);
+  static constexpr size_t bytes() {
+    return sizeof(float4) * wtc::kMaxWarps * wtc::kMaxGroups * 128 +
+           sizeof(tc::bf16) * (2 * wtc::kMaxN + (kRecompute ? 2 : 1) * wtc::kRows) * DP +
+           sizeof(int) * kLargeMaxN * (kMasked && kRecompute ? 2 : 1);
   }
 };
 
 template <int DP, bool kMasked, bool kRecompute>
-__global__ void __launch_bounds__(kBwdMaxWarps * 32) window_attention_dq_tc_kernel(Args a) {
+__global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kernel(Args a) {
   using namespace tc;
-  using Smem = DqSmem<DP, kMasked, kRecompute>;
-  constexpr int kLd = Smem::kLd, kLdP = Smem::kLdP, kNT = kDqTile / 8;
-  constexpr int kFirst = kRecompute ? 0 : 1;  // passes kFirst..2
+  constexpr int kNT = wtc::kNT, kG = wtc::kMaxGroups, kKeys = wtc::kMaxN, kRows = wtc::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = a.n, d = a.d, c = a.heads * d;
-  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
-  float* db = reinterpret_cast<float*>(smem_raw);         // [rows][n]
-  bf16* dos = reinterpret_cast<bf16*>(db + rows * n);     // [rows][kLd]
-  bf16* qs = dos + rows * kLd;                            // [rows][kLd], recompute
-  bf16* ks = qs + (kRecompute ? rows * kLd : 0);          // [2][kDqTile][kLd]
-  bf16* vs = ks + 2 * kDqTile * kLd;                      // [2][kDqTile][kLd]
-  bf16* ps = vs + 2 * kDqTile * kLd;                      // [2][rows][kLdP], from P
-  int* ids_s = reinterpret_cast<int*>(ps + (kRecompute ? 0 : 2 * rows * kLdP));
+  float4* db_s = reinterpret_cast<float4*>(smem_raw);                            // [4][kG][2][2][32]
+  bf16* ks = reinterpret_cast<bf16*>(db_s + wtc::kMaxWarps * kG * 128);         // [256][DP], key order
+  bf16* vs = ks + kKeys * DP;                                                    // [256][DP], key order
+  bf16* dos = vs + kKeys * DP;                                                   // [64][DP]
+  bf16* qs = dos + kRows * DP;                                                   // [64][DP], recompute
+  int* off_s = reinterpret_cast<int*>(qs + (kRecompute ? kRows * DP : 0));      // [N]
+  int* ids_s = off_s + kLargeMaxN;                                               // [N], shifted
 
+  const int n = a.n, d = a.d, c = a.heads * d;
   const int chunk = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int m_block = blockIdx.z * rows, m0 = m_block + warp * kWarpRows;
+  const int m_block = blockIdx.z * kRows, m0 = m_block + warp * kWarpRows;
   const bool active = m0 < n;
   const int t0 = chunk * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
   const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
-  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
+  const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
   const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
   const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
-  bf16* do_w = dos + warp * kWarpRows * kLd;
-  const bf16* q_w = qs + warp * kWarpRows * kLd;
+  const wtc::Lanes<DP> lanes(lane);
+  // rows past N take row N - 1's bias and id (finite values, never stored)
   const int rowc[2] = {min(m0 + g, n - 1), min(m0 + g + 8, n - 1)};
+  auto own_row = [&](int r) { return m_block + r; };
+  auto key_row = [](int r) { return wtc::perm(r); };
 
-  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) db[i] = 0.f;
-  const int tiles = (n + kDqTile - 1) / kDqTile;
-  const int stages = (3 - kFirst) * tiles;
-  for (int wi = 0; wi < count; ++wi) {
-    const int t = t0 + wi;
-    const int64_t base = window_base(a, t);
-    auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
-    auto do_offset = [&](int r) { return window_row(a, base, r) * c; };
-    const bf16* p_src = kRecompute ? nullptr : stash_tile(a, t, h) + static_cast<int64_t>(m_block) * n;
-    auto load = [&](int i) {
-      const int pass = kFirst + i / tiles, k0 = (i % tiles) * kDqTile, buf = i & 1;
-      if (kRecompute || pass == 2) {
-        stage_rows(ks + buf * kDqTile * kLd, kLd, q_src + c, offset, k0, kDqTile, DP, n, d, a.aligned);
-      }
-      if (pass >= 1) {
-        stage_rows(vs + buf * kDqTile * kLd, kLd, q_src + 2 * c, offset, k0, kDqTile, DP, n, d, a.aligned);
-      }
-      if (!kRecompute) {
-        stage(ps + buf * rows * kLdP, kLdP, p_src + k0, n, rows, kDqTile, n - m_block, n - k0, a.p_aligned);
-      }
-    };
-    __syncthreads();  // every warp is done with the previous window's tiles
-    if (kMasked) {
-      const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
-      for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
+  // this thread's dbias slots: ((m * 2 + r) * 2 + jp) * 32 + lane holds keys
+  // 32m + 8tq + 4jp .. + 3 of row half r (C tiles 4m + 2jp and 4m + 2jp + 1)
+  float4* db_t = db_s + warp * kG * 128 + lane;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < kG * 4; ++i) db_t[i * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+
+  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
+  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.w_img)) {
+    const int t = t0 + i;
+    const int64_t base = walk.base;
+    const bf16* win = src + base * row_stride;
+    __syncthreads();  // every warp is done with window t - 1's tiles (and the offsets are written)
+    // two groups: what the first phase reads (recomputing: K, q and ids for
+    // the scores; from P: V for delta), then the rest (V; K), which arrives
+    // during it
+    wtc::stage<DP, kRows>(dos, do_src + base * c, off_s, c, own_row, n, d, a.aligned);
+    wtc::stage<DP, kKeys>(kRecompute ? ks : vs, win + (kRecompute ? c : 2 * c), off_s, row_stride, key_row, n, d,
+                          a.aligned);
+    if (kRecompute) wtc::stage<DP, kRows>(qs, win, off_s, row_stride, own_row, n, d, a.aligned);
+    if (kRecompute && kMasked) {
+      const int* ids = a.ids + static_cast<int64_t>(walk.w) * n;
+      for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
     }
-    stage_rows(dos, kLd, do_src, do_offset, m_block, rows, DP, n, d, a.aligned);
-    if (kRecompute) stage_rows(qs, kLd, q_src, offset, m_block, rows, DP, n, d, a.aligned);
-    load(0);
+    cp_async_commit();
+    wtc::stage<DP, kKeys>(kRecompute ? vs : ks, win + (kRecompute ? 2 * c : c), off_s, row_stride, key_row, n, d,
+                          a.aligned);
     cp_async_commit();
 
-    float m_loc[2] = {-INFINITY, -INFINITY}, l_loc[2] = {0.f, 0.f};  // rows g, g + 8
-    float m_row[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
-    float dq[DP / 8][4];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-    for (int i = 0; i < stages; ++i) {
-      if (i + 1 < stages) {
-        load(i + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int pass = kFirst + i / tiles, k0 = (i % tiles) * kDqTile, buf = i & 1;
-      if (kRecompute && i == tiles) {  // the row's max and 1 / sum over its four lanes
+    // from P: the stash's values at this thread's fragment positions, as the
+    // A fragments of the key order, loaded while the tiles arrive; 0 past N
+    uint32_t pa[kNT / 2][4];
+    if (!kRecompute && active) {
+      const bf16* ptile = stash_tile(a, t, h);
+      if (a.p_aligned) {  // N a multiple of 8: a piece's 8 keys are all < N or all past it
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const float m = row_max(m_loc[r]);
-          const float l = row_sum(m_loc[r] == -INFINITY ? 0.f : l_loc[r] * exp2f(m_loc[r] - m));
-          m_row[r] = m;
-          inv_l[r] = 1.f / l;
-        }
-      }
-      if (pass == 2 && k0 == 0) {  // delta is complete: sum the four lanes, write the row stats
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          dlt[r] = row_sum(dlt[r]);
           const int row = m0 + g + 8 * r;
-          if (tq == 0 && row < n) {
-            const int64_t at = (static_cast<int64_t>(t) * a.heads + h) * n + row;
-            a.stats[at] = dlt[r];
-            if (kRecompute) {
-              a.stats[stats_n + at] = m_row[r];
-              a.stats[2 * stats_n + at] = inv_l[r];
-            }
+          const bf16* p = ptile + static_cast<int64_t>(row) * n + 8 * tq;
+#pragma unroll
+          for (int m = 0; m < kG; ++m) {
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (row < n && m * wtc::kGroup + 8 * tq < n) v = __ldg(reinterpret_cast<const uint4*>(p + m * wtc::kGroup));
+            wtc::set_p_piece(pa, m, r, v);
           }
         }
-      }
-      if (active) {
-        const bf16* kt = ks + buf * kDqTile * kLd;
-        float s[kNT][4];  // scores, then P
-        if (kRecompute) {
-          product_nt<DP, kNT>(s, q_w, kt, kLd, lane);
-          const int id_row[2] = {kMasked ? ids_s[rowc[0]] : 0, kMasked ? ids_s[rowc[1]] : 0};
+      } else {
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = k0 + j * 8 + 2 * tq + (e & 1), r = e >> 1;
-              float x = -INFINITY;  // keys past N: out of the row
-              if (key < n) {
-                x = s[j][e] * a.q_mul + __ldg(bias_h + rowc[r] * n + key) * kLog2e;
-                if (kMasked && ids_s[key] != id_row[r]) x += kMaskValue;
-              }
-              s[j][e] = x;
-            }
-          }
-        }
-        if (kRecompute && pass == 0) {  // running max and sum of exp2 of this thread's keys
+        for (int m = 0; m < kG; ++m) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            float tmax = -INFINITY;
+            const int row = m0 + g + 8 * r, key = m * wtc::kGroup + 8 * tq;
+            const bf16* p = ptile + static_cast<int64_t>(row) * n + key;
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-            for (int j = 0; j < kNT; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-            const float m_new = fmaxf(m_loc[r], tmax);
-            if (m_new != -INFINITY) {
-              float sum = 0.f;
-#pragma unroll
-              for (int j = 0; j < kNT; ++j) sum += exp2f(s[j][2 * r] - m_new) + exp2f(s[j][2 * r + 1] - m_new);
-              l_loc[r] = l_loc[r] * exp2f(m_loc[r] - m_new) + sum;
-              m_loc[r] = m_new;
+            for (int e = 0; e < 8; ++e) {
+              if (row < n && key + e < n) w[e >> 1] |= static_cast<uint32_t>(__bfloat16_as_ushort(p[e])) << (16 * (e & 1));
             }
+            wtc::set_p_piece(pa, m, r, make_uint4(w[0], w[1], w[2], w[3]));
           }
-        } else {
-          if (kRecompute) {
+        }
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // the first group has arrived
+
+    uint32_t doa[DP / 16][4];
+    float s[kNT][4];  // recomputing: the scores, then P in f32
+    float mx[2] = {-INFINITY, -INFINITY}, il[2] = {0.f, 0.f};
+    if (active) {
 #pragma unroll
-            for (int j = 0; j < kNT; ++j) {
+      for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(doa[kk], dos + lanes.a[kk] + warp * kWarpRows * DP);
+    }
+    if (kRecompute && active) {
+      uint32_t qa[DP / 16][4];
 #pragma unroll
-              for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m_row[e >> 1]) * inv_l[e >> 1];
+      for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], qs + lanes.a[kk] + warp * kWarpRows * DP);
+      bool mixed = false;  // region ids that differ within the window
+      int id_row[2] = {0, 0};
+      if (kMasked) {
+        const int id0 = ids_s[0];
+        bool diff = false;
+        for (int r = lane; r < n; r += 32) diff |= ids_s[r] != id0;
+        mixed = __any_sync(0xffffffffu, diff);
+        id_row[0] = ids_s[rowc[0]];
+        id_row[1] = ids_s[rowc[1]];
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + lanes.b[kk] + np * 16 * DP);
+          mma(s[2 * np], qa[kk], kb[0], kb[1]);
+          mma(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+      // log2-domain scores, scaled after the product, + bias [+ region
+      // mask]; keys past N out of the row (-inf); four partial maxima a row
+      float mp[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY}, {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};
+#pragma unroll
+      for (int m = 0; m < kG; ++m) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            const int key = m * wtc::kGroup + 8 * tq + 4 * jp;
+            const float* bp = bias_h + static_cast<int64_t>(rowc[r]) * n + key;
+            float bv[4];
+            if (n % 4 == 0 && key < n) {  // the piece's 4 keys are all < N
+              const float4 b = __ldg(reinterpret_cast<const float4*>(bp));
+              bv[0] = b.x * kLog2e, bv[1] = b.y * kLog2e, bv[2] = b.z * kLog2e, bv[3] = b.w * kLog2e;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) bv[e] = key + e < n ? __ldg(bp + e) * kLog2e : -INFINITY;
             }
-          } else {
-            const bf16* pt = ps + buf * rows * kLdP + warp * kWarpRows * kLdP;
+            const int j = 4 * m + 2 * jp;
 #pragma unroll
-            for (int kk = 0; kk < kDqTile / 16; ++kk) {
-              uint32_t pa[4];
-              ldmatrix_x4(pa, pt + a_row(lane) * kLdP + kk * 16 + a_col(lane));
-              c_from_a(s[2 * kk], s[2 * kk + 1], pa);
+            for (int e = 0; e < 4; ++e) {
+              float& x = s[j + (e >> 1)][2 * r + (e & 1)];
+              x = x * a.q_mul + bv[e];
             }
-          }
-          float dp[kNT][4];  // dP = dO . v^T, then dS
-          product_nt<DP, kNT>(dp, do_w, vs + buf * kDqTile * kLd, kLd, lane);
-          if (pass == 1) {
-#pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dlt[e >> 1] = fmaf(s[j][e], dp[j][e], dlt[e >> 1]);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < kNT; ++j) {
+            if (kMasked && mixed) {
+              const int4 v = *reinterpret_cast<const int4*>(ids_s + key);
+              const int id[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                dp[j][e] = s[j][e] * (dp[j][e] - dlt[e >> 1]);
-                const int key = k0 + j * 8 + 2 * tq + (e & 1), row = m0 + g + 8 * (e >> 1);
-                if (row < n && key < n) db[(row - m_block) * n + key] += dp[j][e];
+                if (id[e] != id_row[r]) s[j + (e >> 1)][2 * r + (e & 1)] += kMaskValue;
               }
             }
 #pragma unroll
-            for (int kk = 0; kk < kDqTile / 16; ++kk) {
-              uint32_t hi[4], lo[4];
-              a_from_c_split(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
-              accumulate_tn<DP, true>(dq, hi, lo, kt, kLd, kk, lane);
+            for (int e = 0; e < 4; ++e) mp[r][e] = fmaxf(mp[r][e], s[j + (e >> 1)][2 * r + (e & 1)]);
+          }
+        }
+      }
+      float lp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] = row_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])));
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = wtc::exp2_ftz(s[j][e] - mx[e >> 1]);
+          lp[e >> 1][(j & 1) * 2 + (e & 1)] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) il[r] = 1.f / row_sum((lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= il[e >> 1];
+      }
+    }
+    if (kRecompute) {
+      cp_async_wait<0>();
+      __syncthreads();  // V has arrived
+    }
+
+    float dlt[2] = {0.f, 0.f};
+    if (active && kRecompute) {
+      // delta = rowsum(P o dP) over four partial sums a row, dP = dO . V^T 16
+      // keys at a time (formed again for dS below: cheaper than a split P . V)
+      float dp4[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        float dp[2][4];
+        wtc::product16<DP>(dp, doa, vs, lanes, kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp4[e >> 1][(e & 1) * 2] = fmaf(s[2 * kk][e], dp[0][e], dp4[e >> 1][(e & 1) * 2]);
+          dp4[e >> 1][(e & 1) * 2 + 1] = fmaf(s[2 * kk + 1][e], dp[1][e], dp4[e >> 1][(e & 1) * 2 + 1]);
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) dlt[r] = (dp4[r][0] + dp4[r][1]) + (dp4[r][2] + dp4[r][3]);
+    } else if (active) {
+      // delta = rowsum(dO o (P . V)): the sum of rowsum(P o dP) in another
+      // order, for one P . V product; over two partial sums
+      float o[2][DP / 8][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) o[x][j][0] = o[x][j][1] = o[x][j][2] = o[x][j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        wtc::accumulate<DP, false>(o[kk & 1], pa[kk], pa[kk], vs, lanes, kk);
+        __syncwarp();
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        float dl[4], dr[4];  // dO at the C positions of O's tiles 2kk and 2kk + 1
+        c_from_a(dl, dr, doa[kk]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dlt[e >> 1] += dl[e] * (o[0][2 * kk][e] + o[1][2 * kk][e]) + dr[e] * (o[0][2 * kk + 1][e] + o[1][2 * kk + 1][e]);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dlt[r] = row_sum(dlt[r]);
+        const int row = m0 + g + 8 * r;
+        if (tq == 0 && row < n) {
+          const int64_t at = (static_cast<int64_t>(t) * a.heads + h) * n + row;
+          a.stats[at] = dlt[r];
+          if (kRecompute) {
+            a.stats[stats_n + at] = mx[r];
+            a.stats[2 * stats_n + at] = il[r];
+          }
+        }
+      }
+    }
+    if (!kRecompute) {
+      cp_async_wait<0>();
+      __syncthreads();  // K has arrived
+    }
+    if (!active) continue;
+
+    // dS = P o (dP - delta) with dP = dO . V^T, 16 keys at a time; dbias +=
+    // dS; dQ += dS . k over two partial sums
+    float dq[2][DP / 8][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) dq[x][j][0] = dq[x][j][1] = dq[x][j][2] = dq[x][j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      float dp[2][4];
+      wtc::product16<DP>(dp, doa, vs, lanes, kk);
+      float pl[4], pr[4];
+      if (kRecompute) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pl[e] = s[2 * kk][e], pr[e] = s[2 * kk + 1][e];
+      } else {
+        c_from_a(pl, pr, pa[kk]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[0][e] = pl[e] * (dp[0][e] - dlt[e >> 1]);
+        dp[1][e] = pr[e] * (dp[1][e] - dlt[e >> 1]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float4* slot = db_t + (((kk >> 1) * 2 + r) * 2 + (kk & 1)) * 32;
+        float4 v = *slot;
+        v.x += dp[0][2 * r];
+        v.y += dp[0][2 * r + 1];
+        v.z += dp[1][2 * r];
+        v.w += dp[1][2 * r + 1];
+        *slot = v;
+      }
+      uint32_t hi[4], lo[4];
+      a_from_c_split(hi, lo, dp[0], dp[1]);
+      wtc::accumulate<DP, true>(dq[kk & 1], hi, lo, ks, lanes, kk);
+      __syncwarp();  // keeps ptxas from hoisting every step's loads (255 registers and spills without)
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[0][j][e] += dq[1][j][e];
+    }
+    store_rows<DP>(a, base, m0, h, 0, dq[0], a.scale, lane);
+  }
+
+  if (active) {  // this block's rows of dbias_part [n_chunks, heads, N, N]
+    float* part = a.dbias_part + (static_cast<int64_t>(chunk) * a.heads + h) * n * n;
+#pragma unroll
+    for (int m = 0; m < kG; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int row = m0 + g + 8 * r, key = m * wtc::kGroup + 8 * tq + 4 * jp;
+          if (row >= n || key >= n) continue;
+          const float4 v = db_t[((m * 2 + r) * 2 + jp) * 32];
+          float* dst = part + static_cast<int64_t>(row) * n + key;
+          if (n % 4 == 0) {  // the piece's 4 keys are all < N
+            *reinterpret_cast<float4*>(dst) = v;
+          } else {
+            const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (key + e < n) dst[e] = x[e];
             }
           }
         }
       }
-      __syncthreads();  // this stage's buffers are free for stage i + 2
     }
-    if (active) store_rows<DP>(a, base, m0, h, 0, dq, a.scale, lane);
   }
-  __syncthreads();
-  float* part = a.dbias_part + (static_cast<int64_t>(chunk) * a.heads + h) * n * n + static_cast<int64_t>(m_block) * n;
-  const int real = min(rows, n - m_block) * n;
-  for (int i = threadIdx.x; i < real; i += blockDim.x) part[i] = db[i];
 }
 
-// Shared memory of the bf16 dkv kernel: the block's v rows and, recomputing,
-// its k rows [rows][DP + 8]; two stages of q and dO [kDkvTile][DP + 8]; from
-// P, two stages of kDkvTile stash rows x the block's keys; two stages of
-// those queries' delta (and max and 1 / sum) in f32; then (shifted,
-// recomputing) the window's region ids.
+// Shared memory of the bf16 dkv kernel: recomputing, the bias of the block's
+// keys (times log2(e)) in fragment order (per warp and n-tile of 8 queries,
+// 2 row halves x 32 lanes of float2); q and dO of all queries [256][DP]
+// (queries past N zeros); the block's v and, recomputing, k rows [64][DP];
+// from P, the stash's columns of the block's keys [256][64 + 8]; the
+// queries' delta (and max and 1 / sum) in f32; the rows' pixel offsets [N]
+// int; then (shifted, recomputing) the window's region ids [N] int.
 template <int DP, bool kMasked, bool kRecompute>
 struct DkvSmem {
-  static constexpr int kLd = DP + tc::kPad;
   static constexpr int kStats = kRecompute ? 3 : 1;
-  __host__ __device__ static constexpr int ldp(int warps) { return warps * tc::kWarpRows + tc::kPad; }
-  static constexpr size_t bytes(int warps) {
-    const int rows = warps * tc::kWarpRows;
-    return sizeof(tc::bf16) * ((kRecompute ? 2 : 1) * rows * kLd + 4 * kDkvTile * kLd +
-                               (kRecompute ? 0 : 2 * kDkvTile * ldp(warps))) +
-           sizeof(float) * 2 * kStats * kDkvTile + (kMasked ? sizeof(int) * kLargeMaxN : 0);
+  static constexpr int kLdP = wtc::kRows + tc::kPad;
+  static constexpr size_t bytes() {
+    return (kRecompute ? sizeof(float2) * wtc::kMaxWarps * (wtc::kMaxN / 8) * 64 : 0) +
+           sizeof(tc::bf16) * ((2 * wtc::kMaxN + (kRecompute ? 2 : 1) * wtc::kRows) * DP +
+                               (kRecompute ? 0 : wtc::kMaxN * kLdP)) +
+           sizeof(float) * kStats * wtc::kMaxN + sizeof(int) * kLargeMaxN * (kMasked && kRecompute ? 2 : 1);
   }
 };
 
 template <int DP, bool kMasked, bool kRecompute>
-__global__ void __launch_bounds__(kBwdMaxWarps * 32) window_attention_dkv_tc_kernel(Args a) {
+__global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kernel(Args a) {
   using namespace tc;
   using Smem = DkvSmem<DP, kMasked, kRecompute>;
-  constexpr int kLd = Smem::kLd, kNT = kDkvTile / 8;
+  constexpr int kQ = wtc::kMaxN, kRows = wtc::kRows, kLdP = Smem::kLdP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = a.n, d = a.d, c = a.heads * d;
-  const int warps = blockDim.x >> 5, rows = warps * kWarpRows;
-  const int kLdP = Smem::ldp(warps);
-  bf16* vs_own = reinterpret_cast<bf16*>(smem_raw);      // [rows][kLd]
-  bf16* ks_own = vs_own + rows * kLd;                    // [rows][kLd], recompute
-  bf16* qs = ks_own + (kRecompute ? rows * kLd : 0);     // [2][kDkvTile][kLd]
-  bf16* dos = qs + 2 * kDkvTile * kLd;                   // [2][kDkvTile][kLd]
-  bf16* pts = dos + 2 * kDkvTile * kLd;                  // [2][kDkvTile][kLdP], from P
-  float* st = reinterpret_cast<float*>(pts + (kRecompute ? 0 : 2 * kDkvTile * kLdP));  // [2][kStats][kDkvTile]
-  int* ids_s = reinterpret_cast<int*>(st + 2 * Smem::kStats * kDkvTile);
+  float2* bias_s = reinterpret_cast<float2*>(smem_raw);  // recompute: [4][kQ / 8][2][32]
+  bf16* qs = reinterpret_cast<bf16*>(bias_s + (kRecompute ? wtc::kMaxWarps * (kQ / 8) * 64 : 0));  // [256][DP]
+  bf16* dos = qs + kQ * DP;                              // [256][DP]
+  bf16* vs = dos + kQ * DP;                              // [64][DP]
+  bf16* ks = vs + kRows * DP;                            // [64][DP], recompute
+  bf16* pst = ks + (kRecompute ? kRows * DP : 0);        // [256][kLdP], from P
+  float* st = reinterpret_cast<float*>(pst + (kRecompute ? 0 : kQ * kLdP));  // [kStats][256]
+  int* off_s = reinterpret_cast<int*>(st + Smem::kStats * kQ);              // [N]
+  int* ids_s = off_s + kLargeMaxN;                                          // [N], shifted
 
-  const int t = blockIdx.x, h = blockIdx.y;
+  const int n = a.n, d = a.d, c = a.heads * d;
+  const int chunk = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int n_block = blockIdx.z * rows, n0 = n_block + warp * kWarpRows;  // the warp's first key
+  const int n_block = blockIdx.z * kRows, n0 = n_block + warp * kWarpRows;  // the block's and the warp's first key
   const bool active = n0 < n;
+  const int t0 = chunk * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
   const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
-  const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;  // this (window, head)'s rows
-  const int64_t base = window_base(a, t);
-  auto offset = [&](int r) { return window_row(a, base, r) * row_stride; };
-  auto do_offset = [&](int r) { return window_row(a, base, r) * c; };
-  const bf16* q_src = static_cast<const bf16*>(a.qkv) + h * d;
+  const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
   const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
-  const bf16* p_src = kRecompute ? nullptr : stash_tile(a, t, h) + n_block;
-  const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
-  bf16* v_w = vs_own + warp * kWarpRows * kLd;
-  const bf16* k_w = ks_own + warp * kWarpRows * kLd;
+  const wtc::Lanes<DP> lanes(lane);
   const int keyc[2] = {min(n0 + g, n - 1), min(n0 + g + 8, n - 1)};
+  const bool key_in[2] = {n0 + g < n, n0 + g + 8 < n};
+  auto same_row = [](int r) { return r; };
+  auto own_row = [&](int r) { return n_block + r; };
 
-  const int tiles = (n + kDkvTile - 1) / kDkvTile;
-  auto load = [&](int i) {
-    const int q0 = i * kDkvTile, buf = i & 1;
-    stage_rows(qs + buf * kDkvTile * kLd, kLd, q_src, offset, q0, kDkvTile, DP, n, d, a.aligned);
-    stage_rows(dos + buf * kDkvTile * kLd, kLd, do_src, do_offset, q0, kDkvTile, DP, n, d, a.aligned);
-    if (!kRecompute) {
-      stage(pts + buf * kDkvTile * kLdP, kLdP, p_src + static_cast<int64_t>(q0) * n, n, kDkvTile, rows, n - q0,
-            n - n_block, a.p_aligned);
-    }
-    for (int idx = threadIdx.x; idx < Smem::kStats * kDkvTile; idx += blockDim.x) {
-      const int which = idx / kDkvTile, qq = idx - which * kDkvTile;
-      const bool in = q0 + qq < n;  // 0 past N: 1 / sum = 0 gives those queries no probability
-      cp_async4(st + buf * Smem::kStats * kDkvTile + idx, in ? a.stats + which * stats_n + stats0 + q0 + qq : a.stats,
-                in ? 4 : 0);
-    }
-  };
-  if (kMasked) {
-    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
-    for (int r = threadIdx.x; r < n; r += blockDim.x) ids_s[r] = ids[r];
-  }
-  stage_rows(vs_own, kLd, q_src + 2 * c, offset, n_block, rows, DP, n, d, a.aligned);
-  if (kRecompute) stage_rows(ks_own, kLd, q_src + c, offset, n_block, rows, DP, n, d, a.aligned);
-  load(0);
-  cp_async_commit();
-
-  float dv[DP / 8][4], dk[DP / 8][4];
+  // recomputing: bias * log2(e) at this thread's fragment positions (key rows
+  // g, g + 8; query columns 8j + 2tq, + 1), read and written by this thread
+  // alone; queries past N read row N - 1 (their P is set to 0)
+  float2* bias_t = bias_s + warp * (kQ / 8) * 64 + lane;
+  if (kRecompute && active) {
+    const float* bias_h = a.bias + static_cast<int64_t>(h) * n * n;
+    for (int j = 0; j < kQ / 8; ++j) {
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-  }
-
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles) {
-      load(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      for (int r = 0; r < 2; ++r) {
+        const int q = 8 * j + 2 * tq;
+        bias_t[(j * 2 + r) * 32] =
+            make_float2(__ldg(bias_h + static_cast<int64_t>(min(q, n - 1)) * n + keyc[r]) * kLog2e,
+                        __ldg(bias_h + static_cast<int64_t>(min(q + 1, n - 1)) * n + keyc[r]) * kLog2e);
+      }
     }
-    __syncthreads();
-    if (active) {
-      const int buf = i & 1, q0 = i * kDkvTile;
-      const bf16* qt = qs + buf * kDkvTile * kLd;
-      const bf16* dot = dos + buf * kDkvTile * kLd;
-      const float* st_delta = st + buf * Smem::kStats * kDkvTile;
-      float p[kNT][4];  // P^T: key rows g, g + 8 of the warp; query columns
-      if (kRecompute) {
-        const float* st_m = st_delta + kDkvTile;
-        const float* st_il = st_m + kDkvTile;
-        const int id_key[2] = {kMasked ? ids_s[keyc[0]] : 0, kMasked ? ids_s[keyc[1]] : 0};
-        product_nt<DP, kNT>(p, k_w, qt, kLd, lane);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
+  }
+  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+
+  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
+  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.w_img)) {
+    const int t = t0 + i;
+    const int64_t base = walk.base;
+    const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;  // this (window, head)'s rows
+    const bf16* win = src + base * row_stride;
+    __syncthreads();  // every warp is done with window t - 1's tiles (and the offsets are written)
+    wtc::stage<DP, kQ>(qs, win, off_s, row_stride, same_row, n, d, a.aligned);
+    wtc::stage<DP, kQ>(dos, do_src + base * c, off_s, c, same_row, n, d, a.aligned);
+    wtc::stage<DP, kRows>(vs, win + 2 * c, off_s, row_stride, own_row, n, d, a.aligned);
+    if (kRecompute) {
+      wtc::stage<DP, kRows>(ks, win + c, off_s, row_stride, own_row, n, d, a.aligned);
+    } else {  // the stash's columns [n_block, n_block + 64) of every query row, 8 16-byte chunks a row
+      const bf16* ptile = stash_tile(a, t, h) + n_block;
+      const int ch = threadIdx.x & 7, col = ch * 8, r0 = threadIdx.x >> 3;
+      const bool col_in = n_block + col < n;
+#pragma unroll 4
+      for (int q = r0; q < kQ; q += wtc::kThreads / 8) {
+        const bf16* s = ptile + static_cast<int64_t>(q) * n + col;
+        bf16* dst = pst + q * kLdP + col;
+        if (a.p_aligned) {  // N a multiple of 8: a chunk's 8 keys are all < N or all past it
+          const bool in = q < n && col_in;
+          cp_async16(dst, in ? s : ptile, in ? 16 : 0);
+        } else {
+          uint32_t w[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qq = j * 8 + 2 * tq + (e & 1), r = e >> 1;
-            const int query = min(q0 + qq, n - 1), key = n0 + g + 8 * r;
-            float x = p[j][e] * a.q_mul + __ldg(bias_h + query * n + keyc[r]) * kLog2e;
-            if (kMasked && ids_s[query] != id_key[r]) x += kMaskValue;
-            p[j][e] = key < n ? exp2f(x - st_m[qq]) * st_il[qq] : 0.f;
+            const bool in0 = q < n && n_block + col + 2 * e < n, in1 = q < n && n_block + col + 2 * e + 1 < n;
+            w[e] = (in0 ? static_cast<uint32_t>(__bfloat16_as_ushort(s[2 * e])) : 0u) |
+                   ((in1 ? static_cast<uint32_t>(__bfloat16_as_ushort(s[2 * e + 1])) : 0u) << 16);
           }
+          *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
         }
-#pragma unroll
-        for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // dV += P^T . dO
-          uint32_t hi[4], lo[4];
-          a_from_c_split(hi, lo, p[2 * kk], p[2 * kk + 1]);
-          accumulate_tn<DP, true>(dv, hi, lo, dot, kLd, kk, lane);
-        }
-      } else {
-        const bf16* pt = pts + buf * kDkvTile * kLdP + warp * kWarpRows;
-#pragma unroll
-        for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // P^T fragments straight from the [query][key] tile
-          uint32_t pa[4];
-          ldmatrix_x4_trans(pa, pt + (kk * 16 + b_row(lane)) * kLdP + b_col(lane));
-          c_from_a(p[2 * kk], p[2 * kk + 1], pa);
-          accumulate_tn<DP, false>(dv, pa, pa, dot, kLd, kk, lane);  // dV += P^T . dO
-        }
-      }
-      float ds[kNT][4];  // dP^T = v . dO^T, then dS^T
-      product_nt<DP, kNT>(ds, v_w, dot, kLd, lane);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - st_delta[j * 8 + 2 * tq + (e & 1)]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kDkvTile / 16; ++kk) {  // dK += dS^T . q
-        uint32_t hi[4], lo[4];
-        a_from_c_split(hi, lo, ds[2 * kk], ds[2 * kk + 1]);
-        accumulate_tn<DP, true>(dk, hi, lo, qt, kLd, kk, lane);
       }
     }
-    __syncthreads();  // this stage's buffers are free for stage i + 2
-  }
-  if (active) {
-    store_rows<DP>(a, base, n0, h, 1, dk, a.scale, lane);
-    store_rows<DP>(a, base, n0, h, 2, dv, 1.f, lane);
+    for (int idx = threadIdx.x; idx < Smem::kStats * kQ; idx += wtc::kThreads) {
+      const int which = idx / kQ, q = idx % kQ;
+      const bool in = q < n;  // 0 past N
+      cp_async4(st + idx, in ? a.stats + which * stats_n + stats0 + q : a.stats, in ? 4 : 0);
+    }
+    if (kRecompute && kMasked) {
+      const int* ids = a.ids + static_cast<int64_t>(walk.w) * n;
+      for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // window t's tiles have arrived
+    if (!active) continue;
+
+    const float* st_d = st;
+    const float* st_m = st + kQ;
+    const float* st_il = st + 2 * kQ;
+    uint32_t va[DP / 16][4], ka[DP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      ldmatrix_x4(va[kk], vs + lanes.a[kk] + warp * kWarpRows * DP);
+      if (kRecompute) ldmatrix_x4(ka[kk], ks + lanes.a[kk] + warp * kWarpRows * DP);
+    }
+    bool mixed = false;
+    int id_key[2] = {0, 0};
+    if (kRecompute && kMasked) {
+      const int id0 = ids_s[0];
+      bool diff = false;
+      for (int r = lane; r < n; r += 32) diff |= ids_s[r] != id0;
+      mixed = __any_sync(0xffffffffu, diff);
+      id_key[0] = ids_s[keyc[0]];
+      id_key[1] = ids_s[keyc[1]];
+    }
+    // two partial sums each, by the parity of the query tile
+    float dv[2][DP / 8][4], dk[2][DP / 8][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        dv[x][j][0] = dv[x][j][1] = dv[x][j][2] = dv[x][j][3] = 0.f;
+        dk[x][j][0] = dk[x][j][1] = dk[x][j][2] = dk[x][j][3] = 0.f;
+      }
+    }
+    // queries [16 qc, 16 qc + 16) into the partial sums of qc's parity
+    auto tile = [&](int qc) {
+      float p[2][4];  // P^T: key rows g, g + 8 of the warp; query columns
+      if (kRecompute) {
+        wtc::product16<DP>(p, ka, qs, lanes, qc);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // queries q0, q0 + 1: their max, 1 / sum and ids side by side (ids
+          // past N are stale, but so is nothing their P of 0 reaches)
+          const int q0 = qc * 16 + 8 * hh + 2 * tq;
+          const float2 m2 = *reinterpret_cast<const float2*>(st_m + q0);
+          const float2 il2 = *reinterpret_cast<const float2*>(st_il + q0);
+          const int2 id2 = kMasked ? *reinterpret_cast<const int2*>(ids_s + q0) : make_int2(0, 0);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 b = bias_t[((2 * qc + hh) * 2 + r) * 32];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = p[hh][2 * r + e] * a.q_mul + (e ? b.y : b.x);
+              if (kMasked && mixed && (e ? id2.y : id2.x) != id_key[r]) x += kMaskValue;
+              p[hh][2 * r + e] = q0 + e < n && key_in[r] ? wtc::exp2_ftz(x - (e ? m2.y : m2.x)) * (e ? il2.y : il2.x) : 0.f;
+            }
+          }
+        }
+        uint32_t hi[4], lo[4];
+        a_from_c_split(hi, lo, p[0], p[1]);
+        wtc::accumulate<DP, true>(dv[qc & 1], hi, lo, dos, lanes, qc);  // dV += P^T . dO
+      } else {
+        uint32_t pa[4];  // P^T fragments straight from the [query][key] tile
+        ldmatrix_x4_trans(pa, pst + (qc * 16 + b_row(lane)) * kLdP + warp * kWarpRows + b_col(lane));
+        c_from_a(p[0], p[1], pa);
+        wtc::accumulate<DP, false>(dv[qc & 1], pa, pa, dos, lanes, qc);  // dV += P^T . dO
+      }
+      float ds[2][4];  // dP^T = v . dO^T, then dS^T
+      wtc::product16<DP>(ds, va, dos, lanes, qc);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 d2 = *reinterpret_cast<const float2*>(st_d + qc * 16 + 8 * hh + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[hh][e] = p[hh][e] * (ds[hh][e] - (e & 1 ? d2.y : d2.x));
+      }
+      uint32_t hi[4], lo[4];
+      a_from_c_split(hi, lo, ds[0], ds[1]);
+      wtc::accumulate<DP, true>(dk[qc & 1], hi, lo, qs, lanes, qc);  // dK += dS^T . q
+    };
+    if (kRecompute) {  // rolled in pairs: unrolled whole, it spills
+#pragma unroll 2
+      for (int qc = 0; qc < kQ / 16; ++qc) tile(qc);
+    } else {  // unrolled, with a fence a step against hoisting
+#pragma unroll
+      for (int qc = 0; qc < kQ / 16; ++qc) {
+        tile(qc);
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv[0][j][e] += dv[1][j][e];
+        dk[0][j][e] += dk[1][j][e];
+      }
+    }
+    store_rows<DP>(a, base, n0, h, 1, dk[0], a.scale, lane);
+    store_rows<DP>(a, base, n0, h, 2, dv[0], 1.f, lane);
   }
 }
 
@@ -1473,14 +1698,20 @@ cudaError_t launch_tc(const Args& a, float* dbias, cudaStream_t stream) {
   return launch(kernel, kTcThreads, TcSmem<DP, kMasked, kRecompute>::bytes(a.n), a, dbias, stream);
 }
 
-// N > 64: the dq kernel on a grid of (run of windows, head, run of rows),
-// the dkv kernel on (window, head, run of rows), then the dbias sum.
+// N > 64: the dq and dkv kernels, then the dbias sum. f32: dq on a grid of
+// (run of windows, head, run of rows), dkv on (window, head, run of rows);
+// bf16: both on (run of windows, head, run of rows).
 template <typename Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t bytes, const Args& a, cudaStream_t stream) {
+cudaError_t prepare(Kernel kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+template <typename Kernel>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t bytes, const Args& a, cudaStream_t stream) {
+  const cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, bytes, stream>>>(a);
   return cudaGetLastError();
@@ -1498,18 +1729,36 @@ cudaError_t launch_large(const Args& a, float* dbias, int dtype, cudaStream_t st
     err = launch_one(window_attention_dkv_kernel<DP, kMasked, kRecompute>, dim3(a.total, a.heads, blocks),
                      kF32Threads, dkv_f32_bytes<DP>(), a, stream);
   } else {
-    const LargeSplit sp = large_split(a.n);
-    err = launch_one(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, dim3(n_chunks, a.heads, sp.blocks),
-                     sp.warps * 32, DqSmem<DP, kMasked, kRecompute>::bytes(sp.warps, a.n), a, stream);
+    const dim3 grid(n_chunks, a.heads, (a.n + wtc::kRows - 1) / wtc::kRows);
+    err = launch_one(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, grid, wtc::kThreads,
+                     DqSmem<DP, kMasked, kRecompute>::bytes(), a, stream);
     if (err != cudaSuccess) return err;
-    err = launch_one(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, dim3(a.total, a.heads, sp.blocks),
-                     sp.warps * 32, DkvSmem<DP, kMasked, kRecompute>::bytes(sp.warps), a, stream);
+    err = launch_one(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, grid, wtc::kThreads,
+                     DkvSmem<DP, kMasked, kRecompute>::bytes(), a, stream);
   }
   if (err != cudaSuccess) return err;
   const int count = a.heads * a.n * a.n;
   dbias_sum_kernel<<<(count + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
       a.dbias_part, dbias, n_chunks, count);
   return cudaGetLastError();
+}
+
+// The occupancy of one bf16 tiled kernel (N > 64): its threads a block,
+// dynamic shared memory a block and blocks an SM.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t bytes, int* blocks_per_sm) {
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, bytes);
+}
+
+template <int DP, bool kMasked, bool kRecompute>
+cudaError_t tiled_occupancy(int which, int n, int* threads, int* smem_bytes, int* blocks_per_sm) {
+  *threads = wtc::kThreads;
+  const size_t bytes = which == 0 ? DqSmem<DP, kMasked, kRecompute>::bytes() : DkvSmem<DP, kMasked, kRecompute>::bytes();
+  *smem_bytes = static_cast<int>(bytes);
+  return which == 0 ? occupancy(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, *threads, bytes, blocks_per_sm)
+                    : occupancy(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, *threads, bytes, blocks_per_sm);
 }
 
 // float32 -> the CUDA-core kernels, bfloat16 -> the tensor-core kernels; N
@@ -1570,6 +1819,31 @@ extern "C" int vdk_fused_window_attention_bwd(const void* qkv, const float* bias
                scale, aligned, stats, p_aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dbias, dtype, s) : dispatch<64>(a, dbias, dtype, s);
+  return static_cast<int>(err);
+}
+
+// The bf16 tiled kernel `which` (0: dq, 1: dkv) at head dim `head_dim` in
+// one of its variants (from P; recompute with shift regions; recompute
+// without), for windows of n tokens: its threads a block, dynamic shared
+// memory a block, and blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns the CUDA error code (0 on success).
+extern "C" int vdk_fused_window_attention_bwd_tiled_occupancy(int which, int head_dim, int masked, int recompute,
+                                                              int n, int* threads, int* smem_bytes,
+                                                              int* blocks_per_sm) {
+  if ((which != 0 && which != 1) || head_dim < 1 || head_dim > 64 || n <= kMaxN || n > kLargeMaxN ||
+      (masked && !recompute)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  if (head_dim <= 32) {
+    err = !recompute ? tiled_occupancy<32, false, false>(which, n, threads, smem_bytes, blocks_per_sm)
+          : masked   ? tiled_occupancy<32, true, true>(which, n, threads, smem_bytes, blocks_per_sm)
+                     : tiled_occupancy<32, false, true>(which, n, threads, smem_bytes, blocks_per_sm);
+  } else {
+    err = !recompute ? tiled_occupancy<64, false, false>(which, n, threads, smem_bytes, blocks_per_sm)
+          : masked   ? tiled_occupancy<64, true, true>(which, n, threads, smem_bytes, blocks_per_sm)
+                     : tiled_occupancy<64, false, true>(which, n, threads, smem_bytes, blocks_per_sm);
+  }
   return static_cast<int>(err);
 }
 

@@ -4,7 +4,7 @@ Each kernel library is one ``csrc/<name>.cu`` file with a plain C interface
 (it may include the shared ``csrc/*.cuh`` headers). At first use it is
 compiled for Hopper with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC --split-compile=0
 
 into ``visiondk_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with
 ctypes. The file name carries a hash of the source, the headers and the
@@ -38,6 +38,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",  # the kernels of a file optimised on every core (the window backward's many unrolled ones)
 ]
 
 

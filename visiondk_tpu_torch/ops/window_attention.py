@@ -77,11 +77,53 @@ _SMS = 132
 _BWD_BLOCKS_PER_SM = {(torch.float32, False): 8, (torch.float32, True): 8,
                       (torch.bfloat16, False): 3, (torch.bfloat16, True): 2}
 _FWD_BLOCKS_PER_SM = 4
-# Windows of N > 64: the backward's dq kernel carries dbias over a run of
-# windows per (head, run of 64 rows); two of its blocks fit an SM (about 90 KB
-# of shared memory each at N = 256).
-_LARGE_ROWS = 64
-_LARGE_BLOCKS_PER_SM = 2
+# Windows of N > 64 (ws 9 to 16) take the tiled bf16 bodies: a block takes one
+# head, one run of up to _TILED_ROWS query rows (forward, dq) or keys (dkv) and
+# a fixed run of windows, sized so that one wave of blocks covers the call at
+# the blocks an SM their shared memory allows (tiled_smem_bytes, as the kernels
+# compute it: two at head dim 32, one at 64). The f32 tiled bodies take one
+# window a block in the forward and in dkv, and the dq kernel's runs.
+_TILED_ROWS = 64
+_SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory (228 KB)
+_BLOCK_RESERVED = 1_024  # the runtime's own shared memory a block
+_TILED_MAX_BLOCKS_PER_SM = 2  # __launch_bounds__(128, 2)
+
+
+def tiled_smem_bytes(kernel: str, head_dim: int, masked: bool, variant: bool) -> int:
+    """Dynamic shared memory of one block of a tiled bf16 kernel (N > 64), as
+    ``csrc/fused_window_attention.cu`` (``kernel`` "fwd"; ``variant``: the
+    stash) and ``csrc/fused_window_attention_bwd.cu`` ("dq", "dkv"; ``variant``:
+    recompute) compute it. A block is 4 warps of 16 rows; every window takes
+    256 keys (past N zeros), so no size depends on N. bf16 tiles [rows][DP]
+    unpadded (DP = 32 or 64); the bias (and dq's dbias sum) in f32 fragment
+    order, 64 KB; a table of 256 ints for the rows' pixel offsets, and one for
+    the region ids where they are read. ``chip_smoke.py`` holds these figures
+    to the kernels' own on the card."""
+    dp = 32 if head_dim <= 32 else 64
+    rows, keys, frag, table = _TILED_ROWS, 256, 65_536, 1_024
+    if kernel == "fwd":  # q rows, K, V
+        return frag + 2 * (rows + 2 * keys) * dp + table * (2 if masked else 1)
+    if kernel == "dq":  # K, V, dO rows (and q rows)
+        return frag + 2 * (2 * keys + (2 if variant else 1) * rows) * dp + table * (2 if masked and variant else 1)
+    if kernel == "dkv":  # q and dO of every query, the block's v (and k) rows, the query stats
+        tiles = 2 * (2 * keys + (2 if variant else 1) * rows) * dp + 4 * (3 if variant else 1) * keys
+        if variant:  # recomputing: the bias of the block's keys in fragment order
+            return frag + tiles + table * (2 if masked else 1)
+        return tiles + 2 * keys * (rows + 8) + table  # the stash's columns, rows padded by 8
+    raise ValueError(f"unknown tiled kernel {kernel!r}")
+
+
+def tiled_row_blocks(n: int) -> int:
+    """Blocks a window's rows (or keys) split over in the tiled kernels: runs
+    of 64 (4 warps of 16)."""
+    return -(-n // _TILED_ROWS)
+
+
+def tiled_blocks_per_sm(kernel: str, head_dim: int, masked: bool, variant: bool) -> int:
+    """Blocks of a tiled bf16 kernel an H100 SM holds by its shared memory,
+    at most the two of its launch bounds."""
+    need = tiled_smem_bytes(kernel, head_dim, masked, variant) + _BLOCK_RESERVED
+    return max(1, min(_TILED_MAX_BLOCKS_PER_SM, _SM_SHARED_BYTES // need))
 
 
 def _window_size(bias: torch.Tensor, heads: int) -> int:
@@ -280,7 +322,7 @@ def _launch_fwd(qkv, bias, ids, heads, scale, stash: bool):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_window_attention_fwd(
             qkv.data_ptr(), bias.data_ptr(), _ptr(ids), out.data_ptr(), _ptr(p),
-            b, hh, ww, heads, d, ws, forward_windows_per_chunk(b, n_win, heads),
+            b, hh, ww, heads, d, ws, forward_windows_per_chunk(b, n_win, heads, n, d),
             _scale(d, scale) * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
         )
     _check_err(lib, err, "fused_window_attention forward")
@@ -295,18 +337,36 @@ def _windows_per_run(windows: int, heads: int, blocks_per_sm: int) -> int:
 
 
 def windows_per_chunk(batch: int, n_win: int, heads: int, dtype: torch.dtype, recompute: bool,
-                      n: int = _SMALL_N) -> int:
+                      n: int = _SMALL_N, head_dim: int = 32) -> int:
     """Windows each backward block takes, in a fixed order, for one head (and,
-    for N > 64, one run of rows: the dq kernel's blocks, which carry dbias)."""
+    for N > 64, one run of rows: the dq kernel's blocks, which carry dbias,
+    and the bf16 dkv kernel's, on the same grid; the shift regions never
+    change how many blocks an SM holds)."""
     if n > _SMALL_N:
-        return _windows_per_run(batch * n_win, heads * -(-n // _LARGE_ROWS), _LARGE_BLOCKS_PER_SM)
+        per_sm = (tiled_blocks_per_sm("dq", head_dim, True, recompute) if dtype == torch.bfloat16
+                  else _TILED_MAX_BLOCKS_PER_SM)
+        return _windows_per_run(batch * n_win, heads * tiled_row_blocks(n), per_sm)
     return _windows_per_run(batch * n_win, heads, _BWD_BLOCKS_PER_SM[dtype, recompute])
 
 
-def forward_windows_per_chunk(batch: int, n_win: int, heads: int) -> int:
+def forward_windows_per_chunk(batch: int, n_win: int, heads: int, n: int = _SMALL_N, head_dim: int = 32) -> int:
     """Windows each bf16 forward block takes, in a fixed order, for one head
-    (the f32 forward ignores it: one window a block)."""
+    (and, for N > 64, one run of query rows; neither the shift regions nor the
+    stash change how many blocks an SM holds); the f32 forward ignores it: one
+    window a block."""
+    if n > _SMALL_N:
+        per_sm = tiled_blocks_per_sm("fwd", head_dim, True, True)
+        return _windows_per_run(batch * n_win, heads * tiled_row_blocks(n), per_sm)
     return _windows_per_run(batch * n_win, heads, _FWD_BLOCKS_PER_SM)
+
+
+def backward_plan(batch: int, n_win: int, heads: int, n: int, dtype: torch.dtype, recompute: bool,
+                  head_dim: int = 32) -> Tuple[int, Tuple[int, int, int, int]]:
+    """(windows a run, shape of dbias_part) of a backward call: the runs of
+    windows in batch-row-major order that the dbias-carrying blocks take, and
+    their partial sums [runs, heads, N, N] that the fixed-order sum adds."""
+    per_chunk = windows_per_chunk(batch, n_win, heads, dtype, recompute, n, head_dim)
+    return per_chunk, (-(-batch * n_win // per_chunk), heads, n, n)
 
 
 def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
@@ -315,10 +375,9 @@ def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
     For N > 64 the row statistics the dq kernel hands the dkv kernel (delta,
     and recomputing the row max and 1 / sum) go through ``stats``."""
     b, hh, ww, _, d, ws, n_win = _layout(qkv, heads, n, ids)
-    per_chunk = windows_per_chunk(b, n_win, heads, qkv.dtype, p is None, n)
-    n_chunks = -(-b * n_win // per_chunk)
+    per_chunk, part_shape = backward_plan(b, n_win, heads, n, qkv.dtype, p is None, d)
     dqkv = torch.empty_like(qkv)
-    dbias_part = torch.empty((n_chunks, heads, n, n), dtype=torch.float32, device=qkv.device)
+    dbias_part = torch.empty(part_shape, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
     stats = (torch.empty((3, b * n_win, heads, n), dtype=torch.float32, device=qkv.device)
              if n > _SMALL_N else None)
