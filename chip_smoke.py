@@ -31,7 +31,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
 3. kernel  — each of the four kernels against its plain PyTorch version on
              the same inputs, at the ViT-B/16 shape and at smaller odd shapes
              (N=37 with a key mask, ViT-B/8's N=785, head dim 80, N=200 whose
-             P rows are 16-byte aligned), f32 and
+             P rows are 16-byte aligned), and at SigLIP So400m's N=256, 16
+             heads of head dim 72 (the 80-wide bucket, columns 72-79 staged
+             as zeros) at bs 4, 64 and 128, f32 and
              bf16: the no-stash forward (O), the stash forward (O bit-equal to
              the no-stash kernel's, and P), the backward from P (both sides
              fed the kernel's stash) and the recompute backward (dqkv).
@@ -40,7 +42,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              p ≤ 1); dqkv |err| ≤ tol · max(1, |plain|) with the O tolerances
              (both sides compute in f32 from the same inputs and round the
              result). Times each kernel and its plain version at the ViT-B/16
-             shape with CUDA events, in the order plain, kernel, kernel, plain.
+             shape with CUDA events, in the order plain, kernel, kernel, plain,
+             and at So400m's the bf16 stash forward and backward from P at bs
+             64 (its train batch) and the forward at bs 128 (its serving
+             batch), each beside SDPA; those get `[bound so400m]` lines.
 4. slice   — the serving path at full ViT-B/16 width: the classification model
              of configs/classification/pet_synth.yaml and the 128-d embedding
              model, seeded weights, bf16, batches of 128 seeded uint8
@@ -102,10 +107,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              Prints images/s and torch.cuda.max_memory_allocated of the
              kernel path with the P stash (the default), the kernel path with
              VDK_ATTN_NO_PCACHE=1 and the plain path (order kernel,
-             no-pcache, plain, plain, no-pcache, kernel), each trial 10
-             synchronised steps after 3 warm-up, each printed.
+             no-pcache, plain, plain, no-pcache, kernel), each trial 6
+             synchronised steps after 2 warm-up, each printed.
 5p. profile — the bf16 train step (its train batch) and eval step (bs 128)
-             on the kernel path: unprofiled step time (10 steps after 3
+             on the kernel path: unprofiled step time (6 steps after 2
              warm-up), then device time per step by kernel class
              (attention kernels by name, GEMMs, copies and casts, LayerNorm,
              optimizer, reductions, other elementwise) from torch.profiler
@@ -197,8 +202,8 @@ CN. cnn — the CNN families at full width: multilabel_csv.yaml's resnet50
              entry to f32 rounding on either device).
 RL. run loop — the classification run loop through the port's own CLIs, on a
              temporary directory: benchmarks/make_synth_pet.py (a subprocess,
-             started after phase 1 and shared with ML and DS) writes 40
-             train and 4 val JPEGs per class (1,400 / 140), and
+             started after phase 1 and shared with ML and DS) writes 24
+             train and 4 val JPEGs per class (840 / 140), and
              configs/classification/pet_synth.yaml runs as written
              (data.train.device_augment "auto": the host keeps decode and the
              letterbox-or-RRC, the device-augment stage runs the rest) with
@@ -210,16 +215,16 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              Run A: `python -m visiondk_tpu_torch.main` in this process (runpy,
              sys.argv as on the command line): the split line the trainer
              logged, the epoch table, trainer-fed images/s per epoch, which
-             loaders ran (native or PIL), exactly 12 x 30 K1s, 12 x 30 K1b and
-             12 x 3 K1 launches (10 steps and one val batch an epoch), no other
-             attention kernel, and the stage's calls per epoch exactly 0 / 10 /
+             loaders ran (native or PIL), exactly 12 x 18 K1s, 12 x 18 K1b and
+             12 x 3 K1 launches (6 steps and one val batch an epoch), no other
+             attention kernel, and the stage's calls per epoch exactly 0 / 6 /
              0 (make_device_augment.calls, read at each epoch's start). Run B,
              the same command: the same stage calls; per-epoch train loss
              within 1e-3 relative and val top1 within one image of run A
              (bit-identity printed). Run C, the same command as a subprocess,
              SIGKILLed in epoch 1 once epoch 0's checkpoint is complete on
              disk, then `--resume` in this process: it must resume from epoch 1
-             with stage calls 10 / 0, and its epochs match run A's to the same
+             with stage calls 6 / 0, and its epochs match run A's to the same
              bars. `python -m visiondk_tpu_torch.validate --ema` on run A's best
              checkpoint: 12 K1 launches and exactly run A's best-epoch top1.
              Last, images/s of the train loader alone on epoch 1 (no step) with
@@ -232,7 +237,7 @@ ML. multilabel run — configs/classification/multilabel_csv.yaml through
              the port's CLIs on a CSV written over RL's synthetic JPEGs
              (image_path, train True/False, three label columns: the bits of
              class index mod 7 + 1), read with the stdlib csv module (pandas
-             never loads), with data.root and hyp.epochs 3 cut (printed):
+             never loads), with data.root and hyp.epochs 2 cut (printed):
              resnet50, BCE, the focal swap from epoch 1, bs 64. Run A
              (in-process; no attention kernel), run B bit-identical to A,
              run C SIGKILLed in epoch 1 and resumed, bit-identical to A from
@@ -274,11 +279,45 @@ V2L. swinv2 large — swinv2_large_window12to16_192to256 at 256² (embed 192,
              ValueError naming the limit. Then the V2 run with SwinV2-L in
              SwinV2-B's place (2 epochs, A = B bit-identical, exact launches,
              22 of each 24 on ws-16 windows, validate --ema's top1 exact).
+SO. so400m — vit_so400m_patch14_siglip_224 at 224² (27 blocks, width
+             1152, MLP 4304, 16 heads of head dim 72, 256 tokens, no CLS, the
+             map pool: AttentionPoolLatent), full width and depth, seeded,
+             pet.yaml's model section and hyp with the name swapped, built
+             once (its weights kept on the card; the compute dtype switched
+             in place). Serving bf16 bs 128: exactly 27 K1 a forward and
+             nothing else, logits against the plain path (per-row cosine >=
+             0.999; in f32 also argmax >= 99%), images/s, its profile.
+             Training bf16 bs 64, SGD + clip + EMA: one step with remat off
+             (27 K1s + 27 K1b) and one with remat on (54 K1s: the forward's
+             and the recompute's, 27 K1b), every gradient finite, every
+             qkv.weight gradient non-zero; images/s and peak memory (order
+             off, on, on, off) and the profile of each. One f32 step at bs 4
+             from the same weights: kernel path against the plain path, and
+             remat on against remat off, at phase 5's bars (bit-identity
+             printed). Then remat on SwinV2-B, f32 bs 8 (24 K2s twice and 24
+             K2b a step), on against off at the same bars; one f32 SAM step
+             (SGD base, the second pass at w + e(w)) of ViT-B/16 at bs 32,
+             kernel path against plain path at the same bars (24 K1s + 24 K1b:
+             two passes), and of resnet18 at bs 4 on the card against the CPU
+             in float64 at phase CN's bars (the BatchNorm statistics are the
+             first pass's); Swin-B with attention_pool (AttentionPooling over
+             its token map, an f32 fc) serving bf16 bs 128 against the plain
+             path (per-row cosine >= 0.999).
+SO run. configs/classification/pet.yaml with model.name
+             vit_so400m_patch14_siglip_224, model.kwargs {remat: true} and
+             hyp.optimizer [sam, False] through `python -m
+             visiondk_tpu_torch.main` on 5 of the run loop's train JPEGs a
+             class (175: 2 steps of pet.yaml's bs 80) and its val JPEGs,
+             hyp.epochs 2: runs A and B bit-identical, exactly 108 K1s + 54
+             K1b a step (two passes, each recomputing) and 27 K1 a val
+             forward; trainer-fed images/s and each checkpoint's bytes;
+             `validate --ema` on A's best reproduces its top1 exactly. No
+             killed-and-resumed run here (the run loop, ST and ER hold resume).
 ST. strategies — configs/classification/pet_synth.yaml (ViT-B/16, bs 128,
              the device-augment stage) through the port's CLIs with mixup
              (ratio 0.2, duration 1: live in epoch 1, after warm_ep), OHEM on
-             ([True, 8, 0.7, 255]) and hyp.accumulate 2, 2 epochs, on 33 of
-             the run loop's train JPEGs a class (9 steps an epoch, so epoch
+             ([True, 8, 0.7, 255]) and hyp.accumulate 2, 2 epochs, on 19 of
+             the run loop's train JPEGs a class (5 steps an epoch, so epoch
              0 ends in the middle of an accumulation round): runs A and B
              bit-identical, exactly 12 K1 (the OHEM forward) + 12 K1s + 12
              K1b a step and 12 K1 a val forward, the last checkpoint's
@@ -305,8 +344,9 @@ MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              scores' product and the top-k.
 ER. embedding run — the face and CBIR run loops through the port's CLIs on
              Swin-B, on a temporary directory: benchmarks/make_synth_face.py
-             (a subprocess, its defaults: 64 ids x 20 train, 4 val, 300 pairs,
-             and the CBIR twin: 64 queries, 192 gallery images; started after
+             (a subprocess, its defaults but --n-train 8: 64 ids x 8 train,
+             4 val, 300 pairs, and the CBIR twin: 64 queries, 192 gallery
+             images; started after
              phase 1 on one CPU core, so it overlaps the phases before), then
              configs/faceX/face_synth.yaml as written with data.root, its
              pair file and hyp.epochs 2 cut (printed; 3 before the CNN,
@@ -354,8 +394,9 @@ runs (A, B, C's resume, validate), the distillation phase's (teacher runs A,
 B; distill runs A, B), the SwinV2 run's (A, B, validate), the embedding
 runs' (face A, B, C's resume, validate; CBIR,
 validate, cbir_eval), SwinV2-L's serving, training and run (A, B,
-validate), the strategy runs' (A, B, C's resume, validate) and the vision
-path, counts set to 0 before each and
+validate), So400m's serving, training and run (A, B, validate), the strategy
+runs' (A, B, C's resume, validate) and the vision path, counts set to 0
+before each and
 read after; the window kernels' launches on ws-16 windows counted apart
 in the `[launches]` lines), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
@@ -466,8 +507,9 @@ N_BATCHES = 3
 TRAIN_STEPS = 5
 NO_PCACHE_STEPS = 2
 # train images/s: each interleaved trial times this many steps after this many warm-up
-TRAIN_RATE_STEPS = 10  # 20 until the other CNN families and SwinV2 took their share of the time limit
-TRAIN_RATE_WARMUP = 3
+# few, for the script's time limit: host-clock rates over 6 synchronised steps of 60-180 ms
+TRAIN_RATE_STEPS = 6
+TRAIN_RATE_WARMUP = 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 DBIAS_TOL = 1e-4  # max |kernel − plain| over dbias, relative to max(1, its largest |plain| entry)
@@ -516,14 +558,26 @@ SWINV2 = Recipe("swinv2 serving", "swinv2 train", {**PET_MODEL, "name": SWINV2_N
 # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape (timed),
 # the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens,
 # ViT-H/14's head_dim 80, and an N that is a multiple of 8 (the bf16 kernels
-# then move the P stash in 16-byte pieces; every other N here is odd)
+# then move the P stash in 16-byte pieces; every other N here is odd); then
+# SigLIP So400m's shape (256 tokens, 16 heads of head dim 72, which the bf16
+# kernels run in their 80-wide bucket with columns 72-79 staged as zeros): a
+# small batch, its train batch of 64 (the stash forward and the backward from
+# P timed) and its serving batch of 128 (the forward timed)
 QKV_CASES = [
     ("vit_b16", BATCH, 197, 12, 64, None),
     ("unaligned", 8, 37, 4, 32, 29),
     ("vit_b8", 4, 785, 12, 64, None),
     ("hd80", 4, 257, 16, 80, 250),
     ("n_mult8", 8, 200, 6, 64, 196),
+    ("so400m", 4, 256, 16, 72, None),
+    ("so400m_train", 64, 256, 16, 72, None),
+    ("so400m_serve", 128, 256, 16, 72, None),
 ]
+# the So400m rows of the bound lines: case → the kernels timed there
+SO_TIMED = {"so400m_train": (fused_qkv_attention_fwd_stash, fused_qkv_attention_bwd_from_p),
+            "so400m_serve": (fused_qkv_attention_fwd,)}
+# kernel → (case tag, its row) at So400m's shapes, for report()
+SO_ROWS: dict = {}
 
 # The tiled bodies (8 < ws <= 16), same fields: SwinV2-L (swinv2_large_window12to16_192to256
 # at 256², scale 1.0) at bs 32, stage 0 shifted (timed), stage 1 shifted and
@@ -925,7 +979,7 @@ def phase_kernel(dev: torch.device) -> dict:
                   f"bwd_recompute {errs[fused_qkv_attention_bwd_recompute]:.3e} "
                   f"(tol {tol}, P {P_TOL[dtype]:.3e}; dqkv scaled by max(1, |plain|))")
 
-            if name != "vit_b16":
+            if name != "vit_b16" and name not in SO_TIMED:
                 continue
             timed = {
                 fused_qkv_attention_fwd: (lambda: fused_qkv_attention_fwd(qkv, h),
@@ -939,7 +993,9 @@ def phase_kernel(dev: torch.device) -> dict:
                     lambda: fused_qkv_attention_bwd_recompute(qkv, dout, h),
                     lambda: fused_qkv_attention_bwd_recompute_plain(qkv, dout, h)),
             }
-            if dtype == torch.float32:
+            if name in SO_TIMED:
+                timed = {k: v for k, v in timed.items() if k in SO_TIMED[name] and dtype == torch.bfloat16}
+            elif dtype == torch.float32:
                 timed = {fused_qkv_attention_fwd: timed[fused_qkv_attention_fwd]}  # in f32 only the serving forward
             # the library's yardsticks: SDPA on the strided q, k, v views of the
             # packed buffer with the transpose-reshape to [B, N, C]; for the stash
@@ -974,7 +1030,11 @@ def phase_kernel(dev: torch.device) -> dict:
                 lib, lib_what = library[k] if dtype == torch.bfloat16 else (None, "")
                 times = time_row(f"[kernel] {tag}", NAMES[k], kern, plain, lib, lib_what)
                 if dtype == torch.bfloat16:
-                    summary[k] = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
+                    row = {"max_abs_err": errs[k], **times, **bound(*work[k], dtype)}
+                    if name in SO_TIMED:
+                        SO_ROWS[k] = (tag, row)
+                    else:
+                        summary[k] = row
             del qkv_g, o_lib, library
             del qkv, dout, out, ref, o_s, p_s, o_r, p_r, g_p, g_p_ref, g_r, g_r_ref, timed
             torch.cuda.empty_cache()
@@ -1272,13 +1332,16 @@ def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
 # ---------------------------------------------------------------- train
 
 
-def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, path=KERNEL_PATH):
-    """The recipe's model (seed 0) on an attention path, its train state and step."""
-    model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, path=KERNEL_PATH, step_cfg=None,
+                  model=None):
+    """The recipe's model (seed 0, or ``model``) on an attention path, its
+    train state and step (``step_cfg``: StepConfig() unless given)."""
+    if model is None:
+        model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
     path[1](model)
     tx = build_tx(recipe.hyp, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=recipe.model)
     state = create_train_state(model, tx)
-    step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), StepConfig(),
+    step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), step_cfg or StepConfig(),
                            torch.Generator().manual_seed(1))
     return model, state, step
 
@@ -1291,12 +1354,11 @@ def snapshot(model: torch.nn.Module):
 
 
 def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batch: dict,
-                     kernel_side=None, paths=(KERNEL_PATH, PLAIN_PATH), tag=None) -> None:
+                     kernel_side=None, paths=(KERNEL_PATH, PLAIN_PATH), tag=None, step_cfg=None) -> None:
     """One step from the same weights and batch on two attention paths (the
     kernel path and the plain path unless told otherwise): loss, every
     gradient, every update θ₁ − θ₀. ``kernel_side`` is the first path's
     (loss, parameters, gradients) when already taken."""
-    name = str(dtype).replace("torch.", "")
     theta0 = {n: p.detach().clone() for n, p in get_model(
         recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0)).named_parameters()}
     sides = []
@@ -1304,23 +1366,31 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
         if i == 0 and kernel_side is not None:
             sides.append(kernel_side)
             continue
-        model, state, step = build_trainer(recipe, dtype, dev, path)
+        model, state, step = build_trainer(recipe, dtype, dev, path, step_cfg)
         loss = step(state, batch)["loss"].item()
         sides.append((loss, *snapshot(model)))
         del model, state, step
         torch.cuda.empty_cache()
-    (lk, pk, gk), (lp, pp, gp) = sides
+    compare_sides(f"[{tag or recipe.train_tag}] {str(dtype).replace('torch.', '')} {paths[0][0]} vs {paths[1][0]} "
+                  f"path", dtype, batch, theta0, *sides)
+
+
+def compare_sides(label: str, dtype: torch.dtype, batch: dict, theta0: dict, side_a: tuple, side_b: tuple) -> tuple:
+    """The one-step comparison of two sides (loss, parameters, gradients)
+    from the same θ₀, the second the reference; in f32 held to the bars.
+    Returns (loss relative difference, {gradient, update: worst ratio})."""
+    (lk, pk, gk), (lp, pp, gp) = side_a, side_b
     loss_rel = abs(lk - lp) / abs(lp)
     worst = {"grad": (0.0, ""), "update": (0.0, "")}
     min_cos = {"grad": (1.0, ""), "update": (1.0, "")}
     key_bias = {"max_abs_kernel": 0.0, "max_abs_plain": 0.0, "max_abs_diff": 0.0}
     for n in gp:
-        update = (pp[n] - theta0[n].to(dev)).float()
+        update = (pp[n] - theta0[n].to(pp[n].device)).float()
         # θ₁ = θ₀ + Δ rounds to θ's f32 spacing, which can be near Δ's own
         # size, so the post-step parameters may differ by one spacing more
         spacing = torch.finfo(torch.float32).eps * pp[n].float().abs().max().item()
         pairs = {"grad": (gk[n].float(), gp[n].float(), gp[n].float().abs().max().item(), 0.0),
-                 "update": ((pk[n] - theta0[n].to(dev)).float(), update, update.abs().max().item(), spacing)}
+                 "update": ((pk[n] - theta0[n].to(pp[n].device)).float(), update, update.abs().max().item(), spacing)}
         for what, (a, b, scale, slack) in pairs.items():
             ratio = max((a - b).abs().max().item() - slack, 0.0) / max(scale, 1e-30)
             if ratio > worst[what][0]:
@@ -1338,8 +1408,7 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
             cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
             if cos < min_cos[what][0]:
                 min_cos[what] = (cos, n)
-    print(f"[{tag or recipe.train_tag}] {name} {paths[0][0]} vs {paths[1][0]} path, one step, "
-          f"bs {batch['label'].shape[0]}: loss "
+    print(f"{label}, one step, bs {batch['label'].shape[0]}: loss "
           f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}); worst max|diff|/max|plain| gradient {worst['grad'][0]:.3e} "
           f"({worst['grad'][1]}), update {worst['update'][0]:.3e} ({worst['update'][1]}); min cosine "
           f"gradient {min_cos['grad'][0]:.6f} ({min_cos['grad'][1]}), update {min_cos['update'][0]:.6f} "
@@ -1347,10 +1416,11 @@ def compare_one_step(recipe: Recipe, dtype: torch.dtype, dev: torch.device, batc
           f"max|kernel| {key_bias['max_abs_kernel']:.3e}, max|plain| {key_bias['max_abs_plain']:.3e}, "
           f"max|diff| {key_bias['max_abs_diff']:.3e}")
     if dtype == torch.float32:
-        check(loss_rel <= F32_LOSS_RTOL, f"f32 loss differs by {loss_rel} relative > {F32_LOSS_RTOL}")
+        check(loss_rel <= F32_LOSS_RTOL, f"{label}: f32 loss differs by {loss_rel} relative > {F32_LOSS_RTOL}")
         for what in ("grad", "update"):
             check(worst[what][0] <= F32_TENSOR_TOL,
-                  f"f32 {what} of {worst[what][1]} differs by {worst[what][0]} of its max > {F32_TENSOR_TOL}")
+                  f"{label}: f32 {what} of {worst[what][1]} differs by {worst[what][0]} of its max > {F32_TENSOR_TOL}")
+    return loss_rel, {what: worst[what][0] for what in worst}
 
 
 def train_rate(model, state, step, batch: dict, path, label: str):
@@ -1869,11 +1939,11 @@ def phase_device_augment(dev: torch.device) -> None:
 
 # ---------------------------------------------------------------- run loop
 
-# the cuts of the run loop's pet_synth run: 40 train and 4 val JPEGs a class
-# (35 classes: 1,400 train = 10 steps of 128 an epoch with drop_last, 140 val =
+# the cuts of the run loop's pet_synth run: 24 train and 4 val JPEGs a class
+# (35 classes: 840 train = 6 steps of 128 an epoch with drop_last, 140 val =
 # one batch of 320), 3 epochs (0: val augments, the warm-up; 1: the full train
 # pipeline; 2: weakened to the val augments from aug_epoch 2 on)
-RUN_LOOP_CUTS = {"n_train_per_class": 40, "n_val_per_class": 4, "epochs": 3, "aug_epoch": 2}
+RUN_LOOP_CUTS = {"n_train_per_class": 24, "n_val_per_class": 4, "epochs": 3, "aug_epoch": 2}
 RUN_LOOP_LOSS_RTOL = 1e-3
 RUN_LOOP_TIMEOUT_S = 300
 
@@ -2267,6 +2337,7 @@ def phase_margin_heads(dev: torch.device) -> None:
 FACE_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face_synth.yaml"
 CBIR_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "cbir_synth.yaml"
 EMBED_RUN_EPOCHS = 2  # 3 until the CNN, multi-label and distillation phases took their share of the time
+FACE_SYNTH_N_TRAIN = 8  # train images an id (the generator's default is 20), for the script's time limit
 EMBED_RUN_TIMEOUT_S = 300
 
 
@@ -2337,10 +2408,12 @@ def compare_embedding_runs(a: dict, b: dict, epochs, fit: str, fit_step: float) 
 
 def start_synth_face() -> tuple:
     """A temporary directory and the benchmarks/make_synth_face.py process
-    (its defaults) writing face/ and cbir/ into it: (dir, process, start)."""
+    (its defaults but FACE_SYNTH_N_TRAIN train images an id) writing face/
+    and cbir/ into it: (dir, process, start)."""
     tmp = Path(tempfile.mkdtemp(prefix="vdk_embedding_run_"))
     proc = subprocess.Popen([sys.executable, str(PET_SYNTH_YAML.parents[2] / "benchmarks" / "make_synth_face.py"),
-                             "--root", str(tmp / "face"), "--cbir-root", str(tmp / "cbir")])
+                             "--root", str(tmp / "face"), "--cbir-root", str(tmp / "cbir"),
+                             "--n-train", str(FACE_SYNTH_N_TRAIN)])
     return tmp, proc, time.perf_counter()
 
 
@@ -2361,7 +2434,8 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
     try:
         waited = time.perf_counter()
         check(proc.wait(timeout=EMBED_RUN_TIMEOUT_S) == 0, f"make_synth_face.py exited with {proc.returncode}")
-        print(f"[{tag}] benchmarks/make_synth_face.py with its defaults (64 ids x 20 train, 4 val, 300 pairs; the "
+        print(f"[{tag}] benchmarks/make_synth_face.py with its defaults but --n-train {FACE_SYNTH_N_TRAIN} (64 ids x "
+              f"{FACE_SYNTH_N_TRAIN} train, 4 val, 300 pairs; the "
               f"CBIR twin): done {time.perf_counter() - t0:.1f} s after its start, "
               f"{time.perf_counter() - waited:.1f} s of it waited for here")
         totals = {k: 0 for k in KERNELS}
@@ -2558,7 +2632,7 @@ CNN_PROFILED = ("resnet50", "convnext_base", "mobilenetv3_large_100", "efficient
 CNN_PROBED = ("convnext_base", "mobilenetv3_large_100")
 # the rows whose card-vs-CPU step is also printed in f32 (the float64 step is held for every row)
 CNN_F32_PRINTED = ("resnet50", "resnet18")
-CNN_F32_BATCH = 8  # was 16: the CPU float64 steps of six CNNs set much of phase CN's time
+CNN_F32_BATCH = 4  # the CPU float64 steps of six CNNs (and resnet18's SAM step) set much of phase CN's time
 CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
 # device-time classes of a CNN step, by kernel name (lower case), first match wins
 CNN_KERNEL_CLASSES = (
@@ -2597,11 +2671,11 @@ def cnn_batch(model_cfg: dict, loss: str, bs: int, dev, seed: int) -> dict:
 
 
 def cnn_trainer(model_cfg: dict, loss: str, epochs: int, dtype: torch.dtype, dev, float64: bool = False,
-                model=None):
+                model=None, step_cfg=None):
     """The CNN (seed 0, or ``model``), its optimizer, train state and step:
-    the config's SGD + clip + EMA, BCE or CE with label smoothing 0.05. With
-    ``float64`` the parameters, buffers, every layer and the loss compute in
-    float64."""
+    the config's SGD + clip + EMA, BCE or CE with label smoothing 0.05
+    (``step_cfg``: StepConfig() unless given). With ``float64`` the
+    parameters, buffers, every layer and the loss compute in float64."""
     if model is None:
         model = get_model(model_cfg, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
     if float64:
@@ -2612,7 +2686,8 @@ def cnn_trainer(model_cfg: dict, loss: str, epochs: int, dtype: torch.dtype, dev
     tx = build_tx({**PET_SYNTH_HYP, "epochs": epochs}, STEPS_PER_EPOCH, discrete_per_epoch=True,
                   model_cfg=model_cfg)
     state = create_train_state(model, tx)
-    step = make_train_step(model, tx, cnn_loss(loss, float64), StepConfig(), torch.Generator().manual_seed(1))
+    step = make_train_step(model, tx, cnn_loss(loss, float64), step_cfg or StepConfig(),
+                           torch.Generator().manual_seed(1))
     return model, tx, state, step
 
 
@@ -2784,12 +2859,12 @@ def run_determinism_probe() -> dict:
 
 
 def cnn_one_step(base: torch.nn.Module, model_cfg: dict, loss: str, epochs: int, batch: dict, device,
-                 float64: bool) -> tuple:
+                 float64: bool, step_cfg=None) -> tuple:
     """One train step from a copy of ``base`` (the seeded f32 model on the
     CPU): (loss, {gradient, update θ₁ − θ₀, BN statistic: {name: float64
     CPU tensor}}, max |θ₀| by name)."""
     model, _, state, step = cnn_trainer(model_cfg, loss, epochs, torch.float32, device, float64=float64,
-                                        model=copy.deepcopy(base).to(device))
+                                        model=copy.deepcopy(base).to(device), step_cfg=step_cfg)
     theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     if float64:  # the same float64 pixels on both devices: the step then normalises them in float64
         batch = {**batch, "image": batch["image"].cpu().double() / 255.0}
@@ -2824,7 +2899,8 @@ def worst_diffs(side, ref, float32_spacing: bool) -> tuple:
     return abs(ls - lr) / abs(lr), worst
 
 
-def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev, f32: bool = True) -> None:
+def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev, f32: bool = True,
+                         step_cfg=None) -> None:
     """One train step on the card (TF32 off) against the same model, batch
     and generator on the CPU, in float64 (model and loss): the loss within
     F32_LOSS_RTOL relative; every gradient, update θ₁ − θ₀ (less one spacing
@@ -2837,13 +2913,15 @@ def compare_cnn_with_cpu(tag: str, model_cfg: dict, loss: str, epochs: int, dev,
     rounding, or one f32 ulp of the normalised input, moves them by up to a
     fifth of their largest entry on either device, so an f32 bar would hold
     no implementation (``f32`` off: the float64 pair alone). Every run starts
-    from a copy of one seeded model."""
+    from a copy of one seeded model; ``step_cfg`` is the step's variant
+    (StepConfig() unless given)."""
     batch = cnn_batch(model_cfg, loss, CNN_F32_BATCH, dev, seed=6)
     cpu = torch.device("cpu")
     base = get_model(model_cfg, device=cpu, generator=torch.Generator().manual_seed(0))
     sides = (("card f64", dev, True), ("cpu f64", cpu, True)) + (
         (("card f32", dev, False), ("cpu f32", cpu, False)) if f32 else ())
-    runs = {key: cnn_one_step(base, model_cfg, loss, epochs, batch, device, f64) for key, device, f64 in sides}
+    runs = {key: cnn_one_step(base, model_cfg, loss, epochs, batch, device, f64, step_cfg)
+            for key, device, f64 in sides}
     torch.cuda.empty_cache()
 
     def line(key, ref):
@@ -2911,7 +2989,7 @@ def phase_cnn(dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-ML_EPOCHS = 3
+ML_EPOCHS = 2  # the focal swap from epoch 1 (warm_ep), and an epoch for the resumed run C
 ML_COLUMNS = ("bit0", "bit1", "bit2")
 ML_TAGS = ("Train_loss", "Val_v_loss", "Val_precision", "Val_recall", "Val_f1score")
 DS_EPOCHS = 2
@@ -3382,9 +3460,9 @@ def phase_swinv2_large(dev: torch.device) -> dict:
 # ---------------------------------------------------------------- strategies
 
 # pet_synth.yaml with mixup in epoch 1 (the epoch after warm_ep), OHEM on and
-# two mini-batches an update; 33 of the run loop's 40 train JPEGs a class
-# (1,155: 9 steps of 128, so epoch 0 ends in the middle of a round of 2)
-ST_CUTS = {"n_train_per_class": 33, "epochs": 2, "mixup": {"ratio": 0.2, "duration": 1},
+# two mini-batches an update; 19 of the run loop's train JPEGs a class
+# (665: 5 steps of 128, so epoch 0 ends in the middle of a round of 2)
+ST_CUTS = {"n_train_per_class": 19, "epochs": 2, "mixup": {"ratio": 0.2, "duration": 1},
            "ohem": [True, 8, 0.7, 255], "accumulate": 2}
 
 
@@ -3499,6 +3577,339 @@ def phase_strategies(dev: torch.device, pet_data: tuple) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- SigLIP So400m
+
+SO_NAME = "vit_so400m_patch14_siglip_224"
+# SigLIP So400m at 224² (27 blocks, width 1152, MLP 4304, 16 heads of head dim 72, 256 tokens and no CLS,
+# the map pool), full width and depth, pet.yaml's model section and hyp with the name swapped: K1, K1s and
+# K1b in their 80-wide bucket
+SO400M = Recipe("so400m serving", "so400m train", {**PET_MODEL, "name": SO_NAME}, {}, PET_HYP, 64, 4, 3, 27,
+                K1_KERNELS, ("attn.qkv.weight",))
+SO_SERVE_BATCH = 128
+SWINV2_REMAT_BATCH = 8
+SAM_VIT_BATCH = 32
+# launches on the So400m paths (serving, training, the run), by kernel, for report()
+SO_LAUNCHES: dict = {}
+
+
+def set_compute_dtype(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Every layer of ``model`` computes in ``dtype`` (its parameters stay
+    f32): what ``get_model(dtype=...)`` builds, without drawing the weights
+    again."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+
+
+def restore(model: torch.nn.Module, params: dict) -> None:
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+
+
+def phase_so400m(dev: torch.device) -> dict:
+    """vit_so400m_patch14_siglip_224 on the card (see the module doc):
+    serving bf16 and f32, training bf16 with remat off and on, the f32
+    steps against the plain path and remat on against off; then the remat
+    check on SwinV2-B, the SAM steps on ViT-B/16 and resnet18, and
+    attention_pool on Swin-B. Returns the launches of the So400m bf16
+    serving and training runs."""
+    from visiondk_tpu_torch.engine.optim import SAMConfig
+
+    tag, recipe = "so400m", SO400M
+    fwd, stash, bwd_p, _ = recipe.kernels
+    depth, img = recipe.depth, recipe.img
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [{"image": torch.randint(0, 256, (SO_SERVE_BATCH, img, img, 3), generator=gen, device=dev,
+                                       dtype=torch.uint8)} for _ in range(2)]
+    t0 = time.perf_counter()
+    model = get_model(recipe.model, dtype=torch.float32, device=dev, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    bb = model.backbone
+    heads = bb.blocks[0].attn.num_heads
+    print(f"[{tag}] built {SO_NAME} ({recipe.model['num_classes']} classes, {img}², {depth} blocks, width "
+          f"{bb.pos_embed.shape[-1]}, MLP {bb.blocks[0].mlp.fc1.out_features}, {heads} heads of head dim "
+          f"{bb.pos_embed.shape[-1] // heads}, {bb.pos_embed.shape[1]} tokens, no CLS, map pool), "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters, seeded, in {time.perf_counter() - t0:.1f} s")
+
+    # serving, bf16, bs 128: the main path, counted
+    set_compute_dtype(model, torch.bfloat16)
+    eval_step = make_eval_step(model, StepConfig())
+    reset_counts()
+    logits = [eval_step(b) for b in batches]
+    counts = read_counts()
+    check(counts == only({fwd: depth * len(batches)}),
+          f"So400m serving launches {[(NAMES[k], v) for k, v in counts.items()]}, want {depth} K1 a forward")
+    totals = dict(counts)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        set_compute_dtype(model, dtype)
+        if dtype == torch.float32:
+            logits = [eval_step(b) for b in batches]
+        set_fused(model, False)
+        ref = [eval_step(b) for b in batches]
+        set_fused(model, True)
+        out, ref = torch.cat(logits), torch.cat(ref)
+        check(out.shape == (SO_SERVE_BATCH * len(batches), recipe.model["num_classes"]) and
+              out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+              f"{name} logits: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        cos = row_cosine(out, ref).min().item()
+        agree = (out.argmax(1) == ref.argmax(1)).double().mean().item()
+        print(f"[{tag}] {name} eval bs {SO_SERVE_BATCH}: "
+              + (f"{counts[fwd]} {NAMES[fwd]} launches over {len(batches)} forwards, nothing else; "
+                 if dtype == torch.bfloat16 else "") +
+              f"logits kernel vs plain path: min row cosine {cos:.6f} (want >= {MIN_COSINE}), max |diff| "
+              f"{(out - ref).abs().max().item():.3e}, argmax agreement {agree:.4f}"
+              + (f" (want >= {MIN_ARGMAX_AGREEMENT})" if dtype == torch.float32 else " (printed: held in f32)"))
+        check(cos >= MIN_COSINE, f"So400m {name} logits: min row cosine {cos} < {MIN_COSINE}")
+        if dtype == torch.float32:
+            check(agree >= MIN_ARGMAX_AGREEMENT, f"So400m f32 argmax agreement {agree} < {MIN_ARGMAX_AGREEMENT}")
+    set_compute_dtype(model, torch.bfloat16)
+    rates = {True: [], False: []}
+    for fused in (True, False, False, True):
+        set_fused(model, fused)
+        rates[fused].append(images_per_s(eval_step, batches[0]))
+    set_fused(model, True)
+    print(f"[{tag}] eval bs {SO_SERVE_BATCH} bf16 images/s: kernel path {rates[True][0]:.1f}, {rates[True][1]:.1f} | "
+          f"plain path {rates[False][0]:.1f}, {rates[False][1]:.1f} (order kernel, plain, plain, kernel)")
+    profile_step(f"{SO_NAME} eval bf16", lambda: eval_step(batches[0]), SO_SERVE_BATCH)
+    del eval_step, logits, ref, out
+
+    # training, bf16, bs 64, SGD + clip + EMA: remat off (K1s + K1b a block) and on (K1s twice)
+    bs = recipe.train_batch
+    batch = {"image": torch.randint(0, 256, (bs, img, img, 3), generator=gen, device=dev, dtype=torch.uint8),
+             "label": torch.randint(0, recipe.model["num_classes"], (bs,), generator=gen, device=dev)}
+    model, state, step = build_trainer(recipe, torch.bfloat16, dev, model=model)
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    losses = {}
+    for remat in (False, True):
+        bb.remat = remat
+        reset_counts()
+        loss = step(state, batch)["loss"]
+        counts = read_counts()
+        want = only({stash: depth * (2 if remat else 1), bwd_p: depth})
+        check(counts == want, f"So400m train step, remat {remat}: launches "
+                              f"{[(NAMES[k], v) for k, v in counts.items()]}")
+        totals = {k: totals[k] + counts[k] for k in KERNELS}
+        losses[remat] = loss.item()
+        check(math.isfinite(losses[remat]), f"So400m train step, remat {remat}: loss {losses[remat]}")
+        bad = [n for n, p in model.named_parameters() if p.grad is None or not torch.isfinite(p.grad).all()]
+        zero = [n for n, p in model.named_parameters() if n.endswith("attn.qkv.weight") and not p.grad.abs().sum() > 0]
+        check(not bad and not zero, f"parameters without a finite gradient: {bad[:5]}; zero qkv gradients {zero}")
+    print(f"[{tag}] bf16 bs {bs} train steps: remat off loss {losses[False]:.5f}, launches {depth} {NAMES[stash]} + "
+          f"{depth} {NAMES[bwd_p]}; remat on loss {losses[True]:.5f}, launches {2 * depth} {NAMES[stash]} (the "
+          f"forward's and the recompute's) + {depth} {NAMES[bwd_p]}; nothing else; every gradient finite, every "
+          f"qkv.weight gradient non-zero")
+    trials = {False: [], True: []}
+    for trial, remat in enumerate((False, True, True, False)):
+        bb.remat = remat
+        trials[remat].append(train_rate(model, state, step, batch, KERNEL_PATH,
+                                        f"[{tag}] bf16 bs {bs} trial {trial}, remat {'on' if remat else 'off'}"))
+    TRAIN_RATES[recipe.train_tag] = [r for r, _ in trials[False]]
+    print(f"[{tag}] bf16 bs {bs} train images/s: remat off {trials[False][0][0]:.1f}, {trials[False][1][0]:.1f} | "
+          f"remat on {trials[True][0][0]:.1f}, {trials[True][1][0]:.1f} (order off, on, on, off); "
+          f"max_memory_allocated remat off {trials[False][0][1]:.2f} GiB, remat on {trials[True][0][1]:.2f} GiB")
+    for remat in (False, True):
+        bb.remat = remat
+        profile_step(f"{SO_NAME} train bf16 remat {'on' if remat else 'off'}", lambda: step(state, batch), bs)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # one f32 step at bs 4 from θ₀: kernel path against the plain path, remat on against remat off
+    small = {k: v[:recipe.f32_train_batch] for k, v in batch.items()}
+    set_compute_dtype(model, torch.float32)
+    sides = {}
+    for label, path, remat in (("kernel", KERNEL_PATH, False), ("plain", PLAIN_PATH, False),
+                               ("kernel remat", KERNEL_PATH, True)):
+        restore(model, theta0)
+        bb.remat = remat
+        _, state, step = build_trainer(recipe, torch.float32, dev, path, model=model)
+        with cudnn_mode(True):  # the trainer's setting: the patch convolution's backward is then deterministic
+            loss = step(state, small)["loss"].item()
+        sides[label] = (loss, *snapshot(model))
+        del state, step
+        torch.cuda.empty_cache()
+    set_fused(model, True)
+    f32 = str(torch.float32).replace("torch.", "")
+    compare_sides(f"[{tag}] {f32} kernel vs plain path", torch.float32, small, theta0, sides["kernel"],
+                  sides["plain"])
+    compare_sides(f"[{tag}] {f32} remat on vs remat off (kernel path)", torch.float32, small, theta0,
+                  sides["kernel remat"], sides["kernel"])
+    same = sides["kernel remat"][0] == sides["kernel"][0] and all(
+        torch.equal(sides["kernel remat"][i][n], sides["kernel"][i][n]) for i in (1, 2) for n in theta0)
+    print(f"[{tag}] f32 one step, remat on vs off: bit-identical {same} (printed; the bars above are held)")
+    del model, sides, theta0, bb
+    torch.cuda.empty_cache()
+
+    # remat on SwinV2-B, f32 bs 8: two stash forwards and one backward from P a block
+    sv2_batch = {"image": torch.randint(0, 256, (SWINV2_REMAT_BATCH, SWINV2.img, SWINV2.img, 3), generator=gen,
+                                        device=dev, dtype=torch.uint8),
+                 "label": torch.randint(0, SWINV2.model["num_classes"], (SWINV2_REMAT_BATCH,), generator=gen,
+                                        device=dev)}
+    model = get_model(SWINV2.model, dtype=torch.float32, device=dev, generator=torch.Generator().manual_seed(0))
+    theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    sides = {}
+    wf, ws, wb, _ = wattn.KERNELS
+    for remat in (False, True):
+        restore(model, theta0)
+        for stage in model.backbone.layers:
+            stage.remat = remat
+        _, state, step = build_trainer(SWINV2, torch.float32, dev, model=model)
+        reset_counts()
+        with cudnn_mode(True):
+            loss = step(state, sv2_batch)["loss"].item()
+        counts = read_counts()
+        check(counts == only({ws: SWINV2.depth * (2 if remat else 1), wb: SWINV2.depth}),
+              f"SwinV2-B f32 step, remat {remat}: launches {[(NAMES[k], v) for k, v in counts.items()]}")
+        sides[remat] = (loss, *snapshot(model))
+        del state, step
+    compare_sides(f"[{tag}] {SWINV2_NAME} f32 remat on vs remat off ({SWINV2.depth} {NAMES[ws]} twice and "
+                  f"{SWINV2.depth} {NAMES[wb]} a step with remat)", torch.float32, sv2_batch, theta0,
+                  sides[True], sides[False])
+    same = sides[True][0] == sides[False][0] and all(
+        torch.equal(sides[True][i][n], sides[False][i][n]) for i in (1, 2) for n in theta0)
+    print(f"[{tag}] {SWINV2_NAME} f32 one step, remat on vs off: bit-identical {same} (printed)")
+    del model, sides, theta0
+    torch.cuda.empty_cache()
+
+    # SAM: one f32 step of ViT-B/16 at bs 32 on the kernel path against the plain path (a step: two
+    # passes, 24 K1s + 24 K1b), and resnet18 at CNN_F32_BATCH on the card against the CPU in float64
+    sam = StepConfig(sam=SAMConfig())
+    vit_batch = {"image": torch.randint(0, 256, (SAM_VIT_BATCH, IMG, IMG, 3), generator=gen, device=dev,
+                                        dtype=torch.uint8),
+                 "label": torch.randint(0, VIT.model["num_classes"], (SAM_VIT_BATCH,), generator=gen, device=dev)}
+    model, state, step = build_trainer(VIT, torch.float32, dev, step_cfg=sam)
+    reset_counts()
+    kernel_side = (step(state, vit_batch)["loss"].item(), *snapshot(model))
+    counts = read_counts()
+    check(counts == only({stash: 2 * DEPTH, bwd_p: 2 * DEPTH}),
+          f"a ViT-B/16 SAM step launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    del model, state, step
+    compare_one_step(VIT, torch.float32, dev, vit_batch, kernel_side=kernel_side, tag=f"{tag} SAM", step_cfg=sam)
+    del kernel_side
+    torch.cuda.empty_cache()
+    r18_tag, r18_cfg, _, r18_loss, r18_epochs = CNN_RECIPES[1]
+    with cudnn_mode(True):
+        compare_cnn_with_cpu(f"{r18_tag} SAM", r18_cfg, r18_loss, r18_epochs, dev, f32=False, step_cfg=sam)
+    torch.cuda.empty_cache()
+
+    # attention_pool on Swin-B: serving bf16 bs 128, kernel path against the plain path
+    pool_cfg = {**PET_MODEL, "attention_pool": True}
+    model = get_model(pool_cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    eval_step = make_eval_step(model, StepConfig())
+    pool_batches = [{"image": b["image"][:BATCH]} for b in batches]
+    reset_counts()
+    out = torch.cat([eval_step(b) for b in pool_batches])
+    counts = read_counts()
+    check(counts == only({wf: SWIN.depth * len(pool_batches)}),
+          f"attention_pool serving launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    set_fused(model, False)
+    ref = torch.cat([eval_step(b) for b in pool_batches])
+    check(out.shape == (BATCH * len(pool_batches), PET_MODEL["num_classes"]) and bool(torch.isfinite(out).all()),
+          f"attention_pool logits {tuple(out.shape)}")
+    cos = row_cosine(out, ref).min().item()
+    print(f"[{tag}] {PET_MODEL['name']} attention_pool (AttentionPooling over its 7x7 token map, f32 fc) bf16 eval "
+          f"bs {BATCH}: {counts[wf]} {NAMES[wf]} over {len(pool_batches)} forwards; logits kernel vs plain path: min "
+          f"row cosine {cos:.6f} (want >= {MIN_COSINE}), max |diff| {(out - ref).abs().max().item():.3e}")
+    check(cos >= MIN_COSINE, f"attention_pool logits: min row cosine {cos} < {MIN_COSINE}")
+    del model, eval_step
+    torch.cuda.empty_cache()
+    for k in KERNELS:
+        SO_LAUNCHES[k] = SO_LAUNCHES.get(k, 0) + totals[k]
+    return totals
+
+
+# pet.yaml with So400m in Swin-B's place, remat on and SAM, on 5 of the run loop's train JPEGs a
+# class (175: 2 steps of pet.yaml's bs 80) and all its val JPEGs, 2 epochs
+SO_RUN_CUTS = {"n_train_per_class": 5, "epochs": 2}
+
+
+def phase_so400m_run(dev: torch.device, pet_data: tuple) -> dict:
+    """pet.yaml with ``name: vit_so400m_patch14_siglip_224``, ``kwargs:
+    {remat: true}`` and ``optimizer: [sam, False]`` through the port's CLIs
+    (see the module doc): runs A and B bit-identical, exact K1-family
+    launches, validate on A's best; returns the launches of the in-process
+    runs."""
+    from visiondk_tpu_torch.config import yaml_dump, yaml_load
+
+    tag = "so400m run"
+    fwd, stash, bwd_p, _ = K1_KERNELS
+    depth = SO400M.depth
+    os.environ.pop("VDK_ATTN_NO_PCACHE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_so400m_"))
+    try:
+        root = subset_root(synth_pet_root(pet_data, tag), tmp / "data", SO_RUN_CUTS["n_train_per_class"])
+        cfg = yaml_load(PET_YAML)
+        was = (cfg["model"]["name"], cfg["model"]["kwargs"], cfg["hyp"]["optimizer"], cfg["data"]["root"],
+               cfg["hyp"]["epochs"])
+        cfg["model"]["name"] = SO_NAME
+        cfg["model"]["kwargs"] = {"remat": True}
+        cfg["hyp"]["optimizer"] = ["sam", False]
+        cfg["data"]["root"] = str(root)
+        cfg["hyp"]["epochs"] = epochs = SO_RUN_CUTS["epochs"]
+        yaml_path = tmp / "pet_so400m.yaml"
+        yaml_dump(cfg, yaml_path)
+        n_classes, bs, val_bs = cfg["model"]["num_classes"], cfg["data"]["train"]["bs"], cfg["data"]["val"]["bs"]
+        n_train = SO_RUN_CUTS["n_train_per_class"] * n_classes
+        n_val = RUN_LOOP_CUTS["n_val_per_class"] * n_classes
+        steps, val_batches = n_train // bs, -(-n_val // val_bs)
+        check(steps >= 2, f"{steps} optimizer steps an epoch, want at least 2")
+        print(f"[{tag}] configs/classification/pet.yaml with these cuts: model.name {SO_NAME} (was {was[0]}), "
+              f"model.kwargs {{remat: true}} (was {was[1]}), hyp.optimizer [sam, False] (was {was[2]}), data.root the "
+              f"run loop's JPEGs cut to {SO_RUN_CUTS['n_train_per_class']} train a class (was {was[3]}; {n_train} "
+              f"train / {n_val} val, {steps} steps of {bs} an epoch), hyp.epochs {epochs} (was {was[4]}); everything "
+              f"else as written (bf16, val bs {val_bs})")
+        # a step: two passes (SAM), each a stash forward twice a block (remat) and a backward from P
+        want = only({stash: 4 * depth * steps * epochs, bwd_p: 2 * depth * steps * epochs,
+                     fwd: depth * val_batches * epochs})
+        totals, runs, written = {k: 0 for k in KERNELS}, {}, []
+        for run in ("A", "B"):
+            project = tmp / f"run{run}"
+            written.clear()
+            with checkpoint_bytes(written):
+                out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project",
+                                                                   str(project), "--seed", "0"])
+            check(counts == want, f"run {run} launches {[(NAMES[k], v) for k, v in counts.items()]}")
+            totals = {k: totals[k] + counts[k] for k in KERNELS}
+            runs[run] = metrics
+            print(f"[{tag}] run {run}: {secs:.1f} s; per epoch train loss "
+                  + ", ".join(f"{metrics['Train_loss'][e]!r}" for e in range(epochs)) + ", val top1 "
+                  + ", ".join(f"{metrics['Val_top1'][e]!r}" for e in range(epochs)) + ", val loss "
+                  + ", ".join(f"{metrics['Val_v_loss'][e]!r}" for e in range(epochs)) + "; trainer-fed images/s "
+                  + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(epochs))
+                  + f"; launches {NAMES[stash]} {counts[stash]} (= 2 passes x 2 (remat) x {depth} x {steps * epochs} "
+                    f"steps), {NAMES[bwd_p]} {counts[bwd_p]} (= 2 x {depth} x {steps * epochs}), {NAMES[fwd]} "
+                    f"{counts[fwd]} (= {depth} x {val_batches} val batches x {epochs} epochs), no other attention "
+                    f"kernel; {len(written)} checkpoints written (last and best each epoch): "
+                  + ", ".join(f"{b / 1e9:.3f}" for b in written) + " GB")
+            if run == "A":
+                shutil.rmtree(project / "last", ignore_errors=True)  # disk: the validate below reads best
+        same = same_metrics(runs["A"], runs["B"], ("Train_loss", "Val_top1", "Val_v_loss"), range(epochs))
+        print(f"[{tag}] run B vs run A: bit-identical {same} (required)")
+        check(same, "seeded So400m runs A and B are not bit-identical")
+        shutil.rmtree(tmp / "runB", ignore_errors=True)
+
+        reset_counts()
+        out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
+                                                         "--weight", str(tmp / "runA" / "best"), "--ema"])
+        counts_v = read_counts()
+        check(counts_v == only({fwd: depth * val_batches}),
+              f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+        top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
+        best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
+        top1_a = runs["A"]["Val_top1"][best_epoch]
+        print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
+              f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
+        check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+        out = {k: totals[k] + counts_v[k] for k in KERNELS}
+        for k in KERNELS:
+            SO_LAUNCHES[k] = SO_LAUNCHES.get(k, 0) + out[k]
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -3562,13 +3973,17 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
     print("[launches] swinv2 large run (runs A, B; validate): " + ", ".join(
         f"{NAMES[k]} {large_run[k]}" for k in wattn.KERNELS) + "; all three and earlier, on ws-16 windows: "
         + ", ".join(f"{NAMES[k]} {LARGE_LAUNCHES.get(k, 0)}" for k in wattn.KERNELS))
+    so400m = timed("so400m", phase_so400m, dev)
+    so400m_run = timed("so400m run", phase_so400m_run, dev, pet_data)
+    print("[launches] so400m serving and training: " + ", ".join(f"{NAMES[k]} {so400m[k]}" for k in K1_KERNELS)
+          + "; so400m run (runs A, B; validate): " + ", ".join(f"{NAMES[k]} {so400m_run[k]}" for k in K1_KERNELS))
     strategies = timed("strategies", phase_strategies, dev, pet_data)
     print("[launches] strategies (runs A, B, C's resume; validate): "
           + ", ".join(f"{NAMES[k]} {strategies[k]}" for k in K1_KERNELS))
     embedding_run = timed("embedding run", phase_embedding_run, dev, face_data)
     print("[launches] embedding run: " + ", ".join(f"{NAMES[k]} {embedding_run[k]}" for k in wattn.KERNELS))
-    launches = {k: launches[k] + run_loop[k] + distill[k] + swinv2_run[k] + large[k] + large_run[k] + strategies[k]
-                + embedding_run[k] for k in KERNELS}
+    launches = {k: launches[k] + run_loop[k] + distill[k] + swinv2_run[k] + large[k] + large_run[k] + so400m[k]
+                + so400m_run[k] + strategies[k] + embedding_run[k] for k in KERNELS}
     vision = timed("vision path", phase_vision_path, dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
     return kern, {k: launches[k] + vision[k] for k in KERNELS}
@@ -3703,6 +4118,13 @@ def report(kern: dict, launches: dict) -> None:
               f"{row['bound_ms'] / row['ms']:.2%} of bound; plain {row['plain_ms']:.4f} ms; library "
               f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f') + ' ms'}; max|err| "
               f"{row['max_abs_err']:.3e}; launches on ws-16 windows on the main paths {LARGE_LAUNCHES.get(k, 0)}")
+    for k, (tag, row) in SO_ROWS.items():
+        print(f"[bound so400m] {NAMES[k]} at {tag}: {row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP -> "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; kernel {row['ms']:.4f} ms = "
+              f"{row['bound_ms'] / row['ms']:.2%} of bound; plain {row['plain_ms']:.4f} ms; library "
+              f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f') + ' ms'} (kernel / library "
+              f"{'-' if row['library_ms'] is None else format(row['ms'] / row['library_ms'], '.2f')}); max|err| "
+              f"{row['max_abs_err']:.3e}; launches on the So400m paths {SO_LAUNCHES.get(k, 0)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

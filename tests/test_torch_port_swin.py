@@ -293,8 +293,6 @@ def test_swin_b_structure():
 
 
 def test_unported_swin_options_raise():
-    with pytest.raises(NotImplementedError):
-        get_model({"task": "classification", "name": TINY, "num_classes": 3, "kwargs": {"remat": True}}, device="cpu")
     model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(ValueError, match="built for 32"):
         model(torch.zeros((1, 48, 48, 3)))

@@ -397,8 +397,6 @@ def test_swinv2_structure():
 
 
 def test_unported_swinv2_options_raise():
-    with pytest.raises(NotImplementedError):
-        get_model({**_cls_cfg(), "kwargs": {"remat": True}}, device="cpu")
     model = get_model(_cls_cfg(), device="cpu")
     with pytest.raises(ValueError, match="built for 32"):
         model(torch.zeros((1, 40, 40, 3)))

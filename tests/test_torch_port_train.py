@@ -52,7 +52,6 @@ from visiondk_tpu_torch.engine.state import create_train_state
 from visiondk_tpu_torch.engine.steps import (
     StepConfig, device_preprocess, make_embed_step, make_eval_step, make_train_step,
 )
-from visiondk_tpu_torch.engine.optim import SAMConfig
 from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn, list_lossfns
 from visiondk_tpu_torch.losses import losses as L
@@ -341,12 +340,6 @@ def test_build_tx_matches_the_jax_trainer(case):
     _assert_params_close(model, jparams, stats, atol=1e-5 if opt[0] == "adam" else 1e-6)
 
 
-@pytest.mark.parametrize("hyp", [{**PET_SYNTH_HYP, "optimizer": ["sam", False]}])
-def test_build_tx_raises_for_what_is_not_ported(hyp):
-    with pytest.raises(NotImplementedError):
-        build_tx(hyp, 2, True)
-
-
 # ---------------------------------------------------------------- the train step
 
 
@@ -462,11 +455,3 @@ def test_serving_steps_are_deterministic_after_model_train(kind):
     with torch.no_grad():
         ref = forward(device_preprocess(images, StepConfig().mean, StepConfig().std))
     assert torch.equal(a, ref)
-
-
-@pytest.mark.parametrize("cfg", [StepConfig(sam=SAMConfig())], ids=["sam"])
-def test_train_step_variants_not_ported_raise(cfg):
-    model = get_model(_cls_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, build_tx(PET_SYNTH_HYP, 2, True), create_lossfn("ce"), cfg,
-                        torch.Generator().manual_seed(0))

@@ -226,18 +226,3 @@ def test_pet_synth_model_structure():
     assert sd["backbone.head.weight"].shape == (35, 768)
     assert sum(v.numel() for v in model.parameters()) == 85_825_571
     assert cfg["name"] in BACKBONES
-
-
-@pytest.mark.parametrize(
-    "build",
-    [
-        lambda: get_model({"task": "classification", "name": TINY, "num_classes": 3,
-                           "attention_pool": True}, device="cpu"),
-        lambda: get_model({"task": "classification", "num_classes": 3,
-                           "name": "vit_so400m_patch14_siglip_224"}, device="cpu"),
-    ],
-    ids=["attention_pool", "map_pool"],
-)
-def test_unported_options_raise(build):
-    with pytest.raises(NotImplementedError):
-        build()

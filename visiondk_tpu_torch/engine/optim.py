@@ -34,8 +34,9 @@ from the gradients in ``.grad``:
   (clip included) at the count of applied updates; the buffer and the
   mini-step count live in ``OptState`` and in checkpoints.
 
-Not ported yet: SAM (``sam_perturb`` and its two-pass step; ``create_optimizer``
-raises for ``sam``).
+- **SAM** (``sam``): the base optimizer is this SGD (the JAX ``sam``
+  entry); the perturbation is the train step's (``engine/steps.py``), which
+  calls ``sam_perturb`` between its two passes.
 """
 
 from __future__ import annotations
@@ -57,7 +58,10 @@ _HEAD_KEYS = ("fc", "head", "pool", "neck", "pre_head")
 
 @dataclasses.dataclass(frozen=True)
 class SAMConfig:
-    """SAM's settings, as the JAX package's; the SAM step is not ported yet."""
+    """SAM's settings, as the JAX package's. ``local_perturb`` asks for a
+    perturbation from each rank's own gradient (m-sharpness); in a
+    single-process run the rank's gradient is the global one, so both forms
+    are the same step."""
 
     rho: float = 0.05
     adaptive: bool = True
@@ -101,11 +105,30 @@ def sgd(param_groups: List[dict], weight_decay: float) -> torch.optim.Optimizer:
     return SGD(param_groups, weight_decay)
 
 
+@OPTIMIZER.register(name="sam")
+def sam(param_groups: List[dict], weight_decay: float) -> torch.optim.Optimizer:
+    # SAM's base optimizer; the perturbation pass is the train step's
+    return SGD(param_groups, weight_decay)
+
+
 @OPTIMIZER.register(name="adam")
 def adam(param_groups: List[dict], weight_decay: float) -> torch.optim.Optimizer:
     return torch.optim.Adam(
         param_groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay, foreach=True
     )
+
+
+@torch.no_grad()
+def sam_perturb(params: List[torch.Tensor], grads: List[torch.Tensor], cfg: SAMConfig) -> List[torch.Tensor]:
+    """SAM's ascent e(w), one tensor a parameter (the JAX ``sam_perturb``
+    returns w + e): e = ρ·(p² if adaptive)·g / (‖(|p| if adaptive)·g‖₂ +
+    1e-12), the norm over every parameter given (frozen ones included, as the
+    JAX tree's). The squares are summed parameter by parameter in f32, as
+    the JAX sum over the tree's leaves, and the division happens on the
+    device (no host read)."""
+    sq = torch.stack([torch.sum(torch.square(p.abs() * g if cfg.adaptive else g)) for p, g in zip(params, grads)])
+    scale = cfg.rho / (torch.sqrt(torch.sum(sq)) + 1e-12)
+    return [(p * p * g if cfg.adaptive else g) * scale for p, g in zip(params, grads)]
 
 
 def freeze_mask(
@@ -246,9 +269,8 @@ def create_optimizer(
 ) -> OptimizerSpec:
     """The JAX ``create_optimizer``: base optimizer, clip, freezes and
     layer-wise lr; ``accumulate`` > 1 wraps it as ``optax.MultiSteps`` does.
-    An unknown name raises, and so does ``sam`` (not ported)."""
-    if name == "sam":
-        raise NotImplementedError("the SAM optimizer (sam_perturb and its two-pass step) is not ported yet")
+    An unknown name raises. ``sam`` is SGD here; its ascent is the train
+    step's (``StepConfig.sam``)."""
     OPTIMIZER.get(name)
     if accumulate < 1:
         raise ValueError(f"accumulate must be at least 1, got {accumulate}")

@@ -12,8 +12,9 @@ the embedding task (``task="embedding"``: the model's margin head gives
 ``lam``, the loss ``lam·L(y) + (1 − lam)·L(y[perm])``) and OHEM
 (``cfg.ohem``: a per-sample weight from a no-grad forward of the clean batch,
 ``ohem_mask``), alone or together, and gradient accumulation (the optimizer's
-``accumulate``: the EMA ticks only on the mini-steps that apply an update).
-SAM raises ``NotImplementedError``.
+``accumulate``: the EMA ticks only on the mini-steps that apply an update),
+and SAM (``cfg.sam``: a second forward/backward at w + e(w), the JAX step's
+single-device form).
 
 ``make_eval_step`` and ``make_embed_step`` return callables ``step(batch)``
 that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from visiondk_tpu_torch.engine.optim import OptimizerSpec, SAMConfig
+from visiondk_tpu_torch.engine.optim import OptimizerSpec, SAMConfig, sam_perturb
 from visiondk_tpu_torch.engine.state import TrainState
 from visiondk_tpu_torch.models.ema import update_ema
 
@@ -141,9 +142,18 @@ def make_train_step(
     after the dropout and augment seeds) and the loss ``lam·L(y) + (1 −
     lam)·L(y[perm])``, both terms with the OHEM weight; ``lam`` and ``1 −
     lam`` are taken in f32, as the JAX step's traced scalar.
+    With ``cfg.sam`` the first backward's gradients g give the ascent
+    e = ``sam_perturb``(w, g); the step adds e to the parameters, runs the
+    same forward and backward again (the same images, labels, OHEM weight,
+    mixup λ and permutation, and dropout seed) with every buffer kept as the
+    first pass left it (the BatchNorm statistics are the clean pass's), and
+    restores the parameters from a copy, bit for bit; the update then runs
+    on the second gradients, and the loss reported is the first pass's. In
+    one process ε is the rank's and the global one at once, as on a
+    one-device JAX mesh; the per-rank form of a data-parallel run
+    (``cfg.sam.local_perturb``) needs distributed training, which the port
+    does not have yet.
     """
-    if cfg.sam is not None:
-        raise NotImplementedError("SAM in the train step is not ported yet")
     device = _device(model)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], lam: float = 0.0):
@@ -157,7 +167,8 @@ def make_train_step(
             images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
         images = device_preprocess(images, cfg.mean, cfg.std)
         perm = mixup_permutation(images.shape[0], generator).to(device) if cfg.mixup else None
-        for p in model.parameters():
+        params = list(model.parameters())
+        for p in params:
             p.grad = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             loss_of = lossfn
@@ -167,18 +178,36 @@ def make_train_step(
                 with torch.no_grad(), _buffers_kept(model):
                     sw = ohem_mask(model(images), labels, cfg.ohem)
                 loss_of = lambda logits, y: lossfn(logits, y, sw)  # noqa: E731
-            torch.manual_seed(seed)
-            if cfg.task == "embedding":
-                logits, aux = model(images, labels)
-                loss = loss_of(logits, labels) + aux
-            elif cfg.mixup:
+            if cfg.mixup:
                 lam32 = np.float32(lam)
                 rest = np.float32(1.0) - lam32
-                logits = model(float(lam32) * images + float(rest) * images[perm])
-                loss = float(lam32) * loss_of(logits, labels) + float(rest) * loss_of(logits, labels[perm])
-            else:
-                loss = loss_of(model(images), labels)
-        loss.backward()
+                mixed = float(lam32) * images + float(rest) * images[perm]
+
+            def forward_loss() -> torch.Tensor:
+                torch.manual_seed(seed)
+                if cfg.task == "embedding":
+                    logits, aux = model(images, labels)
+                    return loss_of(logits, labels) + aux
+                if cfg.mixup:
+                    logits = model(mixed)
+                    return float(lam32) * loss_of(logits, labels) + float(rest) * loss_of(logits, labels[perm])
+                return loss_of(model(images), labels)
+
+            loss = forward_loss()
+            loss.backward()
+            if cfg.sam is not None:
+                clean = [p.detach().clone() for p in params]
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                with torch.no_grad():
+                    torch._foreach_add_(params, sam_perturb(params, grads, cfg.sam))
+                del grads
+                for p in params:
+                    p.grad = None
+                with _buffers_kept(model):
+                    forward_loss().backward()
+                with torch.no_grad():
+                    torch._foreach_copy_(params, clean)
+                del clean
         apply_update(state, tx, cfg)
         return {"loss": loss.detach()}
 

@@ -17,6 +17,12 @@ epoch, as the JAX loop does:
 - OHEM (``hyp.strategy.ohem``, CE only) in every train step, and gradient
   accumulation (``hyp.accumulate``: k mini-batches an applied update, the
   schedules on applied counts with ``steps_per_epoch / k`` of them an epoch);
+- SAM (``hyp.optimizer: [sam, ...]``): SGD as the base optimizer and the
+  step's second pass at w + e(w) (``StepConfig.sam``, with
+  ``hyp.sam_local_perturb``, default true). A run is one process, where the
+  per-rank ε of the JAX trainer's data-parallel mesh and the global ε are
+  the same step, as on a one-device JAX mesh; the per-rank form across ranks
+  waits for distributed training;
 - each step through the port's ``make_train_step``, fed by a
   ``DevicePrefetcher`` (batch N+1 is copied to the card while step N runs);
   per-step losses stay on the device, with one host read per epoch;
@@ -41,7 +47,7 @@ A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
 with f32 parameters by default (``compute_dtype``). On the card the run
 selects cuDNN's deterministic algorithms (no autotuner), so seeded runs are
-bit-identical. Not ported yet, and raising ``NotImplementedError``: SAM.
+bit-identical.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from visiondk_tpu_torch.data.transforms import create_aug_transforms
 from visiondk_tpu_torch.engine import cbir_eval, face_eval
 from visiondk_tpu_torch.engine import evaluation as cls_eval
 from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
-from visiondk_tpu_torch.engine.optim import OptimizerSpec, create_optimizer
+from visiondk_tpu_torch.engine.optim import OptimizerSpec, SAMConfig, create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
 from visiondk_tpu_torch.engine.state import TrainState, create_train_state
 from visiondk_tpu_torch.engine.steps import OHEMConfig, StepConfig, make_embed_step, make_eval_step, make_train_step
@@ -90,8 +96,8 @@ def build_tx(
     schedules run on epochs ``count / (steps_per_epoch / k)`` of the
     applied-update count, computed in f32 as the JAX schedule computes them,
     floored when ``discrete_per_epoch`` (classification steps its schedule
-    per epoch, the embedding tasks per batch). The ``sam`` optimizer raises:
-    it is not ported yet."""
+    per epoch, the embedding tasks per batch). ``sam`` builds its base
+    optimizer, SGD; the step config carries its ascent (``StepConfig.sam``)."""
     accumulate = normalize_accumulate(hyp)
     spe_applied = np.float32(steps_per_epoch / accumulate)
     optimizer = hyp["optimizer"]
@@ -179,6 +185,10 @@ class CenterProcessor:
         if isinstance(mix, dict):
             mix = [mix["ratio"], mix["duration"]]
         self.mixup_ratio, self.mixup_duration = float(mix[0]), int(mix[1])
+        # SAM: the step's second pass (hyp.sam_local_perturb: the per-rank ε of a
+        # data-parallel run, the same step as the global ε in one process)
+        self.sam_cfg = (SAMConfig(local_perturb=bool(self.hyp_cfg.get("sam_local_perturb", True)))
+                        if self.hyp_cfg["optimizer"][0] == "sam" else None)
 
         self.model = get_model(self.model_cfg, dtype=compute_dtype, device=self.device,
                                generator=torch.Generator().manual_seed(seed))
@@ -255,10 +265,10 @@ class CenterProcessor:
 
     def step_config(self, mixup: bool = False) -> StepConfig:
         """The train step's variant (the serving steps read only its
-        normalisation): the task, mixup on or off, and the run's OHEM."""
+        normalisation): the task, mixup on or off, and the run's SAM and OHEM."""
         mean, std = self.data_processor.normalization
         task = "classification" if self.task == "classification" else "embedding"
-        return StepConfig(task=task, mixup=mixup, ohem=self.ohem_cfg, mean=mean, std=std)
+        return StepConfig(task=task, mixup=mixup, sam=self.sam_cfg, ohem=self.ohem_cfg, mean=mean, std=std)
 
     def _get_train_step(self, tx: OptimizerSpec, state: TrainState, key, lossfn, device_aug: bool,
                         mixup: bool = False) -> Callable:

@@ -24,7 +24,9 @@ gradient in a fixed order, so seeded training is bit-reproducible on the
 card. Tokens run in the compute dtype; LayerNorm
 eps is 1e-5 (timm's, not the port's 1e-6 default); the pooled features and
 the head are f32, the pool taken in the compute dtype as the JAX model takes
-it. ``remat`` (activation checkpointing) is not ported and raises.
+it. ``remat`` recomputes each block's forward in the backward (the JAX
+``nn.remat(SwinBlock)``; ``models/layers.py::run_blocks``): in train mode
+with grad enabled, the stash forward then runs twice a block and a step.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visiondk_tpu_torch.models.backbones import BACKBONES
-from visiondk_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed
+from visiondk_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, run_blocks
 from visiondk_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
 _LN_EPS = 1e-5
@@ -226,16 +228,17 @@ class PatchMerging(nn.Module):
 
 
 class SwinStage(nn.Module):
-    """The blocks of one stage, then (all but the last stage) a PatchMerging."""
+    """The blocks of one stage (each recomputed in the backward with
+    ``remat``, in train mode), then (all but the last stage) a PatchMerging."""
 
-    def __init__(self, blocks: Sequence[SwinBlock], downsample: Optional[PatchMerging]):
+    def __init__(self, blocks: Sequence[SwinBlock], downsample: Optional[PatchMerging], remat: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x)
+        x = run_blocks(self.blocks, x, self.remat and self.training)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -262,8 +265,6 @@ class SwinTransformer(nn.Module):
                  stochastic_depth_prob: float = 0.1, unpooled: bool = False, remat: bool = False,
                  img_size: int = 224, use_fused: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported to visiondk_tpu_torch yet")
         if img_size % patch_size:
             raise ValueError(f"img_size {img_size} is not a multiple of patch_size {patch_size}")
         self.num_classes = num_classes
@@ -285,7 +286,7 @@ class SwinTransformer(nn.Module):
                 ))
                 bidx += 1
             last = s == len(depths) - 1
-            stages.append(SwinStage(blocks, None if last else PatchMerging(res, dim, dtype=dtype)))
+            stages.append(SwinStage(blocks, None if last else PatchMerging(res, dim, dtype=dtype), remat))
             if not last:
                 res = (-(-res[0] // 2), -(-res[1] // 2))  # ceil: odd edges are padded
                 dim *= 2

@@ -32,8 +32,8 @@ Module and parameter names are timm's (``patch_embed.{proj,norm}``,
 ``layers.{s}.downsample.{reduction,norm}`` at the end of stage s, ``norm``,
 ``head``), with one trainable 3C ``qkv.bias`` as the JAX model has (timm
 splits it into ``q_bias``/``v_bias`` and keeps k's part at zero);
-``visiondk_tpu.models.convert.convert_swinv2`` reads it. ``remat`` is not
-ported and raises.
+``visiondk_tpu.models.convert.convert_swinv2`` reads it. ``remat``
+recomputes each block's forward in the backward, as Swin V1's does.
 """
 
 from __future__ import annotations
@@ -190,8 +190,6 @@ class SwinTransformerV2(nn.Module):
                  remat: bool = False, img_size: int = 256, use_fused: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported to visiondk_tpu_torch yet")
         if img_size % patch_size:
             raise ValueError(f"img_size {img_size} is not a multiple of patch_size {patch_size}")
         self.num_classes = num_classes
@@ -212,7 +210,7 @@ class SwinTransformerV2(nn.Module):
                 ))
                 bidx += 1
             last = s == len(depths) - 1
-            stages.append(SwinStage(blocks, None if last else PatchMergingV2(res, dim, dtype=dtype)))
+            stages.append(SwinStage(blocks, None if last else PatchMergingV2(res, dim, dtype=dtype), remat))
             if not last:
                 res = (-(-res[0] // 2), -(-res[1] // 2))  # ceil: odd edges are padded
                 dim *= 2
@@ -245,6 +243,6 @@ def _swinv2(embed_dim, depths, num_heads, window_size=8):
 BACKBONES.register(_swinv2(96, (2, 2, 6, 2), (3, 6, 12, 24)), name="swinv2_tiny_window8_256")
 BACKBONES.register(_swinv2(96, (2, 2, 18, 2), (3, 6, 12, 24)), name="swinv2_small_window8_256")
 BACKBONES.register(_swinv2(128, (2, 2, 18, 2), (4, 8, 16, 32)), name="swinv2_base_window8_256")
-# window 16 (fine-tuned from 12): N = 256 tokens a window, which the window kernels do not take yet
+# window 16 (fine-tuned from 12): N = 256 tokens a window, on the window kernels' tiled bodies
 BACKBONES.register(_swinv2(192, (2, 2, 18, 2), (6, 12, 24, 48), window_size=16),
                    name="swinv2_large_window12to16_192to256")

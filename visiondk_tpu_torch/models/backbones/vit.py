@@ -9,6 +9,15 @@ The JAX package pads the token count to a multiple of 8 (197 → 200) for the
 TPU's sublane tiling and masks the pad keys; the port runs the real token
 count, which gives the same valid-token outputs. Tokens run in the compute
 dtype; pooled features, the head and the unpooled token map are f32.
+
+``pool="map"`` (SigLIP) pools the patch tokens with ``AttentionPoolLatent``
+(``attn_pool``, timm's names). ``attn_pool`` and ``head`` exist only where
+the JAX module creates them: with ``num_classes=0, unpooled=True`` the flax
+module returns the token map before it reaches either, so its tree has
+neither, and so has the port's. ``remat`` recomputes each block's forward in
+the backward (``torch.utils.checkpoint``, non-reentrant, the RNG state
+replayed so DropPath draws the same masks), the JAX ``nn.remat(ViTBlock)``;
+it acts only in train mode with grad enabled.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from torch import nn
 
 from visiondk_tpu_torch.models.backbones import BACKBONES
 from visiondk_tpu_torch.models.layers import (
-    Attention, DropPath, LayerNorm, LayerScale, Linear, Mlp, PatchEmbed,
+    Attention, AttentionPoolLatent, DropPath, LayerNorm, LayerScale, Linear, Mlp, PatchEmbed, run_blocks,
 )
 
 
@@ -56,14 +65,10 @@ class VisionTransformer(nn.Module):
                  dropout: float = 0.0, attention_dropout: float = 0.0,
                  stochastic_depth_prob: float = 0.0, pool: str = "cls",
                  class_token: bool = True, init_values: Optional[float] = None,
-                 unpooled: bool = False, img_size: int = 224,
+                 unpooled: bool = False, remat: bool = False, img_size: int = 224,
                  dtype: torch.dtype = torch.float32, use_fused: bool = True):
         super().__init__()
-        if pool == "map":
-            raise NotImplementedError(
-                "pool='map' (AttentionPoolLatent) is not ported to visiondk_tpu_torch yet"
-            )
-        if pool not in ("cls", "mean"):
+        if pool not in ("cls", "mean", "map"):
             raise ValueError(f"unknown pool {pool!r}")
         if img_size % patch_size:
             raise ValueError(f"img_size {img_size} is not a multiple of patch_size {patch_size}")
@@ -71,6 +76,7 @@ class VisionTransformer(nn.Module):
         self.pool = pool
         self.class_token = class_token
         self.unpooled = unpooled
+        self.remat = remat
         self.compute_dtype = dtype
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
         n_tok = (img_size // patch_size) ** 2 + int(class_token)
@@ -88,6 +94,9 @@ class VisionTransformer(nn.Module):
             for i in range(depth)
         )
         self.norm = LayerNorm(embed_dim, dtype=dtype)
+        pooled = not (num_classes == 0 and unpooled)
+        self.attn_pool = (AttentionPoolLatent(embed_dim, num_heads, mlp_ratio, dtype=dtype)
+                          if pool == "map" and pooled else None)
         self.head = Linear(embed_dim, num_classes, dtype=torch.float32) if num_classes else None
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -103,13 +112,14 @@ class VisionTransformer(nn.Module):
             cls = self.cls_token.to(dt).expand(tokens.shape[0], -1, -1)
             tokens = torch.cat([cls, tokens], dim=1)
         tokens = self.pos_drop(tokens + self.pos_embed.to(dt))
-        for block in self.blocks:
-            tokens = block(tokens)
+        tokens = run_blocks(self.blocks, tokens, self.remat and self.training)
         tokens = self.norm(tokens)
         if self.num_classes == 0 and self.unpooled:
             return tokens.float()
-        if self.pool == "mean" or not self.class_token:
-            patch_tokens = tokens[:, 1:] if self.class_token else tokens
+        patch_tokens = tokens[:, 1:] if self.class_token else tokens
+        if self.attn_pool is not None:
+            feats = self.attn_pool(patch_tokens)
+        elif self.pool == "mean" or not self.class_token:
             feats = patch_tokens.mean(dim=1)
         else:
             feats = tokens[:, 0]
@@ -145,7 +155,7 @@ BACKBONES.register(
     _vit(14, 1024, 24, 16, init_values=1e-5, mlp_ratio=4.0),
     name="vit_large_patch14_dinov2",
 )
-# SigLIP so400m: no CLS token and 'map' pooling, which raises until ported
+# SigLIP so400m: no CLS token, 'map' pooling (AttentionPoolLatent), head dim 72
 BACKBONES.register(
     _vit(14, 1152, 27, 16, mlp_ratio=4304 / 1152, class_token=False, pool="map"),
     name="vit_so400m_patch14_siglip_224",

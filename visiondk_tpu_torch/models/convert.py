@@ -46,7 +46,12 @@ follows the port module that owns each tensor:
   ``bn_project``; ``se.conv_reduce``/``se.conv_expand`` ↔ ``se/fc1``/
   ``se/fc2``), ``conv_head`` ↔ ``pre_head`` (MobileNetV3) or ``head_conv``
   with ``bn2`` ↔ ``head_bn`` (EfficientNetV2), ``classifier`` ↔ ``fc``;
-  ``backbone.``/``neck.`` ↔ ``backbone/``/``neck/``.
+  ``backbone.``/``neck.`` ↔ ``backbone/``/``neck/``; ViT's SigLIP pool
+  ``attn_pool.{latent,q,kv,proj,norm,mlp.fc1,mlp.fc2}`` ↔
+  ``attn_pool/...`` (timm's names, which the JAX ``convert_vit`` reads), and
+  a ``VisionModel``'s attention pool and classifier ``pool.{probe,norm,q,k,v,
+  proj}``, ``fc`` ↔ ``pool/...``, ``fc`` (flax's top-level keys, which the
+  freeze mask and the layer-wise labels read) by the default rule.
 
 The bridge is strict both ways: a port tensor with no source, a source tensor
 nothing maps, or a shape that differs raises (a partial import would load

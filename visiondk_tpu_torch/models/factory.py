@@ -1,13 +1,14 @@
 """Model factory (counterpart of ``visiondk_tpu/models/factory.py``).
 
-- classification → backbone with a ``num_classes``-way f32 linear head;
+- classification → backbone with a ``num_classes``-way f32 linear head, or
+  with ``attention_pool`` the backbone in unpooled mode → ``AttentionPooling``
+  (``pool``, in the compute dtype) over its tokens (a CNN's or Swin's NHWC map
+  flattened to [B, H·W, C]; ViT's token map keeps its CLS row) → an f32
+  Linear (``fc``);
 - face/cbir → backbone in unpooled mode → the neck: LayerNorm over a token
   map or BatchNorm over a CNN map → flatten → Linear(feat_dim) →
   BatchNorm1d (f32), whose output is the embedding, and the margin head
   (``models/heads.py``) that trains it.
-
-``VisionModel(attention_pool=True)`` raises ``NotImplementedError``: it is
-not ported yet.
 
 ``get_model`` takes the ``model:`` section of a YAML config as a dict and
 returns a model initialised as the JAX package initialises one, drawn from an
@@ -26,7 +27,9 @@ from torch import nn
 from visiondk_tpu_torch.config.checks import canonical_model_name
 from visiondk_tpu_torch.models.backbones import BACKBONES
 from visiondk_tpu_torch.models.heads import build_head
-from visiondk_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, LayerNorm, Linear, init_params
+from visiondk_tpu_torch.models.layers import (
+    AttentionPooling, BatchNorm1d, BatchNorm2d, LayerNorm, Linear, init_params,
+)
 
 
 class EmbeddingNeck(nn.Module):
@@ -58,20 +61,32 @@ class EmbeddingNeck(nn.Module):
 
 
 class VisionModel(nn.Module):
-    """Classification model: backbone(num_classes) → f32 logits."""
+    """Classification model: backbone(num_classes) → f32 logits, or with
+    ``attention_pool`` backbone(0, unpooled) → ``pool`` → ``fc`` (the JAX
+    ``VisionModel``'s two branches)."""
 
     def __init__(self, backbone_name: str, num_classes: int, attention_pool: bool = False,
                  backbone_kwargs: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        kwargs = dict(backbone_kwargs or {})
+        self.attention_pool = attention_pool
+        self.compute_dtype = dtype
         if attention_pool:
-            raise NotImplementedError("attention_pool is not ported to visiondk_tpu_torch yet")
-        self.backbone = BACKBONES.create(
-            backbone_name, num_classes=num_classes, dtype=dtype, **(backbone_kwargs or {})
-        )
+            self.backbone = BACKBONES.create(backbone_name, num_classes=0, dtype=dtype, unpooled=True, **kwargs)
+            dim = self.backbone.feature_shape[-1]
+            self.pool = AttentionPooling(dim, dtype=dtype)
+            self.fc = Linear(dim, num_classes, dtype=torch.float32)
+        else:
+            self.backbone = BACKBONES.create(backbone_name, num_classes=num_classes, dtype=dtype, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.backbone(x)
+        if not self.attention_pool:
+            return self.backbone(x)
+        fmap = self.backbone(x)
+        if fmap.ndim == 4:  # NHWC → tokens
+            fmap = fmap.flatten(1, 2)
+        return self.fc(self.pool(fmap.to(self.compute_dtype)).float())
 
 
 class EmbeddingModel(nn.Module):

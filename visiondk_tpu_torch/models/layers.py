@@ -22,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from visiondk_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
 
@@ -298,6 +299,96 @@ class Attention(nn.Module):
                 qkv, self.num_heads, n_valid, dropout_p=self.attn_drop if dropout_active else 0.0
             )
         return self.proj_drop(self.proj(out))
+
+
+def run_blocks(blocks, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``x`` through ``blocks`` in turn. With ``remat`` and grad enabled, each
+    block runs under non-reentrant ``torch.utils.checkpoint`` (the JAX
+    ``nn.remat`` of a block): its activations are dropped after the forward
+    and recomputed in the backward, with the CPU and CUDA RNG states replayed
+    so that dropout and DropPath draw the same masks again."""
+    remat = remat and torch.is_grad_enabled()
+    for block in blocks:
+        x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=True) if remat else block(x)
+    return x
+
+
+class AttentionPooling(nn.Module):
+    """Learned-query attention pooling [B, N, C] → [B, C] (the JAX
+    ``AttentionPooling``): a ``probe`` query [1, 1, C] against the
+    LayerNorm'd tokens through separate ``q``/``k``/``v`` projections, scores
+    in f32 (q scaled by hd^-0.5), softmax in f32 rounded to the compute
+    dtype, then ·V and ``proj``. Plain ``torch.matmul``, as the JAX module's
+    einsums, so it rounds where they round."""
+
+    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.compute_dtype = dtype
+        self.probe = nn.Parameter(torch.zeros(1, 1, dim))
+        self.norm = LayerNorm(dim, dtype=dtype)
+        self.q = Linear(dim, dim, dtype=dtype)
+        self.k = Linear(dim, dim, dtype=dtype)
+        self.v = Linear(dim, dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.probe.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        b, _, c = tokens.shape
+        x = self.norm(tokens)
+        q = self.q(self.probe.to(self.compute_dtype).expand(b, -1, -1))
+        out = _latent_attention(q, self.k(x), self.v(x), self.num_heads)
+        return self.proj(out)[:, 0]
+
+
+class AttentionPoolLatent(nn.Module):
+    """timm's ``AttentionPoolLatent``, SigLIP's ``pool="map"`` head (the JAX
+    ``AttentionPoolLatent``): a learned ``latent`` query [1, 1, C] through
+    ``q``, keys and values from the fused ``kv`` [C → 2C] of the tokens,
+    scores in f32 (q scaled by hd^-0.5), softmax in f32 rounded to the
+    compute dtype, ·V, ``proj``, then ``out + mlp(norm(out))``. Plain
+    ``torch.matmul``, as the JAX module's einsums."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.compute_dtype = dtype
+        self.latent = nn.Parameter(torch.zeros(1, 1, dim))
+        self.q = Linear(dim, dim, dtype=dtype)
+        self.kv = Linear(dim, 2 * dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+        self.norm = LayerNorm(dim, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.latent.normal_(0.0, self.latent.shape[-1] ** -0.5, generator=generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        b, n, c = tokens.shape
+        q = self.q(self.latent.to(self.compute_dtype).expand(b, -1, -1))
+        k, v = self.kv(tokens).reshape(b, n, 2, c).unbind(2)
+        out = self.proj(_latent_attention(q, k, v, self.num_heads))
+        out = out + self.mlp(self.norm(out))
+        return out[:, 0]
+
+
+def _latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """One query row against N tokens: q [B, 1, C], k and v [B, N, C] →
+    [B, 1, C]. The scores (q·hd^-0.5)·kᵀ and their softmax in f32, P rounded
+    to v's dtype before P·V (the JAX einsums' ``preferred_element_type``)."""
+    b, n, c = k.shape
+    d = c // heads
+    qh = (q * d**-0.5).reshape(b, 1, heads, d).transpose(1, 2)
+    kh = k.reshape(b, n, heads, d).transpose(1, 2)
+    vh = v.reshape(b, n, heads, d).transpose(1, 2)
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(p, vh).transpose(1, 2).reshape(b, 1, c)
 
 
 class PatchEmbed(nn.Module):
