@@ -186,20 +186,23 @@ CN. cnn — the CNN families at full width: multilabel_csv.yaml's resnet50
              eval forward (finite, no attention kernel launched), eval
              images/s at bs 128, train images/s and peak memory with cuDNN's
              deterministic algorithms (the trainer's setting), and for
-             resnet50, resnet18 and convnext_base also with torch's defaults
-             (order det, defaults, defaults, det), the step's device time by
+             resnet50 also with torch's defaults (resnet18 and convnext_base
+             too until PR 16; order det, defaults, defaults, det), the step's
+             device time by
              class (convolutions, BatchNorm, layout transposes, copies and
-             casts, pooling, optimizer, elementwise) and idle share for every
-             row but resnet18, and one train step on the card
+             casts, pooling, optimizer, elementwise) and idle share for
+             resnet50 and convnext_base (every row but resnet18 until PR 16),
+             and one train step on the card
              against the CPU in float64 (model, loss and pixels): loss within
              1e-5 relative, every gradient, update and BN statistic within
              1e-3 of its tensor's largest entry (a tensor whose exact
              gradient is zero, a BatchNorm bias that a linear layer and a
              train-mode BatchNorm follow, is held against 1e-9 of the
-             largest entry of its kind); the same step in f32 is
-             printed beside the CPU's own f32 against float64 (at random init
-             the last stage's gradients lose up to a fifth of their largest
-             entry to f32 rounding on either device).
+             largest entry of its kind). Until PR 16 the same step in f32 was
+             printed for resnet50 and resnet18 beside the CPU's own f32
+             against float64 (at random init the last stage's gradients lose
+             up to a fifth of their largest entry to f32 rounding on either
+             device; CNN_F32_PRINTED names the rows that print it).
 RL. run loop — the classification run loop through the port's own CLIs, on a
              temporary directory: benchmarks/make_synth_pet.py (a subprocess,
              started after phase 1 and shared with ML and DS) writes 24
@@ -219,13 +222,13 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              12 x 3 K1 launches (6 steps and one val batch an epoch), no other
              attention kernel, and the stage's calls per epoch exactly 0 / 6 /
              0 (make_device_augment.calls, read at each epoch's start). Run B,
-             the same command: the same stage calls; per-epoch train loss
-             within 1e-3 relative and val top1 within one image of run A
-             (bit-identity printed). Run C, the same command as a subprocess,
-             SIGKILLed in epoch 1 once epoch 0's checkpoint is complete on
-             disk, then `--resume` in this process: it must resume from epoch 1
-             with stage calls 6 / 0, and its epochs match run A's to the same
-             bars. `python -m visiondk_tpu_torch.validate --ema` on run A's best
+             the same command through `python -m torch.distributed.run
+             --nproc_per_node 1 -m visiondk_tpu_torch.main --multihost` (one
+             NCCL rank: DDP, a one-rank all-reduce): per-epoch train loss, val
+             loss and top1 bit-identical to run A's. Run C, the same command as
+             a subprocess, SIGKILLed in epoch 1 once epoch 0's checkpoint is
+             complete on disk, then `--resume` in this process: it must resume
+             from epoch 1 with stage calls 6 / 0, bit-identical to run A. `python -m visiondk_tpu_torch.validate --ema` on run A's best
              checkpoint: 12 K1 launches and exactly run A's best-epoch top1.
              Last, images/s of the train loader alone on epoch 1 (no step) with
              the split host pipeline and with the full one (the
@@ -344,7 +347,7 @@ MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              scores' product and the top-k.
 ER. embedding run — the face and CBIR run loops through the port's CLIs on
              Swin-B, on a temporary directory: benchmarks/make_synth_face.py
-             (a subprocess, its defaults but --n-train 8: 64 ids x 8 train,
+             (a subprocess, its defaults but --n-train 6: 64 ids x 6 train,
              4 val, 300 pairs, and the CBIR twin: 64 queries, 192 gallery
              images; started after
              phase 1 on one CPU core, so it overlaps the phases before), then
@@ -356,10 +359,18 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              and checkpoint bytes written; exactly 24 K2s + 24 K2b per train
              step and 24 K2 per evaluation forward, nothing else; the stage's
              calls equal to the steps in every epoch (read at each epoch's
-             evaluation). Run B, the same command: per-epoch loss and pair
-             mean bit-identical to run A's (the relative-position bias
-             gather sums its gradient in a fixed order, and the trainer
-             selects cuDNN's deterministic algorithms). Run C, a subprocess
+             evaluation). Run B, the same command through `python -m
+             torch.distributed.run --nproc_per_node 1 ... --multihost` (one
+             NCCL rank, DDP): per-epoch loss and pair mean bit-identical to
+             run A's (the relative-position bias gather sums its gradient in a
+             fixed order, and the trainer selects cuDNN's deterministic
+             algorithms). Run D, through torchrun on two gloo ranks sharing the
+             card (`--model_parallel 2 --dist_backend gloo --device cuda:0`:
+             the head's 64 classes 32 a rank), 2 epochs: one log file, each
+             metrics.jsonl record once, the same pair means printed by both
+             ranks, finite losses, the checkpoint's head whole (128 x 64);
+             then `--resume` in this process with hyp.epochs 3 trains epoch 3
+             from it with exactly the launches of a one-process epoch. Run C, a subprocess
              SIGKILLed in epoch 1 once epoch 0's checkpoint is complete, then
              `--resume` here: bit-identical to run A from the epoch it
              resumed. `validate --ema` on run A's best: the
@@ -368,6 +379,28 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              `python -m visiondk_tpu_torch.cbir_eval --ema` on its best: the
              best epoch's metrics exactly; cbir_eval's evaluation split into
              embed forwards and product + top-k (host clock, synchronised).
+DP. distributed — two ranks of `chip_smoke.py --dp-rank` (gloo, both on
+             cuda:0, TF32 off): rank 0 first takes three world-1 steps at
+             global bs 8 before the group exists, then both join it, try
+             all_reduce (sum, max), all_gather, broadcast and barrier on CUDA
+             tensors (each result checked, which ones gloo took printed), and
+             run the same steps as world 2 (4 rows a rank): face.yaml's model
+             (Swin-B, stochastic depth off so the ranks' masks do not differ,
+             ArcFace over 58,671 classes x 128 class-sharded over
+             --model_parallel 2) in f32; multilabel_csv's resnet50 with SyncBN
+             in float64 (phase CN's reason); pet_synth's ViT-B/16 with SAM's
+             per-rank ε in f32, against a world-1 step that takes each half's
+             ε by hand and averages the second gradients. Bars: the loss
+             within 1e-5 relative, every gradient (the head's gathered whole),
+             update and BN statistic within 1e-3 of its tensor's largest entry
+             (floored at 1e-3 of its kind's largest entry in f32: a zero
+             gradient's rounding noise). Then face.yaml at full width in bf16
+             (stochastic depth as written, bs 160 = 80 a rank): ms a step
+             (host clock, 3 after 1 warm-up) and peak memory of each rank,
+             finite losses. Last, in this process as one NCCL rank: ViT-B/16
+             bs 128 bf16 train images/s of the DDP step beside the plain step
+             (order plain, DDP, DDP, plain). The ranks' launches count in the
+             `[launches] dp` line.
 3v. vision kernel — vision_attention's forward (K3) and recompute backward
              (K3r) against their plain versions, f32 and bf16, at ViT-B/16
              (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
@@ -390,13 +423,14 @@ seconds ([time] lines) and the run its total.
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
 bf16 train runs of ViT-B/16, Swin-B and SwinV2-B, the run loop's in-process
-runs (A, B, C's resume, validate), the distillation phase's (teacher runs A,
-B; distill runs A, B), the SwinV2 run's (A, B, validate), the embedding
-runs' (face A, B, C's resume, validate; CBIR,
-validate, cbir_eval), SwinV2-L's serving, training and run (A, B,
-validate), So400m's serving, training and run (A, B, validate), the strategy
-runs' (A, B, C's resume, validate) and the vision path, counts set to 0
-before each and
+runs (A, C's resume, validate; run B runs through torchrun in a subprocess),
+the distillation phase's (teacher runs A, B; distill runs A, B), the SwinV2
+run's (A, B, validate), the embedding runs' (face A, C's resume, D's resume,
+validate; CBIR, validate, cbir_eval), SwinV2-L's serving, training and run
+(A, B, validate), So400m's serving, training and run (A, B, validate), the
+strategy runs' (A, B, C's resume, validate), the vision path and phase DP
+(the world-2 steps, each gloo rank's counts read by that rank; the one-rank
+DDP trials), counts set to 0 before each and
 read after; the window kernels' launches on ws-16 windows counted apart
 in the `[launches]` lines), and times at the ViT-B/16 bf16 shape (fused QKV
 attention, vision_attention) or the Swin-B stage-0 bf16 shape (window
@@ -407,6 +441,7 @@ so it has no entry there.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import ctypes
@@ -420,6 +455,7 @@ import re
 import runpy
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1333,16 +1369,17 @@ def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
 
 
 def build_trainer(recipe: Recipe, dtype: torch.dtype, dev: torch.device, path=KERNEL_PATH, step_cfg=None,
-                  model=None):
+                  model=None, mesh=None):
     """The recipe's model (seed 0, or ``model``) on an attention path, its
-    train state and step (``step_cfg``: StepConfig() unless given)."""
+    train state and step (``step_cfg``: StepConfig() unless given; ``mesh``:
+    the DDP step of a process group)."""
     if model is None:
         model = get_model(recipe.model, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
     path[1](model)
     tx = build_tx(recipe.hyp, STEPS_PER_EPOCH, discrete_per_epoch=True, model_cfg=recipe.model)
     state = create_train_state(model, tx)
     step = make_train_step(model, tx, create_lossfn("ce", label_smooth=LABEL_SMOOTH), step_cfg or StepConfig(),
-                           torch.Generator().manual_seed(1))
+                           torch.Generator().manual_seed(1), mesh=mesh)
     return model, state, step
 
 
@@ -2023,6 +2060,27 @@ def killed_in_epoch_1(argv: list, project: Path) -> None:
             proc.wait()
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun_main(argv: list, project: Path, nproc: int = 1, extra=(), timeout: float = RUN_LOOP_TIMEOUT_S) -> float:
+    """``python -m torch.distributed.run --nproc_per_node nproc -m
+    visiondk_tpu_torch.main --multihost argv`` as a subprocess (its output in
+    ``<project>.log``); fails unless it exits 0. Returns its seconds."""
+    log = project.parent / f"{project.name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+                               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+                               "-m", "visiondk_tpu_torch.main", "--multihost", *argv, "--project", str(project),
+                               "--seed", "0", *extra], stdout=fh, stderr=subprocess.STDOUT, timeout=timeout)
+    check(proc.returncode == 0, f"torchrun {project.name} exited with {proc.returncode}: {log.read_text()[-3000:]}")
+    return time.perf_counter() - t0
+
+
 def compare_runs(a: dict, b: dict, epochs, n_val: int) -> tuple:
     """Largest per-epoch train-loss difference (relative) and val-top1
     difference (in images) of two runs' metrics over ``epochs``, and whether
@@ -2138,14 +2196,15 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
                 f"{val_batches} val batch x {epochs} epochs), no other attention kernel; device-augment stage "
                 f"calls by epoch {' / '.join(map(str, stage_a))}")
 
-        # run B: the same command; seeded runs agree
-        _, counts_b, metrics_b, _, stage_b = train(tmp / "runB")
-        check(stage_b == live, f"run B's device-augment stage calls by epoch {stage_b}, want {live}")
+        # run B: the same command through torchrun as one NCCL rank (DDP, a one-rank all-reduce): no bit moves
+        secs_b = torchrun_main(["--cfgs", str(yaml_path)], tmp / "runB")
+        metrics_b = read_metrics(tmp / "runB")
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_b, range(epochs), n_val)
-        print(f"[{tag}] run B vs run A, epochs 1-{epochs}: largest train-loss difference {loss_d:.3e} relative "
-              f"(bar {RUN_LOOP_LOSS_RTOL}), largest val-top1 difference {top1_d:.2f} images (bar 1); "
-              f"bit-identical: {same}")
-        check(loss_d <= RUN_LOOP_LOSS_RTOL and top1_d <= 1 + 1e-9, "seeded runs A and B disagree")
+        print(f"[{tag}] run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
+              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s) vs run A, epochs 1-{epochs}: largest train-loss "
+              f"difference {loss_d:.3e} relative, largest val-top1 difference {top1_d:.2f} images; bit-identical: "
+              f"{same} (required)")
+        check(same, "run B through torchrun (one NCCL rank) is not bit-identical to run A")
         shutil.rmtree(tmp / "runB")
 
         # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
@@ -2159,9 +2218,9 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_c, range(resumed, epochs), n_val)
         print(f"[{tag}] run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from epoch "
               f"{resumed}; epochs {resumed + 1}-{epochs} vs run A: train loss {loss_d:.3e} relative, val top1 "
-              f"{top1_d:.2f} images; bit-identical: {same}; device-augment stage calls by epoch "
+              f"{top1_d:.2f} images; bit-identical: {same} (required); device-augment stage calls by epoch "
               f"{' / '.join(map(str, stage_c))}")
-        check(loss_d <= RUN_LOOP_LOSS_RTOL and top1_d <= 1 + 1e-9, "the resumed run C disagrees with run A")
+        check(same, "the resumed run C is not bit-identical to run A")
         resumed_steps = steps * (epochs - resumed)
         check(counts_c == only({stash: DEPTH * resumed_steps, bwd_p: DEPTH * resumed_steps,
                                 fwd: DEPTH * val_batches * (epochs - resumed)}),
@@ -2209,7 +2268,7 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
               + f"; synthetic batch on the card (phase 5, kernel path) " + ", ".join(f"{r:.1f}" for r in synthetic)
               + f" -> the trainer-fed epoch 1 runs at {fed / (sum(synthetic) / len(synthetic)):.1%} of the "
                 f"synthetic rate: {'host-paced' if fed < 0.9 * min(synthetic) else 'not host-paced'}")
-        return {k: counts_a[k] + counts_b[k] + counts_c[k] + counts_v[k] for k in KERNELS}
+        return {k: counts_a[k] + counts_c[k] + counts_v[k] for k in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2337,7 +2396,7 @@ def phase_margin_heads(dev: torch.device) -> None:
 FACE_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face_synth.yaml"
 CBIR_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "cbir_synth.yaml"
 EMBED_RUN_EPOCHS = 2  # 3 until the CNN, multi-label and distillation phases took their share of the time
-FACE_SYNTH_N_TRAIN = 8  # train images an id (the generator's default is 20), for the script's time limit
+FACE_SYNTH_N_TRAIN = 6  # train images an id (the generator's default is 20; 8 until PR 16), for the time limit
 EMBED_RUN_TIMEOUT_S = 300
 
 
@@ -2394,6 +2453,58 @@ def embedding_epochs(project: Path, *extra, module="visiondk_tpu_torch.main", ar
         CenterProcessor._eval_embedding = evaluate
     metrics = read_metrics(project) if (project / "metrics.jsonl").is_file() else {}
     return out, train, evals, stage, metrics, time.perf_counter() - t, sum(written)
+
+
+def face_two_ranks(tmp: Path, cfg: dict, face_yaml: Path, steps: int, face_batches: int) -> list:
+    """face_synth (``face_yaml``, ``cfg``: 2 epochs) on two gloo ranks sharing
+    the card (``--dist_backend gloo --device cuda:0``) with
+    ``--model_parallel 2`` (its ArcFace head's 64 classes split 32 / 32)
+    through torchrun: rank 0 alone writes the log, metrics.jsonl and the
+    checkpoints, and both ranks' replicated pair evaluations print the same
+    mean; then ``--resume`` in one process (here, counted) loads its last
+    checkpoint and trains a third epoch. Returns the resumed run's launches."""
+    from visiondk_tpu_torch.config import yaml_dump
+
+    tag, fwd, stash, bwd_p = "embedding run", *wattn.KERNELS[:3]
+    epochs = cfg["hyp"]["epochs"]
+    project = tmp / "D"
+    secs = torchrun_main(["--cfgs", str(face_yaml), "--model_parallel", "2", "--dist_backend", "gloo",
+                          "--device", "cuda:0"], project, nproc=2, timeout=EMBED_RUN_TIMEOUT_S)
+    out = (tmp / "D.log").read_text()
+    logs = sorted(p.name for p in project.glob("log*.log"))
+    records = [json.loads(line) for line in (project / "metrics.jsonl").read_text().splitlines()]
+    written = [(r["tag"], r["step"]) for r in records]
+    metrics = read_metrics(project)
+    rank1 = [ast.literal_eval(m) for m in re.findall(r"^\[rank 1\] (\{'mean'.*\})$", out, re.M)]
+    saved = torch.load(project / "last" / "state.pt", map_location="cpu", weights_only=True)
+    heads = {k: tuple(saved[k]["head.weight"].shape) for k in ("model", "ema")}
+    print(f"[{tag}] face run D: python -m torch.distributed.run --nproc_per_node 2 ... --multihost --model_parallel 2 "
+          f"--dist_backend gloo --device cuda:0 (two ranks on this card, the head's 64 classes 32 a rank, bs 64 = "
+          f"32 a rank), {epochs} epochs: {secs:.1f} s; epoch losses "
+          + ", ".join(f"{metrics['Train_epoch_loss'][e]!r}" for e in range(epochs)) + "; rank 0's images/s (its rows) "
+          + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(epochs)) + "; pair means rank 0 "
+          + f"{[metrics['Val_mean'][e] for e in range(epochs)]}, rank 1 {[r['mean'] for r in rank1]}; log files "
+          f"{logs}; metrics.jsonl records {len(records)} (each tag and step once: {len(set(written)) == len(written)}); "
+          f"the checkpoint's head {heads} (whole)")
+    check(len(logs) == 1 and len(set(written)) == len(written), "face run D: a rank other than 0 wrote")
+    check(all(math.isfinite(metrics["Train_epoch_loss"][e]) for e in range(epochs)), "face run D: non-finite loss")
+    check([r["mean"] for r in rank1] == [metrics["Val_mean"][e] for e in range(epochs)],
+          "face run D: the ranks' pair means differ")
+    check(heads == {"model": (128, 64), "ema": (128, 64)}, f"face run D: checkpoint head {heads}")
+    # one process resumes the two ranks' last checkpoint for one more epoch
+    more = tmp / "face_two_ranks_resume.yaml"
+    yaml_dump({**cfg, "hyp": {**cfg["hyp"], "epochs": epochs + 1}}, more)
+    out_r, train_r, evals_r, _, metrics_r, secs_r, _ = embedding_epochs(project, "--cfgs", str(more), "--resume")
+    resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_r).group(1))
+    print(f"[{tag}] face run D resumed in one process (hyp.epochs {epochs + 1}): from epoch {resumed}, "
+          f"{secs_r:.1f} s; epoch {epochs + 1} loss {metrics_r['Train_epoch_loss'][epochs]!r}, pair mean "
+          f"{metrics_r['Val_mean'][epochs]!r}")
+    check(resumed == epochs and math.isfinite(metrics_r["Train_epoch_loss"][epochs]), "face run D's resume failed")
+    check(train_r == [only({stash: SWIN.depth * steps, bwd_p: SWIN.depth * steps})]
+          and evals_r == [only({fwd: SWIN.depth * face_batches})],
+          f"face run D's resume launches {train_r} {evals_r}")
+    shutil.rmtree(project)
+    return [*train_r, *evals_r]
 
 
 def compare_embedding_runs(a: dict, b: dict, epochs, fit: str, fit_step: float) -> tuple:
@@ -2500,16 +2611,17 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
                   f"face run A epoch {e}: metrics {[(t, v.get(e)) for t, v in metrics_a.items()]}")
         summary("face run A", train_a, evals_a, stage_a, metrics_a, secs_a, bytes_a, "Val_mean")
 
-        _, train_b, evals_b, stage_b, metrics_b, _, _ = embedding_epochs(tmp / "B", *face_args)
-        check(stage_b == want_stage, f"face run B's device-augment stage calls {stage_b}")
+        secs_b = torchrun_main(face_args, tmp / "B", timeout=EMBED_RUN_TIMEOUT_S)
+        metrics_b = read_metrics(tmp / "B")
         loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
                                                      1 / per_fold)
-        print(f"[{tag}] face run B vs run A, epochs 1-{EMBED_RUN_EPOCHS}: largest train-loss difference "
-              f"{loss_d:.3e} relative, largest pair-mean difference {fit_d:.2f} pairs a fold; bit-identical: "
-              f"{same} (required)")
-        check(same, "seeded face runs A and B are not bit-identical")
-        add(train_b, evals_b)
+        print(f"[{tag}] face run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
+              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s) vs run A, epochs 1-{EMBED_RUN_EPOCHS}: largest "
+              f"train-loss difference {loss_d:.3e} relative, largest pair-mean difference {fit_d:.2f} pairs a fold; "
+              f"bit-identical: {same} (required)")
+        check(same, "face run B through torchrun (one NCCL rank) is not bit-identical to run A")
         shutil.rmtree(tmp / "B")
+        add(face_two_ranks(tmp, cfg, face_yaml, steps, face_batches))
 
         run_c = tmp / "C"
         killed_in_epoch_1(face_args, run_c)
@@ -2626,12 +2738,13 @@ CNN_RECIPES = (
                      ("tf_efficientnetv2_s", 64))
 )
 # the rows whose train rate is also taken with torch's default cuDNN algorithms, and the rows profiled
-CNN_DETERMINISM_AB = ("resnet50", "resnet18", "convnext_base")
-CNN_PROFILED = ("resnet50", "convnext_base", "mobilenetv3_large_100", "efficientnetv2_s", "tf_efficientnetv2_s")
+CNN_DETERMINISM_AB = ("resnet50",)  # resnet18 and convnext_base too until PR 16 (time)
+# (until PR 16 also mobilenetv3_large_100, efficientnetv2_s and tf_efficientnetv2_s: cut for the script's time)
+CNN_PROFILED = ("resnet50", "convnext_base")
 # the rows of phase DT beside resnet50: one step each of a 7×7 and of a 3×3 / 5×5 depthwise family
 CNN_PROBED = ("convnext_base", "mobilenetv3_large_100")
 # the rows whose card-vs-CPU step is also printed in f32 (the float64 step is held for every row)
-CNN_F32_PRINTED = ("resnet50", "resnet18")
+CNN_F32_PRINTED = ()  # ("resnet50", "resnet18") until PR 16: cut for the script's time
 CNN_F32_BATCH = 4  # the CPU float64 steps of six CNNs (and resnet18's SAM step) set much of phase CN's time
 CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
 # device-time classes of a CNN step, by kernel name (lower case), first match wins
@@ -2877,19 +2990,22 @@ def cnn_one_step(base: torch.nn.Module, model_cfg: dict, loss: str, epochs: int,
     return value, tensors, {n: t.abs().max().item() for n, t in theta0.items()}
 
 
-def worst_diffs(side, ref, float32_spacing: bool) -> tuple:
+def worst_diffs(side, ref, float32_spacing: bool, floor_share: float = 1e-9) -> tuple:
     """Loss difference (relative) and, per kind of tensor, the largest
     max|side − ref| / max|ref| (an update less one spacing of θ) and where.
     A tensor whose exact value is zero holds rounding noise alone (the
     gradient of a BatchNorm bias that a linear layer and a train-mode
     BatchNorm follow: MobileNetV3's and EfficientNetV2's last block before
-    their head convolution), so max|ref| is floored at 1e-9 of the kind's
-    largest entry."""
+    their head convolution; an embedding neck's LayerNorm bias ahead of its
+    Linear and BatchNorm1d), so max|ref| is floored at ``floor_share`` of the
+    kind's largest entry: 1e-9 against float64; 1e-3 between two f32 runs,
+    where that noise is a few f32 spacings of the kind's largest entry (any
+    tensor then holds to 1e-6 of it, the CPU tests' floor)."""
     (ls, ts, theta_max), (lr, tr, _) = side, ref
     eps = torch.finfo(torch.float32 if float32_spacing else torch.float64).eps
     worst = {}
     for what, tensors in tr.items():
-        floor = 1e-9 * max((r.abs().max().item() for r in tensors.values()), default=0.0)
+        floor = floor_share * max((r.abs().max().item() for r in tensors.values()), default=0.0)
         for n, r in tensors.items():
             slack = eps * theta_max[n] if what == "update" else 0.0
             scale = max(r.abs().max().item(), floor, 1e-300)
@@ -3910,6 +4026,315 @@ def phase_so400m_run(dev: torch.device, pet_data: tuple) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- DP: distributed training
+
+FACE_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face.yaml"
+DP_WORLD = 2
+DP_F32_BATCH = 8            # the global batch of the one-step checks: 4 a rank
+DP_TIMED_STEPS, DP_WARMUP = 3, 1
+DP_TIMEOUT_S = 420
+DP_COLLECTIVES = ("all_reduce", "all_reduce max", "all_gather", "broadcast", "barrier")
+
+
+def dp_cases() -> list:
+    """The world-2 one-step checks: (label, model section, loss, f64, step
+    kwargs). face.yaml's model with the backbone's stochastic depth off (the
+    ranks draw their own masks), resnet50 with SyncBN in float64 (f32
+    BatchNorm gradients at random init are ill-conditioned: see phase CN),
+    and pet_synth's ViT-B/16 with SAM's per-rank ε."""
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.engine.optim import SAMConfig
+
+    face = yaml_load(FACE_YAML)["model"]
+    (name, params), = face["backbone"].items()
+    face = {**face, "backbone": {name: {**params, "stochastic_depth_prob": 0.0}}}
+    resnet50 = CNN_RECIPES[0][1]
+    return [("face.yaml, model_parallel 2", face, "ce", False, {"task": "embedding"}),
+            ("resnet50 SyncBN", resnet50, "bce", True, {}),
+            ("ViT-B/16 SAM per-rank", PET_SYNTH_MODEL, "ce", False, {"sam": SAMConfig(local_perturb=True)})]
+
+
+def dp_batch(model_cfg: dict, loss: str, bs: int, dev, seed: int) -> dict:
+    """Seeded uint8 224² images and labels: int over the model's classes
+    (a margin head's: the rows spread over both shards), or multi-hot."""
+    if model_cfg["task"] != "classification":
+        n = next(iter(model_cfg["head"].values()))["num_class"]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return {"image": torch.randint(0, 256, (bs, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+                "label": torch.randint(0, n, (bs,), generator=gen, device=dev)}
+    return cnn_batch(model_cfg, loss, bs, dev, seed)
+
+
+def dp_trainer(model_cfg: dict, loss: str, f64: bool, step_kwargs: dict, dev, mesh=None, dtype=torch.float32):
+    """(model, state, step) of a DP check: the model (seed 0; float64 where
+    asked), its head class-sharded over ``mesh``'s model group when it has
+    one, the config's SGD + clip + EMA, and the loss (a sharded head's the
+    CE over class shards)."""
+    from visiondk_tpu_torch.losses.losses import class_sharded_cross_entropy
+
+    embedding = model_cfg["task"] != "classification"
+    model = get_model(model_cfg, dtype=dtype, device=dev, generator=torch.Generator().manual_seed(0))
+    if f64:
+        model.double()
+        for m in model.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+    lossfn = cnn_loss(loss, f64)
+    if embedding:
+        lossfn = create_lossfn("ce", valid_class=model.head.num_class)
+        if mesh is not None and mesh.n_model > 1:
+            model.head.shard(mesh)
+            head = model.head
+            lossfn = lambda logits, y, sample_weight=None: class_sharded_cross_entropy(  # noqa: E731
+                logits, y, head.num_class, head.class_offset, mesh)
+    hyp = PET_HYP if embedding else PET_SYNTH_HYP
+    tx = build_tx(hyp, STEPS_PER_EPOCH, discrete_per_epoch=not embedding, model_cfg=model_cfg)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, lossfn, StepConfig(**step_kwargs), torch.Generator().manual_seed(1), mesh=mesh)
+    return model, state, step, tx, lossfn
+
+
+def dp_outcome(model, state, loss: float, theta0: dict) -> tuple:
+    """(loss, {gradient, update, BN statistic: {name: float64 CPU tensor}},
+    max |θ₀| by name) after a step, a class-sharded head's tensors gathered
+    whole (``cnn_one_step``'s form, for ``worst_diffs``)."""
+    from visiondk_tpu_torch.engine.state import gather_head, sharded_heads
+
+    heads = sharded_heads(model)
+
+    def whole(name, t):
+        return gather_head(t, heads[name].num_class, heads[name].mesh) if name in heads else t
+
+    params = {n: whole(n, p.detach()) for n, p in model.named_parameters()}
+    tensors = {
+        "gradient": {n: whole(n, p.grad.detach()).double().cpu() for n, p in model.named_parameters()},
+        "update": {n: (params[n] - theta0[n]).double().cpu() for n in params},
+        "BN statistic": {n: b.detach().double().cpu() for n, b in model.named_buffers() if n.endswith(("mean", "var"))},
+    }
+    return loss, tensors, {n: t.abs().max().item() for n, t in theta0.items()}
+
+
+def dp_reference(case: tuple, batch: dict, dev) -> tuple:
+    """The world-1 step of ``case`` on the whole batch (this process has no
+    process group yet); SAM's per-rank form by hand: each half's ε from its
+    own gradient, the two second gradients averaged, then the update."""
+    from visiondk_tpu_torch.engine.optim import sam_perturb
+    from visiondk_tpu_torch.engine.steps import apply_update
+
+    _, model_cfg, loss, f64, step_kwargs = case
+    model, state, step, tx, lossfn = dp_trainer(model_cfg, loss, f64, step_kwargs, dev)
+    theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    images = batch["image"].double() / 255.0 if f64 else batch["image"]
+    if "sam" not in step_kwargs:
+        value = step(state, {**batch, "image": images})["loss"].item()
+        return dp_outcome(model, state, value, theta0)
+    cfg = StepConfig(**step_kwargs)
+    params, rows = list(model.parameters()), DP_F32_BATCH // DP_WORLD
+    model.train()
+    second, losses = [torch.zeros_like(p) for p in params], []
+    for r in range(DP_WORLD):
+        x = device_preprocess(images[r * rows:(r + 1) * rows], cfg.mean, cfg.std)
+        y = batch["label"][r * rows:(r + 1) * rows]
+        for p in params:
+            p.grad = None
+        value = lossfn(model(x), y)
+        value.backward()
+        losses.append(value.item())
+        clean = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            torch._foreach_add_(params, sam_perturb(params, [p.grad for p in params], cfg.sam))
+        for p in params:
+            p.grad = None
+        lossfn(model(x), y).backward()
+        torch._foreach_add_(second, [p.grad for p in params])
+        with torch.no_grad():
+            torch._foreach_copy_(params, clean)
+    for p, g in zip(params, second):
+        p.grad = g / DP_WORLD
+    apply_update(state, tx, cfg)
+    return dp_outcome(model, state, sum(losses) / DP_WORLD, theta0)
+
+
+def dp_collectives(dev, rank: int) -> dict:
+    """Which collectives gloo runs on CUDA tensors here: each tried and its
+    result checked."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device=dev)
+    trials = {
+        "all_reduce": lambda: (dist.all_reduce(t := x.clone()), bool((t == 3).all()))[1],
+        "all_reduce max": lambda: (dist.all_reduce(t := x.clone(), op=dist.ReduceOp.MAX), bool((t == 2).all()))[1],
+        "all_gather": lambda: (dist.all_gather(parts := [torch.empty_like(x) for _ in range(DP_WORLD)], x),
+                               [int(p[0]) for p in parts] == [1, 2])[1],
+        "broadcast": lambda: (dist.broadcast(t := x.clone(), src=1), bool((t == 2).all()))[1],
+        "barrier": lambda: (dist.barrier(), True)[1],
+    }
+    out = {}
+    for name in DP_COLLECTIVES:
+        try:
+            out[name] = "ok" if trials[name]() else "wrong result"
+        except RuntimeError as e:  # what a backend raises for an unsupported device or op
+            out[name] = f"refused ({str(e).splitlines()[0][:120]})"
+    return out
+
+
+def dp_rank(dev: torch.device) -> None:
+    """``--dp-rank``: one of the two gloo ranks of phase DP, on ``dev``
+    (cuda:0 for both; see phase_dp). Rank 0 first takes the world-1
+    references, before the process group exists."""
+    import torch.distributed as dist
+
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.engine.state import gather_head, sharded_heads
+    from visiondk_tpu_torch.parallel import build_mesh, initialize_distributed
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cases = dp_cases()
+    batches = [dp_batch(case[1], case[2], DP_F32_BATCH, dev, seed=7 + i) for i, case in enumerate(cases)]
+    refs = [dp_reference(case, batch, dev) if rank == 0 else None for case, batch in zip(cases, batches)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    initialize_distributed(backend="gloo")
+    print(f"[dp] rank {rank}: gloo group of {dist.get_world_size()} joined ({time.perf_counter() - t0:.1f} s, "
+          f"rank 0's world-1 references taken before it); collectives on CUDA tensors: {dp_collectives(dev, rank)}",
+          flush=True)
+    counts = {k: 0 for k in KERNELS}
+    for case, batch, ref in zip(cases, batches, refs):
+        label, model_cfg, loss, f64, step_kwargs = case
+        mesh = build_mesh(model=2 if model_cfg["task"] != "classification" else 1)
+        model, state, step, _, _ = dp_trainer(model_cfg, loss, f64, step_kwargs, dev, mesh)
+        theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for key, head in sharded_heads(model).items():
+            theta0[key] = gather_head(theta0[key], head.num_class, mesh)
+        rows = DP_F32_BATCH // DP_WORLD
+        mine = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+        if f64:
+            mine["image"] = mine["image"].double() / 255.0
+        reset_counts()
+        t = time.perf_counter()
+        value = step(state, mine)["loss"].item()
+        secs = time.perf_counter() - t
+        counts = {k: counts[k] + v for k, v in read_counts().items()}
+        side = dp_outcome(model, state, value, theta0)
+        if rank == 0:
+            loss_rel, worst = worst_diffs(side, ref, float32_spacing=not f64, floor_share=1e-9 if f64 else 1e-3)
+            print(f"[dp] {label}: {'float64' if f64 else 'f32'} one step at global bs {DP_F32_BATCH} "
+                  f"({rows} a rank, {secs:.2f} s), world 2 vs world 1: loss {side[0]!r} vs {ref[0]!r} (rel "
+                  f"{loss_rel:.3e}, bar {F32_LOSS_RTOL}); worst max|diff|/max|ref| " + ", ".join(
+                      f"{w} {r:.3e} ({n})" for w, (r, n) in worst.items()) + f" (bar {F32_TENSOR_TOL})", flush=True)
+            check(loss_rel <= F32_LOSS_RTOL, f"[dp] {label}: loss {loss_rel} relative")
+            for what, (r, n) in worst.items():
+                check(r <= F32_TENSOR_TOL, f"[dp] {label}: {what} of {n} differs by {r} of its largest entry")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # face.yaml at full width in bf16: Swin-B (stochastic depth as configured) + ArcFace 58,671 x 128, m 2
+    face = yaml_load(FACE_YAML)
+    mesh = build_mesh(model=2)
+    bs = face["data"]["train"]["bs"] // DP_WORLD
+    model, state, step, _, _ = dp_trainer(face["model"], "ce", False, {"task": "embedding"}, dev, mesh,
+                                          dtype=torch.bfloat16)
+    batch = dp_batch(face["model"], "ce", bs, dev, seed=20 + rank)
+    for _ in range(DP_WARMUP):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    values = [step(state, batch)["loss"] for _ in range(DP_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / DP_TIMED_STEPS * 1e3
+    counts = {k: counts[k] + v for k, v in read_counts().items()}
+    losses = [v.item() for v in values]
+    (backbone, _), = face["model"]["backbone"].items()
+    print(f"[dp] rank {rank}: face.yaml bf16 train step, {backbone} + ArcFace over {model.head.num_class} classes "
+          f"(this rank's {model.head.weight.shape[1]} columns), feat {model.head.feat_dim}, global bs "
+          f"{face['data']['train']['bs']} ({bs} a rank), "
+          f"--model_parallel 2 over gloo on one card: {ms:.1f} ms a step over {DP_TIMED_STEPS} after "
+          f"{DP_WARMUP} warm-up (host clock, synchronised; gloo moves every gradient bucket through host memory), "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses), flush=True)
+    check(all(math.isfinite(x) for x in losses), f"[dp] rank {rank}: non-finite face.yaml losses {losses}")
+    print("DP_COUNTS " + json.dumps({NAMES[k]: v for k, v in counts.items()}), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_dp(dev: torch.device) -> dict:
+    """Phase DP (see the module doc): the two gloo ranks, then ViT-B/16's
+    DDP train rate beside the plain step's on one NCCL rank in this process.
+    Returns the launches of both."""
+    import torch.distributed as dist
+
+    from visiondk_tpu_torch.parallel import build_mesh, initialize_distributed
+
+    tmp = Path(tempfile.mkdtemp(prefix="vdk_dp_"))
+    try:
+        port, procs = free_port(), []
+        for rank in range(DP_WORLD):
+            env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(DP_WORLD),
+                   "RANK": str(rank), "LOCAL_RANK": "0"}
+            log = open(tmp / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank"], env=env,
+                                           stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            for proc, _ in procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        counts = {k: 0 for k in KERNELS}
+        for rank, (proc, _) in enumerate(procs):
+            out = (tmp / f"rank{rank}.log").read_text()
+            print("\n".join(line for line in out.splitlines() if line.startswith("[dp]")))
+            check(proc.returncode == 0, f"[dp] rank {rank} exited with {proc.returncode}: {out[-3000:]}")
+            found = json.loads(re.search(r"^DP_COUNTS (.*)$", out, re.M).group(1))
+            counts = {k: counts[k] + found[NAMES[k]] for k in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one NCCL rank here: ViT-B/16 bs 128 bf16, the DDP step against the plain one
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    try:
+        initialize_distributed(backend="nccl")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        batch = {"image": torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev, dtype=torch.uint8),
+                 "label": torch.randint(0, VIT.model["num_classes"], (BATCH,), generator=gen, device=dev)}
+        plain = build_trainer(VIT, torch.bfloat16, dev)
+        ddp = build_trainer(VIT, torch.bfloat16, dev, mesh=build_mesh())
+        rates = {"plain": [], "DDP": []}
+        reset_counts()
+        for trial, (which, (model, state, step)) in enumerate(
+                (("plain", plain), ("DDP", ddp), ("DDP", ddp), ("plain", plain))):
+            rates[which].append(train_rate(model, state, step, batch, KERNEL_PATH,
+                                           f"[dp] ViT-B/16 bf16 bs {BATCH} trial {trial}, {which} step"
+                                           + (" (one NCCL rank)" if which == "DDP" else ""))[0])
+        found = read_counts()
+        counts = {k: counts[k] + found[k] for k in KERNELS}
+        print(f"[dp] ViT-B/16 bf16 bs {BATCH} train images/s (order plain, DDP, DDP, plain): DDP over one NCCL rank "
+              + ", ".join(f"{r:.1f}" for r in rates["DDP"]) + " | plain " + ", ".join(f"{r:.1f}" for r in rates["plain"])
+              + f" -> DDP at {sum(rates['DDP']) / sum(rates['plain']):.1%} of the plain step")
+        del plain, ddp
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -3986,7 +4411,10 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
                 + so400m_run[k] + strategies[k] + embedding_run[k] for k in KERNELS}
     vision = timed("vision path", phase_vision_path, dev)
     print("[launches] vision path: " + ", ".join(f"{NAMES[k]} {vision[k]}" for k in K3_KERNELS))
-    return kern, {k: launches[k] + vision[k] for k in KERNELS}
+    dp = timed("dp", phase_dp, dev)
+    print("[launches] dp (the world-2 steps of both gloo ranks; the one-NCCL-rank DDP and plain trials): "
+          + ", ".join(f"{NAMES[k]} {dp[k]}" for k in KERNELS if dp[k]))
+    return kern, {k: launches[k] + vision[k] + dp[k] for k in KERNELS}
 
 
 def swin_train_trials(dev: torch.device, trials: int = 3) -> None:
@@ -4138,6 +4566,8 @@ if __name__ == "__main__":
         swin_train_trials(torch.device("cuda", 0))
     elif sys.argv[1:] == ["--determinism-probe"]:
         determinism_probe()
+    elif sys.argv[1:] == ["--dp-rank"]:
+        dp_rank(torch.device("cuda", 0))
     elif sys.argv[1:] == ["--tiled-variants"]:
         phase_device()
         torch.cuda.set_device(0)

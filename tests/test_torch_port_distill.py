@@ -236,6 +236,63 @@ def test_embedding_distill_steps_match_jax(loss_type):
                 _assert_updates(port, theta0, _flat(jstate.params), _flat(jstate.batch_stats))
 
 
+@pytest.mark.parametrize("kind", ["logits", "embedding"])
+def test_distill_steps_tick_the_ema_at_every_mini_step_as_jax(kind):
+    """``accumulate: 2`` (``optax.MultiSteps`` on the JAX side): the JAX
+    distillation steps update the EMA and count ``ema_updates`` at every
+    mini-step, the one that applies no update included, and so do the
+    port's. After one round the parameters are JAX's (the first step's bar
+    above), both counts are 2, and every EMA tensor is within 1e-5 of its
+    largest entry (the update's f32 rounding, ~1e-3 of the update, moves
+    entries near 0 by more than 1e-5 of themselves)."""
+    if kind == "logits":
+        cfg = _student_cfg()
+        tree = _init(cfg, seed=5)[1]
+        teacher_tree = _init(_teacher_cfg(), seed=6)[1]
+        teacher = load_jax_params(get_model(_teacher_cfg(), device="cpu"), teacher_tree).requires_grad_(False)
+        batches = _batches(2, seed=7)
+    else:
+        cfg = {"task": "cbir", "backbone": {STUDENT: {"feat_dim": 16, "image_size": IMG}}}
+        jmodel = jax_get_model(cfg)
+        tree = _random_tree(jmodel.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)), train=False,
+                                        method=jmodel.embed), seed=5)
+        batches = _batches(2, labels=False, seed=7, feat_dim=16)
+    port = load_jax_params(get_model(cfg, device="cpu"), tree)
+    theta0 = {k: v.clone() for k, v in port.state_dict().items()}
+    jtx = optax.MultiSteps(jax_create_optimizer("sgd", lambda c: 0.05, 0.0, lambda c: 0.9), 2)
+    tx = create_optimizer("sgd", lambda c: 0.05, 0.0, lambda c: 0.9, accumulate=2)
+    state = create_train_state(port, tx)
+    if kind == "logits":
+        step = make_distill_step(port, teacher, tx, create_lossfn("ce", label_smooth=0.05), StepConfig(),
+                                 torch.Generator().manual_seed(0), **DISTILL)
+    else:
+        step = make_embed_distill_step(port, tx, StepConfig(task="embedding"), torch.Generator().manual_seed(0))
+    with jax.enable_x64(True):
+        jstate = jax_create_train_state(_f64(tree), jtx)
+        if kind == "logits":
+            jstep = jax_make_distill_step(jax_get_model(cfg, dtype=jnp.float64),
+                                          jax_get_model(_teacher_cfg(), dtype=jnp.float64), _f64(teacher_tree), jtx,
+                                          JL.create_lossfn("ce", label_smooth=0.05), JaxStepConfig(),
+                                          jax.random.key(0), **DISTILL)
+        else:
+            jstep = jax_make_embed_distill_step(jax_get_model(cfg, dtype=jnp.float64), jtx,
+                                                JaxStepConfig(task="embedding"), jax.random.key(0))
+        for i, batch in enumerate(batches):
+            jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float64(0.0))
+            step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+            assert state.ema_updates == int(jstate.ema_updates) == i + 1
+            assert state.optimizer.count == i  # the second mini-step applies the round
+        params, stats = _flat(jstate.params), _flat(jstate.batch_stats)
+        ema = state_dict_from_jax(port, {"params": _flat(jstate.ema_params),
+                                         "batch_stats": _flat(jstate.ema_batch_stats)})
+    assert state.step == 2
+    _assert_updates(port, theta0, params, stats)
+    for key, value in state.ema_model.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            want = ema[key].numpy()
+            np.testing.assert_allclose(value.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max(), err_msg=key)
+
+
 # ---------------------------------------------------------------- the run and the CLI
 
 

@@ -25,6 +25,8 @@ checks), ``data`` (the host pipeline, byte-identical to the JAX package's,
 and the CUDA device feeder), ``engine.checkpoint``, ``engine.evaluation``,
 ``engine.trainer.CenterProcessor`` and the CLIs ``python -m
 visiondk_tpu_torch.main`` / ``.validate``, on the card unless ``--device cpu``.
+``parallel`` joins torchrun's process group for ``main --multihost`` (DDP,
+SyncBN, and the class-sharded margin head behind ``--model_parallel``).
 
 Importing this package loads torch, numpy and the standard library only: no
 JAX, no Triton, and no kernel is built until a CUDA tensor reaches one. The

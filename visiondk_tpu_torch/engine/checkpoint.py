@@ -12,6 +12,16 @@ gradients and its mini-step count (a run killed in the middle of a round
 resumes it), and the state of the train step's CPU generator (without it a
 resumed run would draw other dropout masks).
 
+In a distributed run every rank calls ``save``, ``wait`` and ``restore``
+(the manager takes the run's ``MeshContext``): a class-sharded head's weight,
+its optimizer slots and its accumulated gradient are gathered whole before the
+write and split to each rank's columns on restore, so a checkpoint is the
+same file at every world size and model-parallel size, and a run of W ranks
+resumes in one process and the reverse. Only rank 0 writes, recovers the
+directory at construction, and promotes; ``save`` starts with a barrier and
+``wait`` ends with one, so every rank reads a checkpoint only after rank 0's
+write of it has finished.
+
 Saves are asynchronous: ``save`` copies every tensor of the state to host
 memory before it returns (the next step may then update the live tensors),
 and a background thread writes the copy into a fresh temporary directory
@@ -43,7 +53,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from visiondk_tpu_torch.engine.state import TrainState
+from visiondk_tpu_torch.engine.state import (
+    TrainState, full_state_dict, gather_head, load_full_state_dict, shard_head, sharded_heads,
+)
 
 _STAGE = ".{}.staging"
 _TRASH = ".{}.trash"
@@ -63,32 +75,58 @@ def _to_host(obj):
     return obj
 
 
+def _per_parameter(state: TrainState, optimizer: Dict[str, Any], acc: Optional[list], fn) -> tuple:
+    """An optimizer state dict and accumulated gradients of ``state``'s
+    parameters with each 2-d tensor of a class-sharded parameter passed
+    through ``fn(head, t)``."""
+    heads = {id(h.weight): h for h in sharded_heads(state.model).values()}
+    if not heads:
+        return optimizer, acc
+    order = [p for group in state.optimizer.optimizer.param_groups for p in group["params"]]
+
+    def each(p, t):
+        return fn(heads[id(p)], t) if id(p) in heads and torch.is_tensor(t) and t.ndim == 2 else t
+
+    optimizer = {**optimizer, "state": {i: {k: each(order[i], v) for k, v in slots.items()}
+                                        for i, slots in optimizer["state"].items()}}
+    return optimizer, None if acc is None else [each(p, a) for p, a in zip(state.optimizer.params, acc)]
+
+
 def _snapshot(state: TrainState) -> Dict[str, Any]:
-    """The host copy of ``state`` that ``state.pt`` holds."""
+    """The host copy of ``state`` that ``state.pt`` holds (class-sharded
+    tensors gathered whole: a collective where the model holds a shard)."""
+    optimizer, acc = _per_parameter(state, state.optimizer.optimizer.state_dict(), state.optimizer.acc_grads,
+                                    lambda head, t: gather_head(t, head.num_class, head.mesh))
     return {
-        "model": _to_host(state.model.state_dict()),
-        "ema": _to_host(state.ema_model.state_dict()),
-        "optimizer": _to_host(state.optimizer.optimizer.state_dict()),
+        "model": _to_host(full_state_dict(state.model)),
+        "ema": _to_host(full_state_dict(state.ema_model)),
+        "optimizer": _to_host(optimizer),
         "step": state.step,
         "ema_updates": state.ema_updates,
         "opt_count": state.optimizer.count,
-        "opt_acc_grads": _to_host(state.optimizer.acc_grads),
+        "opt_acc_grads": _to_host(acc),
         "opt_mini_step": state.optimizer.mini_step,
         "generator": None if state.generator is None else state.generator.get_state(),
     }
 
 
 class CheckpointManager:
-    def __init__(self, directory, writer: bool = False):
+    def __init__(self, directory, writer: bool = False, mesh=None):
         """``writer``: this manager owns the run directory and may delete
-        half-written temporaries at construction (see module doc)."""
+        half-written temporaries at construction (see module doc). ``mesh``:
+        the run's ``MeshContext`` in a distributed run; only its rank 0
+        touches the directory."""
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self._mesh = mesh
+        self._primary = mesh is None or mesh.is_primary()
+        if self._primary:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="ckpt-write")
         self._futures: Dict[str, Future] = {}
         self._pending: set = set()
         self._writer = bool(writer)
-        self._recover_staged()
+        if self._primary:
+            self._recover_staged()
 
     # -------------------------------------------------- staging / promotion
 
@@ -149,12 +187,14 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Join in-flight writes (raising any error they met) and promote
-        them into place. Called before any restore and by the trainer at the
-        end of a run."""
+        them into place, then (distributed) wait for every rank. Called
+        before any restore and by the trainer at the end of a run."""
         for name in sorted(self._futures):
             self._futures.pop(name).result()
         for name in sorted(self._pending):
             self._promote(name)
+        if self._mesh is not None:
+            self._mesh.barrier()
 
     # ------------------------------------------------------------ full state
 
@@ -170,6 +210,11 @@ class CheckpointManager:
         module doc). ``meta.json`` holds ``epoch``, ``best_fitness`` and the
         entries of ``extra`` (the embedding loop's per-epoch ``fitness``)."""
         meta = {"epoch": epoch, "best_fitness": float(best_fitness), **(extra or {})}
+        if self._mesh is not None:
+            self._mesh.barrier()  # every rank enters the save at the same step
+        host_state = _snapshot(state)
+        if not self._primary:
+            return
         if name in self._pending:
             # the previous save of this name: join and promote it, so the
             # staging slot is free and the promote bookkeeping one deep
@@ -182,7 +227,6 @@ class CheckpointManager:
         # can then always stamp the right meta into it
         with open(self.directory / f"{name}.meta.json", "w") as f:
             json.dump(meta, f)
-        host_state = _snapshot(state)
         self._pending.add(name)
         self._futures[name] = self._pool.submit(self._write, name, host_state)
 
@@ -208,12 +252,13 @@ class CheckpointManager:
         """Load checkpoint ``name`` into ``state`` in place (model, EMA,
         optimizer, counters, generator); returns ``(state, meta)``."""
         saved = self.read(name)
-        state.model.load_state_dict(saved["model"])
-        state.ema_model.load_state_dict(saved["ema"])
-        state.optimizer.optimizer.load_state_dict(saved["optimizer"])
+        load_full_state_dict(state.model, saved["model"])
+        load_full_state_dict(state.ema_model, saved["ema"])
+        optimizer, acc = _per_parameter(state, saved["optimizer"], saved.get("opt_acc_grads"),
+                                        lambda head, t: shard_head(t, head.mesh))
+        state.optimizer.optimizer.load_state_dict(optimizer)
         state.step, state.ema_updates = saved["step"], saved["ema_updates"]
         state.optimizer.count = saved["opt_count"]
-        acc = saved.get("opt_acc_grads")
         state.optimizer.acc_grads = None if acc is None else [
             a.to(p.device) for a, p in zip(acc, state.optimizer.params)]
         state.optimizer.mini_step = saved.get("opt_mini_step", 0)

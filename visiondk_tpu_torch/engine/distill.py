@@ -15,7 +15,14 @@
 
 The steps draw from the state's generator in the order of
 ``make_train_step`` (the dropout seed, then the device-augment seed), so a
-checkpoint's generator replays them on resume.
+checkpoint's generator replays them on resume. As the JAX distillation
+steps, they update the EMA and count ``ema_updates`` at every call, the
+mini-steps of gradient accumulation that apply no update included (the JAX
+main step, and the port's ``make_train_step``, tick it on applied updates
+only: a difference inside the reference). Under a process group
+``make_distill_step`` trains the student through DDP as ``make_train_step``
+does (the teacher, frozen, is not wrapped); the embedding distillation step,
+which no CLI drives, runs in one process.
 """
 
 from __future__ import annotations
@@ -29,10 +36,22 @@ from torch import nn
 from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.engine.optim import OptimizerSpec
 from visiondk_tpu_torch.engine.state import TrainState
-from visiondk_tpu_torch.engine.steps import StepConfig, _device, apply_update, device_preprocess
+from visiondk_tpu_torch.engine.steps import StepConfig, _device, device_preprocess, rank_seed
 from visiondk_tpu_torch.engine.trainer import CenterProcessor
 from visiondk_tpu_torch.losses.losses import distill_kl
+from visiondk_tpu_torch.models.ema import update_ema
 from visiondk_tpu_torch.models.factory import get_model
+from visiondk_tpu_torch.parallel.mesh import MeshContext
+
+
+def _update_every_mini_step(state: TrainState, tx: OptimizerSpec, cfg: StepConfig) -> None:
+    """The end of a distillation step: the optimizer update (with
+    accumulation, applied on the mini-step that completes a round), then the
+    EMA update and ``ema_updates`` += 1 on every call, and step += 1."""
+    tx.update(state.optimizer)
+    state.ema_updates += 1
+    update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
+    state.step += 1
 
 
 def make_distill_step(
@@ -46,21 +65,30 @@ def make_distill_step(
     kl_weight: float = 0.5,
     temperature: float = 4.0,
     device_augment: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, lam=0.0) -> {"loss", "loss_cls", "loss_kl"}``,
     in the form of ``make_train_step`` so that the trainer swaps it in.
     ``teacher`` must live on the student's device; it runs in eval mode
-    under ``torch.no_grad`` on the same (augmented, normalised) batch."""
+    under ``torch.no_grad`` on the same (augmented, normalised) batch. With a
+    distributed ``mesh`` the batch is this rank's rows of the global one, as
+    in ``make_train_step`` (the stage runs on the gathered global batch), and
+    the losses returned are the global batch's."""
     device = _device(student)
+    distributed = mesh is not None and mesh.distributed
+    net = mesh.data_parallel(student) if distributed else student
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], lam: float = 0.0):
         if state.model is not student:
             raise ValueError("the state holds another model than the one this step was built for")
         images = batch["image"].to(device, non_blocking=True)
         labels = batch["label"].to(device, non_blocking=True)
-        seed = int(torch.randint(0, 2**62, (), generator=generator))
-        if device_augment is not None:
-            images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
+        rows = images.shape[0]
+        seed = rank_seed(int(torch.randint(0, 2**62, (), generator=generator)), mesh.rank if distributed else 0)
+        if device_augment is not None:  # on the global batch, as make_train_step's stage
+            everyone = mesh.world_rows(images) if distributed else images
+            everyone = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), everyone)
+            images = mesh.own_rows(everyone, rows) if distributed else everyone
         images = device_preprocess(images, cfg.mean, cfg.std)
         teacher.eval()
         with torch.no_grad():
@@ -70,13 +98,14 @@ def make_distill_step(
             p.grad = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             torch.manual_seed(seed)
-            s_logits = student(images)
+            s_logits = net(images)
             loss_cls = lossfn(s_logits, labels)
             loss_kl = distill_kl(s_logits, t_logits, temperature)
             loss = cls_weight * loss_cls + kl_weight * loss_kl
         loss.backward()
-        apply_update(state, tx, cfg)
-        return {"loss": loss.detach(), "loss_cls": loss_cls.detach(), "loss_kl": loss_kl.detach()}
+        _update_every_mini_step(state, tx, cfg)
+        out = {"loss": loss, "loss_cls": loss_cls, "loss_kl": loss_kl}
+        return {k: mesh.world_mean(v.detach()) if distributed else v.detach() for k, v in out.items()}
 
     return step_fn
 
@@ -114,7 +143,7 @@ def make_embed_distill_step(
             else:
                 loss = (emb - target).square().mean()
         loss.backward()
-        apply_update(state, tx, cfg)
+        _update_every_mini_step(state, tx, cfg)
         return {"loss": loss.detach()}
 
     return step_fn
@@ -163,6 +192,6 @@ class DistillCenterProcessor(CenterProcessor):
             self._step_cache[key] = make_distill_step(
                 self.model, self.teacher_model, tx, lossfn, self.step_config(), state.generator,
                 cls_weight=self.cls_weight, kl_weight=self.kl_weight, temperature=self.temperature,
-                device_augment=self.device_augment_fn if device_aug else None,
+                device_augment=self.device_augment_fn if device_aug else None, mesh=self.mesh,
             )
         return self._step_cache[key]

@@ -37,6 +37,10 @@ from the gradients in ``.grad``:
 - **SAM** (``sam``): the base optimizer is this SGD (the JAX ``sam``
   entry); the perturbation is the train step's (``engine/steps.py``), which
   calls ``sam_perturb`` between its two passes.
+- **A class-sharded margin head** (``--model_parallel`` > 1): the clip's
+  global norm, and ``sam_perturb``'s, count each head column once: the
+  shard's squares are summed over the model group, then the replicated
+  tensors' are added once (``OptState.sum_of_squares``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 from torch import nn
 
 from visiondk_tpu_torch.models.convert import param_paths
+from visiondk_tpu_torch.models.heads import MarginHead
 from visiondk_tpu_torch.registry import Registry
 
 OPTIMIZER = Registry("optimizer")
@@ -119,15 +124,19 @@ def adam(param_groups: List[dict], weight_decay: float) -> torch.optim.Optimizer
 
 
 @torch.no_grad()
-def sam_perturb(params: List[torch.Tensor], grads: List[torch.Tensor], cfg: SAMConfig) -> List[torch.Tensor]:
+def sam_perturb(params: List[torch.Tensor], grads: List[torch.Tensor], cfg: SAMConfig,
+                state: Optional["OptState"] = None) -> List[torch.Tensor]:
     """SAM's ascent e(w), one tensor a parameter (the JAX ``sam_perturb``
     returns w + e): e = ρ·(p² if adaptive)·g / (‖(|p| if adaptive)·g‖₂ +
     1e-12), the norm over every parameter given (frozen ones included, as the
     JAX tree's). The squares are summed parameter by parameter in f32, as
     the JAX sum over the tree's leaves, and the division happens on the
-    device (no host read)."""
+    device (no host read). With ``state`` (the ``OptState`` over the same
+    parameters) a class-sharded head's squares count once over its model
+    group."""
     sq = torch.stack([torch.sum(torch.square(p.abs() * g if cfg.adaptive else g)) for p, g in zip(params, grads)])
-    scale = cfg.rho / (torch.sqrt(torch.sum(sq)) + 1e-12)
+    total = torch.sum(sq) if state is None else state.sum_of_squares(sq)
+    scale = cfg.rho / (torch.sqrt(total) + 1e-12)
     return [(p * p * g if cfg.adaptive else g) * scale for p, g in zip(params, grads)]
 
 
@@ -157,11 +166,17 @@ def layer_wise_label(path: str) -> str:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         state: Optional["OptState"] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: ``t / g * max_norm`` for every
     gradient when the global norm g ≥ ``max_norm``, unchanged otherwise.
-    Decided on the device (no host sync). Returns g."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    Decided on the device (no host sync). With ``state`` (the ``OptState``
+    over the same tensors) g counts a class-sharded head once. Returns g."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if state is None or state.mesh is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        norm = torch.sqrt(state.sum_of_squares(torch.square(norms)))
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
@@ -181,6 +196,18 @@ class OptState:
     # before its first mini-step) and how many it holds
     acc_grads: Optional[List[torch.Tensor]] = None
     mini_step: int = 0
+    # a class-sharded margin head: which of ``params`` are shards, and the
+    # MeshContext whose model group holds the other shards (None: no shard)
+    sharded: Optional[List[bool]] = None
+    mesh: Optional[object] = None
+
+    def sum_of_squares(self, sq: torch.Tensor) -> torch.Tensor:
+        """The global sum of per-tensor squares ``sq`` [len(params)]: the
+        replicated tensors' once, the shards' summed over the model group."""
+        if self.mesh is None:
+            return torch.sum(sq)
+        mask = torch.tensor(self.sharded, device=sq.device)
+        return torch.sum(torch.where(mask, 0.0, sq)) + self.mesh.model_sum(torch.sum(torch.where(mask, sq, 0.0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +244,13 @@ class OptimizerSpec:
                 groups.setdefault(mults[name], []).append(p)
         param_groups = [{"params": ps, "lr_mult": m} for m, ps in groups.items()]
         optimizer = OPTIMIZER.create(self.name, param_groups, self.weight_decay)
-        return OptState(optimizer=optimizer, params=list(model.parameters()))
+        state = OptState(optimizer=optimizer, params=list(model.parameters()))
+        heads = [m for m in model.modules() if isinstance(m, MarginHead) and m.mesh is not None]
+        if heads:
+            shards = {id(h.weight) for h in heads}
+            state.sharded = [id(p) in shards for p in state.params]
+            state.mesh = heads[0].mesh
+        return state
 
     def update(self, state: OptState) -> bool:
         """One update, in place, from the gradients in ``.grad`` (a parameter
@@ -244,7 +277,7 @@ class OptimizerSpec:
             for p, acc in zip(state.params, state.acc_grads):
                 p.grad = acc
             state.acc_grads, state.mini_step = None, 0
-        clip_by_global_norm_([p.grad for p in state.params], GRAD_CLIP_NORM)
+        clip_by_global_norm_([p.grad for p in state.params], GRAD_CLIP_NORM, state)
         lr = self.lr_schedule(state.count)
         momentum = self.momentum_schedule(state.count)
         for group in state.optimizer.param_groups:

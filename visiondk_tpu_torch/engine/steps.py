@@ -13,8 +13,10 @@ the embedding task (``task="embedding"``: the model's margin head gives
 (``cfg.ohem``: a per-sample weight from a no-grad forward of the clean batch,
 ``ohem_mask``), alone or together, and gradient accumulation (the optimizer's
 ``accumulate``: the EMA ticks only on the mini-steps that apply an update),
-and SAM (``cfg.sam``: a second forward/backward at w + e(w), the JAX step's
-single-device form).
+and SAM (``cfg.sam``: a second forward/backward at w + e(w); with more than
+one rank and ``local_perturb``, e from each rank's own gradient). Under a
+process group (``mesh``) the step is DDP over the ranks' rows of the global
+batch and computes what the JAX step computes on that global batch.
 
 ``make_eval_step`` and ``make_embed_step`` return callables ``step(batch)``
 that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
@@ -35,9 +37,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from visiondk_tpu_torch.engine.optim import OptimizerSpec, SAMConfig, sam_perturb
+from visiondk_tpu_torch.engine.optim import OptimizerSpec, OptState, SAMConfig, sam_perturb
 from visiondk_tpu_torch.engine.state import TrainState
 from visiondk_tpu_torch.models.ema import update_ema
+from visiondk_tpu_torch.models.layers import local_batch_moments
+from visiondk_tpu_torch.parallel.mesh import MeshContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,19 +78,30 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def ohem_mask(logits: torch.Tensor, labels: torch.Tensor, cfg: OHEMConfig) -> torch.Tensor:
+def ohem_mask(logits: torch.Tensor, labels: torch.Tensor, cfg: OHEMConfig, mesh=None) -> torch.Tensor:
     """Keep the samples whose true-class probability is below max(the k-th
     smallest of them, ``thresh``), k = ``min_kept`` (at most B − 1), and
     whose label is not ``ignore_index``: an f32 weight [B] of 0s and 1s (the
-    JAX ``ohem_mask``). An ignored label's probability is never read."""
+    JAX ``ohem_mask``). An ignored label's probability is never read. With a
+    distributed ``mesh`` the k-th smallest is the global batch's (every
+    rank's probabilities gathered), as the JAX step's over its sharded batch."""
     probs = torch.softmax(logits.float(), dim=1)
-    b = labels.shape[0]
     index = labels.long().clamp(0, probs.shape[1] - 1)  # ignored labels may lie past the classes
     tp = probs.gather(1, index[:, None])[:, 0]
     valid = labels != cfg.ignore_index
-    sorted_tp = torch.sort(torch.where(valid, tp, torch.inf)).values
-    threshold = sorted_tp[min(cfg.min_kept, b - 1)].clamp_min(cfg.thresh)
+    keyed = torch.where(valid, tp, torch.inf)
+    if mesh is not None:
+        keyed = mesh.world_rows(keyed)
+    sorted_tp = torch.sort(keyed).values
+    threshold = sorted_tp[min(cfg.min_kept, keyed.shape[0] - 1)].clamp_min(cfg.thresh)
     return (valid & (tp < threshold)).float()
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout seed of ``rank`` from the step's seed (the JAX step's
+    ``fold_in(key, axis_index('data'))``): rank 0 keeps it, so a run of one
+    process draws the masks of a run without a process group."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % 2**62
 
 
 def mixup_permutation(batch: int, generator: torch.Generator) -> torch.Tensor:
@@ -115,6 +130,7 @@ def make_train_step(
     cfg: StepConfig,
     generator: torch.Generator,
     device_augment: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step(state, batch, lam=0.0) -> {"loss": f32 scalar tensor}``.
 
@@ -148,13 +164,43 @@ def make_train_step(
     mixup λ and permutation, and dropout seed) with every buffer kept as the
     first pass left it (the BatchNorm statistics are the clean pass's), and
     restores the parameters from a copy, bit for bit; the update then runs
-    on the second gradients, and the loss reported is the first pass's. In
-    one process ε is the rank's and the global one at once, as on a
-    one-device JAX mesh; the per-rank form of a data-parallel run
-    (``cfg.sam.local_perturb``) needs distributed training, which the port
-    does not have yet.
+    on the second gradients, and the loss reported is the first pass's.
+
+    Distributed (``mesh`` over a process group; ``engine/trainer.py`` passes
+    the run's): ``batch`` is this rank's rows of the global batch, which is
+    every rank's rows in rank order, and the step computes the JAX step on
+    that global batch. The forward and backward run through
+    ``mesh.data_parallel(model)`` (DDP: the replicated gradients averaged
+    over the ranks); a class-sharded head's gradients are summed over the
+    data group and divided by W here. Where the JAX step is global over the
+    batch the step is too: the device-augment stage and mixup run on the
+    gathered global batch (the same draws on every rank) and each rank keeps
+    its rows; OHEM's k-th smallest probability and its loss's denominator
+    are the global batch's; BatchNorm takes the global moments (SyncBN,
+    ``models/layers.py``). Dropout draws from ``rank_seed``. The loss
+    returned is the global batch's (the mean of the ranks'). SAM with
+    ``cfg.sam.local_perturb``, more than one rank and no class sharding takes
+    the JAX step's per-rank form (``_sam_local_grads``): the first backward
+    without synchronisation, e from the rank's own gradient, BatchNorm on the
+    rank's own moments in both passes (then the running statistics averaged
+    over the ranks), the loss the rank's own (its mean reported), the second
+    gradients averaged. Otherwise e is the global one.
     """
     device = _device(model)
+    distributed = mesh is not None and mesh.distributed
+    net = mesh.data_parallel(model) if distributed else model
+    rank = mesh.rank if distributed else 0
+    sam_local = (cfg.sam is not None and cfg.sam.local_perturb and distributed and mesh.world > 1
+                 and mesh.n_model == 1)
+    # the global batch on every rank where a draw spans it
+    global_view = distributed and (device_augment is not None or cfg.mixup)
+
+    def finish_grads(opt: OptState) -> None:
+        # the class-sharded head: summed over the ranks that hold the shard, / W
+        if distributed and opt.sharded is not None:
+            shards = [p.grad for p, sharded in zip(opt.params, opt.sharded) if sharded and p.grad is not None]
+            mesh.data_sum_(shards)
+            torch._foreach_div_(shards, float(mesh.world))
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], lam: float = 0.0):
         if state.model is not model:
@@ -162,11 +208,17 @@ def make_train_step(
         model.train()
         images = batch["image"].to(device, non_blocking=True)
         labels = batch["label"].to(device, non_blocking=True)
-        seed = int(torch.randint(0, 2**62, (), generator=generator))
+        rows = images.shape[0]
+        seed = rank_seed(int(torch.randint(0, 2**62, (), generator=generator)), rank)
+        if global_view:
+            images = mesh.world_rows(images)
         if device_augment is not None:
             images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
         images = device_preprocess(images, cfg.mean, cfg.std)
         perm = mixup_permutation(images.shape[0], generator).to(device) if cfg.mixup else None
+        everyone = images
+        if global_view:
+            images = mesh.own_rows(everyone, rows)
         params = list(model.parameters())
         for p in params:
             p.grad = None
@@ -176,40 +228,62 @@ def make_train_step(
                 # the mask from the CLEAN images, before any mixing
                 torch.manual_seed(seed)
                 with torch.no_grad(), _buffers_kept(model):
-                    sw = ohem_mask(model(images), labels, cfg.ohem)
-                loss_of = lambda logits, y: lossfn(logits, y, sw)  # noqa: E731
+                    sw = ohem_mask(model(images), labels, cfg.ohem, mesh if distributed else None)
+                scale = 1.0
+                if distributed and not sam_local:
+                    # Σ w·l / max(Σ w, 1) over the global batch: this rank's share, × W
+                    kept = sw.sum()
+                    scale = mesh.world * kept.clamp_min(1.0) / mesh.world_sum(kept).clamp_min(1.0)
+                loss_of = lambda logits, y: scale * lossfn(logits, y, sw)  # noqa: E731
             if cfg.mixup:
                 lam32 = np.float32(lam)
                 rest = np.float32(1.0) - lam32
-                mixed = float(lam32) * images + float(rest) * images[perm]
+                shuffled = everyone[perm]
+                labels_b = (mesh.world_rows(labels) if global_view else labels)[perm]
+                if global_view:
+                    shuffled, labels_b = mesh.own_rows(shuffled, rows), mesh.own_rows(labels_b, rows)
+                mixed = float(lam32) * images + float(rest) * shuffled
 
             def forward_loss() -> torch.Tensor:
                 torch.manual_seed(seed)
                 if cfg.task == "embedding":
-                    logits, aux = model(images, labels)
+                    logits, aux = net(images, labels)
                     return loss_of(logits, labels) + aux
                 if cfg.mixup:
-                    logits = model(mixed)
-                    return float(lam32) * loss_of(logits, labels) + float(rest) * loss_of(logits, labels[perm])
-                return loss_of(model(images), labels)
+                    logits = net(mixed)
+                    return float(lam32) * loss_of(logits, labels) + float(rest) * loss_of(logits, labels_b)
+                return loss_of(net(images), labels)
 
-            loss = forward_loss()
-            loss.backward()
+            if sam_local:
+                with net.no_sync(), local_batch_moments(model):
+                    loss = forward_loss()
+                    loss.backward()
+                for b in model.buffers():  # the clean pass's running statistics, averaged
+                    if b.is_floating_point():
+                        b.copy_(mesh.world_mean(b))
+            else:
+                loss = forward_loss()
+                loss.backward()
+                finish_grads(state.optimizer)
             if cfg.sam is not None:
                 clean = [p.detach().clone() for p in params]
                 grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                # a class-sharded head's squares count once over its model group
+                shard = {} if sam_local or state.optimizer.mesh is None else {"state": state.optimizer}
                 with torch.no_grad():
-                    torch._foreach_add_(params, sam_perturb(params, grads, cfg.sam))
+                    torch._foreach_add_(params, sam_perturb(params, grads, cfg.sam, **shard))
                 del grads
                 for p in params:
                     p.grad = None
-                with _buffers_kept(model):
+                with _buffers_kept(model), local_batch_moments(model) if sam_local else contextlib.nullcontext():
                     forward_loss().backward()
+                finish_grads(state.optimizer)
                 with torch.no_grad():
                     torch._foreach_copy_(params, clean)
                 del clean
         apply_update(state, tx, cfg)
-        return {"loss": loss.detach()}
+        loss = loss.detach()
+        return {"loss": mesh.world_mean(loss) if distributed else loss}
 
     return step_fn
 

@@ -19,10 +19,8 @@ epoch, as the JAX loop does:
   schedules on applied counts with ``steps_per_epoch / k`` of them an epoch);
 - SAM (``hyp.optimizer: [sam, ...]``): SGD as the base optimizer and the
   step's second pass at w + e(w) (``StepConfig.sam``, with
-  ``hyp.sam_local_perturb``, default true). A run is one process, where the
-  per-rank ε of the JAX trainer's data-parallel mesh and the global ε are
-  the same step, as on a one-device JAX mesh; the per-rank form across ranks
-  waits for distributed training;
+  ``hyp.sam_local_perturb``, default true: the per-rank ε of a data-parallel
+  run, which in one process is the global one);
 - each step through the port's ``make_train_step``, fed by a
   ``DevicePrefetcher`` (batch N+1 is copied to the card while step N runs);
   per-step losses stay on the device, with one host read per epoch;
@@ -42,6 +40,15 @@ no warm-up or weakening, the loss is logged every ``print_freq`` steps, and
 every ``save_freq`` epochs the EMA model is evaluated (``_eval_embedding``:
 the 10-fold pair accuracy for face, the retrieval metrics for CBIR) and
 ``Epoch_{n}`` (with its metrics), ``best`` and ``last`` are saved.
+
+Distributed (``mesh``, a ``parallel.MeshContext`` over a process group;
+``main.py --multihost``): ``data.train.bs`` is the global batch and each rank
+loads its ``bs / W`` rows, the JAX loader's process shard (``_local_bs``);
+the train step runs DDP (``engine/steps.py``); with ``--model_parallel`` m > 1
+the margin head is class-sharded (``MarginHead.shard``) and its loss is the
+CE over class shards. Evaluation is replicated: every rank runs the whole val
+set, and only rank 0 logs, writes ``config.yaml``, ``metrics.jsonl`` and
+checkpoints (every rank takes part in a checkpoint's gather).
 
 A run trains on the card (``device="cuda"``, the default) unless the caller
 passes ``device="cpu"``; without CUDA the default raises. Compute is bf16
@@ -71,12 +78,14 @@ from visiondk_tpu_torch.engine import evaluation as cls_eval
 from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.engine.optim import OptimizerSpec, SAMConfig, create_optimizer
 from visiondk_tpu_torch.engine.schedules import create_scheduler, momentum_schedule
-from visiondk_tpu_torch.engine.state import TrainState, create_train_state
+from visiondk_tpu_torch.engine.state import TrainState, create_train_state, full_state_dict, load_full_state_dict
 from visiondk_tpu_torch.engine.steps import OHEMConfig, StepConfig, make_embed_step, make_eval_step, make_train_step
 from visiondk_tpu_torch.losses import create_lossfn
+from visiondk_tpu_torch.losses.losses import class_sharded_cross_entropy
 from visiondk_tpu_torch.models.convert import load_converted, merge_converted
 from visiondk_tpu_torch.models.factory import get_model
 from visiondk_tpu_torch.ops.device_augment import describe_split, make_device_augment
+from visiondk_tpu_torch.parallel.mesh import MeshContext, build_mesh
 from visiondk_tpu_torch.utils.logger import SmartLogger
 from visiondk_tpu_torch.utils.meters import AverageMeter
 from visiondk_tpu_torch.utils.metrics_writer import MetricsWriter
@@ -153,8 +162,11 @@ class CenterProcessor:
         device: torch.device | str = "cuda",
         compute_dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
+        mesh: Optional[MeshContext] = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh or build_mesh()
+        primary = self.mesh.is_primary()
         if self.device.type == "cuda":
             # a seeded run is bit-reproducible: cuDNN's deterministic algorithms, no autotuner
             torch.backends.cudnn.deterministic = True
@@ -167,10 +179,11 @@ class CenterProcessor:
         self.compute_dtype = compute_dtype
         self.seed = seed
 
-        self.project.mkdir(parents=True, exist_ok=True)
-        logfile = str(self.project / f"log{time.strftime('%Y%m%d-%H%M%S')}.log") if train else None
-        self.logger = SmartLogger(filename=logfile)
-        if train:
+        if primary:
+            self.project.mkdir(parents=True, exist_ok=True)
+        logfile = str(self.project / f"log{time.strftime('%Y%m%d-%H%M%S')}.log") if train and primary else None
+        self.logger = SmartLogger(filename=logfile, console=primary)
+        if train and primary:
             yaml_dump(cfgs, self.project / "config.yaml")
 
         strategy = self.hyp_cfg.get("strategy", {})
@@ -192,9 +205,18 @@ class CenterProcessor:
 
         self.model = get_model(self.model_cfg, dtype=compute_dtype, device=self.device,
                                generator=torch.Generator().manual_seed(seed))
+        # partial-FC: every rank drew the whole head from the seed and keeps its columns
+        self.class_sharded = self.task in ("face", "cbir") and self.mesh.n_model > 1
+        if self.class_sharded:
+            self.model.head.shard(self.mesh)
+        # rank 0 writes the run's class_indices.json before the other ranks read it
+        if not primary:
+            self.mesh.barrier()
         self.data_processor = SmartDataProcessor(
-            self.data_cfg, project=str(self.project), training=train, task=self.task,
+            self.data_cfg, project=str(self.project), rank_is_primary=primary, training=train, task=self.task,
         )
+        if primary:
+            self.mesh.barrier()
         # the device-augment stage: the lifted per-pixel random ops run on the
         # batch inside the train step, in the epochs whose train augments are live
         self.device_augment_fn = None
@@ -227,6 +249,10 @@ class CenterProcessor:
             if self.task in ("face", "cbir"):
                 valid = int(next(iter(self.model_cfg["head"].values()))["num_class"])
             self.lossfn = create_lossfn("ce", label_smooth=label_smooth, valid_class=valid)
+            if self.class_sharded:  # the embedding tasks weight no sample (no OHEM)
+                head = self.model.head
+                self.lossfn = lambda logits, targets, sample_weight=None: class_sharded_cross_entropy(  # noqa: E731
+                    logits, targets, head.num_class, head.class_offset, self.mesh, label_smooth)
             self.thresh = 0
         else:
             self.lossfn = create_lossfn("bce")
@@ -249,11 +275,32 @@ class CenterProcessor:
             self.imgsz_milestone = [int(x) for x in np.linspace(int(self.imgsz * 0.5), self.imgsz, 3)]
 
         # only the training run may delete half-written temporaries in its run dir
-        self.ckpt = CheckpointManager(self.project, writer=bool(train))
+        self.ckpt = CheckpointManager(self.project, writer=bool(train), mesh=self.mesh)
         self._step_cache: Dict[str, Callable] = {}
-        self.metrics_writer = MetricsWriter(self.project) if train else None
+        self.metrics_writer = MetricsWriter(self.project) if train and primary else None
 
     # ------------------------------------------------------------ helpers
+
+    def _local_bs(self, global_bs: int) -> int:
+        """This rank's train batch: ``data.train.bs`` is the global batch,
+        and each of the W ranks loads ``bs / W`` rows of it (the JAX
+        trainer's ``_local_bs``)."""
+        if global_bs % self.mesh.world:
+            raise ValueError(
+                f"data.train.bs={global_bs} must be divisible by the process count ({self.mesh.world}): "
+                "each process feeds bs/process_count rows of the global batch")
+        return global_bs // self.mesh.world
+
+    def _train_loader(self):
+        return self.data_processor.dataloader(
+            "train", self._local_bs(self.data_cfg["train"]["bs"]), seed=self.seed,
+            process_index=self.mesh.rank, process_count=self.mesh.world)
+
+    def _rank_note(self, msg) -> None:
+        """``msg`` on the console of a rank other than 0, tagged with it (its
+        logger is silent): a replicated evaluation's result on every rank."""
+        if not self.mesh.is_primary():
+            print(f"[rank {self.mesh.rank}] {msg}", flush=True)
 
     def _validate_hint(self) -> None:
         device_flag = "" if self.device.type == "cuda" else f" --device {self.device.type}"
@@ -275,7 +322,7 @@ class CenterProcessor:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
                 self.model, tx, lossfn, self.step_config(mixup), state.generator,
-                device_augment=self.device_augment_fn if device_aug else None)
+                device_augment=self.device_augment_fn if device_aug else None, mesh=self.mesh)
         return self._step_cache[key]
 
     def mixup_lambda(self, epoch: int, i: int) -> float:
@@ -325,8 +372,10 @@ class CenterProcessor:
         logger = self.logger
         dp = self.data_processor
 
-        train_loader = dp.dataloader("train", data_cfg["train"]["bs"], seed=self.seed)
+        train_loader = self._train_loader()
         val_loader = dp.dataloader("val", data_cfg["val"]["bs"])
+        self.mesh.check_replicated_eval(shuffle=bool(val_loader.shuffle),
+                                        process_sharded=int(val_loader.process_count) > 1, logger=logger)
         steps_per_epoch = max(len(train_loader), 1)
         _, table = tell_data_distribution({"train": dp.train_dataset, "val": dp.val_dataset})
         if self.model_cfg["num_classes"] <= 50:
@@ -408,6 +457,7 @@ class CenterProcessor:
             )
             fitness = val_metrics["fitness"]
             last_metrics = val_metrics
+            self._rank_note(f"epoch {epoch + 1} val fitness {fitness!r}")
             if self.thresh == 0:
                 logger.console(
                     f"{epoch + 1:>6}/{epochs:<3}{tloss:>12.4g}"
@@ -454,7 +504,7 @@ class CenterProcessor:
         logger = self.logger
         dp = self.data_processor
 
-        train_loader = dp.dataloader("train", data_cfg["train"]["bs"], seed=self.seed)
+        train_loader = self._train_loader()
         steps_per_epoch = max(len(train_loader), 1)
         # the schedule steps per batch (vision_engine.py:486-489)
         tx = build_tx(hyp, steps_per_epoch, discrete_per_epoch=False, model_cfg=self.model_cfg)
@@ -522,6 +572,7 @@ class CenterProcessor:
                 fitness = float(fitness_metrics["mean"] if "mean" in fitness_metrics
                                 else next(iter(fitness_metrics.values())))
                 logger.both(fitness_metrics)
+                self._rank_note(fitness_metrics)
                 if self.metrics_writer is not None:
                     for k, v in fitness_metrics.items():
                         self.metrics_writer.add_scalar(f"Val_{k}", float(v), epoch)
@@ -540,6 +591,7 @@ class CenterProcessor:
         """The embedding task's evaluation with ``embed_step`` (the EMA
         module's during training): ``{"mean", "std"}`` of the 10-fold pair
         accuracy for face, the retrieval metrics for CBIR."""
+        self.mesh.check_replicated_eval(logger=self.logger)
         val_aug = create_aug_transforms(self.data_cfg["val"]["augment"])
         if self.task == "face":
             mean, sem = face_eval.valuate(
@@ -583,8 +635,8 @@ class CenterProcessor:
         columns, so that is the shape match)."""
         path = Path(path)
         source = CheckpointManager(path.parent).read(path.name)["ema"]
-        merged = CheckpointManager.load_from(self.model.state_dict(), source, logger=self.logger, prefix="ema ")
-        self.model.load_state_dict(merged)
-        state.ema_model.load_state_dict(merged)
+        merged = CheckpointManager.load_from(full_state_dict(self.model), source, logger=self.logger, prefix="ema ")
+        load_full_state_dict(self.model, merged)
+        load_full_state_dict(state.ema_model, merged)
         self.logger.both(f"load_from: {path}")
         return state

@@ -60,6 +60,36 @@ def softmax_cross_entropy(
     return _weighted_mean(per_sample, sample_weight)
 
 
+def class_sharded_cross_entropy(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    num_class: int,
+    class_offset: int,
+    mesh,
+    label_smooth: float = 0.0,
+) -> torch.Tensor:
+    """``softmax_cross_entropy`` of int ``targets`` over logits whose classes
+    are split over ``mesh``'s model group: ``logits`` [R, C_j] are the model
+    group's R rows against this rank's shard of the ``num_class`` classes,
+    which starts at ``class_offset``; ``targets`` are this rank's rows (the
+    group's are gathered here). Per row, the maximum, the sum of
+    exponentials, the target logit and (for smoothing, over all
+    ``num_class`` classes) the sum of logits are reduced over the group:
+    ``lse − (1 − s)·z_y − (s/C)·Σ z``, the mean over the R rows. Every rank
+    of the group returns the same value."""
+    logits = logits.float()
+    labels = mesh.model_rows(targets).long() - class_offset
+    in_shard = (labels >= 0) & (labels < logits.shape[1])
+    row_max = mesh.model_max(logits.max(dim=1).values)
+    lse = row_max + torch.log(mesh.model_sum(torch.exp(logits - row_max[:, None]).sum(dim=1)))
+    picked = logits.gather(1, labels.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
+    target = mesh.model_sum(torch.where(in_shard, picked, 0.0))
+    per_row = lse - (1.0 - label_smooth) * target
+    if label_smooth > 0.0:
+        per_row = per_row - (label_smooth / num_class) * mesh.model_sum(logits.sum(dim=1))
+    return per_row.mean()
+
+
 def _bce_elements(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     # log(1 + e^-|x|), the stable form
     return logits.clamp_min(0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))

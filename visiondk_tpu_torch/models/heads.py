@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from visiondk_tpu_torch.ops import margin_heads as ops
+from visiondk_tpu_torch.parallel.mesh import shard_ranges
 
 
 class MarginHead(nn.Module):
@@ -37,16 +38,34 @@ class MarginHead(nn.Module):
         self.feat_dim, self.num_class = int(feat_dim), int(num_class)
         self.options = {**self.defaults, **options}
         self.weight = nn.Parameter(torch.empty(self.feat_dim, self.num_class))
+        self.mesh = None  # the MeshContext of a class-sharded head (``shard``)
+        self.class_offset = 0
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.weight.copy_(ops.init_margin_weight(generator, self.feat_dim, self.num_class))
 
+    def shard(self, mesh) -> None:
+        """Keep this rank's class shard of the (full, initialised) weight;
+        ``mesh.n_model`` must be more than 1."""
+        lo, hi = shard_ranges(self.num_class, mesh.n_model)[mesh.model_index]
+        self.weight = nn.Parameter(self.weight.detach()[:, lo:hi].clone())
+        self.mesh, self.class_offset = mesh, lo
+
     def forward(self, feats: torch.Tensor, labels: torch.Tensor):
-        return type(self).op(self.weight, feats, labels, **self.options)
+        if self.mesh is None:
+            return type(self).op(self.weight, feats, labels, **self.options)
+        feats = self.mesh.model_rows(feats)
+        labels = self.mesh.model_rows(labels) - self.class_offset
+        return type(self).op(self.weight, feats, labels, **self.options, **self.sharded_options())
+
+    def sharded_options(self) -> Dict[str, Any]:
+        return {}
 
     def extra_repr(self) -> str:
-        return f"feat_dim={self.feat_dim}, num_class={self.num_class}, " + ", ".join(
+        shard = "" if self.mesh is None else (
+            f", shard=[{self.class_offset}, {self.class_offset + self.weight.shape[1]})")
+        return f"feat_dim={self.feat_dim}, num_class={self.num_class}{shard}, " + ", ".join(
             f"{k}={v}" for k, v in self.options.items())
 
 
@@ -69,6 +88,9 @@ class CircleLossHead(MarginHead):
 class MVSoftmaxHead(MarginHead):
     op = staticmethod(ops.mv_softmax_logits)
     defaults = {"is_am": False, "margin": 0.35, "mv_weight": 1.12, "scale": 32.0}
+
+    def sharded_options(self) -> Dict[str, Any]:
+        return {"class_sum": self.mesh.model_sum}
 
 
 def build_head(head_config: dict) -> MarginHead:

@@ -17,9 +17,12 @@ Parameters are initialised as the JAX package initialises them (flax's
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -105,16 +108,63 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+def _synced(bn: nn.Module) -> bool:
+    """Whether a train-mode BatchNorm takes the global batch's moments: in a
+    process group of more than one rank, unless ``local_batch_moments`` is on."""
+    return not bn.local_moments and dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _global_batch_norm(bn: nn.Module, x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """SyncBN: normalise ``x`` (channels at dim 1) with the mean and biased
+    variance of the global batch, E[x²] − E[x]² from sums over every rank
+    (flax's ``use_fast_variance`` form, which batch-sharded flax BatchNorm
+    computes over the whole mesh), reduced by an all-reduce whose backward
+    sums the gradient over the ranks; the running statistics take the same
+    moments. In at least f32, whatever ``x``'s dtype."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = x.numel() // x.shape[1] * dist.get_world_size()
+    sums = dist_fn.all_reduce(torch.cat([x.sum(dims), torch.square(x).sum(dims)]))
+    mean, mean_sq = (sums / count).chunk(2)
+    var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)
+        bn.running_var.lerp_(var.to(bn.running_var.dtype), bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    scale = (torch.rsqrt(var + bn.eps) * bn.weight).reshape(shape)
+    return (x - mean.reshape(shape)) * scale + bn.bias.reshape(shape)
+
+
+@contextlib.contextmanager
+def local_batch_moments(model: nn.Module):
+    """Within, every BatchNorm of ``model`` takes its rank's own batch
+    moments in train mode (the JAX step's ``shard_map`` body: SAM's
+    per-rank pass)."""
+    norms = [m for m in model.modules() if isinstance(m, (BatchNorm1d, BatchNorm2d))]
+    for m in norms:
+        m.local_moments = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.local_moments = False
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """flax ``BatchNorm`` over [B, C]: in train mode it normalises with the
     batch's biased variance, as torch does, and also updates ``running_var``
     with that biased variance (torch's own uses the unbiased one, × n/(n−1)).
     ``momentum`` is torch's (flax momentum 0.9 ↔ 0.1); the state-dict keys are
-    torch's, so the weight bridge maps it unchanged."""
+    torch's, so the weight bridge maps it unchanged. In a process group of
+    more than one rank the batch is the global one (``_global_batch_norm``)."""
+
+    local_moments = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _synced(self):
+            return _global_batch_norm(self, x, (0,))
         with torch.no_grad():
             mean = x.mean(dim=0)
             var = x.var(dim=0, unbiased=False)
@@ -133,7 +183,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     scale and bias stay f32 (flax promotes ``x − mean`` to f32 and rounds the
     result to ``dtype``). ``momentum`` is torch's (flax 0.9 ↔ 0.1). With
     ``bn_eval`` it always normalises with the running statistics and never
-    updates them (the JAX ``use_running_average=(not train) or bn_eval``)."""
+    updates them (the JAX ``use_running_average=(not train) or bn_eval``).
+    In a process group of more than one rank the batch is the global one
+    (``_global_batch_norm``)."""
+
+    local_moments = False
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  bn_eval: bool = False, dtype: torch.dtype = torch.float32):
@@ -146,6 +200,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training or self.bn_eval:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.compute_dtype)
+        if _synced(self):
+            return _global_batch_norm(self, x, (0, 2, 3)).to(self.compute_dtype)
         # momentum 1 writes the batch's mean and unbiased variance into the scratch buffers
         mean, var = torch.zeros_like(self.running_mean), torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)

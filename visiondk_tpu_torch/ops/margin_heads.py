@@ -24,7 +24,7 @@ accumulation.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -104,13 +104,18 @@ def circle_logits(weight: torch.Tensor, feats: torch.Tensor, labels: torch.Tenso
 
 
 def mv_softmax_logits(weight: torch.Tensor, feats: torch.Tensor, labels: torch.Tensor, is_am: bool = False,
-                      margin: float = 0.35, mv_weight: float = 1.12, scale: float = 32.0) -> Pair:
+                      margin: float = 0.35, mv_weight: float = 1.12, scale: float = 32.0,
+                      class_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> Pair:
     """Mis-classified-vector guided softmax: hard negatives (cos above the
     margin-adjusted target) re-weighted by ``mv_weight``; the target column
-    takes an AM (``is_am``) or Arc margin."""
+    takes an AM (``is_am``) or Arc margin. For a weight that holds one shard
+    of the classes, ``class_sum`` sums the ground-truth cosine over the
+    shards (a label outside this shard matches no column here)."""
     cos = cosine_logits(weight, feats)
     mask_gt = _one_hot_mask(labels, cos.shape[1])
     gt = torch.sum(torch.where(mask_gt, cos, 0.0), dim=1, keepdim=True)  # [B, 1]
+    if class_sum is not None:
+        gt = class_sum(gt)
     if is_am:
         hard_mask = cos > (gt - margin)
         final_gt = torch.where(gt > margin, gt - margin, gt)

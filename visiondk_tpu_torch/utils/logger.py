@@ -3,7 +3,8 @@
 One instance per filename (a singleton), with ``console`` / ``log`` /
 ``both`` channels; dict messages are rendered as YAML (PyYAML is imported
 only for those). The console channel prints to the current ``sys.stdout``,
-so a redirected stdout sees it too.
+so a redirected stdout sees it too. ``SmartLogger(console=False)`` with no
+file is silent: the logger of a rank other than 0 in a distributed run.
 """
 
 from __future__ import annotations
@@ -15,18 +16,19 @@ from typing import Any, Optional
 class SmartLogger:
     _instances = {}
 
-    def __new__(cls, filename: Optional[str] = None):
-        key = filename or "<console>"
+    def __new__(cls, filename: Optional[str] = None, console: bool = True):
+        key = (filename or "<console>", console)
         if key not in cls._instances:
             cls._instances[key] = super().__new__(cls)
             cls._instances[key]._initialized = False
         return cls._instances[key]
 
-    def __init__(self, filename: Optional[str] = None):
+    def __init__(self, filename: Optional[str] = None, console: bool = True):
         if self._initialized:
             return
         self._initialized = True
         self.filename = filename
+        self._console = console
 
         self._file = None
         if filename is not None:
@@ -46,8 +48,9 @@ class SmartLogger:
         return str(msg)
 
     def console(self, *msgs: Any) -> None:
-        for m in msgs:
-            print(self._render(m), flush=True)
+        if self._console:
+            for m in msgs:
+                print(self._render(m), flush=True)
 
     def log(self, *msgs: Any) -> None:
         if self._file is not None:
