@@ -55,6 +55,26 @@ Phases, one line or more each; any failure raises and exits non-zero:
              models on the plain attention path (per-row cosine ≥ 0.999).
              Prints images/s of both paths. The same models in f32 must also
              agree on the argmax of ≥ 99% of rows.
+4q. int8 serving (phase Q8) — inside the ViT-B/16 and Swin-B slices, on
+             their models. The int8 GEMM (torch._int_mm behind ops/quant.py's
+             zero padding) equal to the float64 product of its codes at
+             ViT-B/16's fc1 at bs 128, its 37-class head on one image, SwinV2's
+             cpb_fc1 at ws 8 (K 2), a 1000-class head and an odd shape; an
+             unpadded 1-row product raises (nothing falls back to a float
+             product); one int8 dense at fc1 split into its quantize, _int_mm
+             and dequant beside bf16 F.linear and the int8 bound. The ViT-B/16
+             weight cache's codes and scales on the card equal the CPU's. The
+             eval and embed steps with quant="int8" (12 K1 or 24 K2 a forward):
+             per-row cosine of the int8 embeddings >= 0.99 to the bf16 and the
+             f32 ones, ViT-B/16's int8 logits >= 0.995 to f32 (Swin-B's
+             printed); embed images/s in the order bf16, int8, int8, bf16.
+4c. cam     — inside the same slices, on their f32 models: every CAM method
+             of utils/cam.py on ViT-B/16 (gradcam and fullgrad on Swin-B), one
+             image, class 3, the kernel path (counted: the stash forward and
+             the backward from P after the target layer, 18 K1s and K1b on
+             ViT-B/16, 25 K2s and K2b on Swin-B) against the plain attention
+             path: the heat maps within 1e-3 of their largest value (1e-2 for
+             ablationcam, scorecam and fullgrad).
 3w. window kernel — each of the four window-attention kernels against its
              plain version, f32 and bf16, at the Swin-B (bs 80) stage shapes
              (stage 0: 56×56, 4 heads, unshifted and shifted; stage 2: 14×14,
@@ -107,10 +127,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              Prints images/s and torch.cuda.max_memory_allocated of the
              kernel path with the P stash (the default), the kernel path with
              VDK_ATTN_NO_PCACHE=1 and the plain path (order kernel,
-             no-pcache, plain, plain, no-pcache, kernel), each trial 6
-             synchronised steps after 2 warm-up, each printed.
+             no-pcache, plain, plain, no-pcache, kernel), each trial 4
+             synchronised steps after 1 warm-up, each printed.
 5p. profile — the bf16 train step (its train batch) and eval step (bs 128)
-             on the kernel path: unprofiled step time (6 steps after 2
+             on the kernel path: unprofiled step time (4 steps after 1
              warm-up), then device time per step by kernel class
              (attention kernels by name, GEMMs, copies and casts, LayerNorm,
              optimizer, reductions, other elementwise) from torch.profiler
@@ -165,7 +185,9 @@ DA. device augment — the device-augment stage (visiondk_tpu_torch/ops/
              device→host sync fails the phase. Its time per batch (CUDA events,
              10 calls after 2 warm-up, and the host clock) at bs 128 beside
              phase 5's ViT-B/16 step, and at pet.yaml's bs 80.
-DT. determinism probe — a subprocess (CUBLAS_WORKSPACE_CONFIG=:4096:8):
+DT. determinism probe — a subprocess (CUBLAS_WORKSPACE_CONFIG=:4096:8),
+             started after the run loop and running beside phases ML and DS
+             (which check no timing):
              one bf16 train step each of face_synth's Swin-B embedding model
              (with the fixed-order relative-position bias gather, and with
              index_select's, the state before the repair), multilabel_csv's
@@ -192,7 +214,7 @@ CN. cnn — the CNN families at full width: multilabel_csv.yaml's resnet50
              class (convolutions, BatchNorm, layout transposes, copies and
              casts, pooling, optimizer, elementwise) and idle share for
              resnet50 and convnext_base (every row but resnet18 until PR 16),
-             and one train step on the card
+             and one train step (bs 2) on the card
              against the CPU in float64 (model, loss and pixels): loss within
              1e-5 relative, every gradient, update and BN statistic within
              1e-3 of its tensor's largest entry (a tensor whose exact
@@ -205,8 +227,8 @@ CN. cnn — the CNN families at full width: multilabel_csv.yaml's resnet50
              device; CNN_F32_PRINTED names the rows that print it).
 RL. run loop — the classification run loop through the port's own CLIs, on a
              temporary directory: benchmarks/make_synth_pet.py (a subprocess,
-             started after phase 1 and shared with ML and DS) writes 24
-             train and 4 val JPEGs per class (840 / 140), and
+             started after phase 1 and shared with ML and DS) writes 20
+             train and 4 val JPEGs per class (700 / 140), and
              configs/classification/pet_synth.yaml runs as written
              (data.train.device_augment "auto": the host keeps decode and the
              letterbox-or-RRC, the device-augment stage runs the rest) with
@@ -218,24 +240,29 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              Run A: `python -m visiondk_tpu_torch.main` in this process (runpy,
              sys.argv as on the command line): the split line the trainer
              logged, the epoch table, trainer-fed images/s per epoch, which
-             loaders ran (native or PIL), exactly 12 x 18 K1s, 12 x 18 K1b and
-             12 x 3 K1 launches (6 steps and one val batch an epoch), no other
-             attention kernel, and the stage's calls per epoch exactly 0 / 6 /
+             loaders ran (native or PIL), exactly 12 x 15 K1s, 12 x 15 K1b and
+             12 x 3 K1 launches (5 steps and one val batch an epoch), no other
+             attention kernel, and the stage's calls per epoch exactly 0 / 5 /
              0 (make_device_augment.calls, read at each epoch's start). Run B,
              the same command through `python -m torch.distributed.run
              --nproc_per_node 1 -m visiondk_tpu_torch.main --multihost` (one
-             NCCL rank: DDP, a one-rank all-reduce): per-epoch train loss, val
-             loss and top1 bit-identical to run A's. Run C, the same command as
+             NCCL rank: DDP, a one-rank all-reduce; a subprocess, run beside
+             run C's first process): per-epoch train loss, val loss and top1
+             bit-identical to run A's. Run C, the same command as
              a subprocess, SIGKILLed in epoch 1 once epoch 0's checkpoint is
              complete on disk, then `--resume` in this process: it must resume
-             from epoch 1 with stage calls 6 / 0, bit-identical to run A. `python -m visiondk_tpu_torch.validate --ema` on run A's best
-             checkpoint: 12 K1 launches and exactly run A's best-epoch top1.
-             Last, images/s of the train loader alone on epoch 1 (no step) with
-             the split host pipeline and with the full one (the
-             device_augment: false processor), each as the trainer builds it
-             (4 batches in flight) and with one batch in flight per worker,
-             beside the trainer-fed epochs and phase 5's synthetic batch, and
-             whether the trainer-fed run is host-paced.
+             from epoch 1 with stage calls 5 / 0, bit-identical to run A.
+             `python -m visiondk_tpu_torch.validate --ema` on run A's best
+             checkpoint: 12 K1 launches and exactly run A's best-epoch top1;
+             `validate --quant int8` on it: top1 within 0.02 of that; `python -m
+             visiondk_tpu_torch.visualize --cam --cam_method gradcam --sampling
+             8 --remove_label`: 8 side-by-side overlays and 8 label files, one
+             K1s and one K1b an image. Last, images/s of the train loader
+             alone on epoch 1 (no step) with the split host pipeline and with
+             the full one (the device_augment: false processor), each as the
+             trainer builds it (4 batches in flight), beside the trainer-fed
+             epochs and phase 5's synthetic batch, and whether the
+             trainer-fed run is host-paced.
 ML. multilabel run — configs/classification/multilabel_csv.yaml through
              the port's CLIs on a CSV written over RL's synthetic JPEGs
              (image_path, train True/False, three label columns: the bits of
@@ -301,7 +328,7 @@ SO. so400m — vit_so400m_patch14_siglip_224 at 224² (27 blocks, width
              K2b a step), on against off at the same bars; one f32 SAM step
              (SGD base, the second pass at w + e(w)) of ViT-B/16 at bs 32,
              kernel path against plain path at the same bars (24 K1s + 24 K1b:
-             two passes), and of resnet18 at bs 4 on the card against the CPU
+             two passes), and of resnet18 at bs 2 on the card against the CPU
              in float64 at phase CN's bars (the BatchNorm statistics are the
              first pass's); Swin-B with attention_pool (AttentionPooling over
              its token map, an f32 fc) serving bf16 bs 128 against the plain
@@ -319,8 +346,8 @@ SO run. configs/classification/pet.yaml with model.name
 ST. strategies — configs/classification/pet_synth.yaml (ViT-B/16, bs 128,
              the device-augment stage) through the port's CLIs with mixup
              (ratio 0.2, duration 1: live in epoch 1, after warm_ep), OHEM on
-             ([True, 8, 0.7, 255]) and hyp.accumulate 2, 2 epochs, on 19 of
-             the run loop's train JPEGs a class (5 steps an epoch, so epoch
+             ([True, 8, 0.7, 255]) and hyp.accumulate 2, 2 epochs, on 11 of
+             the run loop's train JPEGs a class (3 steps an epoch, so epoch
              0 ends in the middle of an accumulation round): runs A and B
              bit-identical, exactly 12 K1 (the OHEM forward) + 12 K1s + 12
              K1b a step and 12 K1 a val forward, the last checkpoint's
@@ -347,7 +374,7 @@ MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              scores' product and the top-k.
 ER. embedding run — the face and CBIR run loops through the port's CLIs on
              Swin-B, on a temporary directory: benchmarks/make_synth_face.py
-             (a subprocess, its defaults but --n-train 6: 64 ids x 6 train,
+             (a subprocess, its defaults but --n-train 4: 64 ids x 4 train,
              4 val, 300 pairs, and the CBIR twin: 64 queries, 192 gallery
              images; started after
              phase 1 on one CPU core, so it overlaps the phases before), then
@@ -361,7 +388,8 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              calls equal to the steps in every epoch (read at each epoch's
              evaluation). Run B, the same command through `python -m
              torch.distributed.run --nproc_per_node 1 ... --multihost` (one
-             NCCL rank, DDP): per-epoch loss and pair mean bit-identical to
+             NCCL rank, DDP; a subprocess beside run C's first process, as in
+             phase RL): per-epoch loss and pair mean bit-identical to
              run A's (the relative-position bias gather sums its gradient in a
              fixed order, and the trainer selects cuDNN's deterministic
              algorithms). Run D, through torchrun on two gloo ranks sharing the
@@ -378,7 +406,10 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              same cuts, one run with the same counts, and `validate --ema` and
              `python -m visiondk_tpu_torch.cbir_eval --ema` on its best: the
              best epoch's metrics exactly; cbir_eval's evaluation split into
-             embed forwards and product + top-k (host clock, synchronised).
+             embed forwards and product + top-k (host clock, synchronised);
+             `cbir_eval --quant int8` (its metrics beside bf16's) and
+             `visualize` over 4 query ids against the whole gallery (one
+             retrieval grid a query).
 DP. distributed — two ranks of `chip_smoke.py --dp-rank` (gloo, both on
              cuda:0, TF32 off): rank 0 first takes three world-1 steps at
              global bs 8 before the group exists, then both join it, try
@@ -423,10 +454,12 @@ seconds ([time] lines) and the run its total.
 The line before the last is a JSON summary of the ten kernels, with each
 kernel's launches counted on the main paths (the bf16 serving runs and the
 bf16 train runs of ViT-B/16, Swin-B and SwinV2-B, the run loop's in-process
-runs (A, C's resume, validate; run B runs through torchrun in a subprocess),
+runs (A, C's resume, validate, validate --quant int8, visualize --cam; run B
+runs through torchrun in a subprocess), the int8 serving and CAM runs of
+phases 4q and 4c,
 the distillation phase's (teacher runs A, B; distill runs A, B), the SwinV2
 run's (A, B, validate), the embedding runs' (face A, C's resume, D's resume,
-validate; CBIR, validate, cbir_eval), SwinV2-L's serving, training and run
+validate; CBIR, validate, cbir_eval, its int8 run, visualize), SwinV2-L's serving, training and run
 (A, B, validate), So400m's serving, training and run (A, B, validate), the
 strategy runs' (A, B, C's resume, validate), the vision path and phase DP
 (the world-2 steps, each gloo rank's counts read by that rank; the one-rank
@@ -481,6 +514,7 @@ from visiondk_tpu_torch.models.layers import Attention
 from visiondk_tpu_torch.ops import _build
 from visiondk_tpu_torch.ops import device_augment as da
 from visiondk_tpu_torch.ops import margin_heads as mh
+from visiondk_tpu_torch.ops import quant
 from visiondk_tpu_torch.ops import retrieval
 from visiondk_tpu_torch.ops import window_attention as wattn
 from visiondk_tpu_torch.ops.attention import (
@@ -504,6 +538,7 @@ from visiondk_tpu_torch.ops.window_attention import (
     fused_window_attention_fwd,
     fused_window_attention_fwd_stash,
 )
+from visiondk_tpu_torch.utils.cam import CAM_METHODS, ClassActivationMaper
 
 K1_KERNELS = (fused_qkv_attention_fwd, fused_qkv_attention_fwd_stash, fused_qkv_attention_bwd_from_p,
               fused_qkv_attention_bwd_recompute)
@@ -543,9 +578,9 @@ N_BATCHES = 3
 TRAIN_STEPS = 5
 NO_PCACHE_STEPS = 2
 # train images/s: each interleaved trial times this many steps after this many warm-up
-# few, for the script's time limit: host-clock rates over 6 synchronised steps of 60-180 ms
-TRAIN_RATE_STEPS = 6
-TRAIN_RATE_WARMUP = 2
+# few, for the script's time limit: host-clock rates over 4 synchronised steps of 60-180 ms
+TRAIN_RATE_STEPS = 4
+TRAIN_RATE_WARMUP = 1
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 P_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 DBIAS_TOL = 1e-4  # max |kernel − plain| over dbias, relative to max(1, its largest |plain| entry)
@@ -590,6 +625,8 @@ SWINV2 = Recipe("swinv2 serving", "swinv2 train", {**PET_MODEL, "name": SWINV2_N
                 {"task": "cbir", "backbone": {SWINV2_NAME: {"pretrained": False, "image_size": 256, "feat_dim": 128}}},
                 PET_HYP, 64, 16, 3, 24, wattn.KERNELS,
                 ("attn.qkv.weight", "attn.logit_scale", "attn.cpb_mlp.0.weight"), img=256)
+
+Q8_RECIPES = (VIT, SWIN)  # the slices that also run int8 serving (phase Q8) and CAM
 
 # (name, B, N, heads, head_dim, n_valid): the ViT-B/16 main-path shape (timed),
 # the JAX kernel test's unaligned N with a key mask, ViT-B/8's 785 tokens,
@@ -1343,6 +1380,9 @@ def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
 
     # the main path, counted: bf16 serving
     counts = compare_paths(recipe, cls_model, emb_model, batches, torch.bfloat16)
+    # int8 serving (phase Q8) on the same models and batch; its launches count with the slice's
+    q8 = timed(f"q8 {recipe.model['name']}", q8_serving, recipe, cls_model, emb_model, batches[0]) \
+        if recipe in Q8_RECIPES else None
 
     # throughput, interleaved: kernel, plain, plain, kernel
     steps = (("eval", make_eval_step(cls_model, StepConfig()), cls_model),
@@ -1360,8 +1400,223 @@ def phase_slice(dev: torch.device, recipe: Recipe) -> dict:
     torch.cuda.empty_cache()
 
     # the same check in f32, where the two paths differ only in f32 rounding
-    compare_paths(recipe, *build_models(recipe, torch.float32, dev), batches, torch.float32)
+    cls32, emb32 = build_models(recipe, torch.float32, dev)
+    compare_paths(recipe, cls32, emb32, batches, torch.float32)
+    if q8 is not None:
+        counts = add_counts(counts, q8_against_f32(recipe, q8, cls32, emb32, batches[0]))
+        counts = add_counts(counts, timed(f"cam {recipe.model['name']}", phase_cam, recipe, cls32, batches[0]))
+    del cls32, emb32
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- int8 serving (Q8) and CAM
+
+Q8_MIN_EMBED_COSINE = 0.99  # int8 embeddings against bf16 and f32, per row (tests/test_quant.py's bar)
+Q8_MIN_LOGIT_COSINE = 0.995  # int8 ViT-B/16 logits against f32, per row (tests/test_quant.py's bar)
+Q8_TOP1_POINTS = 0.02  # validate --quant int8's top1 against the bf16 validate's
+INT8_PEAK_OPS_PER_S = 1979e12  # H100 SXM, dense int8
+# (M, K, N) of the int8 GEMM held to the float64 product of its codes: ViT-B/16's fc1 at bs 128, its
+# 37-class head on one image (M 1, N 37: padded), SwinV2's cpb_fc1 at ws 8 (K 2: padded), a
+# 1000-class head at bs 128, and a small odd one
+Q8_GEMM_SHAPES = ((BATCH * 197, 768, 3072), (1, 768, 37), (225, 2, 512), (BATCH, 768, 1000), (5, 24, 4))
+CAM_CLASS = 3  # the class index every CAM is taken for
+CAM_TOL = 1e-3  # max |kernel path − plain path| over the heat map, relative to its largest value
+CAM_PERTURB_TOL = 1e-2  # the same for ablationcam, scorecam and fullgrad
+CAM_PERTURB = ("ablationcam", "scorecam", "fullgrad")
+# GradCAM++'s weights g²/(2g² + Σ A·g³) cancel in the denominator: its map moves by a few percent
+# when its gradient moves by 1e-6 (on ViT-B/16), so the kernel is held through that gradient
+CAM_ILL_CONDITIONED = ("gradcampp",)
+CAM_GRAD_TOL = 1e-5  # the injected map's gradient, kernel path vs plain, relative to its largest entry
+CAM_SWIN_METHODS = ("gradcam", "fullgrad")
+# the methods whose CAM takes one injected backward: one stash forward and one backward from P a call
+CAM_GRAD_METHODS = ("gradcam", "gradcampp", "xgradcam", "layercam", "hirescam", "eigengradcam")
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in KERNELS}
+
+
+def q8_gemm(dev: torch.device) -> None:
+    """The int8 GEMM (``torch._int_mm`` through ``ops/quant.py``'s padding)
+    against the float64 product of the same codes, bit for bit, at
+    Q8_GEMM_SHAPES; a shape ``_int_mm`` refuses raises; then one int8 dense
+    at fc1's shape split into its passes beside ``F.linear`` in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for m, k, n in Q8_GEMM_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = quant.quantize_weight(torch.randn(n, k, generator=gen, device=dev))
+        acc = quant.int8_matmul(xq, w)
+        # |sum| <= K·127² < 2**53: float64 is exact
+        exact = acc.dtype == torch.int32 and torch.equal(acc.double(), xq.double() @ w.q.double().T)
+        print(f"[q8] int8 GEMM M {m} K {k} N {n} (padded to {quant.int_mm_shape(m, k, n)}): equal to the "
+              f"float64 product of its codes: {exact} (required)")
+        check(exact, f"int8 GEMM at {(m, k, n)} differs from the float64 product of its codes")
+    saved = quant.INT_MM_MIN_ROWS
+    quant.INT_MM_MIN_ROWS = 1  # an unpadded single row: _int_mm refuses it, and nothing falls back
+    try:
+        quant.int8_matmul(xq[:1], w)
+        raised = False
+    except RuntimeError as e:
+        raised = True
+        print(f"[q8] an unpadded 1-row int8 GEMM raises: {str(e).splitlines()[0][:120]}")
+    finally:
+        quant.INT_MM_MIN_ROWS = saved
+    check(raised, "torch._int_mm took a 1-row product: the padding rules are out of date")
+
+    m, k, n = Q8_GEMM_SHAPES[0]
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w32 = 0.02 * torch.randn(n, k, generator=gen, device=dev)
+    bias = 0.02 * torch.randn(n, generator=gen, device=dev)
+    w = quant.quantize_weight(w32)
+    xq, sx = quant.quantize_tensor(x)
+    acc = quant.int8_matmul(xq, w)
+    wb, bb = w32.to(torch.bfloat16), bias.to(torch.bfloat16)
+    ms = {
+        "quantize x": cuda_ms(lambda: quant.quantize_tensor(x), 20),
+        "_int_mm": cuda_ms(lambda: quant.int8_matmul(xq, w), 20),
+        "dequant": cuda_ms(lambda: (acc.float() * (sx * w.scale) + bias).to(torch.bfloat16), 20),
+        "int8 dense": cuda_ms(lambda: quant.int8_dense_prequant(x, w, bias, torch.bfloat16), 20),
+        "bf16 F.linear": cuda_ms(lambda: F.linear(x, wb, bb), 20),
+    }
+    ref = F.linear(x.float(), w32, bias)
+    err = ((quant.int8_dense_prequant(x, w, bias, torch.bfloat16).float() - ref).norm() / ref.norm()).item()
+    ops = 2.0 * m * k * n
+    dense_bytes = m * k * 2 + k * n + 2 * n * 4 + m * n * 2  # x bf16, codes, scale and bias f32, y bf16
+    mm_bytes = m * k + k * n + m * n * 4  # the int8 operands and the int32 result
+    b_dense = max(dense_bytes / HBM_BYTES_PER_S, ops / INT8_PEAK_OPS_PER_S) * 1e3
+    b_mm = max(mm_bytes / HBM_BYTES_PER_S, ops / INT8_PEAK_OPS_PER_S) * 1e3
+    b_bf16 = max((m * k * 2 + k * n * 2 + n * 2 + m * n * 2) / HBM_BYTES_PER_S, ops / 989e12) * 1e3
+    print(f"[q8] one int8 dense at ViT-B/16 fc1 (M {m}, K {k}, N {n}; bf16 in and out; CUDA events, 20 calls): "
+          + ", ".join(f"{k_} {v:.4f} ms" for k_, v in ms.items())
+          + f"; int8 bound {b_dense:.4f} ms (bytes {dense_bytes / 1e6:.1f} MB at 3.35 TB/s vs {ops / 1e9:.1f} GOP "
+            f"at 1,979 TOP/s), _int_mm alone {b_mm:.4f} ms ({mm_bytes / 1e6:.1f} MB with its int32 result), bf16 "
+            f"bound {b_bf16:.4f} ms; int8 dense vs the f32 product: {err:.3e} relative (Frobenius)")
+
+
+def q8_serving(recipe: Recipe, cls_model, emb_model, batch: dict) -> dict:
+    """int8 serving on the slice's bf16 models: the eval and embed steps with
+    ``quant="int8"`` and the weight cache (launches counted), their outputs
+    beside the bf16 ones, and embed images/s in the order bf16, int8, int8,
+    bf16. On ViT-B/16 also the GEMM checks (``q8_gemm``) and the cache's codes
+    and scales on the card against the CPU's, bit for bit."""
+    fwd = recipe.kernels[0]
+    name = recipe.model["name"]
+    if recipe is VIT:
+        q8_gemm(batch["image"].device)
+    caches = {"cls": quant.build_weight_cache(cls_model), "emb": quant.build_weight_cache(emb_model)}
+    if recipe is VIT:
+        on_cpu = {p: quant.quantize_weight(m.weight.detach().cpu()) for p, m in quant.dense_layers(cls_model)}
+        same = all(torch.equal(caches["cls"][p].q.cpu(), c.q) and torch.equal(caches["cls"][p].scale.cpu(), c.scale)
+                   for p, c in on_cpu.items())
+        print(f"[q8] {name}: int8 weight cache of {len(caches['cls'])} dense layers, codes and scales on the card "
+              f"equal to the CPU's: {same} (required)")
+        check(same, "the int8 weight cache on the card differs from the CPU's")
+    steps = {
+        "bf16 logits": make_eval_step(cls_model, StepConfig()),
+        "int8 logits": make_eval_step(cls_model, StepConfig(), quant="int8", quant_cache=caches["cls"]),
+        "bf16 embed": make_embed_step(emb_model, StepConfig()),
+        "int8 embed": make_embed_step(emb_model, StepConfig(), quant="int8", quant_cache=caches["emb"]),
+    }
+    reset_counts()
+    out = {"int8 logits": steps["int8 logits"](batch), "int8 embed": steps["int8 embed"](batch)}
+    counts = read_counts()
+    check(counts == only({fwd: 2 * recipe.depth}),
+          f"int8 serving launches {[(NAMES[k], v) for k, v in counts.items()]}, want {2 * recipe.depth} {NAMES[fwd]}")
+    out.update({k: steps[k](batch) for k in ("bf16 logits", "bf16 embed")})
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{name} {k}: non-finite values")
+    rates = {"bf16": [], "int8": []}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        rates[kind].append(images_per_s(steps[f"{kind} embed"], batch))
+    print(f"[q8] {name} 128-d embedding bs {BATCH} images/s (CUDA events, 10 calls after 2): bf16 "
+          f"{rates['bf16'][0]:.1f}, {rates['bf16'][1]:.1f} | int8 {rates['int8'][0]:.1f}, {rates['int8'][1]:.1f} "
+          f"(order bf16, int8, int8, bf16); {NAMES[fwd]} launched {counts[fwd]} by the two int8 forwards")
+    return {"out": out, "counts": counts}
+
+
+def q8_against_f32(recipe: Recipe, q8: dict, cls32, emb32, batch: dict) -> dict:
+    """Phase Q8's bars, once the slice's f32 models (the same seeded weights)
+    are built: int8 embeddings against bf16 and f32, int8 logits against f32
+    (held on ViT-B/16, printed on Swin-B). Returns the int8 forwards' launches."""
+    out = q8["out"]
+    out["f32 logits"] = make_eval_step(cls32, StepConfig())(batch)
+    out["f32 embed"] = make_embed_step(emb32, StepConfig())(batch)
+    cos = {(a, b): row_cosine(out[a], out[b]).min().item() for a, b in (
+        ("int8 embed", "bf16 embed"), ("int8 embed", "f32 embed"), ("int8 logits", "f32 logits"),
+        ("bf16 logits", "f32 logits"))}
+    norms = torch.linalg.vector_norm(out["int8 embed"], dim=1)
+    print(f"[q8] {recipe.model['name']} bs {BATCH}: min row cosine " + ", ".join(
+        f"{a} vs {b} {v:.6f}" for (a, b), v in cos.items())
+        + f" (want >= {Q8_MIN_EMBED_COSINE} for the embeddings"
+        + (f", >= {Q8_MIN_LOGIT_COSINE} for int8 logits vs f32)" if recipe is VIT else "; logits printed)")
+        + f"; int8 embedding norms within {(norms - 1).abs().max().item():.2e} of 1")
+    check(cos["int8 embed", "bf16 embed"] >= Q8_MIN_EMBED_COSINE and cos["int8 embed", "f32 embed"]
+          >= Q8_MIN_EMBED_COSINE, "int8 embeddings below the cosine bar")
+    check(bool(((norms - 1).abs() < 1e-3).all()), "int8 embeddings are not unit-norm")
+    if recipe is VIT:
+        check(cos["int8 logits", "f32 logits"] >= Q8_MIN_LOGIT_COSINE, "int8 ViT-B/16 logits below the cosine bar")
+    return q8["counts"]
+
+
+def phase_cam(recipe: Recipe, model32, batch: dict) -> dict:
+    """CAM on the slice's f32 classification model, one image, class
+    CAM_CLASS: every method of ``utils/cam.py`` on ViT-B/16 (gradcam and
+    fullgrad on Swin-B), the kernel path (the stash forward and the backward
+    from P after the target layer, counted) against the plain attention path;
+    the heat maps before the overlay within CAM_TOL of their largest value
+    (CAM_PERTURB_TOL for the perturbation methods and fullgrad). Returns the
+    kernel path's launches."""
+    fwd, stash, bwd_p, _ = recipe.kernels
+    name = recipe.model["name"]
+    img = recipe.img
+    methods = CAM_METHODS if recipe is VIT else CAM_SWIN_METHODS
+    x = device_preprocess(batch["image"][:1], StepConfig().mean, StepConfig().std).cpu().numpy()
+    heat, secs, grads = {}, {}, {}
+    reset_counts()
+    for path in ("kernel", "plain"):
+        set_fused(model32, path == "kernel")
+        for method in methods:
+            t = time.perf_counter()
+            maper = ClassActivationMaper(model32, method, x, backbone_name=name)
+            heat[path, method] = maper.heatmap((img, img), x, class_idx=CAM_CLASS)
+            secs[path, method] = time.perf_counter() - t
+        if path == "kernel":
+            counts = read_counts()
+        # the gradient every gradient method reads: d(class score)/d(the target's map)
+        maper = ClassActivationMaper(model32, "gradcam", x, backbone_name=name)
+        xt = torch.from_numpy(x).to(batch["image"].device)
+        grads[path] = maper._grad(maper._capture(xt), xt, CAM_CLASS)
+    set_fused(model32, True)
+    check(read_counts() == add_counts(counts, only({fwd: 3 * recipe.depth - 1, stash: 1, bwd_p: 1})),
+          "the plain CAM path launched a kernel")
+    g_err = ((grads["kernel"] - grads["plain"]).abs().max() / grads["plain"].abs().max()).item()
+    print(f"[cam] {name}: d(score)/d(target map), kernel vs plain path: max |diff| / max |plain| {g_err:.3e} "
+          f"(want <= {CAM_GRAD_TOL})")
+    # the target is the last block's norm1, one attention after it; fullgrad differentiates every block
+    want = sum(m in CAM_GRAD_METHODS for m in methods) + recipe.depth * ("fullgrad" in methods)
+    print(f"[cam] {name} f32, one {img}² image, class {CAM_CLASS}: kernel path launches "
+          + ", ".join(f"{NAMES[k]} {counts[k]}" for k in (fwd, stash, bwd_p))
+          + f" (want {want} {NAMES[stash]} and {NAMES[bwd_p]}: one a gradient method, {recipe.depth} for fullgrad)")
+    check(counts[stash] == want and counts[bwd_p] == want and all(
+        v == 0 for k, v in counts.items() if k not in (fwd, stash, bwd_p)),
+        f"CAM launches {[(NAMES[k], v) for k, v in counts.items()]}")
+    worst = {}
+    for method in methods:
+        k, p = heat["kernel", method], heat["plain", method]
+        tol = CAM_PERTURB_TOL if method in CAM_PERTURB else CAM_TOL
+        worst[method] = float(np.abs(k - p).max() / max(np.abs(p).max(), 1e-12))
+        bar = "printed: held through its gradient" if method in CAM_ILL_CONDITIONED else f"want <= {tol}"
+        print(f"[cam] {name} {method}: heat map kernel vs plain path, max |diff| / max |plain| "
+              f"{worst[method]:.3e} ({bar}); {secs['kernel', method]:.2f} s kernel path, "
+              f"{secs['plain', method]:.2f} s plain")
+    check(g_err <= CAM_GRAD_TOL, f"CAM gradient on {name}: kernel path {g_err} from the plain path")
+    for method in methods:
+        k = heat["kernel", method]
+        check(k.shape == (img, img) and np.isfinite(k).all(), f"CAM {method}: shape {k.shape} or non-finite")
+        tol = CAM_PERTURB_TOL if method in CAM_PERTURB else CAM_TOL
+        check(method in CAM_ILL_CONDITIONED or worst[method] <= tol,
+              f"CAM {method} on {name}: kernel path {worst[method]} from the plain path")
     return counts
 
 
@@ -1976,11 +2231,11 @@ def phase_device_augment(dev: torch.device) -> None:
 
 # ---------------------------------------------------------------- run loop
 
-# the cuts of the run loop's pet_synth run: 24 train and 4 val JPEGs a class
-# (35 classes: 840 train = 6 steps of 128 an epoch with drop_last, 140 val =
+# the cuts of the run loop's pet_synth run: 20 train and 4 val JPEGs a class
+# (35 classes: 700 train = 5 steps of 128 an epoch with drop_last, 140 val =
 # one batch of 320), 3 epochs (0: val augments, the warm-up; 1: the full train
 # pipeline; 2: weakened to the val augments from aug_epoch 2 on)
-RUN_LOOP_CUTS = {"n_train_per_class": 24, "n_val_per_class": 4, "epochs": 3, "aug_epoch": 2}
+RUN_LOOP_CUTS = {"n_train_per_class": 20, "n_val_per_class": 4, "epochs": 3, "aug_epoch": 2}
 RUN_LOOP_LOSS_RTOL = 1e-3
 RUN_LOOP_TIMEOUT_S = 300
 
@@ -2066,19 +2321,47 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def torchrun_main(argv: list, project: Path, nproc: int = 1, extra=(), timeout: float = RUN_LOOP_TIMEOUT_S) -> float:
+def start_torchrun(argv: list, project: Path, nproc: int = 1, extra=()) -> tuple:
     """``python -m torch.distributed.run --nproc_per_node nproc -m
-    visiondk_tpu_torch.main --multihost argv`` as a subprocess (its output in
-    ``<project>.log``); fails unless it exits 0. Returns its seconds."""
+    visiondk_tpu_torch.main --multihost argv`` started as a subprocess (its
+    output in ``<project>.log``); ``finish_torchrun`` waits for it."""
     log = project.parent / f"{project.name}.log"
-    t0 = time.perf_counter()
-    with open(log, "w") as fh:
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
-                               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
-                               "-m", "visiondk_tpu_torch.main", "--multihost", *argv, "--project", str(project),
-                               "--seed", "0", *extra], stdout=fh, stderr=subprocess.STDOUT, timeout=timeout)
-    check(proc.returncode == 0, f"torchrun {project.name} exited with {proc.returncode}: {log.read_text()[-3000:]}")
+    fh = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+                             "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+                             "-m", "visiondk_tpu_torch.main", "--multihost", *argv, "--project", str(project),
+                             "--seed", "0", *extra], stdout=fh, stderr=subprocess.STDOUT)
+    return proc, fh, log, time.perf_counter()
+
+
+def finish_torchrun(run: tuple, timeout: float = RUN_LOOP_TIMEOUT_S) -> float:
+    """Waits for a ``start_torchrun`` run (``timeout`` seconds from its
+    start, killed after them) and fails unless it exited 0. Returns its
+    seconds."""
+    proc, fh, log, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fh.close()
+    check(proc.returncode == 0, f"torchrun {log.stem} exited with {proc.returncode}: {log.read_text()[-3000:]}")
     return time.perf_counter() - t0
+
+
+def stop_torchrun(run: tuple) -> None:
+    """Kills a ``start_torchrun`` run whose result is no longer wanted."""
+    proc, fh, _, _ = run
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    fh.close()
+
+
+def torchrun_main(argv: list, project: Path, nproc: int = 1, extra=(), timeout: float = RUN_LOOP_TIMEOUT_S) -> float:
+    """``start_torchrun`` and ``finish_torchrun`` in turn. Returns its seconds."""
+    return finish_torchrun(start_torchrun(argv, project, nproc, extra), timeout)
 
 
 def compare_runs(a: dict, b: dict, epochs, n_val: int) -> tuple:
@@ -2196,20 +2479,26 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
                 f"{val_batches} val batch x {epochs} epochs), no other attention kernel; device-augment stage "
                 f"calls by epoch {' / '.join(map(str, stage_a))}")
 
-        # run B: the same command through torchrun as one NCCL rank (DDP, a one-rank all-reduce): no bit moves
-        secs_b = torchrun_main(["--cfgs", str(yaml_path)], tmp / "runB")
+        # run B: the same command through torchrun as one NCCL rank (DDP, a one-rank all-reduce): no bit moves;
+        # a subprocess, beside run C's
+        run_b = start_torchrun(["--cfgs", str(yaml_path)], tmp / "runB")
+        # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
+        run_c = tmp / "runC"
+        try:
+            killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
+        except BaseException:
+            stop_torchrun(run_b)
+            raise
+        secs_b = finish_torchrun(run_b)
         metrics_b = read_metrics(tmp / "runB")
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_b, range(epochs), n_val)
         print(f"[{tag}] run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
-              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s) vs run A, epochs 1-{epochs}: largest train-loss "
-              f"difference {loss_d:.3e} relative, largest val-top1 difference {top1_d:.2f} images; bit-identical: "
-              f"{same} (required)")
+              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process) vs run A, epochs "
+              f"1-{epochs}: largest train-loss difference {loss_d:.3e} relative, largest val-top1 difference "
+              f"{top1_d:.2f} images; bit-identical: {same} (required)")
         check(same, "run B through torchrun (one NCCL rank) is not bit-identical to run A")
         shutil.rmtree(tmp / "runB")
 
-        # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
-        run_c = tmp / "runC"
-        killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
         done = sorted(read_metrics(run_c).get("Train_loss", {}))
         out_c, counts_c, metrics_c, _, stage_c = train(run_c, "--resume")
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
@@ -2239,11 +2528,12 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
         print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
               f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
         check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+        counts_s = run_loop_serving(tmp, root, top1_v, val_batches)
 
         # the host pipeline alone against the step: the train loader of epoch 1, no step, on the split
         # host pipeline the trainer runs (decode + letterbox-or-RRC) and on the full pipeline (the
         # device_augment: false processor); as built (at most `prefetch` = 4 batches in flight, one
-        # worker thread a batch), then with a batch in flight for every worker
+        # worker thread a batch)
         loader_rates, kinds = {}, {}
         for which, dev_aug in (("split", "auto"), ("full", False)):
             data_cfg = {**cfg["data"], "train": {**cfg["data"]["train"], "device_augment": dev_aug}}
@@ -2251,12 +2541,10 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
             loader = dp.dataloader("train", bs, seed=0)
             loader.set_epoch(1)
             built, kinds[which] = loader.prefetch, loader_kind(loader)
-            for in_flight in (built, loader.num_workers):
-                loader.prefetch = in_flight
-                t, n = time.perf_counter(), 0
-                for batch in loader:
-                    n += batch["image"].shape[0]
-                loader_rates[which, in_flight] = n / (time.perf_counter() - t)
+            t, n = time.perf_counter(), 0
+            for batch in loader:
+                n += batch["image"].shape[0]
+            loader_rates[which, built] = n / (time.perf_counter() - t)
         synthetic = TRAIN_RATES[VIT.train_tag]
         fed = rates_a[1]
         print(f"[{tag}] ViT-B/16 bf16 bs {bs} images/s: train loader alone ({loader.num_workers} workers on "
@@ -2268,9 +2556,66 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
               + f"; synthetic batch on the card (phase 5, kernel path) " + ", ".join(f"{r:.1f}" for r in synthetic)
               + f" -> the trainer-fed epoch 1 runs at {fed / (sum(synthetic) / len(synthetic)):.1%} of the "
                 f"synthetic rate: {'host-paced' if fed < 0.9 * min(synthetic) else 'not host-paced'}")
-        return {k: counts_a[k] + counts_c[k] + counts_v[k] for k in KERNELS}
+        return {k: counts_a[k] + counts_c[k] + counts_v[k] + counts_s[k] for k in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VIS_SAMPLING = 8  # images visualize --cam writes on the run loop's best
+
+
+def run_loop_serving(tmp: Path, root: Path, top1_bf16: float, val_batches: int) -> dict:
+    """Phases Q8 and CAM through the CLIs on the run loop's best checkpoint
+    (run A's): ``validate --quant int8`` (top1 within Q8_TOP1_POINTS of the
+    bf16 validate's), then ``visualize --cam --cam_method gradcam --sampling
+    8 --remove_label``: 8 side-by-side overlays and 8 label files, one stash
+    forward and one backward from P an image. Returns their launches."""
+    from PIL import Image
+
+    tag = "run loop"
+    fwd, stash, bwd_p, _ = K1_KERNELS
+    weight = ["--cfgs", str(tmp / "runA" / "config.yaml"), "--weight", str(tmp / "runA" / "best"), "--ema"]
+    reset_counts()
+    t = time.perf_counter()
+    out_q = run_cli("visiondk_tpu_torch.validate", weight + ["--quant", "int8"])
+    counts_q = read_counts()
+    secs_q = time.perf_counter() - t
+    check(counts_q == only({fwd: DEPTH * val_batches}),
+          f"validate --quant int8 launches {[(NAMES[k], v) for k, v in counts_q.items()]}")
+    top1_q = float(re.search(r"'top1': ([0-9.e+-]+)", out_q).group(1))
+    top5 = re.findall(r"'top5': ([0-9.e+-]+)", out_q)
+    print(f"[{tag}] validate --ema --quant int8 on run A's best: top1 {top1_q!r} (bf16 validate {top1_bf16!r}; "
+          f"want within {Q8_TOP1_POINTS}), top5 {top5[0] if top5 else '-'}; {secs_q:.1f} s with the model build; "
+          f"{NAMES[fwd]} launched {counts_q[fwd]}")
+    check(abs(top1_q - top1_bf16) <= Q8_TOP1_POINTS, f"int8 top1 {top1_q} vs bf16 {top1_bf16}")
+
+    vis = tmp / "vis"
+    reset_counts()
+    t = time.perf_counter()
+    run_cli("visiondk_tpu_torch.visualize", weight + ["--data", str(root / "val"), "--cam", "--cam_method", "gradcam",
+                                                      "--sampling", str(VIS_SAMPLING), "--remove_label",
+                                                      "--show_path", str(vis)])
+    counts_c = read_counts()
+    secs_c = time.perf_counter() - t
+    overlays = sorted((vis / "exp").glob("*.jpg"))
+    labels = sorted((vis / "exp" / "labels").glob("*.txt"))
+    side = [Image.open(p).size for p in overlays]
+    raw = [Image.open(next(root.glob(f"val/*/{p.name}"))).size for p in overlays]
+    paired = all(s == (2 * r[0], r[1]) for s, r in zip(side, raw))  # the image and its CAM side by side
+    # an image: its eval forward, the CAM's argmax forward and capture, the injected forward (the blocks
+    # before the target on the no-stash kernel, the last on the stash forward) and one backward from P;
+    # and the target search's forward once
+    per_image = {fwd: 3 * DEPTH + DEPTH - 1, stash: 1, bwd_p: 1}
+    want = only({k: v * VIS_SAMPLING + (DEPTH if k is fwd else 0) for k, v in per_image.items()})
+    print(f"[{tag}] visualize --ema --cam --cam_method gradcam --sampling {VIS_SAMPLING} --remove_label on run A's "
+          f"best: {len(overlays)} overlays (image and CAM side by side: {paired}), "
+          f"{len(labels)} label files; {secs_c:.1f} s with the model build; launches "
+          + ", ".join(f"{NAMES[k]} {counts_c[k]}" for k in (fwd, stash, bwd_p)))
+    check(len(overlays) == VIS_SAMPLING and len(labels) == VIS_SAMPLING and paired,
+          "visualize --cam did not write its overlays")
+    check(counts_c == want, f"visualize --cam launches {[(NAMES[k], v) for k, v in counts_c.items()]}, want "
+                            f"{[(NAMES[k], v) for k, v in want.items()]}")
+    return add_counts(counts_q, counts_c)
 
 
 # ---------------------------------------------------------------- margin heads and retrieval
@@ -2396,7 +2741,7 @@ def phase_margin_heads(dev: torch.device) -> None:
 FACE_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "face_synth.yaml"
 CBIR_SYNTH_YAML = PET_SYNTH_YAML.parents[1] / "faceX" / "cbir_synth.yaml"
 EMBED_RUN_EPOCHS = 2  # 3 until the CNN, multi-label and distillation phases took their share of the time
-FACE_SYNTH_N_TRAIN = 6  # train images an id (the generator's default is 20; 8 until PR 16), for the time limit
+FACE_SYNTH_N_TRAIN = 4  # train images an id (the generator's default is 20), cut for the time limit
 EMBED_RUN_TIMEOUT_S = 300
 
 
@@ -2611,20 +2956,25 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
                   f"face run A epoch {e}: metrics {[(t, v.get(e)) for t, v in metrics_a.items()]}")
         summary("face run A", train_a, evals_a, stage_a, metrics_a, secs_a, bytes_a, "Val_mean")
 
-        secs_b = torchrun_main(face_args, tmp / "B", timeout=EMBED_RUN_TIMEOUT_S)
+        # face run B through torchrun, a subprocess beside run C's first process
+        run_b = start_torchrun(face_args, tmp / "B")
+        run_c = tmp / "C"
+        try:
+            killed_in_epoch_1(face_args, run_c)
+        except BaseException:
+            stop_torchrun(run_b)
+            raise
+        secs_b = finish_torchrun(run_b, timeout=EMBED_RUN_TIMEOUT_S)
         metrics_b = read_metrics(tmp / "B")
         loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
                                                      1 / per_fold)
         print(f"[{tag}] face run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
-              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s) vs run A, epochs 1-{EMBED_RUN_EPOCHS}: largest "
-              f"train-loss difference {loss_d:.3e} relative, largest pair-mean difference {fit_d:.2f} pairs a fold; "
-              f"bit-identical: {same} (required)")
+              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process) vs run A, epochs "
+              f"1-{EMBED_RUN_EPOCHS}: largest train-loss difference {loss_d:.3e} relative, largest pair-mean "
+              f"difference {fit_d:.2f} pairs a fold; bit-identical: {same} (required)")
         check(same, "face run B through torchrun (one NCCL rank) is not bit-identical to run A")
         shutil.rmtree(tmp / "B")
-        add(face_two_ranks(tmp, cfg, face_yaml, steps, face_batches))
 
-        run_c = tmp / "C"
-        killed_in_epoch_1(face_args, run_c)
         done = sorted(read_metrics(run_c).get("Train_epoch_loss", {}))
         out_c, train_c, evals_c, stage_c, metrics_c, _, _ = embedding_epochs(run_c, *face_args, "--resume")
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
@@ -2640,6 +2990,7 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
         check(same, "the resumed face run C is not bit-identical to run A")
         add(train_c, evals_c)
         shutil.rmtree(run_c)
+        add(face_two_ranks(tmp, cfg, face_yaml, steps, face_batches))
 
         best = json.loads((tmp / "A" / "best" / "meta.json").read_text())
         fitness = json.loads((tmp / "A" / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
@@ -2707,13 +3058,60 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
         for label, counts in (("validate", counts_v), ("cbir_eval", counts_e)):
             check(counts == only({fwd: depth * cbir_batches}),
                   f"{label} launches {[(NAMES[k], v) for k, v in counts.items()]}")
-        add(train_r, evals_r, [counts_v, counts_e])
+        add(train_r, evals_r, [counts_v, counts_e], cbir_serving(tmp, weight, printed_e, cbir_batches, depth, fwd))
         return totals
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VIS_QUERIES = 4  # queries visualize draws a retrieval grid for on the CBIR run's best
+
+
+def cbir_serving(tmp: Path, weight: list, printed_bf16: dict, cbir_batches: int, depth: int, fwd) -> list:
+    """Phases Q8 and CAM's CBIR CLIs on the embedding run's CBIR checkpoint:
+    ``cbir_eval --quant int8`` (its metrics printed beside the bf16
+    cbir_eval's), then ``visualize`` over the first VIS_QUERIES queries
+    (``--root``: a folder of links) against the whole gallery, one grid a
+    query. Returns their launches."""
+    from PIL import Image
+
+    tag = "embedding run"
+    reset_counts()
+    t = time.perf_counter()
+    out_q = run_cli("visiondk_tpu_torch.cbir_eval", weight + ["--quant", "int8"])
+    counts_q = read_counts()
+    printed_q = dict(re.findall(r"^(\S+@\d+): (\S+)$", out_q, re.M))
+    print(f"[{tag}] cbir_eval --ema --quant int8 on the CBIR run's best ({time.perf_counter() - t:.1f} s with the "
+          f"model build): " + ", ".join(f"{k} {v} (bf16 {printed_bf16.get(k)})" for k, v in printed_q.items()))
+    check(counts_q == only({fwd: depth * cbir_batches}) and set(printed_q) == set(printed_bf16)
+          and all(math.isfinite(float(v)) for v in printed_q.values()),
+          f"cbir_eval --quant int8: launches {[(NAMES[k], v) for k, v in counts_q.items()]}, metrics {printed_q}")
+
+    sub = tmp / "cbir_vis"
+    (sub / "query").mkdir(parents=True)
+    queries = sorted((tmp / "cbir" / "query").iterdir())[:VIS_QUERIES]
+    for d in queries:
+        os.symlink(d, sub / "query" / d.name)
+    os.symlink(tmp / "cbir" / "gallery", sub / "gallery")
+    n_query = sum(1 for d in queries for _ in d.glob("*.jpg"))
+    n_gallery = sum(1 for _ in (tmp / "cbir" / "gallery").rglob("*.jpg"))
+    reset_counts()
+    t = time.perf_counter()
+    run_cli("visiondk_tpu_torch.visualize", weight + ["--root", str(sub), "--max_rank", "5",
+                                                      "--show_path", str(tmp / "cbir_grids")])
+    counts_g = read_counts()
+    grids = sorted((tmp / "cbir_grids" / "exp").glob("*.jpg"))
+    print(f"[{tag}] visualize --ema --root <{len(queries)} query ids, the whole gallery> --max_rank 5 on the CBIR "
+          f"run's best: {len(grids)} grids for {n_query} queries against {n_gallery} gallery images "
+          f"({time.perf_counter() - t:.1f} s with the model build); {NAMES[fwd]} launched {counts_g[fwd]}")
+    check(len(grids) == n_query and all(Image.open(g).size == (300 * 6, 1200) for g in grids),  # 18 x 12 in
+          f"visualize wrote {len(grids)} grids for {n_query} queries")
+    check(counts_g[fwd] > 0 and all(v == 0 for k, v in counts_g.items() if k is not fwd),
+          f"visualize (CBIR) launches {[(NAMES[k], v) for k, v in counts_g.items()]}")
+    return [counts_q, counts_g]
 
 
 # ---------------------------------------------------------------- CNNs, determinism, multi-label run, distillation
@@ -2745,7 +3143,7 @@ CNN_PROFILED = ("resnet50", "convnext_base")
 CNN_PROBED = ("convnext_base", "mobilenetv3_large_100")
 # the rows whose card-vs-CPU step is also printed in f32 (the float64 step is held for every row)
 CNN_F32_PRINTED = ()  # ("resnet50", "resnet18") until PR 16: cut for the script's time
-CNN_F32_BATCH = 4  # the CPU float64 steps of six CNNs (and resnet18's SAM step) set much of phase CN's time
+CNN_F32_BATCH = 2  # the CPU float64 steps of six CNNs (and resnet18's SAM step) set much of phase CN's time
 CNN_TENSOR_TOL = 1e-3  # card against CPU, max |diff| over a tensor relative to its largest |CPU| entry
 # device-time classes of a CNN step, by kernel name (lower case), first match wins
 CNN_KERNEL_CLASSES = (
@@ -2951,20 +3349,37 @@ def determinism_probe() -> None:
     print("DETERMINISM " + json.dumps(found))
 
 
-def run_determinism_probe() -> dict:
+def start_determinism_probe() -> tuple:
     """``determinism_probe`` in a subprocess with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS reads it at its first use,
-    and this process's cuBLAS keeps its default workspace); checks that the
-    repaired steps name no op. Returns its findings."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--determinism-probe"],
-                          env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-                          capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[determinism]")]
+    and this process's cuBLAS keeps its default workspace), started in the
+    background: it overlaps phases that check no timing (the multi-label run
+    and distillation). Returns what ``finish_determinism_probe`` takes."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--determinism-probe"],
+                            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_determinism_probe(probe: tuple) -> dict:
+    """Waits for the probe, prints its findings and checks that the repaired
+    steps name no op. Returns its findings."""
+    proc, out, t0 = probe
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    stdout = out.read()
+    out.close()
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[determinism]")]
     print("\n".join(lines))
-    check(proc.returncode == 0, f"the determinism probe exited with {proc.returncode}: {proc.stderr[-3000:]}")
-    found = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("DETERMINISM "))[12:])
-    print(f"[determinism] probe: {time.perf_counter() - t0:.1f} s (a subprocess)")
+    check(proc.returncode == 0, f"the determinism probe exited with {proc.returncode}: {stdout[-3000:]}")
+    found = json.loads(next(ln for ln in stdout.splitlines() if ln.startswith("DETERMINISM "))[12:])
+    print(f"[determinism] probe: {time.perf_counter() - t0:.1f} s (a subprocess, beside phases ML and DS)")
     for label, res in found.items():
         if "before the repair" not in label and "defaults" not in label:
             check(not res["ops"] and not res["unequal_gradients"], f"{label}: not deterministic: {res}")
@@ -3576,9 +3991,9 @@ def phase_swinv2_large(dev: torch.device) -> dict:
 # ---------------------------------------------------------------- strategies
 
 # pet_synth.yaml with mixup in epoch 1 (the epoch after warm_ep), OHEM on and
-# two mini-batches an update; 19 of the run loop's train JPEGs a class
-# (665: 5 steps of 128, so epoch 0 ends in the middle of a round of 2)
-ST_CUTS = {"n_train_per_class": 19, "epochs": 2, "mixup": {"ratio": 0.2, "duration": 1},
+# two mini-batches an update; 11 of the run loop's train JPEGs a class
+# (385: 3 steps of 128, so epoch 0 ends in the middle of a round of 2)
+ST_CUTS = {"n_train_per_class": 11, "epochs": 2, "mixup": {"ratio": 0.2, "duration": 1},
            "ohem": [True, 8, 0.7, 255], "accumulate": 2}
 
 
@@ -4373,18 +4788,23 @@ def run_phases(dev: torch.device, face_data: tuple, pet_data: tuple) -> tuple[di
         serving = timed(recipe.tag, phase_slice, dev, recipe)
         training = timed(recipe.train_tag, phase_train, dev, recipe)
         timed(f"profile {recipe.model['name']}", phase_profile, dev, recipe)
-        print(f"[launches] {recipe.model['name']} serving: {serving[recipe.kernels[0]]} no-stash forwards; "
-              f"training: " + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
+        print(f"[launches] {recipe.model['name']} serving (bf16" + (", int8 and the f32 CAMs" if recipe in Q8_RECIPES
+                                                                    else "") + "): "
+              + ", ".join(f"{NAMES[k]} {serving[k]}" for k in recipe.kernels if serving[k]) + "; training: "
+              + ", ".join(f"{NAMES[k]} {training[k]}" for k in recipe.kernels))
         launches = {k: launches[k] + serving[k] + training[k] for k in KERNELS}
     timed("profile embedding", phase_profile_embedding, dev)
     timed("margin heads", phase_margin_heads, dev)
     timed("device augment", phase_device_augment, dev)
-    timed("determinism probe", run_determinism_probe)
     timed("cnn", phase_cnn, dev)
     run_loop = timed("run loop", phase_run_loop, dev, pet_data)
     print("[launches] run loop: " + ", ".join(f"{NAMES[k]} {run_loop[k]}" for k in K1_KERNELS))
-    timed("multilabel run", phase_multilabel_run, dev, pet_data)
-    distill = timed("distill", phase_distill, dev, pet_data)
+    probe = start_determinism_probe()
+    try:
+        timed("multilabel run", phase_multilabel_run, dev, pet_data)
+        distill = timed("distill", phase_distill, dev, pet_data)
+    finally:
+        timed("determinism probe (the rest of it)", finish_determinism_probe, probe)
     print("[launches] distill (teacher runs A, B; distill runs A, B): "
           + ", ".join(f"{NAMES[k]} {distill[k]}" for k in wattn.KERNELS))
     swinv2_run = timed("swinv2 run", phase_swinv2_run, dev, pet_data)

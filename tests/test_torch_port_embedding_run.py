@@ -304,12 +304,35 @@ def test_cbir_eval_cli_reproduces_the_trainers_best(runs, capsys, tmp_path):
     assert Path(cache + ".meta.json").is_file()
 
 
-@pytest.mark.parametrize("flag", [["--recall_target", "0.95"], ["--quant", "int8"]])
+# approximate search at two recall targets (``--quant int8`` is ported: the test below runs it)
+@pytest.mark.parametrize("flag", [["--recall_target", "0.95"], ["--recall_target", "1.0"]])
 def test_cbir_eval_flags_of_unported_features_raise(runs, flag):
     project = runs["cbir"]["port"]
     with pytest.raises(NotImplementedError):
         _cli("visiondk_tpu_torch.cbir_eval", ["--cfgs", str(project / "config.yaml"), "--weight",
                                               str(project / "best"), "--device", "cpu", *flag])
+
+
+def test_cbir_eval_quant_int8_embeds_through_the_int8_layers(runs, capsys, monkeypatch):
+    """``cbir_eval --quant int8`` on the run's best: every dense layer of the
+    served EMA model through the int8 path, the same metrics printed."""
+    from visiondk_tpu_torch.ops import quant
+
+    calls = []
+    real = quant._int8_forward
+    monkeypatch.setattr(quant, "_int8_forward", lambda m, path, *a: calls.append(path) or real(m, path, *a))
+    project = runs["cbir"]["port"]
+    _cli("visiondk_tpu_torch.cbir_eval", ["--cfgs", str(project / "config.yaml"), "--weight", str(project / "best"),
+                                          "--ema", "--device", "cpu", "--quant", "int8"])
+    printed = {k: float(v) for k, v in re.findall(r"^(\S+): (\S+)$", capsys.readouterr().out, re.M)}
+    best = json.loads((project / "best" / "meta.json").read_text())
+    fitness = json.loads((project / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
+    assert set(printed) == set(fitness) and all(0.0 <= v <= 1.0 for v in printed.values())
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.models import get_model
+
+    dense = {p for p, _ in quant.dense_layers(get_model(yaml_load(project / "config.yaml")["model"], device="cpu"))}
+    assert dense and set(calls) == dense
 
 
 def test_cbir_eval_without_device_raises_without_a_gpu(runs):

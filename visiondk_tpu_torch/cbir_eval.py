@@ -2,14 +2,16 @@
 
     python -m visiondk_tpu_torch.cbir_eval --cfgs run/exp/config.yaml --weight run/exp/best \
         [--ema] [--cutoffs 1 3 5] [--metrics mrr recall ...] [--root <query/gallery root>] \
-        [--embedding_cache <path>] [--device cuda|cpu]
+        [--embedding_cache <path>] [--quant int8] [--device cuda|cpu]
 
 Embeds the query and gallery sets with the checkpoint's model, searches the
 gallery exactly (``ops/retrieval.py``: the inner-product top-k of the
 reference's faiss Flat index) and prints MRR/Recall/Precision@k, AUC and
 nDCG, one ``name: value`` line each. ``--device`` defaults to ``cuda``;
-without a card that raises. ``--recall_target`` (approximate search) and
-``--quant int8`` raise ``NotImplementedError``: neither is ported.
+without a card that raises. ``--quant int8`` embeds with every dense layer
+in int8 (``ops/quant.py``), its weights quantized once from the served
+model. ``--recall_target`` (approximate search) raises
+``NotImplementedError``: it is not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def parse_opt(argv=None):
                         "row-consistent, written after extraction otherwise")
     p.add_argument("--recall_target", type=float, default=None,
                    help="approximate search (not ported: raises); omit for exact search")
-    p.add_argument("--quant", type=str, default=None, choices=["int8"], help="int8 serving (not ported)")
+    p.add_argument("--quant", type=str, default=None, choices=["int8"],
+                   help="int8 dense inference for embedding extraction (ops/quant.py)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -45,10 +48,9 @@ def main(opt):
     from visiondk_tpu_torch.engine.state import create_train_state
     from visiondk_tpu_torch.engine.steps import make_embed_step
     from visiondk_tpu_torch.engine.trainer import CenterProcessor, build_tx, resolve_device
+    from visiondk_tpu_torch.ops.quant import build_weight_cache
     from visiondk_tpu_torch.ops.retrieval import require_exact
 
-    if opt.quant is not None:
-        raise NotImplementedError("--quant int8: int8 serving is not ported yet")
     require_exact(opt.recall_target)
     resolve_device(opt.device)
     cfgs = yaml_load(opt.cfgs)
@@ -60,7 +62,9 @@ def main(opt):
     tx = build_tx(cfgs["hyp"], steps_per_epoch=1, discrete_per_epoch=True, model_cfg=cfgs["model"])
     state, _ = CheckpointManager(weight.parent).restore(weight.name, create_train_state(cp.model, tx))
 
-    embed_step = make_embed_step(state.ema_model if opt.ema else state.model, cp.step_config())
+    served = state.ema_model if opt.ema else state.model
+    qcache = build_weight_cache(served) if opt.quant == "int8" else None
+    embed_step = make_embed_step(served, cp.step_config(), quant=opt.quant, quant_cache=qcache)
     val_aug = create_aug_transforms(cfgs["data"]["val"]["augment"])
     query, gallery = CBIRDatasets.build(cfgs["data"]["root"], transforms=val_aug)
     metrics = cbir_eval.valuate(

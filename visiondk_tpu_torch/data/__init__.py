@@ -4,6 +4,7 @@ from visiondk_tpu_torch.data.datasets import (
     CBIRDatasets,
     EmbeddingDistillDataset,
     ImageDatasets,
+    PredictImageDatasets,
     read_image,
     read_label_csv,
     smooth_labels,
@@ -29,6 +30,7 @@ __all__ = [
     "DevicePrefetcher",
     "EmbeddingDistillDataset",
     "ImageDatasets",
+    "PredictImageDatasets",
     "SPATIAL_TRANSFORMS",
     "SmartDataProcessor",
     "create_aug_transforms",

@@ -9,14 +9,15 @@ train time and read back at eval time, and a corrupt-image retry),
 returns a **uint8 HWC** array; the loaders stack fixed-shape numpy batches.
 ``CBIRDatasets`` is the query/gallery pair of the CBIR task and
 ``EmbeddingDistillDataset`` the (image, teacher feature) pairs of embedding
-distillation. A CSV is read with the stdlib ``csv`` module
-(``read_label_csv``), as the JAX package reads it with pandas. The HF source
-needs the ``datasets`` library and a dataset it can load offline. The
-prediction dataset belongs to a port still to come.
+distillation, ``PredictImageDatasets`` the images the predict tools run
+over. A CSV is read with the stdlib ``csv`` module (``read_label_csv``), as
+the JAX package reads it with pandas. The HF source needs the ``datasets``
+library and a dataset it can load offline.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import random
@@ -285,6 +286,58 @@ def tell_data_distribution(
         return "| " + " | ".join(c.ljust(w) for c, w in zip(cells, widths)) + " |"
     lines = [sep, fmt(headers), sep] + [fmt(r) for r in table_rows] + [sep]
     return rows, "\n".join(lines)
+
+
+class PredictImageDatasets:
+    """Inference dataset over a directory tree, a CSV with an ``image_path``
+    column, or one image file: returns (uint8 array, path). A tree is walked
+    in sorted order, only the folders named ``target_class`` where one is
+    given; ``sampling`` keeps the first that many images."""
+
+    def __init__(
+        self,
+        root: str,
+        transforms: Optional[Callable] = None,
+        target_class: Optional[str] = None,
+        sampling: Optional[int] = None,
+    ):
+        self.transforms = transforms
+        self.images: List[str] = []
+        root = str(root)
+        if os.path.isdir(root):
+            for dirpath, _, files in sorted(os.walk(root)):
+                if target_class is not None and Path(dirpath).name != target_class:
+                    continue
+                for f in sorted(files):
+                    if Path(f).suffix.lower() in IMG_EXTENSIONS:
+                        self.images.append(os.path.join(dirpath, f))
+        elif root.endswith(".csv"):
+            with open(root, newline="", encoding="utf-8") as f:
+                self.images = [row["image_path"] for row in csv.DictReader(f)]
+        elif os.path.isfile(root):
+            self.images = [root]
+        else:
+            raise ValueError(f"cannot build prediction dataset from {root!r}")
+        if sampling is not None:
+            self.images = self.images[:sampling]
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, str]:
+        # the next readable image where one is corrupt
+        for off in range(len(self)):
+            path = self.images[(index + off) % len(self)]
+            try:
+                img = read_image(path)
+                break
+            except Exception:
+                continue
+        else:
+            raise RuntimeError("no readable images")
+        if self.transforms is not None:
+            img = self.transforms(img)
+        return np.asarray(img), path
 
 
 class EmbeddingDistillDataset:

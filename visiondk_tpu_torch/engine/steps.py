@@ -23,8 +23,9 @@ that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
 device and run the forward in eval mode under ``torch.inference_mode()``.
 The module carries its own weights, so where the JAX steps choose
 ``state.params`` or ``state.ema_params`` (``use_ema``), the caller passes
-the module it wants served (``state.model`` or ``state.ema_model``). int8
-serving is not ported yet.
+the module it wants served (``state.model`` or ``state.ema_model``). With
+``quant="int8"`` every dense layer computes in int8 (``ops/quant.py``),
+from ``quant_cache`` where the caller built one from the served module.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from visiondk_tpu_torch.engine.optim import OptimizerSpec, OptState, SAMConfig, 
 from visiondk_tpu_torch.engine.state import TrainState
 from visiondk_tpu_torch.models.ema import update_ema
 from visiondk_tpu_torch.models.layers import local_batch_moments
+from visiondk_tpu_torch.ops.quant import check_quant, dense_layers, quantized
 from visiondk_tpu_torch.parallel.mesh import MeshContext
 
 
@@ -300,30 +302,53 @@ def apply_update(state: TrainState, tx: OptimizerSpec, cfg: StepConfig) -> None:
     state.step += 1
 
 
-def make_eval_step(model: nn.Module, cfg: StepConfig) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+def _serving(model: nn.Module, quant: Optional[str], quant_cache: Optional[dict]) -> Callable:
+    """The context a serving step runs its forward in: inference mode, and
+    with ``quant="int8"`` every dense layer in int8 (``ops/quant.py``; the
+    JAX ``_inference_apply``). ``quant_cache`` (``build_weight_cache`` of
+    the served module) skips the per-call weight quantization; training-time
+    evaluation passes none."""
+    quant = check_quant(quant)  # a typo ('int4') raises
+    layers = dense_layers(model) if quant else None
+
+    @contextlib.contextmanager
+    def serving():
+        with torch.inference_mode(), quantized(model, quant_cache, layers) if quant else contextlib.nullcontext():
+            yield
+
+    return serving
+
+
+def make_eval_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = None,
+                   quant_cache: Optional[dict] = None) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
     """Classification eval: batch → f32 logits [B, num_classes]. Puts
     ``model`` in eval mode on every call (BatchNorm running stats, no
     dropout or DropPath), as the JAX step passes ``train=False``: a train
-    step on the same model may have left it in train mode."""
+    step on the same model may have left it in train mode. ``quant`` and
+    ``quant_cache``: see ``_serving``."""
     device = _device(model)
+    serving = _serving(model, quant, quant_cache)
 
     def eval_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         model.eval()
-        with torch.inference_mode():
+        with serving():
             images = device_preprocess(batch["image"].to(device, non_blocking=True), cfg.mean, cfg.std)
             return model(images).to(torch.float32)
 
     return eval_fn
 
 
-def make_embed_step(model: nn.Module, cfg: StepConfig) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+def make_embed_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = None,
+                    quant_cache: Optional[dict] = None) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
     """Embedding extraction: batch → L2-normalised f32 [B, feat_dim],
-    ``x / max(‖x‖, 1e-12)``. Puts ``model`` in eval mode on every call."""
+    ``x / max(‖x‖, 1e-12)``. Puts ``model`` in eval mode on every call.
+    ``quant`` and ``quant_cache``: see ``_serving``."""
     device = _device(model)
+    serving = _serving(model, quant, quant_cache)
 
     def embed_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         model.eval()
-        with torch.inference_mode():
+        with serving():
             images = device_preprocess(batch["image"].to(device, non_blocking=True), cfg.mean, cfg.std)
             feats = model.embed(images).to(torch.float32)
             norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)

@@ -192,7 +192,7 @@ class MobileNetV3(nn.Module):
         groups.append(nn.Sequential(ConvBnAct(in_ch, head_ch, act=self.act, **common)))
         self.blocks = nn.Sequential(*groups)
         self.feature_shape = (size, size, head_ch)
-        self.conv_head = Conv2d(head_ch, head_width, 1) if num_classes else None
+        self.conv_head = Conv2d(head_ch, head_width, 1, dense=True) if num_classes else None
         self.classifier = Linear(head_width, num_classes) if num_classes else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

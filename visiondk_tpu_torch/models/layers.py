@@ -69,14 +69,18 @@ class Conv2d(nn.Conv2d):
     (``tf_same_padding``), computed at each call from the input's own H and
     W: the symmetric part is the convolution's padding, and only an odd
     pixel bottom/right is padded ahead of it (``F.pad`` keeps the
-    ``channels_last`` layout)."""
+    ``channels_last`` layout). ``dense`` marks a 1×1 convolution on a pooled
+    [B, C, 1, 1] map that the JAX package builds as ``nn.Dense``: int8
+    serving quantizes it (``ops/quant.py``) and FullGrad leaves it out
+    (``utils/cam.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = True, tf_same: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dense: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
                          groups=groups, bias=bias)
         self.tf_same = tf_same
+        self.dense = dense
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -261,8 +265,8 @@ class SEBlock(nn.Module):
                  gate: Callable = hard_sigmoid, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act, self.gate = act, gate
-        self.conv_reduce = Conv2d(channels, reduce_ch, 1, dtype=dtype)
-        self.conv_expand = Conv2d(reduce_ch, channels, 1, dtype=dtype)
+        self.conv_reduce = Conv2d(channels, reduce_ch, 1, dense=True, dtype=dtype)
+        self.conv_expand = Conv2d(reduce_ch, channels, 1, dense=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.conv_expand(self.act(self.conv_reduce(x.mean(dim=(2, 3), keepdim=True))))
@@ -449,17 +453,16 @@ def _latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: 
 
 class PatchEmbed(nn.Module):
     """NHWC RGB image → [B, (H/p)·(W/p), C] patch tokens via a strided conv
-    (row-major patch order, as the JAX package's NHWC reshape)."""
+    (row-major patch order, as the JAX package's NHWC reshape). ``proj`` is
+    called as a module, so a hook sees its 4-D map (FullGrad's bias layers)."""
 
     def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(3, embed_dim, patch_size, stride=patch_size, dtype=dtype)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        x = x.to(dt).permute(0, 3, 1, 2)  # NHWC → NCHW view
-        x = F.conv2d(x, self.proj.weight.to(dt), self.proj.bias.to(dt), stride=self.proj.stride)
+        x = self.proj(x.permute(0, 3, 1, 2))  # NHWC → NCHW view
         return x.flatten(2).transpose(1, 2)
 
 

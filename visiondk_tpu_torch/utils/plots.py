@@ -1,13 +1,14 @@
-"""Console colorization and confusion-matrix rendering (counterpart of
-``visiondk_tpu/utils/plots.py``: ``colorstr`` and ``plot_confusion_matrix``;
-its ``Annotator`` serves the predict tools, which are not ported yet).
-matplotlib is imported only when a confusion matrix is drawn.
+"""Console colorization, image annotation and confusion-matrix rendering
+(counterpart of ``visiondk_tpu/utils/plots.py``: ``colorstr``, ``Annotator``
+and ``load_font``, which the predict tools use, and
+``plot_confusion_matrix``). matplotlib is imported only when a confusion
+matrix is drawn.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -41,6 +42,34 @@ def colorstr(*inputs):
     else:
         styles, text = inputs[:-1], inputs[-1]
     return "".join(_COLORS[s] for s in styles) + str(text) + _COLORS["end"]
+
+
+def load_font(size: int):
+    """DejaVuSans at ``size`` where PIL finds it, else PIL's default font
+    (nothing is downloaded)."""
+    from PIL import ImageFont
+
+    try:
+        return ImageFont.truetype("DejaVuSans.ttf", size)
+    except OSError:
+        return ImageFont.load_default()
+
+
+class Annotator:
+    """Draw top-k prediction text onto a PIL image (top-left, stacked)."""
+
+    def __init__(self, im, font_size: Optional[int] = None):
+        from PIL import ImageDraw
+
+        self.im = im
+        self.draw = ImageDraw.Draw(im)
+        self.font = load_font(font_size or max(round(sum(im.size) / 2 * 0.035), 12))
+        self._y = 2
+
+    def text(self, text: str, color=(255, 0, 0)) -> None:
+        self.draw.text((2, self._y), text, fill=color, font=self.font)
+        bbox = self.draw.textbbox((2, self._y), text, font=self.font)
+        self._y = bbox[3] + 2
 
 
 def plot_confusion_matrix(

@@ -1,14 +1,14 @@
 """Evaluation CLI (counterpart of the repo's ``validate.py``), on the card by default::
 
     python -m visiondk_tpu_torch.validate --cfgs run/exp/config.yaml --weight run/exp/best \
-        [--ema] [--eval_topk 5] [--thresh 0.5] [--device cuda|cpu]
+        [--ema] [--eval_topk 5] [--thresh 0.5] [--quant int8] [--device cuda|cpu]
 
 Classification: top-1/top-k (or multi-label precision/recall/F1), the
 per-class table and, for ≤ 10 classes, a confusion-matrix PNG beside the
 checkpoint. Face: the 10-fold pair accuracy ``{'mean', 'std'}``; CBIR: the
 retrieval metrics dict. ``--ema`` serves the EMA weights, as the trainer's
-validation does. ``--quant int8`` raises ``NotImplementedError``: int8
-serving is not ported yet.
+validation does. ``--quant int8`` serves every dense layer in int8
+(``ops/quant.py``), its weights quantized once from the served model.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def parse_opt(argv=None):
     p.add_argument("--ema", action="store_true", help="evaluate the EMA weights")
     p.add_argument("--eval_topk", type=int, default=5)
     p.add_argument("--thresh", type=float, default=None, help="multilabel threshold override")
-    p.add_argument("--quant", type=str, default=None, choices=["int8"], help="int8 serving (not ported)")
+    p.add_argument("--quant", type=str, default=None, choices=["int8"], help="int8 dense inference (ops/quant.py)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -36,9 +36,8 @@ def main(opt):
     from visiondk_tpu_torch.engine.state import create_train_state
     from visiondk_tpu_torch.engine.steps import make_embed_step, make_eval_step
     from visiondk_tpu_torch.engine.trainer import CenterProcessor, build_tx, resolve_device
+    from visiondk_tpu_torch.ops.quant import build_weight_cache
 
-    if opt.quant is not None:
-        raise NotImplementedError("--quant int8: int8 serving is not ported yet")
     resolve_device(opt.device)
     cfgs = yaml_load(opt.cfgs)
     weight = Path(opt.weight)
@@ -51,11 +50,13 @@ def main(opt):
     print(f"loaded {weight} (epoch {meta.get('epoch')}, best_fitness {meta.get('best_fitness')})")
 
     served = state.ema_model if opt.ema else state.model
+    # serving weights are fixed: their int8 codes are taken once, not every batch
+    quant = {"quant": opt.quant, "quant_cache": build_weight_cache(served) if opt.quant == "int8" else None}
     if cp.task != "classification":
-        metrics = cp._eval_embedding(make_embed_step(served, cp.step_config()))
+        metrics = cp._eval_embedding(make_embed_step(served, cp.step_config(), **quant))
         print(metrics)
         return metrics
-    eval_step = make_eval_step(served, cp.step_config())
+    eval_step = make_eval_step(served, cp.step_config(), **quant)
     loader = cp.data_processor.dataloader("val", cfgs["data"]["val"]["bs"])
     thresh = opt.thresh if opt.thresh is not None else (cp.thresh if cp.loss_choice == "bce" else None)
     names = cp.data_processor.val_dataset.class_names
