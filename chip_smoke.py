@@ -247,35 +247,55 @@ RL. run loop — the classification run loop through the port's own CLIs, on a
              the same command through `python -m torch.distributed.run
              --nproc_per_node 1 -m visiondk_tpu_torch.main --multihost` (one
              NCCL rank: DDP, a one-rank all-reduce; a subprocess, run beside
-             run C's first process): per-epoch train loss, val loss and top1
-             bit-identical to run A's. Run C, the same command as
-             a subprocess, SIGKILLed in epoch 1 once epoch 0's checkpoint is
-             complete on disk, then `--resume` in this process: it must resume
-             from epoch 1 with stage calls 5 / 0, bit-identical to run A.
+             run C's first process and the serving CLIs below): per-epoch
+             train loss, val loss and top1 bit-identical to run A's. Run C,
+             the same command as a subprocess, SIGKILLed in epoch 1 once epoch
+             0's checkpoint is complete on disk, then `--resume` in this
+             process (after the serving CLIs): it must resume from epoch 1
+             with stage calls 5 / 0, bit-identical to run A. The serving
+             CLIs' and EX's timings run after runs B and C, with nothing
+             beside them.
              `python -m visiondk_tpu_torch.validate --ema` on run A's best
              checkpoint: 12 K1 launches and exactly run A's best-epoch top1;
              `validate --quant int8` on it: top1 within 0.02 of that; `python -m
              visiondk_tpu_torch.visualize --cam --cam_method gradcam --sampling
              8 --remove_label`: 8 side-by-side overlays and 8 label files, one
-             K1s and one K1b an image. Last, images/s of the train loader
+             K1s and one K1b an image. Then phase EX on the same checkpoint:
+             `python -m visiondk_tpu_torch.export --ema --batch -1` and the
+             same with `--quant int8` (seconds, MB; the fake implementations
+             launch nothing while tracing), each program loaded back and held
+             to its eager step (make_eval_step, bf16; `quant="int8"` with the
+             served model's weight cache) on the same uint8 batches at bs 1, 8
+             and 128: max |diff| within 1e-5 of the largest |logit|, argmax
+             equal, bit-identity printed, exactly 12 K1 a forward and nothing
+             else; images/s of program and eager step at bs 128 (CUDA events,
+             order eager, program, program, eager) and each one's host time
+             to enqueue a call; `python -m
+             visiondk_tpu_torch.tools.exported_predict` in a fresh process
+             prints single_predict's top-5 on a val JPEG at 224² (neither
+             resizes it); and the K1 operator against a direct launch of its
+             kernel at bs 128 (device ms and host µs a call). Last, images/s of the train loader
              alone on epoch 1 (no step) with the split host pipeline and with
              the full one (the device_augment: false processor), each as the
              trainer builds it (4 batches in flight), beside the trainer-fed
              epochs and phase 5's synthetic batch, and whether the
              trainer-fed run is host-paced.
 ML. multilabel run — configs/classification/multilabel_csv.yaml through
-             the port's CLIs on a CSV written over RL's synthetic JPEGs
+             the port's CLIs on a CSV written over RL's synthetic JPEGs (the
+             first 10 train JPEGs a class and every val JPEG)
              (image_path, train True/False, three label columns: the bits of
              class index mod 7 + 1), read with the stdlib csv module (pandas
              never loads), with data.root and hyp.epochs 2 cut (printed):
              resnet50, BCE, the focal swap from epoch 1, bs 64. Run A
              (in-process; no attention kernel), run B bit-identical to A,
-             run C SIGKILLed in epoch 1 and resumed, bit-identical to A from
+             run C (its first process beside run B) SIGKILLed in epoch 1 and
+             resumed, bit-identical to A from
              epoch 1, validate --ema on A's best reproducing its P/R/F1
              exactly; trainer-fed images/s per epoch.
 DS. distill — the teacher: configs/classification/pet.yaml (Swin-B, bs 80)
              through `python -m visiondk_tpu_torch.main` on RL's synthetic
-             JPEGs, hyp.epochs 2, runs A and B bit-identical, exactly 24 K2s
+             JPEGs (10 train a class, every val JPEG), hyp.epochs 2, runs A
+             and B bit-identical, exactly 24 K2s
              + 24 K2b a step and 24 K2 a val forward. The student:
              configs/classification/distill_example.yaml --distill with the
              student's data.root and hyp.epochs 2 cut and teacher.weight
@@ -288,7 +308,8 @@ V2. swinv2 run — configs/classification/pet.yaml with SwinV2-B in Swin-B's
              place (model.name swinv2_base_window8_256 and the resize_size
              anchor 256, which model.image_size and every resize of the
              file read) through `python -m visiondk_tpu_torch.main` on RL's
-             synthetic JPEGs, data.root and hyp.epochs 2 cut (printed):
+             synthetic JPEGs (10 train a class, every val JPEG), data.root
+             and hyp.epochs 2 cut (printed):
              runs A and B in this process, bit-identical, exactly 24 K2s +
              24 K2b a step and 24 K2 a val forward; `validate --ema` on A's
              best reproducing its top1 exactly.
@@ -351,9 +372,10 @@ ST. strategies — configs/classification/pet_synth.yaml (ViT-B/16, bs 128,
              0 ends in the middle of an accumulation round): runs A and B
              bit-identical, exactly 12 K1 (the OHEM forward) + 12 K1s + 12
              K1b a step and 12 K1 a val forward, the last checkpoint's
-             mini-step, applied-update and EMA counts; run C SIGKILLed in
-             epoch 1 (epoch 0's checkpoint holds the half round) and resumed,
-             bit-identical to A; validate --ema reproduces A's best top1.
+             mini-step, applied-update and EMA counts; run C (its first
+             process beside run B) SIGKILLed in epoch 1 (epoch 0's checkpoint
+             holds the half round) and resumed, bit-identical to A; validate
+             --ema reproduces A's best top1.
 MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              (ArcFace, MagFace, CircleLoss, MV-Softmax AM and Arc), forward
              and gradient, on the card in f32 against the same function in
@@ -371,7 +393,13 @@ MH. margin heads — every margin head of visiondk_tpu_torch/models/heads.py
              scores differ by more than 1e-5 and in every exact tie (the
              lower index first). Queries/s of exact search at a 1,000,000 x
              128 gallery, 1,024 queries, k 100 (CUDA events), split into the
-             scores' product and the top-k.
+             scores' product and the top-k. Phase AR on the same gallery:
+             approximate search (recall_target 0.9, 0.95, 0.99: the bin count
+             M, queries/s beside exact's, the bin maxima + top-k alone, the
+             mean recall@100 against exact search, at least the target less
+             0.005, and the returned scores the true ones); then at 4 queries
+             x 65,536 the card's approximate top-101 against the CPU's, held
+             as exact search is held to its brute force.
 ER. embedding run — the face and CBIR run loops through the port's CLIs on
              Swin-B, on a temporary directory: benchmarks/make_synth_face.py
              (a subprocess, its defaults but --n-train 4: 64 ids x 4 train,
@@ -394,7 +422,8 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              fixed order, and the trainer selects cuDNN's deterministic
              algorithms). Run D, through torchrun on two gloo ranks sharing the
              card (`--model_parallel 2 --dist_backend gloo --device cuda:0`:
-             the head's 64 classes 32 a rank), 2 epochs: one log file, each
+             the head's 64 classes 32 a rank; started with run B, beside it,
+             run C and C's resume), 2 epochs: one log file, each
              metrics.jsonl record once, the same pair means printed by both
              ranks, finite losses, the checkpoint's head whole (128 x 64);
              then `--resume` in this process with hyp.epochs 3 trains epoch 3
@@ -409,7 +438,11 @@ ER. embedding run — the face and CBIR run loops through the port's CLIs on
              embed forwards and product + top-k (host clock, synchronised);
              `cbir_eval --quant int8` (its metrics beside bf16's) and
              `visualize` over 4 query ids against the whole gallery (one
-             retrieval grid a query).
+             retrieval grid a query). Phase EX on it: `export --ema --embed
+             --batch -1`, loaded back, held to make_embed_step as above with
+             per-row cosine >= 0.99999 and exactly 24 K2 a forward; and
+             `cbir_eval --ema --recall_target 0.95`, whose 192-row gallery is
+             one bin each (M = G): the exact run's metrics exactly.
 DP. distributed — two ranks of `chip_smoke.py --dp-rank` (gloo, both on
              cuda:0, TF32 off): rank 0 first takes three world-1 steps at
              global bs 8 before the group exists, then both join it, try
@@ -431,7 +464,13 @@ DP. distributed — two ranks of `chip_smoke.py --dp-rank` (gloo, both on
              finite losses. Last, in this process as one NCCL rank: ViT-B/16
              bs 128 bf16 train images/s of the DDP step beside the plain step
              (order plain, DDP, DDP, plain). The ranks' launches count in the
-             `[launches] dp` line.
+             `[launches] dp` line. Phase SG, on the two gloo ranks: search()
+             with the gallery sharded over them (mesh=build_mesh()) on 1,024
+             queries x 65,537 x 128 (one pad row; every similarity negative,
+             so a zero-scored pad would outrank them), k 100: the exact
+             indices equal the one-process search's, scores within 1e-5; at
+             recall_target 0.95 both ranks hold the same answers and the mean
+             recall against exact search is printed.
 3v. vision kernel — vision_attention's forward (K3) and recompute backward
              (K3r) against their plain versions, f32 and bf16, at ViT-B/16
              (bs 128) as contiguous tensors and as the [B, H, N, D] views of a
@@ -2315,6 +2354,16 @@ def killed_in_epoch_1(argv: list, project: Path) -> None:
             proc.wait()
 
 
+def start_killed_in_epoch_1(argv: list, project: Path):
+    """``killed_in_epoch_1`` in a thread, beside work in this process; the
+    returned future's ``result()`` waits for the kill (and raises what the
+    thread raised)."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(killed_in_epoch_1, argv, project)
+    pool.shutdown(wait=False)
+    return future
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2480,22 +2529,38 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
                 f"calls by epoch {' / '.join(map(str, stage_a))}")
 
         # run B: the same command through torchrun as one NCCL rank (DDP, a one-rank all-reduce): no bit moves;
-        # a subprocess, beside run C's
+        # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed.
+        # Both run beside validate and the serving CLIs below, which time nothing held
         run_b = start_torchrun(["--cfgs", str(yaml_path)], tmp / "runB")
-        # run C: a subprocess, killed (SIGKILL) in epoch 1 once epoch 0's checkpoint is complete, then resumed
         run_c = tmp / "runC"
+        killing_c = start_killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
         try:
-            killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
+            # validate on run A's best checkpoint
+            reset_counts()
+            out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
+                                                             "--weight", str(tmp / "runA" / "best"), "--ema"])
+            counts_v = read_counts()
+            check(counts_v == only({fwd: DEPTH * val_batches}),
+                  f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
+            top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
+            best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
+            top1_a = metrics_a["Val_top1"][best_epoch]
+            print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
+                  f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
+            check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
+            counts_s, timed_serving = run_loop_serving(tmp, root, top1_v, val_batches, dev)
         except BaseException:
             stop_torchrun(run_b)
             raise
+        finally:
+            killing_c.result()
         secs_b = finish_torchrun(run_b)
         metrics_b = read_metrics(tmp / "runB")
         loss_d, top1_d, same = compare_runs(metrics_a, metrics_b, range(epochs), n_val)
         print(f"[{tag}] run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
-              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process) vs run A, epochs "
-              f"1-{epochs}: largest train-loss difference {loss_d:.3e} relative, largest val-top1 difference "
-              f"{top1_d:.2f} images; bit-identical: {same} (required)")
+              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process and the serving CLIs) vs "
+              f"run A, epochs 1-{epochs}: largest train-loss difference {loss_d:.3e} relative, largest val-top1 "
+              f"difference {top1_d:.2f} images; bit-identical: {same} (required)")
         check(same, "run B through torchrun (one NCCL rank) is not bit-identical to run A")
         shutil.rmtree(tmp / "runB")
 
@@ -2515,21 +2580,7 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
                                 fwd: DEPTH * val_batches * (epochs - resumed)}),
               f"resumed run C launches {[(NAMES[k], v) for k, v in counts_c.items()]}")
 
-        # validate on run A's best checkpoint
-        reset_counts()
-        out_v = run_cli("visiondk_tpu_torch.validate", ["--cfgs", str(tmp / "runA" / "config.yaml"),
-                                                         "--weight", str(tmp / "runA" / "best"), "--ema"])
-        counts_v = read_counts()
-        check(counts_v == only({fwd: DEPTH * val_batches}),
-              f"validate launches {[(NAMES[k], v) for k, v in counts_v.items()]}")
-        top1_v = float(re.search(r"'top1': ([0-9.e+-]+)", out_v).group(1))
-        best_epoch = json.loads((tmp / "runA" / "best" / "meta.json").read_text())["epoch"]
-        top1_a = metrics_a["Val_top1"][best_epoch]
-        print(f"[{tag}] validate --ema on run A's best (epoch {best_epoch + 1}): top1 {top1_v!r}; run A logged "
-              f"{top1_a!r}; {NAMES[fwd]} launched {counts_v[fwd]}")
-        check(top1_v == top1_a, f"validate top1 {top1_v} != run A's best-epoch top1 {top1_a}")
-        counts_s = run_loop_serving(tmp, root, top1_v, val_batches)
-
+        timed_serving()  # the programs' and the operator's times, with nothing beside them
         # the host pipeline alone against the step: the train loader of epoch 1, no step, on the split
         # host pipeline the trainer runs (decode + letterbox-or-RRC) and on the full pipeline (the
         # device_augment: false processor); as built (at most `prefetch` = 4 batches in flight, one
@@ -2564,12 +2615,14 @@ def phase_run_loop(dev: torch.device, pet_data: tuple) -> dict:
 VIS_SAMPLING = 8  # images visualize --cam writes on the run loop's best
 
 
-def run_loop_serving(tmp: Path, root: Path, top1_bf16: float, val_batches: int) -> dict:
+def run_loop_serving(tmp: Path, root: Path, top1_bf16: float, val_batches: int, dev: torch.device) -> tuple:
     """Phases Q8 and CAM through the CLIs on the run loop's best checkpoint
     (run A's): ``validate --quant int8`` (top1 within Q8_TOP1_POINTS of the
     bf16 validate's), then ``visualize --cam --cam_method gradcam --sampling
     8 --remove_label``: 8 side-by-side overlays and 8 label files, one stash
-    forward and one backward from P an image. Returns their launches."""
+    forward and one backward from P an image; then phase EX (``export_vit``).
+    Returns their launches, and EX's timings to run where nothing runs
+    beside them."""
     from PIL import Image
 
     tag = "run loop"
@@ -2615,7 +2668,216 @@ def run_loop_serving(tmp: Path, root: Path, top1_bf16: float, val_batches: int) 
           "visualize --cam did not write its overlays")
     check(counts_c == want, f"visualize --cam launches {[(NAMES[k], v) for k, v in counts_c.items()]}, want "
                             f"{[(NAMES[k], v) for k, v in want.items()]}")
-    return add_counts(counts_q, counts_c)
+    counts_x, timed = export_vit(tmp, root, weight, dev)
+    return add_counts(add_counts(counts_q, counts_c), counts_x), timed
+
+
+# ---------------------------------------------------------------- phase EX: export and the exported programs
+
+EX_BATCHES = (1, 8, 128)  # batches each exported program is held to its eager step at
+EX_TOL = 1e-5  # max |program − eager step| over the outputs, relative to their largest |entry|
+EX_MIN_COSINE = 0.99999  # exported Swin-B embeddings against the eager embed step, per row
+EX_RATE_ITERS = 10
+
+
+def restore_served(weight: list, dev: torch.device):
+    """(the served module, its CenterProcessor) of the ``--cfgs ... --weight
+    ... --ema`` arguments ``weight``, restored as the port's serving CLIs
+    restore it."""
+    from visiondk_tpu_torch.config import yaml_load
+    from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
+    from visiondk_tpu_torch.engine.trainer import CenterProcessor
+
+    cfgs = yaml_load(weight[1])
+    best = Path(weight[3])
+    cp = CenterProcessor(cfgs, project=str(best.parent), train=False, device=dev)
+    tx = build_tx(cfgs["hyp"], steps_per_epoch=1, discrete_per_epoch=True, model_cfg=cfgs["model"])
+    state, _ = CheckpointManager(best.parent).restore(best.name, create_train_state(cp.model, tx))
+    return state.ema_model, cp
+
+
+def export_cli(tag: str, tmp: Path, weight: list, name: str, extra: list) -> tuple:
+    """``python -m visiondk_tpu_torch.export ... --batch -1`` in this process:
+    (the saved program loaded back, seconds, MB). Tracing runs the operators'
+    fake implementations, which launch nothing."""
+    out = tmp / f"{name}.pt2"
+    reset_counts()
+    t = time.perf_counter()
+    printed = run_cli("visiondk_tpu_torch.export", weight + ["--out", str(out), "--batch", "-1", *extra])
+    secs = time.perf_counter() - t
+    counts = read_counts()
+    t = time.perf_counter()
+    program = torch.export.load(out)
+    load_s = time.perf_counter() - t
+    mb = out.stat().st_size / 1e6
+    print(f"[{tag}] export {' '.join(extra) or '(f32 weights)'} --batch -1 --ema: {secs:.1f} s with the checkpoint's "
+          f"restore; {mb:.1f} MB; loaded back in {load_s:.1f} s; launches while tracing "
+          f"{sum(counts.values())}; it printed: {printed.strip().splitlines()[-1]}")
+    check(sum(counts.values()) == 0, f"export launched kernels while tracing: {counts}")
+    return program, secs, mb
+
+
+def hold_program(tag: str, label: str, program, step, embed: bool, fwd, per_forward: int, img: int,
+                 dev: torch.device) -> tuple:
+    """The loaded program against the eager step on the same uint8 batches
+    (EX_BATCHES): within EX_TOL of the largest |entry| (and, for embeddings,
+    per-row cosine ≥ EX_MIN_COSINE), argmax equal for logits; exactly
+    ``per_forward`` launches of ``fwd`` and no other kernel a program forward.
+    Returns (the launches of these forwards, ``time_program``'s timing of
+    both at the largest batch, to be called where nothing runs beside it)."""
+    served = program.module()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    total = {k: 0 for k in KERNELS}
+    for b in EX_BATCHES:
+        x = torch.randint(0, 256, (b, img, img, 3), generator=gen, device=dev, dtype=torch.uint8)
+        reset_counts()
+        with torch.inference_mode():
+            got = served(x)
+        counts = read_counts()
+        total = add_counts(total, counts)
+        want = step({"image": x})
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        same = bool(torch.equal(got, want))
+        line = (f"[{tag}] {label} bs {b}: program vs eager step max |diff| / max |entry| {err:.3e} (bar {EX_TOL}); "
+                f"bit-identical {same}; launches a forward "
+                + ", ".join(f"{NAMES[k]} {v}" for k, v in counts.items() if v))
+        ok = err <= EX_TOL and counts == only({fwd: per_forward})
+        if embed:
+            cos = row_cosine(got, want).min().item()
+            line += f"; min row cosine {cos:.7f} (bar {EX_MIN_COSINE})"
+            ok = ok and cos >= EX_MIN_COSINE
+        else:
+            agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+            line += f"; argmax agreement {agree:.2%}"
+            ok = ok and agree == 1.0
+        print(line)
+        check(ok, f"{label} bs {b}: the exported program disagrees with the eager step")
+    return total, lambda: time_program(tag, label, served, step, x)
+
+
+def time_program(tag: str, label: str, served, step, x: torch.Tensor) -> None:
+    """Images/s of a loaded program (``served``, its module) and its eager
+    step on ``x`` (CUDA events, order eager, program, program, eager), and
+    each one's host time to enqueue a call. Not counted as main-path launches."""
+
+    def run_program():
+        with torch.inference_mode():  # as the eager step runs (no_grad still dispatches every op's autograd key)
+            served(x)
+
+    def host_ms(fn):  # the time to enqueue one call, the device's queue drained before
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    eager = [cuda_ms(lambda: step({"image": x}), iters=EX_RATE_ITERS, warmup=2)]
+    prog = [cuda_ms(run_program, iters=EX_RATE_ITERS, warmup=2) for _ in range(2)]
+    eager.append(cuda_ms(lambda: step({"image": x}), iters=EX_RATE_ITERS, warmup=2))
+    host = {"program": min(host_ms(run_program) for _ in range(3)),
+            "eager": min(host_ms(lambda: step({"image": x})) for _ in range(3))}
+    rate = lambda ms: x.shape[0] / ms * 1e3  # noqa: E731
+    print(f"[{tag}] {label} bs {x.shape[0]} images/s (CUDA events, {EX_RATE_ITERS} calls after 2 warm-up; order "
+          f"eager, program, program, eager; {card()}): program " + ", ".join(f"{rate(ms):.1f}" for ms in prog)
+          + " | eager step " + ", ".join(f"{rate(ms):.1f}" for ms in eager)
+          + f" -> program at {sum(eager) / sum(prog):.1%} of the eager step; host time to enqueue a call (best of "
+            f"3): program {host['program']:.1f} ms, eager {host['eager']:.1f} ms")
+    reset_counts()
+
+
+def export_vit(tmp: Path, root: Path, weight: list, dev: torch.device) -> tuple:
+    """Phase EX on the run loop's best (ViT-B/16, see the module doc).
+    Returns (the launches of the programs' checked forwards and of
+    single_predict, the timings to run where nothing runs beside them)."""
+    from PIL import Image
+
+    tag = "run loop"
+    fwd = K1_KERNELS[0]
+    program, _, _ = export_cli(tag, tmp, weight, "vit_b16", [])
+    programs = {"bf16": program}
+    # exported_predict in a fresh process, beside the int8 export, against single_predict on a val image at
+    # IMG² (neither tool resizes it)
+    image = tmp / "ex_image.jpg"
+    Image.open(sorted((root / "val").glob("*/*.jpg"))[0]).convert("RGB").resize((IMG, IMG)).save(image, quality=95)
+    t = time.perf_counter()
+    fresh = subprocess.Popen([sys.executable, "-m", "visiondk_tpu_torch.tools.exported_predict", "--artifact",
+                              str(tmp / "vit_b16.pt2"), "--img", str(image)], cwd=Path(__file__).resolve().parent,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        programs["int8"], _, _ = export_cli(tag, tmp, weight, "vit_b16_int8", ["--quant", "int8"])
+        reset_counts()
+        out_s = run_cli("visiondk_tpu_torch.tools.single_predict", ["--img", str(image), *weight])
+        counts = read_counts()
+        stdout, stderr = fresh.communicate(timeout=RUN_LOOP_TIMEOUT_S)
+    finally:
+        if fresh.poll() is None:
+            fresh.kill()
+            fresh.wait()
+    secs = time.perf_counter() - t
+    check(fresh.returncode == 0, f"exported_predict exited with {fresh.returncode}: {stderr[-3000:]}")
+    served, cp = restore_served(weight, dev)
+    scfg, names = cp.step_config(), cp.data_processor.val_dataset.class_names
+    single = [(name, float(p)) for name, p in (ln.rsplit(maxsplit=1) for ln in out_s.strip().splitlines()[-5:])]
+    exported = [(names[int(j)], float(p)) for j, p in re.findall(r"^class (\d+): (\S+)$", stdout, re.M)]
+    same = (len(exported) == 5 and [n for n, _ in single] == [n for n, _ in exported]
+            and all(abs(p - q) <= 1e-4 for (_, p), (_, q) in zip(single, exported)))
+    print(f"[{tag}] exported_predict --artifact <the bf16 program> in a fresh process ({secs:.1f} s with the "
+          f"interpreter's start and the kernel's load, beside the int8 export): top-5 {exported}; single_predict "
+          f"--ema on the same image {single}: same classes and probabilities {same}")
+    check(same, "exported_predict and single_predict disagree")
+
+    steps = {"bf16": make_eval_step(served, scfg),
+             "int8": make_eval_step(served, scfg, quant="int8", quant_cache=quant.build_weight_cache(served))}
+    timings = []
+    for which, program in programs.items():
+        held, timing = hold_program(tag, f"the {which} program (export --ema"
+                                    + (" --quant int8)" if which == "int8" else ")"),
+                                    program, steps[which], False, fwd, DEPTH, IMG, dev)
+        counts, timings = add_counts(counts, held), timings + [timing]
+
+    def timed():
+        for timing in timings:
+            timing()
+        op_against_launch(tag, dev)
+
+    return counts, timed
+
+
+def op_against_launch(tag: str, dev: torch.device) -> None:
+    """The registered K1 operator (what the eval step and the programs call)
+    against a direct ``_launch_fwd`` of the same kernel at ViT-B/16 eval bs
+    128, bf16: device ms (CUDA events) and host µs a call (the time to
+    enqueue, the queue kept short of full). Not counted as main-path
+    launches."""
+    from visiondk_tpu_torch.ops import attention as k1
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    qkv = torch.randn((BATCH, 197, 3 * 768), generator=gen, device=dev).bfloat16()
+
+    def host_us(fn, iters=100):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        us = (time.perf_counter() - t) / iters * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    calls = {"operator": lambda: fused_qkv_attention_fwd(qkv, 12),
+             "direct launch": lambda: k1._launch_fwd(qkv, 12, 197, stash=False)}
+    check(torch.equal(calls["operator"](), calls["direct launch"]()[0]), "the operator's O differs from the launch's")
+    order = ("direct launch", "operator", "operator", "direct launch")
+    dev_ms = {name: [] for name in calls}
+    host = {name: [] for name in calls}
+    for name in order:
+        dev_ms[name].append(cuda_ms(calls[name], iters=50))
+        host[name].append(host_us(calls[name]))
+    reset_counts()
+    print(f"[{tag}] K1 forward at ViT-B/16 eval bs {BATCH} bf16 ({card()}; order direct, operator, operator, direct): "
+          + "; ".join(f"{name} device " + ", ".join(f"{v:.4f}" for v in dev_ms[name]) + " ms, host "
+                      + ", ".join(f"{v:.1f}" for v in host[name]) + " us a call" for name in calls))
 
 
 # ---------------------------------------------------------------- margin heads and retrieval
@@ -2666,7 +2928,7 @@ def check_topk(label: str, scores, idx, ref_scores, ref_idx, k: int) -> None:
     decided = ((before > SEARCH_TOL) & (after > SEARCH_TOL)) | (before == 0) | (after == 0)
     wrong = ((idx != ref_idx[:, :k]) & decided).sum().item()
     ties = int(((before == 0) | (after == 0)).sum().item())
-    print(f"[margin heads] {label}: max |score - f64 brute force| {err:.3e} (bar {SEARCH_TOL}); {wrong} index "
+    print(f"[margin heads] {label}: max |score - reference| {err:.3e} (bar {SEARCH_TOL}); {wrong} index "
           f"mismatches among {int(decided.sum().item())} decided ranks ({ties} ranks in exact ties)")
     check(err <= SEARCH_TOL and wrong == 0, f"{label}: top-k disagrees with the float64 brute force")
 
@@ -2714,7 +2976,7 @@ def phase_margin_heads(dev: torch.device) -> None:
         gallery[-SEARCH_DUPLICATES:] = gallery[:SEARCH_DUPLICATES]
         ref = brute_topk(queries, gallery, k)
         s, i = retrieval.topk_ip(queries.to(dev), gallery.to(dev), k)
-        check_topk(f"topk_ip {q} x {n_g} x {d}, k {k}", s, i, *ref, k)
+        check_topk(f"topk_ip {q} x {n_g} x {d}, k {k}, against a float64 brute force", s, i, *ref, k)
         s, i = retrieval.search(queries.numpy(), gallery.numpy(), k, query_chunk=200, device=dev)
         check_topk(f"search (chunks of 200) {q} x {n_g} x {d}, k {k}", s, i, *ref, k)
 
@@ -2731,9 +2993,46 @@ def phase_margin_heads(dev: torch.device) -> None:
               f"float64 products rounded to f32, on the card: {card()}): {whole:.3f} ms a call = "
               f"{q / whole * 1e3:.1f} queries/s (CUDA events, 5 calls after 2 warm-up); of which the scores "
               f"{product:.3f} ms ({2 * q * n_g * d / product / 1e9:.1f} TFLOP/s) and the top-k {topk:.3f} ms")
+        approximate_search(queries, gallery, k, whole)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     torch.cuda.empty_cache()
+
+
+AR_TARGETS = (0.9, 0.95, 0.99)  # recall targets of approximate search (phase AR)
+AR_SLACK = 0.005  # mean recall@k against exact search at least the target less this
+AR_CHECK = (4, 65_536)  # queries and gallery rows of the card-against-CPU check
+
+
+def approximate_search(queries: torch.Tensor, gallery: torch.Tensor, k: int, exact_ms: float) -> None:
+    """Phase AR (see the module doc) on phase MH's queries/s gallery, on the card."""
+    tag = "margin heads"
+    _, exact_i = retrieval.topk_ip(queries, gallery, k)
+    q, n_g = queries.shape[0], gallery.shape[0]
+    sim = retrieval.scores(queries, gallery)
+    for r in AR_TARGETS:
+        bins = retrieval.approx_reduction_size(n_g, k, r)
+        whole = cuda_ms(lambda: retrieval.topk_ip(queries, gallery, k, recall_target=r), iters=5, warmup=2)
+        select = cuda_ms(lambda: retrieval.approx_topk(sim, k, r), iters=5, warmup=2)
+        s, i = retrieval.topk_ip(queries, gallery, k, recall_target=r)
+        recall = (i[:, :, None] == exact_i[:, None, :]).any(dim=2).double().mean().item()
+        true = torch.equal(sim.gather(1, i), s)
+        print(f"[{tag}] approximate search, recall target {r}: {bins} bins of {-(-n_g // bins)} columns; "
+              f"{whole:.3f} ms a call = {q / whole * 1e3:.1f} queries/s against exact {q / exact_ms * 1e3:.1f} "
+              f"(CUDA events, 5 calls after 2 warm-up, {card()}); bin maxima + top-k {select:.3f} ms; mean "
+              f"recall@{k} against exact search {recall:.6f} (bar {r - AR_SLACK:g}); scores the true scores: {true}")
+        check(recall >= r - AR_SLACK and true, f"approximate search at {r}: recall {recall}, true scores {true}")
+    del sim
+    # the card against the CPU: the top k + 1 (of the same bins) held as phase MH holds exact search
+    nq, ng = AR_CHECK
+    q4, g4 = queries[:nq], gallery[:ng]
+    for r in AR_TARGETS:
+        check(retrieval.approx_reduction_size(ng, k, r) == retrieval.approx_reduction_size(ng, k + 1, r),
+              "the top k + 1 takes other bins")
+        s, i = retrieval.topk_ip(q4, g4, k + 1, recall_target=r)
+        ref_s, ref_i = retrieval.topk_ip(q4.cpu(), g4.cpu(), k + 1, recall_target=r)
+        check_topk(f"approximate search at {r}, {nq} x {ng} x {queries.shape[1]}, card against the CPU",
+                   s[:, :k], i[:, :k], ref_s.double(), ref_i, k)
 
 
 # ---------------------------------------------------------------- embedding run loop
@@ -2800,21 +3099,27 @@ def embedding_epochs(project: Path, *extra, module="visiondk_tpu_torch.main", ar
     return out, train, evals, stage, metrics, time.perf_counter() - t, sum(written)
 
 
-def face_two_ranks(tmp: Path, cfg: dict, face_yaml: Path, steps: int, face_batches: int) -> list:
-    """face_synth (``face_yaml``, ``cfg``: 2 epochs) on two gloo ranks sharing
-    the card (``--dist_backend gloo --device cuda:0``) with
-    ``--model_parallel 2`` (its ArcFace head's 64 classes split 32 / 32)
-    through torchrun: rank 0 alone writes the log, metrics.jsonl and the
-    checkpoints, and both ranks' replicated pair evaluations print the same
-    mean; then ``--resume`` in one process (here, counted) loads its last
-    checkpoint and trains a third epoch. Returns the resumed run's launches."""
+def start_face_two_ranks(tmp: Path, face_yaml: Path) -> tuple:
+    """face_synth (``face_yaml``) on two gloo ranks sharing the card
+    (``--dist_backend gloo --device cuda:0``) with ``--model_parallel 2``
+    through torchrun, started; ``face_two_ranks`` finishes it."""
+    return start_torchrun(["--cfgs", str(face_yaml), "--model_parallel", "2", "--dist_backend", "gloo",
+                           "--device", "cuda:0"], tmp / "D", nproc=2)
+
+
+def face_two_ranks(tmp: Path, cfg: dict, face_yaml: Path, steps: int, face_batches: int, run: tuple) -> list:
+    """``start_face_two_ranks``'s run (``cfg``: 2 epochs; its ArcFace head's
+    64 classes split 32 / 32) waited for: rank 0 alone writes the log,
+    metrics.jsonl and the checkpoints, and both ranks' replicated pair
+    evaluations print the same mean; then ``--resume`` in one process (here,
+    counted) loads its last checkpoint and trains a third epoch. Returns the
+    resumed run's launches."""
     from visiondk_tpu_torch.config import yaml_dump
 
     tag, fwd, stash, bwd_p = "embedding run", *wattn.KERNELS[:3]
     epochs = cfg["hyp"]["epochs"]
     project = tmp / "D"
-    secs = torchrun_main(["--cfgs", str(face_yaml), "--model_parallel", "2", "--dist_backend", "gloo",
-                          "--device", "cuda:0"], project, nproc=2, timeout=EMBED_RUN_TIMEOUT_S)
+    secs = finish_torchrun(run, timeout=EMBED_RUN_TIMEOUT_S)
     out = (tmp / "D.log").read_text()
     logs = sorted(p.name for p in project.glob("log*.log"))
     records = [json.loads(line) for line in (project / "metrics.jsonl").read_text().splitlines()]
@@ -2825,7 +3130,7 @@ def face_two_ranks(tmp: Path, cfg: dict, face_yaml: Path, steps: int, face_batch
     heads = {k: tuple(saved[k]["head.weight"].shape) for k in ("model", "ema")}
     print(f"[{tag}] face run D: python -m torch.distributed.run --nproc_per_node 2 ... --multihost --model_parallel 2 "
           f"--dist_backend gloo --device cuda:0 (two ranks on this card, the head's 64 classes 32 a rank, bs 64 = "
-          f"32 a rank), {epochs} epochs: {secs:.1f} s; epoch losses "
+          f"32 a rank), {epochs} epochs: {secs:.1f} s, beside runs B and C; epoch losses "
           + ", ".join(f"{metrics['Train_epoch_loss'][e]!r}" for e in range(epochs)) + "; rank 0's images/s (its rows) "
           + ", ".join(f"{metrics['Train_images_per_sec'][e]:.1f}" for e in range(epochs)) + "; pair means rank 0 "
           + f"{[metrics['Val_mean'][e] for e in range(epochs)]}, rank 1 {[r['mean'] for r in rank1]}; log files "
@@ -2956,41 +3261,47 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
                   f"face run A epoch {e}: metrics {[(t, v.get(e)) for t, v in metrics_a.items()]}")
         summary("face run A", train_a, evals_a, stage_a, metrics_a, secs_a, bytes_a, "Val_mean")
 
-        # face run B through torchrun, a subprocess beside run C's first process
+        # face run B through torchrun, a subprocess beside run C's first process and run D (two gloo ranks)
         run_b = start_torchrun(face_args, tmp / "B")
+        run_d = start_face_two_ranks(tmp, face_yaml)
         run_c = tmp / "C"
         try:
-            killed_in_epoch_1(face_args, run_c)
-        except BaseException:
-            stop_torchrun(run_b)
-            raise
-        secs_b = finish_torchrun(run_b, timeout=EMBED_RUN_TIMEOUT_S)
-        metrics_b = read_metrics(tmp / "B")
-        loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
-                                                     1 / per_fold)
-        print(f"[{tag}] face run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
-              f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process) vs run A, epochs "
-              f"1-{EMBED_RUN_EPOCHS}: largest train-loss difference {loss_d:.3e} relative, largest pair-mean "
-              f"difference {fit_d:.2f} pairs a fold; bit-identical: {same} (required)")
-        check(same, "face run B through torchrun (one NCCL rank) is not bit-identical to run A")
-        shutil.rmtree(tmp / "B")
+            try:
+                killed_in_epoch_1(face_args, run_c)
+                secs_b = finish_torchrun(run_b, timeout=EMBED_RUN_TIMEOUT_S)
+            except BaseException:
+                stop_torchrun(run_b)
+                raise
+            metrics_b = read_metrics(tmp / "B")
+            loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_b, range(EMBED_RUN_EPOCHS), "Val_mean",
+                                                         1 / per_fold)
+            print(f"[{tag}] face run B (python -m torch.distributed.run --nproc_per_node 1 -m visiondk_tpu_torch.main "
+                  f"--multihost: one NCCL rank, DDP; {secs_b:.1f} s, beside run C's first process and run D) vs run A, "
+                  f"epochs 1-{EMBED_RUN_EPOCHS}: largest train-loss difference {loss_d:.3e} relative, largest pair-mean "
+                  f"difference {fit_d:.2f} pairs a fold; bit-identical: {same} (required)")
+            check(same, "face run B through torchrun (one NCCL rank) is not bit-identical to run A")
+            shutil.rmtree(tmp / "B")
 
-        done = sorted(read_metrics(run_c).get("Train_epoch_loss", {}))
-        out_c, train_c, evals_c, stage_c, metrics_c, _, _ = embedding_epochs(run_c, *face_args, "--resume")
-        resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
-        check(resumed == 1, f"face run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
-        check(stage_c == want_stage[resumed:], f"resumed face run C's stage calls {stage_c}")
-        check_launches("resumed face run C", train_c, evals_c, steps, face_batches)
-        loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_c, range(resumed, EMBED_RUN_EPOCHS),
-                                                     "Val_mean", 1 / per_fold)
-        print(f"[{tag}] face run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from "
-              f"epoch {resumed}; epochs {resumed + 1}-{EMBED_RUN_EPOCHS} vs run A: train loss {loss_d:.3e} "
-              f"relative, pair mean {fit_d:.2f} pairs a fold; bit-identical: {same} (required); device-augment stage calls "
-              f"{' / '.join(map(str, stage_c))}")
-        check(same, "the resumed face run C is not bit-identical to run A")
-        add(train_c, evals_c)
-        shutil.rmtree(run_c)
-        add(face_two_ranks(tmp, cfg, face_yaml, steps, face_batches))
+            done = sorted(read_metrics(run_c).get("Train_epoch_loss", {}))
+            out_c, train_c, evals_c, stage_c, metrics_c, _, _ = embedding_epochs(run_c, *face_args, "--resume")
+            resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
+            check(resumed == 1,
+                  f"face run C resumed from epoch {resumed}, not 1 (epochs logged before the kill: {done})")
+            check(stage_c == want_stage[resumed:], f"resumed face run C's stage calls {stage_c}")
+            check_launches("resumed face run C", train_c, evals_c, steps, face_batches)
+            loss_d, fit_d, same = compare_embedding_runs(metrics_a, metrics_c, range(resumed, EMBED_RUN_EPOCHS),
+                                                         "Val_mean", 1 / per_fold)
+            print(f"[{tag}] face run C: SIGKILL in epoch 1 (epochs logged before the kill: {done}), --resume from "
+                  f"epoch {resumed}; epochs {resumed + 1}-{EMBED_RUN_EPOCHS} vs run A: train loss {loss_d:.3e} "
+                  f"relative, pair mean {fit_d:.2f} pairs a fold; bit-identical: {same} (required); device-augment "
+                  f"stage calls {' / '.join(map(str, stage_c))}")
+            check(same, "the resumed face run C is not bit-identical to run A")
+            add(train_c, evals_c)
+            shutil.rmtree(run_c)
+            add(face_two_ranks(tmp, cfg, face_yaml, steps, face_batches, run_d))
+        except BaseException:
+            stop_torchrun(run_d)
+            raise
 
         best = json.loads((tmp / "A" / "best" / "meta.json").read_text())
         fitness = json.loads((tmp / "A" / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
@@ -3058,7 +3369,7 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
         for label, counts in (("validate", counts_v), ("cbir_eval", counts_e)):
             check(counts == only({fwd: depth * cbir_batches}),
                   f"{label} launches {[(NAMES[k], v) for k, v in counts.items()]}")
-        add(train_r, evals_r, [counts_v, counts_e], cbir_serving(tmp, weight, printed_e, cbir_batches, depth, fwd))
+        add(train_r, evals_r, [counts_v, counts_e], cbir_serving(tmp, weight, printed_e, cbir_batches, depth, fwd, dev))
         return totals
     finally:
         if proc.poll() is None:
@@ -3068,9 +3379,11 @@ def phase_embedding_run(dev: torch.device, data=None) -> dict:
 
 
 VIS_QUERIES = 4  # queries visualize draws a retrieval grid for on the CBIR run's best
+CBIR_CUTOFFS = (1, 3, 5)  # cbir_eval's default --cutoffs: its search takes the top max(cutoffs)
 
 
-def cbir_serving(tmp: Path, weight: list, printed_bf16: dict, cbir_batches: int, depth: int, fwd) -> list:
+def cbir_serving(tmp: Path, weight: list, printed_bf16: dict, cbir_batches: int, depth: int, fwd,
+                 dev: torch.device) -> list:
     """Phases Q8 and CAM's CBIR CLIs on the embedding run's CBIR checkpoint:
     ``cbir_eval --quant int8`` (its metrics printed beside the bf16
     cbir_eval's), then ``visualize`` over the first VIS_QUERIES queries
@@ -3111,7 +3424,27 @@ def cbir_serving(tmp: Path, weight: list, printed_bf16: dict, cbir_batches: int,
           f"visualize wrote {len(grids)} grids for {n_query} queries")
     check(counts_g[fwd] > 0 and all(v == 0 for k, v in counts_g.items() if k is not fwd),
           f"visualize (CBIR) launches {[(NAMES[k], v) for k, v in counts_g.items()]}")
-    return [counts_q, counts_g]
+
+    # phase EX: the embedding program, and approximate search through cbir_eval
+    from visiondk_tpu_torch.tools.exported_predict import program_input
+
+    program, _, _ = export_cli(tag, tmp, weight, "swin_cbir", ["--embed"])
+    served, cp = restore_served(weight, dev)
+    counts_x, timing = hold_program(tag, "the embedding program (export --ema --embed)", program,
+                            make_embed_step(served, cp.step_config()),
+                            True, fwd, depth, int(program_input(program).shape[1]), dev)
+    reset_counts()
+    out_r = run_cli("visiondk_tpu_torch.cbir_eval", weight + ["--recall_target", "0.95"])
+    counts_r = read_counts()
+    printed_r = dict(re.findall(r"^(\S+@\d+): (\S+)$", out_r, re.M))
+    bins = retrieval.approx_reduction_size(n_gallery, max(CBIR_CUTOFFS), 0.95)
+    print(f"[{tag}] cbir_eval --ema --recall_target 0.95 on the CBIR run's best ({n_gallery} gallery images in "
+          f"{bins} bins: M = G, nothing to reduce): {printed_r}; equal to the exact cbir_eval's: "
+          f"{printed_r == printed_bf16}")
+    check(bins == n_gallery and printed_r == printed_bf16 and counts_r == only({fwd: depth * cbir_batches}),
+          f"cbir_eval --recall_target 0.95: metrics {printed_r}, launches {counts_r}")
+    timing()
+    return [counts_q, counts_g, counts_x, counts_r]
 
 
 # ---------------------------------------------------------------- CNNs, determinism, multi-label run, distillation
@@ -3520,6 +3853,9 @@ def phase_cnn(dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+# train JPEGs a class of the V2 and V2L runs, the multi-label run and the distillation runs: the first
+# of the run loop's (all 20 until the export phases took their share of the script's time)
+CLI_RUN_TRAIN = 10
 ML_EPOCHS = 2  # the focal swap from epoch 1 (warm_ep), and an epoch for the resumed run C
 ML_COLUMNS = ("bit0", "bit1", "bit2")
 ML_TAGS = ("Train_loss", "Val_v_loss", "Val_precision", "Val_recall", "Val_f1score")
@@ -3571,7 +3907,7 @@ def phase_multilabel_run(dev: torch.device, pet_data: tuple) -> None:
     tag = "multilabel run"
     tmp = Path(tempfile.mkdtemp(prefix="vdk_multilabel_"))
     try:
-        root = synth_pet_root(pet_data, tag)
+        root = subset_root(synth_pet_root(pet_data, tag), tmp / "data", CLI_RUN_TRAIN)
         csv_path = tmp / "synth_multilabel.csv"
         n_train, n_val = write_multilabel_csv(root, csv_path)
         cfg = yaml_load(MULTILABEL_YAML)
@@ -3600,12 +3936,15 @@ def phase_multilabel_run(dev: torch.device, pet_data: tuple) -> None:
               + "; trainer-fed images/s by epoch " + ", ".join(f"{r:.1f}" for r in rates)
               + f" (synthetic batch on the card, phase CN: " + ", ".join(f"{r:.1f}" for r in TRAIN_RATES['resnet50'])
               + ")")
-        _, _, metrics_b, _ = counted_run(tmp / "B", [*argv, "--project", str(tmp / "B")])
+        killing_c = start_killed_in_epoch_1(argv[:2], tmp / "C")  # run C's first process, beside run B
+        try:
+            _, _, metrics_b, _ = counted_run(tmp / "B", [*argv, "--project", str(tmp / "B")])
+        finally:
+            killing_c.result()
         same = same_metrics(metrics_a, metrics_b, ML_TAGS, range(ML_EPOCHS))
         print(f"[{tag}] run B vs run A, epochs 1-{ML_EPOCHS}: bit-identical {same} (required)")
         check(same, "seeded multi-label runs A and B are not bit-identical")
         shutil.rmtree(tmp / "B")
-        killed_in_epoch_1(argv[:2], tmp / "C")
         done = sorted(read_metrics(tmp / "C").get("Train_loss", {}))
         out_c, counts_c, metrics_c, _ = counted_run(tmp / "C", [*argv, "--project", str(tmp / "C"), "--resume"])
         resumed = int(re.search(r"resume: last \(epoch (\d+)\)", out_c).group(1))
@@ -3673,7 +4012,7 @@ def phase_distill(dev: torch.device, pet_data: tuple) -> dict:
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     tmp = Path(tempfile.mkdtemp(prefix="vdk_distill_"))
     try:
-        root = synth_pet_root(pet_data, tag)
+        root = subset_root(synth_pet_root(pet_data, tag), tmp / "data", CLI_RUN_TRAIN)
         n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
         n_val = sum(1 for _ in (root / "val").rglob("*.jpg"))
         tcfg = yaml_load(PET_YAML)
@@ -3799,7 +4138,7 @@ def phase_swinv2_run(dev: torch.device, pet_data: tuple, name: str = SWINV2_NAME
     os.environ.pop("VDK_ATTN_NO_PCACHE", None)
     tmp = Path(tempfile.mkdtemp(prefix="vdk_swinv2_"))
     try:
-        root = synth_pet_root(pet_data, tag)
+        root = subset_root(synth_pet_root(pet_data, tag), tmp / "data", CLI_RUN_TRAIN)
         n_train = sum(1 for _ in (root / "train").rglob("*.jpg"))
         n_val = sum(1 for _ in (root / "val").rglob("*.jpg"))
         yaml_path = tmp / "pet_swinv2.yaml"
@@ -4046,10 +4385,19 @@ def phase_strategies(dev: torch.device, pet_data: tuple) -> dict:
         # a step: the OHEM forward (no stash, no gradient), the stash forward and the backward from P
         want = only({fwd: DEPTH * (steps + val_batches), stash: DEPTH * steps, bwd_p: DEPTH * steps})
         totals, runs = {k_: 0 for k_ in KERNELS}, {}
+        run_c = tmp / "runC"
         for run in ("A", "B"):
             project = tmp / f"run{run}"
-            out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project", str(project),
-                                                               "--seed", "0"])
+            if run == "B":  # run C's first process (killed in epoch 1, below), beside run B
+                killing_c = start_killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
+                try:
+                    out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project",
+                                                                       str(project), "--seed", "0"])
+                finally:
+                    killing_c.result()
+            else:
+                out, counts, metrics, secs = counted_run(project, ["--cfgs", str(yaml_path), "--project",
+                                                                   str(project), "--seed", "0"])
             check(counts == {k_: v * epochs for k_, v in want.items()},
                   f"run {run} launches {[(NAMES[k_], v) for k_, v in counts.items()]}")
             check("Mixup start up" in out, f"run {run} logged no 'Mixup start up'")
@@ -4073,9 +4421,7 @@ def phase_strategies(dev: torch.device, pet_data: tuple) -> dict:
         check(same, "seeded strategy runs A and B are not bit-identical")
         shutil.rmtree(tmp / "runB")
 
-        # run C: killed in epoch 1 once epoch 0's checkpoint (in the middle of a round) is complete, resumed
-        run_c = tmp / "runC"
-        killed_in_epoch_1(["--cfgs", str(yaml_path)], run_c)
+        # run C: killed in epoch 1 once epoch 0's checkpoint (in the middle of a round) was complete, resumed
         ckpt = CheckpointManager(run_c).read("last")
         check(ckpt["opt_mini_step"] == steps % k and (ckpt["opt_acc_grads"] is not None) == bool(steps % k),
               f"epoch 0's checkpoint holds mini-step {ckpt['opt_mini_step']}")
@@ -4674,8 +5020,45 @@ def dp_rank(dev: torch.device) -> None:
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
           + ", ".join(f"{x:.4f}" for x in losses), flush=True)
     check(all(math.isfinite(x) for x in losses), f"[dp] rank {rank}: non-finite face.yaml losses {losses}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    sharded_search(dev, rank)
     print("DP_COUNTS " + json.dumps({NAMES[k]: v for k, v in counts.items()}), flush=True)
     dist.destroy_process_group()
+
+
+SG_SHAPE = (1024, 65_537, 128, 100)  # queries, gallery rows (one pad row over two ranks), dim, k
+
+
+def sharded_search(dev: torch.device, rank: int) -> None:
+    """Phase SG, on one of phase DP's gloo ranks (see the module doc)."""
+    from visiondk_tpu_torch.parallel import build_mesh
+
+    q, g, d, k = SG_SHAPE
+    gen = torch.Generator().manual_seed(31)  # the same data on both ranks
+    # a dominant opposing first coordinate (25 against a spread of about 1): every similarity negative, below a
+    # zero-scored pad row's
+    queries = F.normalize(torch.cat([5 * torch.ones(q, 1), 0.3 * torch.randn(q, d - 1, generator=gen)], 1), dim=1)
+    gallery = F.normalize(torch.cat([-5 * torch.ones(g, 1), 0.3 * torch.randn(g, d - 1, generator=gen)], 1), dim=1)
+    queries, gallery = queries.numpy(), gallery.numpy()
+    mesh = build_mesh()
+    one_s, one_i = retrieval.search(queries, gallery, k, device=dev)
+    t = time.perf_counter()
+    s, i = retrieval.search(queries, gallery, k, device=dev, mesh=mesh)
+    secs = time.perf_counter() - t
+    approx_s, approx_i = retrieval.search(queries, gallery, k, device=dev, mesh=mesh, recall_target=0.95)
+    held = mesh.data_gather(torch.from_numpy(np.concatenate([i, approx_i], axis=1)).to(dev))
+    same = torch.equal(held[0], held[1])
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(approx_i, one_i)]))
+    shard = -(-g // mesh.n_data)
+    print(f"[dp] rank {rank}: sharded search ({mesh.n_data} shards of {shard} rows, {shard * mesh.n_data - g} pad "
+          f"row; {q} queries x {g} x {d}, k {k}, every similarity negative: {bool((one_s < 0).all())}): exact indices "
+          f"equal to the one-process search's {np.array_equal(i, one_i)}, max |score diff| "
+          f"{np.abs(s - one_s).max():.3e}, {secs:.2f} s (host clock, gloo on one card); recall target 0.95 "
+          f"({retrieval.approx_reduction_size(shard, k, 0.95)} bins a shard): mean recall@{k} against exact {recall:.6f}; "
+          f"both ranks hold the same answers {same}", flush=True)
+    check(bool((one_s < 0).all()) and np.array_equal(i, one_i) and np.abs(s - one_s).max() <= SEARCH_TOL and same,
+          f"[dp] rank {rank}: the sharded search disagrees")
 
 
 def phase_dp(dev: torch.device) -> dict:

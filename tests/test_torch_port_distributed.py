@@ -40,13 +40,9 @@ arithmetic and rounding noise on both sides). The two ranks must hold bit-identi
 
 import json
 import os
-import queue
 import re
-import socket
 import subprocess
 import sys
-import threading
-import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -83,11 +79,10 @@ from visiondk_tpu_torch.engine.checkpoint import CheckpointManager
 from visiondk_tpu_torch.models import BACKBONES, get_model
 from visiondk_tpu_torch.models.convert import load_jax_params, state_dict_from_jax
 from visiondk_tpu_torch.parallel import initialize_distributed, shard_ranges
-from tests.torch_dist_worker import TINY_RESNET, TINY_VIT, register_tiny_backbones
+from tests.torch_dist_worker import TINY_RESNET, TINY_VIT, Ranks, free_port, register_tiny_backbones
 
 REPO = Path(__file__).resolve().parent.parent
 IMG, CLASSES, WORLD = 32, 7, 2
-CASE_TIMEOUT_S = 150
 # the hyp: section of configs/classification/pet_synth.yaml (optimizer fields)
 PET_SYNTH_HYP = {
     "epochs": 6, "lr0": 0.01, "lrf_ratio": None, "momentum": 0.937, "weight_decay": 0.0005,
@@ -99,74 +94,6 @@ CE = ("ce", {"label_smooth": 0.05})
 
 
 # ---------------------------------------------------------------- the ranks
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-class Ranks:
-    """Two rank processes serving ``torch_dist_worker.CASES``."""
-
-    def __init__(self, folder: Path):
-        self.folder, self.n, self.procs, self.lines = folder, 0, [], []
-        port = _free_port()
-        env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
-        for rank in range(WORLD):
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "tests.torch_dist_worker", str(rank), str(WORLD), str(port), str(folder)],
-                cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                stderr=open(folder / f"stderr_{rank}.log", "w"), text=True)
-            lines: "queue.Queue[str]" = queue.Queue()
-            threading.Thread(target=lambda p=proc, q=lines: [q.put(x.strip()) for x in p.stdout], daemon=True).start()
-            self.procs.append(proc)
-            self.lines.append(lines)
-        self._expect("ready", 120)
-
-    def _expect(self, word: str, timeout: float) -> None:
-        """Wait for ``word`` from every rank (other printed lines, such as a
-        trainer's log, are skipped)."""
-        deadline = time.monotonic() + timeout
-        for rank, lines in enumerate(self.lines):
-            while True:
-                try:
-                    line = lines.get(timeout=max(deadline - time.monotonic(), 0.01))
-                except queue.Empty:
-                    self.close()
-                    raise AssertionError(f"rank {rank} did not say {word!r} within {timeout} s; stderr:\n"
-                                         + self.stderr(rank)) from None
-                if line == word:
-                    break
-                if line.startswith("error "):
-                    self.close()
-                    raise AssertionError(f"rank {rank} failed; stderr:\n" + self.stderr(rank))
-
-    def stderr(self, rank: int) -> str:
-        return (self.folder / f"stderr_{rank}.log").read_text()[-4000:]
-
-    def run(self, case: str, args: dict, timeout: float = CASE_TIMEOUT_S) -> list:
-        """Each rank's result of ``case`` on ``args``."""
-        assert all(p.poll() is None for p in self.procs), "a rank process has exited"
-        self.n += 1
-        torch.save(args, self.folder / f"in_{self.n}.pt")
-        for proc in self.procs:
-            proc.stdin.write(f"{case} {self.n}\n")
-            proc.stdin.flush()
-        self._expect(f"done {self.n}", timeout)
-        return [torch.load(self.folder / f"out_{self.n}_{r}.pt", weights_only=False) for r in range(WORLD)]
-
-    def close(self) -> None:
-        for proc in self.procs:
-            if proc.poll() is None:
-                proc.stdin.close()
-        for proc in self.procs:
-            try:
-                proc.wait(timeout=20)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
 
 
 @pytest.fixture(scope="module")
@@ -594,7 +521,7 @@ def test_torchrun_cli_trains_writes_from_rank_0_and_resumes_in_one_process(face_
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-         "--master_port", str(_free_port()), "-m", "visiondk_tpu_torch.main", "--multihost", "--model_parallel", "2",
+         "--master_port", str(free_port()), "-m", "visiondk_tpu_torch.main", "--multihost", "--model_parallel", "2",
          "--device", "cpu", "--cfgs", str(cfg_path), "--project", str(project)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]

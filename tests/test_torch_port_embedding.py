@@ -330,14 +330,6 @@ def test_search_rounds_to_bf16_and_sums_in_f32():
     np.testing.assert_allclose(s, brute, rtol=0, atol=1e-6)
 
 
-def test_approximate_search_raises():
-    q, g = _normal_data()
-    for call in (lambda: retrieval.search(q, g, 3, recall_target=0.95, device="cpu"),
-                 lambda: retrieval.topk_ip(torch.from_numpy(q), torch.from_numpy(g), 3, recall_target=0.9)):
-        with pytest.raises(NotImplementedError, match="recall_target"):
-            call()
-
-
 # ---------------------------------------------------------------- pair and CBIR metrics
 
 

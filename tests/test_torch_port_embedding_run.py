@@ -304,13 +304,17 @@ def test_cbir_eval_cli_reproduces_the_trainers_best(runs, capsys, tmp_path):
     assert Path(cache + ".meta.json").is_file()
 
 
-# approximate search at two recall targets (``--quant int8`` is ported: the test below runs it)
+# approximate search at two recall targets (the name is from when it raised, unported). The toy gallery
+# fits one reduction tile (approx_reduction_size = G), so the approximate search is the exact one
 @pytest.mark.parametrize("flag", [["--recall_target", "0.95"], ["--recall_target", "1.0"]])
-def test_cbir_eval_flags_of_unported_features_raise(runs, flag):
+def test_cbir_eval_flags_of_unported_features_raise(runs, flag, capsys):
     project = runs["cbir"]["port"]
-    with pytest.raises(NotImplementedError):
-        _cli("visiondk_tpu_torch.cbir_eval", ["--cfgs", str(project / "config.yaml"), "--weight",
-                                              str(project / "best"), "--device", "cpu", *flag])
+    best = json.loads((project / "best" / "meta.json").read_text())
+    fitness = json.loads((project / f"Epoch_{best['epoch'] + 1}" / "meta.json").read_text())["fitness"]
+    _cli("visiondk_tpu_torch.cbir_eval", ["--cfgs", str(project / "config.yaml"), "--weight",
+                                          str(project / "best"), "--ema", "--device", "cpu", *flag])
+    printed = {k: float(v) for k, v in re.findall(r"^(\S+): (\S+)$", capsys.readouterr().out, re.M)}
+    assert printed == fitness
 
 
 def test_cbir_eval_quant_int8_embeds_through_the_int8_layers(runs, capsys, monkeypatch):

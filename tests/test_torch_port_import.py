@@ -36,9 +36,10 @@ import visiondk_tpu_torch.engine.face_eval, visiondk_tpu_torch.engine.cbir_eval,
 import visiondk_tpu_torch.models.backbones.resnet, visiondk_tpu_torch.engine.distill
 import visiondk_tpu_torch.models.backbones.convnext, visiondk_tpu_torch.models.backbones.mobilenet
 import visiondk_tpu_torch.models.backbones.efficientnet, visiondk_tpu_torch.models.backbones.swinv2
+import visiondk_tpu_torch.export, visiondk_tpu_torch.tools.exported_predict, visiondk_tpu_torch.tools.video_predict
 from visiondk_tpu_torch.ops import _build
 loaded = sorted(m for m in ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "visiondk_tpu",
-                            "tensorflow", "tensorboard", "pandas") if m in sys.modules)
+                            "tensorflow", "tensorboard", "pandas", "cv2") if m in sys.modules)
 print("LOADED", loaded)
 print("BUILT", sorted(_build._loaded))
 print("NATIVE", visiondk_tpu_torch.data.native._lib)

@@ -1,17 +1,25 @@
-"""One rank of the port's 2-process gloo tests (``test_torch_port_distributed.py``).
+"""One rank of the port's 2-process gloo tests (``test_torch_port_distributed.py``,
+``test_torch_port_retrieval_approx.py``), and ``Ranks``, the test files' handle
+on the two.
 
-Started by the test file as ``python -m tests.torch_dist_worker <rank> <world>
-<port> <dir>``, it joins a gloo process group on the CPU, then serves cases
-until its stdin closes: a line ``<case> <n>`` names a case of ``CASES`` and
-the file ``<dir>/in_<n>.pt`` holding its inputs; the rank writes its result
-to ``<dir>/out_<n>_<rank>.pt`` and prints ``done <n>`` (``error <n>`` and the
+Started as ``python -m tests.torch_dist_worker <rank> <world> <port> <dir>``,
+it joins a gloo process group on the CPU, then serves cases until its stdin
+closes: a line ``<case> <n>`` names a case of ``CASES`` and the file
+``<dir>/in_<n>.pt`` holding its inputs; the rank writes its result to
+``<dir>/out_<n>_<rank>.pt`` and prints ``done <n>`` (``error <n>`` and the
 traceback on stderr when the case raised). It imports torch and the port
 only, never JAX.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import socket
+import subprocess
 import sys
+import threading
+import time
 import traceback
 from pathlib import Path
 from typing import Any, Dict
@@ -30,6 +38,7 @@ from visiondk_tpu_torch.losses.losses import class_sharded_cross_entropy
 from visiondk_tpu_torch.models import BACKBONES, get_model
 from visiondk_tpu_torch.models.backbones.resnet import _resnet
 from visiondk_tpu_torch.models.backbones.vit import _vit
+from visiondk_tpu_torch.ops import retrieval
 from visiondk_tpu_torch.parallel import build_mesh, initialize_distributed
 
 # the tiny backbones of the test file, under the names it registers in the JAX registry
@@ -141,7 +150,92 @@ def case_loader(args: Dict[str, Any], rank: int) -> Dict[str, Any]:
     return out
 
 
-CASES = {"step": case_step, "loader": case_loader}
+def case_search(args: Dict[str, Any], rank: int) -> Dict[str, Any]:
+    """``ops.retrieval.search`` of ``args`` with the gallery sharded over the
+    ranks (``mesh=build_mesh()``)."""
+    scores, idx = retrieval.search(args["queries"], args["gallery"], args["k"], query_chunk=args["chunk"],
+                                   compute_dtype=getattr(torch, args["dtype"]),
+                                   recall_target=args.get("recall_target"), device="cpu", mesh=build_mesh())
+    return {"scores": scores, "idx": idx}
+
+
+CASES = {"step": case_step, "loader": case_loader, "search": case_search}
+
+
+# ---------------------------------------------------------------- the parent's side
+
+
+REPO = Path(__file__).resolve().parent.parent
+WORLD = 2
+CASE_TIMEOUT_S = 150
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """Two rank processes serving ``torch_dist_worker.CASES``."""
+
+    def __init__(self, folder: Path):
+        self.folder, self.n, self.procs, self.lines = folder, 0, [], []
+        port = free_port()
+        env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+        for rank in range(WORLD):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tests.torch_dist_worker", str(rank), str(WORLD), str(port), str(folder)],
+                cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=open(folder / f"stderr_{rank}.log", "w"), text=True)
+            lines: "queue.Queue[str]" = queue.Queue()
+            threading.Thread(target=lambda p=proc, q=lines: [q.put(x.strip()) for x in p.stdout], daemon=True).start()
+            self.procs.append(proc)
+            self.lines.append(lines)
+        self._expect("ready", 120)
+
+    def _expect(self, word: str, timeout: float) -> None:
+        """Wait for ``word`` from every rank (other printed lines, such as a
+        trainer's log, are skipped)."""
+        deadline = time.monotonic() + timeout
+        for rank, lines in enumerate(self.lines):
+            while True:
+                try:
+                    line = lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+                except queue.Empty:
+                    self.close()
+                    raise AssertionError(f"rank {rank} did not say {word!r} within {timeout} s; stderr:\n"
+                                         + self.stderr(rank)) from None
+                if line == word:
+                    break
+                if line.startswith("error "):
+                    self.close()
+                    raise AssertionError(f"rank {rank} failed; stderr:\n" + self.stderr(rank))
+
+    def stderr(self, rank: int) -> str:
+        return (self.folder / f"stderr_{rank}.log").read_text()[-4000:]
+
+    def run(self, case: str, args: dict, timeout: float = CASE_TIMEOUT_S) -> list:
+        """Each rank's result of ``case`` on ``args``."""
+        assert all(p.poll() is None for p in self.procs), "a rank process has exited"
+        self.n += 1
+        torch.save(args, self.folder / f"in_{self.n}.pt")
+        for proc in self.procs:
+            proc.stdin.write(f"{case} {self.n}\n")
+            proc.stdin.flush()
+        self._expect(f"done {self.n}", timeout)
+        return [torch.load(self.folder / f"out_{self.n}_{r}.pt", weights_only=False) for r in range(WORLD)]
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.stdin.close()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> None:

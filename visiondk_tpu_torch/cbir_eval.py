@@ -5,13 +5,14 @@
         [--embedding_cache <path>] [--quant int8] [--device cuda|cpu]
 
 Embeds the query and gallery sets with the checkpoint's model, searches the
-gallery exactly (``ops/retrieval.py``: the inner-product top-k of the
-reference's faiss Flat index) and prints MRR/Recall/Precision@k, AUC and
+gallery (``ops/retrieval.py``: the inner-product top-k of the reference's
+faiss Flat index, or with ``--recall_target r`` the approximate top-k of the
+JAX package's ``approx_max_k``) and prints MRR/Recall/Precision@k, AUC and
 nDCG, one ``name: value`` line each. ``--device`` defaults to ``cuda``;
 without a card that raises. ``--quant int8`` embeds with every dense layer
 in int8 (``ops/quant.py``), its weights quantized once from the served
-model. ``--recall_target`` (approximate search) raises
-``NotImplementedError``: it is not ported.
+model. Where the process runs in a process group of several ranks, the
+search shards the gallery over them (every rank gets the same metrics).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def parse_opt(argv=None):
                    help="memmap path for gallery embeddings: loaded when present and "
                         "row-consistent, written after extraction otherwise")
     p.add_argument("--recall_target", type=float, default=None,
-                   help="approximate search (not ported: raises); omit for exact search")
+                   help="approximate search: the recall target in (0, 1] of approx_max_k's "
+                        "reduction (ops/retrieval.py); omit for exact search")
     p.add_argument("--quant", type=str, default=None, choices=["int8"],
                    help="int8 dense inference for embedding extraction (ops/quant.py)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -49,9 +51,7 @@ def main(opt):
     from visiondk_tpu_torch.engine.steps import make_embed_step
     from visiondk_tpu_torch.engine.trainer import CenterProcessor, build_tx, resolve_device
     from visiondk_tpu_torch.ops.quant import build_weight_cache
-    from visiondk_tpu_torch.ops.retrieval import require_exact
 
-    require_exact(opt.recall_target)
     resolve_device(opt.device)
     cfgs = yaml_load(opt.cfgs)
     if opt.root:
@@ -73,7 +73,9 @@ def main(opt):
         metrics=opt.metrics,
         cutoffs=opt.cutoffs,
         gallery_cache=opt.embedding_cache,
+        recall_target=opt.recall_target,
         device=cp.device,
+        mesh=cp.mesh if cp.mesh.world > 1 else None,
     )
     for k, v in metrics.items():
         print(f"{k}: {v}")

@@ -203,16 +203,17 @@ def valuate(
     gallery_cache: Optional[str] = None,
     recall_target: Optional[float] = None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
     """End-to-end CBIR eval (reference cbir/evaluation.py:226-291): embed
     query + gallery with ``embed_step`` (the port's, on the module to serve)
-    → exact top-k IP search on ``device`` → metrics. ``vis=True`` also
+    → top-k IP search on ``device`` (exact, or approximate at
+    ``recall_target``; the gallery sharded over ``mesh``'s data ranks where it
+    has more than one, ``ops/retrieval.py``) → metrics. ``vis=True`` also
     returns the raw results for visualisation.
 
     ``gallery_cache``: memmap path for the gallery embeddings, loaded when
-    present and row-consistent, written after extraction otherwise.
-    ``recall_target`` (approximate search) is not ported and raises."""
-    retrieval.require_exact(recall_target)
+    present and row-consistent, written after extraction otherwise."""
     q_emb, q_ids = _extract(embed_step, query_dataset, batch_size)
     g_emb = (
         load_embedding_cache(gallery_cache, expected_rows=len(gallery_dataset.images))
@@ -230,7 +231,7 @@ def valuate(
     )
 
     k = max(cutoffs)
-    scores, idx = retrieval.search(q_emb, g_emb, k=k, device=device)
+    scores, idx = retrieval.search(q_emb, g_emb, k=k, recall_target=recall_target, device=device, mesh=mesh)
 
     preds = [[gallery_names[j] for j in row] for row in idx]
     # ground truth: gallery items sharing the query's id

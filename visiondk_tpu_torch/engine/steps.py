@@ -19,8 +19,9 @@ process group (``mesh``) the step is DDP over the ranks' rows of the global
 batch and computes what the JAX step computes on that global batch.
 
 ``make_eval_step`` and ``make_embed_step`` return callables ``step(batch)``
-that take ``{"image": uint8 [B, H, W, 3]}``, normalise it on the model's
-device and run the forward in eval mode under ``torch.inference_mode()``.
+that take ``{"image": uint8 [B, H, W, 3]}``, move it to the model's device
+and run ``ServingModel`` (normalise, forward) in eval mode under
+``torch.inference_mode()``; ``export`` traces the same module.
 The module carries its own weights, so where the JAX steps choose
 ``state.params`` or ``state.ema_params`` (``use_ema``), the caller passes
 the module it wants served (``state.model`` or ``state.ema_model``). With
@@ -319,6 +320,41 @@ def _serving(model: nn.Module, quant: Optional[str], quant_cache: Optional[dict]
     return serving
 
 
+class ServingModel(nn.Module):
+    """The served forward of a model: uint8 [B, H, W, 3] images → f32 logits
+    [B, num_classes], or (``embed``) the L2-normalised f32 embeddings
+    [B, feat_dim], ``x / max(‖x‖, 1e-12)``; normalised with ``cfg``'s mean
+    and std on the images' device. The eval and embed steps call it, and
+    ``export`` traces it, so the two cannot drift apart. It runs in the
+    caller's grad mode and train/eval mode (the steps set both)."""
+
+    def __init__(self, model: nn.Module, cfg: StepConfig, embed: bool = False):
+        super().__init__()
+        self.model = model
+        self.mean, self.std, self.embed = tuple(cfg.mean), tuple(cfg.std), embed
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = device_preprocess(images, self.mean, self.std)
+        if not self.embed:
+            return self.model(x).to(torch.float32)
+        feats = self.model.embed(x).to(torch.float32)
+        return feats / torch.linalg.vector_norm(feats, dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def _serving_step(model: nn.Module, cfg: StepConfig, embed: bool, quant: Optional[str],
+                  quant_cache: Optional[dict]) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    device = _device(model)
+    serving = _serving(model, quant, quant_cache)
+    served = ServingModel(model, cfg, embed)
+
+    def step_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        model.eval()
+        with serving():
+            return served(batch["image"].to(device, non_blocking=True))
+
+    return step_fn
+
+
 def make_eval_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = None,
                    quant_cache: Optional[dict] = None) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
     """Classification eval: batch → f32 logits [B, num_classes]. Puts
@@ -326,16 +362,7 @@ def make_eval_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = Non
     dropout or DropPath), as the JAX step passes ``train=False``: a train
     step on the same model may have left it in train mode. ``quant`` and
     ``quant_cache``: see ``_serving``."""
-    device = _device(model)
-    serving = _serving(model, quant, quant_cache)
-
-    def eval_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        model.eval()
-        with serving():
-            images = device_preprocess(batch["image"].to(device, non_blocking=True), cfg.mean, cfg.std)
-            return model(images).to(torch.float32)
-
-    return eval_fn
+    return _serving_step(model, cfg, False, quant, quant_cache)
 
 
 def make_embed_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = None,
@@ -343,15 +370,4 @@ def make_embed_step(model: nn.Module, cfg: StepConfig, quant: Optional[str] = No
     """Embedding extraction: batch → L2-normalised f32 [B, feat_dim],
     ``x / max(‖x‖, 1e-12)``. Puts ``model`` in eval mode on every call.
     ``quant`` and ``quant_cache``: see ``_serving``."""
-    device = _device(model)
-    serving = _serving(model, quant, quant_cache)
-
-    def embed_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        model.eval()
-        with serving():
-            images = device_preprocess(batch["image"].to(device, non_blocking=True), cfg.mean, cfg.std)
-            feats = model.embed(images).to(torch.float32)
-            norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)
-            return feats / norm.clamp_min(1e-12)
-
-    return embed_fn
+    return _serving_step(model, cfg, True, quant, quant_cache)

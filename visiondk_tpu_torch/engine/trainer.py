@@ -606,7 +606,9 @@ class CenterProcessor:
             batch_size=self.data_cfg["val"]["bs"],
             metrics=mcfg.get("metrics", ["mrr", "recall", "precision", "auc", "ndcg"]),
             cutoffs=mcfg.get("cutoffs", [1, 3, 5]),
+            # approximate search when the config asks for it; the gallery sharded over the data ranks
             recall_target=mcfg.get("recall_target"),
+            mesh=self.mesh if self.mesh.world > 1 else None,
             # not used in training (the model changes every epoch) unless the config forces it
             gallery_cache=self.data_cfg["val"].get("embedding_cache"),
             device=self.device,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from visiondk_tpu_torch.models.backbones import BACKBONES
 from visiondk_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, run_blocks
@@ -71,8 +72,10 @@ def window_region_ids(hh: int, ww: int, ws: int, shift: int) -> np.ndarray:
 
 
 def _static_tensor(make, device: torch.device) -> torch.Tensor:
-    # made outside inference mode: autograd may save it (the bias gather's index)
-    with torch.inference_mode(False):
+    # made outside inference mode (autograd may save it: the bias gather's index) and as a real tensor
+    # under torch.export's fake tensors: it is cached for every later call, and an export records it
+    # as a constant
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.from_numpy(make()).to(device)
 
 

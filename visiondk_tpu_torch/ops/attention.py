@@ -15,7 +15,8 @@ the backward. Without grad it runs the no-stash forward.
 Four kernels, each behind a wrapper with its own launch count
 (``<wrapper>.launches``, counted only where the kernel is launched):
 
-- ``fused_qkv_attention_fwd``: no-stash forward (``csrc/fused_qkv_attention.cu``);
+- ``fused_qkv_attention_fwd``: no-stash forward (``csrc/fused_qkv_attention.cu``), the registered
+  operator ``torch.ops.vdk.fused_qkv_attention`` (one node of a ``torch.export`` program);
 - ``fused_qkv_attention_fwd_stash``: the same kernel, also writing P;
 - ``fused_qkv_attention_bwd_from_p``: backward from the stashed P
   (``csrc/fused_qkv_attention_bwd.cu``);
@@ -201,9 +202,16 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, op: str) -> bool:
         raise ValueError(f"{op} kernel takes head_dim <= 128, got {d}")
     if not qkv.is_contiguous():
         raise ValueError(f"{op} kernel needs a contiguous qkv")
-    if not 1 <= qkv.shape[0] <= 65535 or heads > 65535:
-        raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={qkv.shape[0]}, heads={heads}")
+    check_grid_rows(qkv.shape[0], heads, op)
     return True
+
+
+def check_grid_rows(b, heads: int, op: str) -> None:
+    """1 ≤ B ≤ 65535 and heads ≤ 65535 (the launch grid's y and z), as a
+    ``torch._check``: a traced batch (``torch.export``) takes the bound as a
+    runtime assertion and a range of the exported ``Dim`` instead of a guard."""
+    for ok in (b >= 1, b <= 65535, heads <= 65535):
+        torch._check_with(ValueError, ok, lambda: f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={heads}")
 
 
 def _check_operand(t: torch.Tensor, like: torch.Tensor, shape, what: str) -> None:
@@ -287,14 +295,28 @@ def fused_qkv_attention_fwd(
     trailing key columns; output rows ≥ ``n_valid`` are finite values that
     callers never read. A CUDA tensor (float32 or bfloat16, contiguous,
     head_dim ≤ 128) launches the kernel, built at first use; a CPU tensor runs
-    ``fused_qkv_attention_plain``. Anything else raises."""
+    ``fused_qkv_attention_plain``. Anything else raises. Both go through the
+    registered operator ``torch.ops.vdk.fused_qkv_attention``, which
+    ``torch.export`` records as one node."""
     _head_dim(qkv, heads)
     n_valid = _check_n_valid(qkv.shape[1], n_valid)
+    return torch.ops.vdk.fused_qkv_attention(qkv, heads, n_valid)
+
+
+@torch.library.custom_op("vdk::fused_qkv_attention", mutates_args=())
+def _fused_qkv_attention_op(qkv: torch.Tensor, heads: int, n_valid: int) -> torch.Tensor:
     if not _runs_kernel(qkv, heads, "fused_qkv_attention_fwd"):
         return fused_qkv_attention_plain(qkv, heads, n_valid)
     out, _ = _launch_fwd(qkv, heads, n_valid, stash=False)
     fused_qkv_attention_fwd.launches += 1
     return out
+
+
+@_fused_qkv_attention_op.register_fake
+def _(qkv: torch.Tensor, heads: int, n_valid: int) -> torch.Tensor:
+    _runs_kernel(qkv, heads, "fused_qkv_attention_fwd")  # raises at trace time what the kernel would
+    b, n, w = qkv.shape
+    return qkv.new_empty((b, n, w // 3))
 
 
 def fused_qkv_attention_fwd_stash(
@@ -374,8 +396,7 @@ def _runs_vision_kernel(tensors, op: str) -> bool:
         raise ValueError(f"{op} kernel takes head_dim <= 128, got {d}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{op} kernel needs a unit-stride head dim, got strides {[t.stride() for t in tensors]}")
-    if not 1 <= b <= 65535 or h > 65535:
-        raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={h}")
+    check_grid_rows(b, h, op)
     return True
 
 

@@ -64,20 +64,29 @@ def quantize_tensor(x: torch.Tensor, axis: Optional[int] = None) -> Tuple[torch.
 
 def int_mm_shape(m: int, k: int, n: int) -> Tuple[int, int, int]:
     """The padded (M, K, N) of an [M, K] @ [K, N] product that ``torch._int_mm``
-    takes on the card."""
+    takes on the card. A traced M (``torch.export`` with a dynamic batch)
+    takes 16 zero rows more, which meets the rule at every batch the program
+    may be called with, where a maximum would guard on the traced batch."""
     up = lambda v: -(-v // INT_MM_MULTIPLE) * INT_MM_MULTIPLE  # noqa: E731
+    if isinstance(m, torch.SymInt):
+        return m + INT_MM_MIN_ROWS - 1, up(k), up(n)
     return max(m, INT_MM_MIN_ROWS), up(k), up(n)
 
 
 class Int8Weight(NamedTuple):
     """A dense layer's quantized weight: ``q`` the int8 codes [N, K] (the JAX
-    kernel's codes, transposed), ``scale`` f32 [N], and ``mm`` the same codes
-    zero-padded to ``int_mm_shape`` as the [Kp, Np] column-major operand of
-    ``torch._int_mm`` (``q`` is a view into it)."""
+    kernel's codes, transposed), ``scale`` f32 [N], and ``padded`` the same
+    codes zero-padded to ``int_mm_shape``'s [Np, Kp] (``q`` is a view into
+    it; an exported program holds ``padded`` whole as its constant)."""
 
     q: torch.Tensor
     scale: torch.Tensor
-    mm: torch.Tensor
+    padded: torch.Tensor
+
+    @property
+    def mm(self) -> torch.Tensor:
+        """The [Kp, Np] column-major operand of ``torch._int_mm``."""
+        return self.padded.t()
 
 
 def quantize_weight(weight: torch.Tensor) -> Int8Weight:
@@ -88,7 +97,7 @@ def quantize_weight(weight: torch.Tensor) -> Int8Weight:
     q, scale = quantize_tensor(w, axis=0)
     _, kp, np_ = int_mm_shape(INT_MM_MIN_ROWS, k, n)
     padded = F.pad(q, (0, kp - k, 0, np_ - n))  # zeros after the scales are taken
-    return Int8Weight(padded[:n, :k], scale.reshape(n), padded.t())
+    return Int8Weight(padded[:n, :k], scale.reshape(n), padded)
 
 
 def int8_matmul(xq: torch.Tensor, w: Int8Weight) -> torch.Tensor:

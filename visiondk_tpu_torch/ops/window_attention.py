@@ -30,7 +30,8 @@ Four kernels, each behind a wrapper with its own launch count
 ``<wrapper>.large_launches``, the launches on windows of N > 64, which the
 kernels' tiled bodies take):
 
-- ``fused_window_attention_fwd``: no-stash forward (``csrc/fused_window_attention.cu``, K2);
+- ``fused_window_attention_fwd``: no-stash forward (``csrc/fused_window_attention.cu``, K2), the
+  registered operator ``torch.ops.vdk.fused_window_attention`` (one node of a ``torch.export`` program);
 - ``fused_window_attention_fwd_stash``: the same kernel, also writing P (K2s);
 - ``fused_window_attention_bwd_from_p``: backward from the stashed P
   (``csrc/fused_window_attention_bwd.cu``, K2b);
@@ -57,7 +58,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from visiondk_tpu_torch.ops.attention import (
-    _DTYPE_CODES, _LOG2E, _acc, _check_err, _check_operand, _lib, _p_cache_enabled,
+    _DTYPE_CODES, _LOG2E, _acc, _check_err, _check_operand, _lib, _p_cache_enabled, check_grid_rows,
 )
 
 _MASK_VALUE = -100.0 * _LOG2E  # the reference's region mask, in the log2 domain
@@ -292,12 +293,11 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
         raise TypeError(f"{op} kernel takes int32 region ids, got {ids.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{op} kernel needs contiguous qkv, bias and ids")
-    b, d = qkv.shape[0], qkv.shape[-1] // (3 * heads)
+    d = qkv.shape[-1] // (3 * heads)
     if n > _MAX_WS**2 or d > _MAX_HEAD_DIM:
         raise ValueError(f"{op} kernel takes ws <= {_MAX_WS} and head_dim <= {_MAX_HEAD_DIM}, "
                          f"got ws² = {n}, head_dim = {d}")
-    if not 1 <= b <= 65535 or heads > 65535:
-        raise ValueError(f"{op} kernel takes 1 <= B, heads <= 65535: B={b}, heads={heads}")
+    check_grid_rows(qkv.shape[0], heads, op)
     return True
 
 
@@ -407,14 +407,30 @@ def fused_window_attention_fwd(
     """No-stash forward: qkv [B, H, W, 3C] → O [B, H, W, C]. CUDA tensors
     (qkv float32 or bfloat16, bias float32, ids int32, all contiguous, ws ≤ 16,
     head_dim ≤ 64) launch the kernel, built at first use; CPU tensors run
-    ``fused_window_attention_plain``. Anything else raises."""
-    n = _window_size(bias, heads)
-    _layout(qkv, heads, n, ids)
+    ``fused_window_attention_plain``. Anything else raises. Both go through
+    the registered operator ``torch.ops.vdk.fused_window_attention``, which
+    ``torch.export`` records as one node."""
+    _layout(qkv, heads, _window_size(bias, heads), ids)
+    return torch.ops.vdk.fused_window_attention(qkv, bias, ids, heads, scale)
+
+
+@torch.library.custom_op("vdk::fused_window_attention", mutates_args=())
+def _fused_window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
+                               scale: Optional[float]) -> torch.Tensor:
+    n = bias.shape[-1]
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_fwd"):
         return fused_window_attention_plain(qkv, bias, ids, heads, scale)
     out, _ = _launch_fwd(qkv, bias, ids, heads, scale, stash=False)
     _count(fused_window_attention_fwd, n)
     return out
+
+
+@_fused_window_attention_op.register_fake
+def _(qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
+      scale: Optional[float]) -> torch.Tensor:
+    _runs_kernel(qkv, heads, bias.shape[-1], bias, ids, "fused_window_attention_fwd")  # raises at trace time
+    b, hh, ww, c3 = qkv.shape
+    return qkv.new_empty((b, hh, ww, c3 // 3))
 
 
 def fused_window_attention_fwd_stash(

@@ -213,6 +213,12 @@ class MeshContext:
         """This rank's class shard, and its place in its model group."""
         return self.rank % self.n_model
 
+    @property
+    def data_index(self) -> int:
+        """This rank's place in its data group (the ranks that hold the same
+        class shard), and its shard of a sharded gallery search."""
+        return self.rank // self.n_model
+
     def is_primary(self) -> bool:
         return self.rank == 0
 
@@ -293,6 +299,15 @@ class MeshContext:
         parts = [torch.empty_like(padded) for _ in range(self.n_model)]
         dist.all_gather(parts, padded, group=self.model_group)
         return torch.cat([p[:, :w] for p, w in zip(parts, widths)], dim=1)
+
+    def data_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The data group's tensors stacked in rank order, [n_data, *t.shape],
+        without gradient (the world's where ``n_model`` is 1)."""
+        if self.n_data == 1:
+            return t[None]
+        parts = [torch.empty_like(t) for _ in range(self.n_data)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
+        return torch.stack(parts)
 
     def data_sum_(self, tensors: List[torch.Tensor]) -> None:
         """Sum each tensor in place over this rank's data group (the ranks
