@@ -45,6 +45,7 @@ from visiondk_tpu_torch.models.ema import update_ema
 from visiondk_tpu_torch.models.layers import local_batch_moments
 from visiondk_tpu_torch.ops.quant import check_quant, dense_layers, quantized
 from visiondk_tpu_torch.parallel.mesh import MeshContext
+from visiondk_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,22 +207,27 @@ def make_train_step(
             torch._foreach_div_(shards, float(mesh.world))
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], lam: float = 0.0):
+        with span("vdk.train.step", rows=batch["image"].shape[0], device=device):
+            return run_step(state, batch, lam)
+
+    def run_step(state: TrainState, batch: Dict[str, torch.Tensor], lam: float):
         if state.model is not model:
             raise ValueError("the state holds another model than the one this step was built for")
         model.train()
-        images = batch["image"].to(device, non_blocking=True)
-        labels = batch["label"].to(device, non_blocking=True)
-        rows = images.shape[0]
-        seed = rank_seed(int(torch.randint(0, 2**62, (), generator=generator)), rank)
-        if global_view:
-            images = mesh.world_rows(images)
-        if device_augment is not None:
-            images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
-        images = device_preprocess(images, cfg.mean, cfg.std)
-        perm = mixup_permutation(images.shape[0], generator).to(device) if cfg.mixup else None
-        everyone = images
-        if global_view:
-            images = mesh.own_rows(everyone, rows)
+        with span("vdk.train.preprocess"):
+            images = batch["image"].to(device, non_blocking=True)
+            labels = batch["label"].to(device, non_blocking=True)
+            rows = images.shape[0]
+            seed = rank_seed(int(torch.randint(0, 2**62, (), generator=generator)), rank)
+            if global_view:
+                images = mesh.world_rows(images)
+            if device_augment is not None:
+                images = device_augment(int(torch.randint(0, 2**62, (), generator=generator)), images)
+            images = device_preprocess(images, cfg.mean, cfg.std)
+            perm = mixup_permutation(images.shape[0], generator).to(device) if cfg.mixup else None
+            everyone = images
+            if global_view:
+                images = mesh.own_rows(everyone, rows)
         params = list(model.parameters())
         for p in params:
             p.grad = None
@@ -230,7 +236,7 @@ def make_train_step(
             if cfg.ohem is not None:
                 # the mask from the CLEAN images, before any mixing
                 torch.manual_seed(seed)
-                with torch.no_grad(), _buffers_kept(model):
+                with span("vdk.train.forward"), torch.no_grad(), _buffers_kept(model):
                     sw = ohem_mask(model(images), labels, cfg.ohem, mesh if distributed else None)
                 scale = 1.0
                 if distributed and not sam_local:
@@ -259,31 +265,36 @@ def make_train_step(
 
             if sam_local:
                 with net.no_sync(), local_batch_moments(model):
-                    loss = forward_loss()
-                    loss.backward()
+                    with span("vdk.train.forward"):
+                        loss = forward_loss()
+                    with span("vdk.train.backward"):
+                        loss.backward()
                 for b in model.buffers():  # the clean pass's running statistics, averaged
                     if b.is_floating_point():
                         b.copy_(mesh.world_mean(b))
             else:
-                loss = forward_loss()
-                loss.backward()
-                finish_grads(state.optimizer)
+                with span("vdk.train.forward"):
+                    loss = forward_loss()
+                with span("vdk.train.backward"):
+                    loss.backward()
+                    finish_grads(state.optimizer)
             if cfg.sam is not None:
-                clean = [p.detach().clone() for p in params]
-                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-                # a class-sharded head's squares count once over its model group
-                shard = {} if sam_local or state.optimizer.mesh is None else {"state": state.optimizer}
-                with torch.no_grad():
-                    torch._foreach_add_(params, sam_perturb(params, grads, cfg.sam, **shard))
-                del grads
-                for p in params:
-                    p.grad = None
-                with _buffers_kept(model), local_batch_moments(model) if sam_local else contextlib.nullcontext():
-                    forward_loss().backward()
-                finish_grads(state.optimizer)
-                with torch.no_grad():
-                    torch._foreach_copy_(params, clean)
-                del clean
+                with span("vdk.train.sam"):
+                    clean = [p.detach().clone() for p in params]
+                    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                    # a class-sharded head's squares count once over its model group
+                    shard = {} if sam_local or state.optimizer.mesh is None else {"state": state.optimizer}
+                    with torch.no_grad():
+                        torch._foreach_add_(params, sam_perturb(params, grads, cfg.sam, **shard))
+                    del grads
+                    for p in params:
+                        p.grad = None
+                    with _buffers_kept(model), local_batch_moments(model) if sam_local else contextlib.nullcontext():
+                        forward_loss().backward()
+                    finish_grads(state.optimizer)
+                    with torch.no_grad():
+                        torch._foreach_copy_(params, clean)
+                    del clean
         apply_update(state, tx, cfg)
         loss = loss.detach()
         return {"loss": mesh.world_mean(loss) if distributed else loss}
@@ -297,10 +308,12 @@ def apply_update(state: TrainState, tx: OptimizerSpec, cfg: StepConfig) -> None:
     mini-step that completes it), the EMA update where one was applied (the
     EMA ticks on applied updates, or its horizon would shrink k-fold), step
     += 1."""
-    if tx.update(state.optimizer):
-        state.ema_updates += 1
-        update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
-    state.step += 1
+    with span("vdk.train.update"):
+        if tx.update(state.optimizer):
+            state.ema_updates += 1
+            with span("vdk.train.ema"):
+                update_ema(state.ema_model, state.model, state.ema_updates, cfg.ema_decay, cfg.ema_tau)
+        state.step += 1
 
 
 def _serving(model: nn.Module, quant: Optional[str], quant_cache: Optional[dict]) -> Callable:
@@ -348,9 +361,10 @@ def _serving_step(model: nn.Module, cfg: StepConfig, embed: bool, quant: Optiona
     served = ServingModel(model, cfg, embed)
 
     def step_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        model.eval()
-        with serving():
-            return served(batch["image"].to(device, non_blocking=True))
+        with span("vdk.serve.step", rows=batch["image"].shape[0], device=device):
+            model.eval()
+            with serving():
+                return served(batch["image"].to(device, non_blocking=True))
 
     return step_fn
 

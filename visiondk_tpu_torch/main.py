@@ -19,7 +19,10 @@ ops off the host (``data.train.device_augment``, "auto" by default).
 sections (``configs/classification/distill_example.yaml``) and trains the
 classification student against the frozen teacher
 (``engine/distill.py::DistillCenterProcessor``). ``--trace`` records a
-``torch.profiler`` trace of the run into ``<project>/trace`` (rank 0's).
+``torch.profiler`` trace of the run into ``<project>/trace/trace.json`` (rank
+0's), and beside it ``spans.json``: the port's spans of the run's last steps
+and calls (``utils/spans.py``: each train step's phases and attention ops,
+each serving call), with their host and device seconds.
 
 ``--multihost`` joins the process group that torchrun describes
 (``parallel.initialize_distributed``: ``MASTER_ADDR``, ``MASTER_PORT``,
@@ -56,7 +59,7 @@ def parse_opt(argv=None):
     p.add_argument("--distill", action="store_true",
                    help="config has student/teacher sections; train with KD")
     p.add_argument("--trace", action="store_true",
-                   help="record a torch.profiler trace into <project>/trace")
+                   help="record a torch.profiler trace and the port's spans into <project>/trace")
     p.add_argument("--multihost", action="store_true", help="join torchrun's process group (DDP)")
     p.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
                    help="with --multihost: the collectives' backend (default: nccl on cuda, gloo on cpu)")
@@ -128,11 +131,14 @@ def _train(opt, device, mesh):
         return run()
     from torch.profiler import ProfilerActivity, profile
 
+    from visiondk_tpu_torch.utils import spans
+
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cp.device.type == "cuda" else [])
     with profile(activities=activities) as prof:
         result = run()
     (project / "trace").mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(project / "trace" / "trace.json"))
+    spans.dump(project / "trace" / "spans.json")
     return result
 
 

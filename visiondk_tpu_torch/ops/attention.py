@@ -52,6 +52,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from visiondk_tpu_torch.ops import _build
+from visiondk_tpu_torch.utils.spans import span
 
 _NEG_INF = -1e30  # the reference's key mask value
 _LOG2E = 1.4426950408889634
@@ -528,11 +529,12 @@ class FusedQKVAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout: torch.Tensor):
         qkv, *stash = ctx.saved_tensors
-        dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
-        if stash:
-            dqkv = fused_qkv_attention_bwd_from_p(qkv, stash[0], dout, ctx.heads)
-        else:
-            dqkv = fused_qkv_attention_bwd_recompute(qkv, dout, ctx.heads, ctx.n_valid)
+        with span("vdk.attention.backward"):
+            dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
+            if stash:
+                dqkv = fused_qkv_attention_bwd_from_p(qkv, stash[0], dout, ctx.heads)
+            else:
+                dqkv = fused_qkv_attention_bwd_recompute(qkv, dout, ctx.heads, ctx.n_valid)
         return dqkv, None, None
 
 
@@ -545,9 +547,10 @@ def fused_qkv_attention(
     CUDA tensor, their plain versions on a CPU tensor (see module doc)."""
     _head_dim(qkv, heads)
     n_valid = _check_n_valid(qkv.shape[1], n_valid)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        return FusedQKVAttention.apply(qkv, heads, n_valid)
-    return fused_qkv_attention_fwd(qkv, heads, n_valid)
+    with span("vdk.attention"):
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return FusedQKVAttention.apply(qkv, heads, n_valid)
+        return fused_qkv_attention_fwd(qkv, heads, n_valid)
 
 
 class VisionAttention(torch.autograd.Function):
@@ -564,10 +567,11 @@ class VisionAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout: torch.Tensor):
         q, k, v = ctx.saved_tensors
-        dout = dout.to(q.dtype)  # autograd may hand over f32 or strided
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
-        return vision_attention_bwd(q, k, v, dout)
+        with span("vdk.attention.backward"):
+            dout = dout.to(q.dtype)  # autograd may hand over f32 or strided
+            if dout.stride(-1) != 1:
+                dout = dout.contiguous()
+            return vision_attention_bwd(q, k, v, dout)
 
 
 def vision_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -576,6 +580,7 @@ def vision_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     runs ``VisionAttention``; otherwise ``vision_attention_fwd``. Kernels on
     CUDA tensors, their plain versions on CPU tensors (see module doc)."""
     _check_bhnd("vision_attention", q, k=k, v=v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return VisionAttention.apply(q, k, v)
-    return vision_attention_fwd(q, k, v)
+    with span("vdk.attention"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return VisionAttention.apply(q, k, v)
+        return vision_attention_fwd(q, k, v)

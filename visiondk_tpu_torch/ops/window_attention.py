@@ -60,6 +60,7 @@ from torch.autograd.function import once_differentiable
 from visiondk_tpu_torch.ops.attention import (
     _DTYPE_CODES, _LOG2E, _acc, _check_err, _check_operand, _lib, _p_cache_enabled, check_grid_rows,
 )
+from visiondk_tpu_torch.utils.spans import span
 
 _MASK_VALUE = -100.0 * _LOG2E  # the reference's region mask, in the log2 domain
 _FWD_LIB = "fused_window_attention"
@@ -521,14 +522,15 @@ class FusedWindowAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout: torch.Tensor):
         qkv, saved = ctx.saved_tensors
-        dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
-        if ctx.stash:
-            dqkv, dbias = fused_window_attention_bwd_from_p(qkv, saved, dout, ctx.heads, ctx.scale)
-        else:
-            dqkv, dbias = fused_window_attention_bwd_recompute(
-                qkv, saved, ctx.ids, dout, ctx.heads, ctx.scale)
-        return (dqkv if ctx.needs_input_grad[0] else None,
-                dbias.to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None, None, None, None)
+        with span("vdk.attention.backward"):
+            dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
+            if ctx.stash:
+                dqkv, dbias = fused_window_attention_bwd_from_p(qkv, saved, dout, ctx.heads, ctx.scale)
+            else:
+                dqkv, dbias = fused_window_attention_bwd_recompute(
+                    qkv, saved, ctx.ids, dout, ctx.heads, ctx.scale)
+            return (dqkv if ctx.needs_input_grad[0] else None,
+                    dbias.to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None, None, None, None)
 
 
 def fused_window_attention(
@@ -541,6 +543,7 @@ def fused_window_attention(
     ``fused_window_attention_fwd``. Kernels on CUDA tensors, their plain
     versions on CPU tensors (see module doc)."""
     _layout(qkv, heads, _window_size(bias, heads), ids)
-    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
-        return FusedWindowAttention.apply(qkv, bias, ids, heads, scale)
-    return fused_window_attention_fwd(qkv, bias, ids, heads, scale)
+    with span("vdk.attention"):
+        if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+            return FusedWindowAttention.apply(qkv, bias, ids, heads, scale)
+        return fused_window_attention_fwd(qkv, bias, ids, heads, scale)
