@@ -18,9 +18,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
              128 x variant), of the window forward, ws <= 8 and the tiled
              8 < ws <= 16 (32, 64 x shift regions or none x stash or none)
              and of the window backward, ws <= 8 and the tiled dq and dkv
-             kernels (32, 64 x from P, recompute shifted, recompute
-             unshifted) must issue tensor-core instructions (HMMA, or HGMMA
-             for wgmma), counted per kernel; the float32 CUDA-core kernels
+             kernels (32, 64 x shifted or not x from P or recomputing) must
+             issue tensor-core instructions (HMMA, or HGMMA for wgmma),
+             counted per kernel; the float32 CUDA-core kernels
              must have no bf16 instantiation. For every instantiation of the
              tiled bf16 kernels (window forward, dq, dkv): registers, stack
              and static shared memory (cuobjdump --dump-resource-usage), spill
@@ -87,8 +87,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              heads, ws 16 shifted by 8; stage 1: 32×32, 12 heads, shifted;
              stage 2: 16×16, 24 heads, one window; scale 1.0), ws 12 (N =
              144), ws 16 at head dim 64, ws 9 (the stash's rows not 16-byte
-             aligned) and head dim 12 at ws 16. In bf16 all four run on the
-             tensor cores, over fixed runs of windows per block. O, P and dqkv
+             aligned) and head dim 12 at ws 16. A shifted case hands its shift
+             to the kernels, which wrap their addresses (the plain versions
+             roll). In bf16 all four run on the tensor cores, over fixed runs
+             of windows per block. O, P and dqkv
              are held to phase 3's bars, but O in bf16 element by element to
              max(1.6e-2, one bf16 ulp of |plain|): the same bar where |plain|
              < 4 and one ulp above it (SwinV2's scale 1.0 reaches |o| ≈ 5 at
@@ -833,7 +835,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     for k in wattn.KERNELS:
-        k.large_launches = 0
+        k.large_launches = k.shifted_launches = 0
     da.make_device_augment.calls = 0
 
 
@@ -904,10 +906,10 @@ TC_KERNELS = {"fused_qkv_attention": ("fused_attention_fwd_tc_kernel", "fused_at
 # bf16 instantiations of each tensor-core kernel, per library: head-dim buckets
 # 32, 64, 80, 128 x two variants (fused QKV); 32, 64 x shift regions or none x
 # stash or none (window forward, ws <= 8 and the tiled 8 < ws <= 16); 32, 64 x
-# three variants (window backward, and the tiled dq and dkv kernels: from P,
-# recompute with and without shift regions)
+# shifted windows or not x from P or recomputing (window backward, and the
+# tiled dq and dkv kernels)
 TC_INSTANTIATIONS = {"fused_qkv_attention": 8, "fused_qkv_attention_bwd": 8, "fused_window_attention": 8,
-                     "fused_window_attention_bwd": 6}
+                     "fused_window_attention_bwd": 8}
 
 
 def check_sass(built) -> None:
@@ -1213,15 +1215,16 @@ def phase_window_kernel(dev: torch.device) -> dict:
             bias = 0.5 * torch.randn((h, n, n), generator=gen, device=dev)
             tol = TOL[dtype]
 
-            out = kf(qkv, bias, ids, h, scale)
-            ref = wattn.fused_window_attention_plain(qkv, bias, ids, h, scale)
-            o_s, p_s = ks(qkv, bias, ids, h, scale)
-            o_r, p_r = wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale)
-            g_p, db_p = kb(qkv, p_s, dout, h, scale)
-            g_p_ref, db_p_ref = wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale)
-            g_r, db_r = kr(qkv, bias, ids, dout, h, scale)
-            g_r_ref, db_r_ref = wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale)
-            _, db_p2 = kb(qkv, p_s, dout, h, scale)
+            out = kf(qkv, bias, ids, h, scale, shift)
+            ref = wattn.fused_window_attention_plain(qkv, bias, ids, h, scale, shift)
+            o_s, p_s = ks(qkv, bias, ids, h, scale, shift)
+            o_r, p_r = wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale, shift)
+            g_p, db_p = kb(qkv, p_s, dout, h, scale, shift)
+            g_p_ref, db_p_ref = wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale, shift)
+            g_r, db_r = kr(qkv, bias, ids, dout, h, scale, shift)
+            g_r_ref, db_r_ref = wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale,
+                                                                                 shift)
+            _, db_p2 = kb(qkv, p_s, dout, h, scale, shift)
             torch.cuda.synchronize()
 
             for t, what in ((out, "O"), (p_s, "P"), (g_p, "dqkv from P"), (db_p, "dbias from P"),
@@ -1252,14 +1255,15 @@ def phase_window_kernel(dev: torch.device) -> dict:
 
             if timed and dtype == torch.bfloat16:
                 calls = {
-                    kf: (lambda: kf(qkv, bias, ids, h, scale),
-                         lambda: wattn.fused_window_attention_plain(qkv, bias, ids, h, scale)),
-                    ks: (lambda: ks(qkv, bias, ids, h, scale),
-                         lambda: wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale)),
-                    kb: (lambda: kb(qkv, p_s, dout, h, scale),
-                         lambda: wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale)),
-                    kr: (lambda: kr(qkv, bias, ids, dout, h, scale),
-                         lambda: wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale)),
+                    kf: (lambda: kf(qkv, bias, ids, h, scale, shift),
+                         lambda: wattn.fused_window_attention_plain(qkv, bias, ids, h, scale, shift)),
+                    ks: (lambda: ks(qkv, bias, ids, h, scale, shift),
+                         lambda: wattn.fused_window_attention_fwd_stash_plain(qkv, bias, ids, h, scale, shift)),
+                    kb: (lambda: kb(qkv, p_s, dout, h, scale, shift),
+                         lambda: wattn.fused_window_attention_bwd_from_p_plain(qkv, p_s, dout, h, scale, shift)),
+                    kr: (lambda: kr(qkv, bias, ids, dout, h, scale, shift),
+                         lambda: wattn.fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, h, scale,
+                                                                                  shift)),
                 }
                 library, lib_note = window_library(qkv, bias, ids, dout, h, ws, scale)
                 d, n_win = c // h, b * (hw // ws) ** 2
@@ -5314,10 +5318,11 @@ def tiled_variants(dev: torch.device) -> None:
     dout = torch.randn((b, hw, hw, c), generator=gen, device=dev).to(torch.bfloat16)
     bias = 0.5 * torch.randn((h, n, n), generator=gen, device=dev)
     kf, ks, kb, kr = wattn.KERNELS
-    _, p = ks(qkv, bias, ids, h, scale)
-    calls = {"fused_window_attention": {kf: lambda: kf(qkv, bias, ids, h, scale), ks: lambda: ks(qkv, bias, ids, h, scale)},
-             "fused_window_attention_bwd": {kb: lambda: kb(qkv, p, dout, h, scale),
-                                            kr: lambda: kr(qkv, bias, ids, dout, h, scale)}}
+    _, p = ks(qkv, bias, ids, h, scale, shift)
+    calls = {"fused_window_attention": {kf: lambda: kf(qkv, bias, ids, h, scale, shift),
+                                        ks: lambda: ks(qkv, bias, ids, h, scale, shift)},
+             "fused_window_attention_bwd": {kb: lambda: kb(qkv, p, dout, h, scale, shift),
+                                            kr: lambda: kr(qkv, bias, ids, dout, h, scale, shift)}}
     for (lib, label, _), built in zip(TILED_VARIANTS, variants):
         for k, fn in calls[lib].items():
             ms = []

@@ -13,7 +13,9 @@ steps at PR 2's bars (loss 1e-5 relative; updates and EMA 1e-3 relative plus
 largest |θ|: θₖ is stored as θ₀ + Δ rounded to f32, and the EMA's moves on
 LayerNorm scales near 1 are a few hundred spacings. The JAX Swin runs its
 XLA window path on the CPU; the port runs the plain versions of its window
-kernels.
+kernels. A shifted block hands its shift to the window op; on the padded
+48×48 map it gives what the block gave rolling the padded map around the
+op (``rolled_window_attention``, the JAX block's order), as the reference.
 """
 
 from types import SimpleNamespace
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from visiondk_tpu.engine.state import create_train_state as jax_create_train_state
 from visiondk_tpu.engine.steps import StepConfig as JaxStepConfig
@@ -41,9 +44,11 @@ from visiondk_tpu_torch.engine.steps import StepConfig, make_train_step
 from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import BACKBONES, VisionModel, get_model
+from visiondk_tpu_torch.models.backbones import swin as swin_module
 from visiondk_tpu_torch.models.backbones.swin import (
     SwinTransformer, WindowAttention, _swin, relative_position_index, window_region_ids,
 )
+from visiondk_tpu_torch.ops.window_attention import fused_window_attention
 from visiondk_tpu_torch.models.convert import (
     load_converted, load_jax_params, param_paths, state_dict_from_jax,
 )
@@ -264,6 +269,52 @@ def test_kernel_path_and_plain_path_modules_agree_on_cpu(train):
     assert torch.equal(outs[0], outs[1])
     for n in grads[0] if train else ():
         np.testing.assert_allclose(grads[0][n].numpy(), grads[1][n].numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
+
+
+def rolled_window_attention(attn, y, ws, shift):
+    """A block's window attention as the blocks ran it before the op took the
+    shift, the JAX block's order: zero-pad bottom and right, roll the padded
+    map by −shift, attention over the rolled map (the op unshifted, the ids
+    of the shifted frame), roll back by +shift, crop."""
+    _, hh, ww, _ = y.shape
+    y = F.pad(y, (0, 0, 0, (-ww) % ws, 0, (-hh) % ws))
+    y = torch.roll(attn(torch.roll(y, (-shift, -shift), dims=(1, 2)), shift), (shift, shift), dims=(1, 2))
+    return y[:, :hh, :ww]
+
+
+def use_rolled_blocks(monkeypatch, module) -> None:
+    """Route ``module``'s blocks through ``rolled_window_attention``, with its
+    window op dropping the shift it is handed."""
+    monkeypatch.setattr(module, "padded_window_attention", rolled_window_attention)
+    monkeypatch.setattr(module, "fused_window_attention",
+                        lambda qkv, bias, ids, heads, scale=None, shift=0:
+                        fused_window_attention(qkv, bias, ids, heads, scale))
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_shift_in_the_op_gives_the_rolled_blocks_result_on_a_padded_map(train, monkeypatch):
+    """At 48×48, stage 1's 6×6 map pads to 8×8 and shifts by 2: the model
+    whose shifted blocks hand the shift to the op gives the logits (and
+    parameter gradients) of the same model rolling the padded map around
+    the op."""
+    x = torch.from_numpy(_images(48, seed=9))
+    outs, grads = [], []
+    for rolled in (False, True):
+        if rolled:
+            use_rolled_blocks(monkeypatch, swin_module)
+        model = get_model(_cls_cfg(48), generator=torch.Generator().manual_seed(5), device="cpu")
+        assert model.backbone.layers[1].blocks[1].shift == 2
+        model.train(train)
+        with torch.set_grad_enabled(train):
+            out = model(x)
+        if train:
+            out.square().sum().backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+        outs.append(out.detach())
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=1e-6, atol=1e-6)
+    for n in grads[0] if train else ():
+        ref = grads[1][n].numpy()
+        np.testing.assert_allclose(grads[0][n].numpy(), ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max(), err_msg=n)
 
 
 def test_static_tables_match_jax():

@@ -11,7 +11,9 @@ the scale folded into q, whose plain versions run on CPU tensors. Window 4
 on 32×32 images: stage 0 is 8×8 (unshifted and shifted blocks), stage 1 4×4
 (one window, no shift); on 40×40 stage 0 is 10×10, padded to 12×12 and
 shifted by 2, the merge pads the odd edge (5×5 after it), and stage 1 pads
-5×5 to 8×8 and shifts. Window 8 on 64×64: stage 0 16×16 with ws 8 and shift
+5×5 to 8×8 and shifts. A shifted block hands its shift to the window op;
+on the padded 40×40 maps it gives what the block gave rolling the padded
+map around the op (``test_torch_port_swin.rolled_window_attention``). Window 8 on 64×64: stage 0 16×16 with ws 8 and shift
 4, stage 1 8×8 in one window. Window 16 on 128×128 (the windows of
 swinv2_large_window12to16_192to256's stages 0-2, N = 256): stage 0 32×32
 with ws 16 and shift 8, stage 1 16×16 in one window.
@@ -56,6 +58,7 @@ from visiondk_tpu_torch.engine.steps import StepConfig, make_train_step
 from visiondk_tpu_torch.engine.trainer import build_tx
 from visiondk_tpu_torch.losses import create_lossfn
 from visiondk_tpu_torch.models import BACKBONES, VisionModel, factory, get_model
+from visiondk_tpu_torch.models.backbones import swinv2 as swinv2_module
 from visiondk_tpu_torch.models.backbones.swin import window_region_ids
 from visiondk_tpu_torch.models.backbones.swinv2 import (
     PatchMergingV2, SwinTransformerV2, WindowAttentionV2, _swinv2, log_relative_coords,
@@ -290,6 +293,34 @@ def _three_train_steps(img, ws):
             spacing = np.sqrt(want_d.size) * np.spacing(np.float32(np.abs(theta0[key].numpy()).max()))
             err = np.linalg.norm(got_d - want_d)
             assert err <= 1e-3 * np.linalg.norm(want_d) + 3 * spacing, (what, key, err, np.linalg.norm(want_d))
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_shift_in_the_op_gives_the_rolled_blocks_result_on_a_padded_map(train, monkeypatch):
+    """At 40×40 both stages pad and shift (10×10 to 12×12, 5×5 to 8×8, by 2):
+    the model whose shifted blocks hand the shift to the op gives the logits
+    (and parameter gradients) of the same model rolling the padded maps
+    around the op."""
+    from tests.test_torch_port_swin import use_rolled_blocks
+
+    x = torch.from_numpy(_images(40, seed=9))
+    outs, grads = [], []
+    for rolled in (False, True):
+        if rolled:
+            use_rolled_blocks(monkeypatch, swinv2_module)
+        model = get_model(_cls_cfg(40), generator=torch.Generator().manual_seed(5), device="cpu")
+        assert [b.shift for b in model.backbone.layers[1].blocks] == [0, 2]
+        model.train(train)
+        with torch.set_grad_enabled(train):
+            out = model(x)
+        if train:
+            out.square().sum().backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+        outs.append(out.detach())
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=1e-6, atol=1e-6)
+    for n in grads[0] if train else ():
+        ref = grads[1][n].numpy()
+        np.testing.assert_allclose(grads[0][n].numpy(), ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max(), err_msg=n)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -11,7 +11,10 @@ frameworks as the same arrays. Shapes: the JAX kernel test's B=4, 8×8, ws 4,
 32, shifted by 3; SwinV2's ws 8 with scale 1.0; the windows of the tiled
 kernel bodies (8 < ws ≤ 16): swinv2_large_window12to16_192to256's ws 16
 shifted by 8 with scale 1.0 (B=1, 32×32, 2 heads, head dim 8), and ws 12
-unshifted (N = 144, no multiple of the kernels' key tiles).
+unshifted (N = 144, no multiple of the kernels' key tiles). A shifted
+entry's op call takes the shift (``shift=s``) against the JAX block's
+order, roll ∘ JAX op ∘ roll; elsewhere the caller rolls, and ``shift=0``
+is the op without one, bit for bit.
 
 Tolerances. f32: 1e-4, the JAX kernel test's (the algorithm is the same;
 only f32 summation order differs). bf16: O within 1.6e-2 (about two bf16
@@ -63,6 +66,7 @@ O_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 P_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DBIAS_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
+SHIFTED = [name for name, shape in SHAPES.items() if shape[6]]
 
 
 def _arrays(shape, seed: int):
@@ -143,6 +147,78 @@ def test_dqkv_and_dbias_match_jax_vjp(shape, dtype, pcache, monkeypatch):
                                rtol=DBIAS_TOL[dtype] if dtype == "float32" else 0)
 
 
+@pytest.mark.parametrize("pcache", [True, False], ids=["from_p", "recompute"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHIFTED)
+def test_shift_in_the_op_matches_rolls_around_the_jax_op(shape, dtype, pcache, monkeypatch):
+    """``fused_window_attention(..., shift=s)`` on the map as it is against
+    roll(JAX op(roll(qkv, −s)), +s), the JAX block's order, on the same
+    arrays: O, and the gradients in qkv and bias through both backwards; and
+    bit for bit the port's own op on the rolled map, rolled back. The bars
+    are the shift-free comparison's, but bf16 dbias is also allowed
+    DBIAS_TOL relative: where a stashed P entry rounds the other way in the
+    two frameworks (one bf16 ulp, up to 2⁻⁸), dbias moves by that ulp times
+    |dP − δ| there, which reaches 2.01e-3 at an entry of |dbias| 3.1 in one
+    of twelve seeds of this data (seed 6, jax_test_shifted, from P)."""
+    _set_pcache(monkeypatch, pcache)
+    heads, shift, scale = SHAPES[shape][3], SHAPES[shape][6], SHAPES[shape][7]
+    qkv, bias, cot, ids = _arrays(SHAPES[shape], 6)
+    jdt = getattr(jnp, dtype)
+    jids = jnp.asarray(ids)
+
+    def rolled(x, bb):
+        o = jax_fused_window_attention(jnp.roll(x, (-shift, -shift), axis=(1, 2)), bb, jids, heads, scale)
+        return jnp.roll(o, (shift, shift), axis=(1, 2))
+
+    with force_interpret():
+        o_ref, vjp = jax.vjp(rolled, jnp.asarray(qkv, dtype=jdt), jnp.asarray(bias))
+        dqkv_ref, dbias_ref = vjp(jnp.asarray(cot, dtype=jdt))
+    grads = []
+    for in_op in (True, False):
+        x = _torch(qkv, dtype).requires_grad_(True)
+        bb = _torch(bias).requires_grad_(True)
+        if in_op:
+            out = fused_window_attention(x, bb, _torch(ids), heads, scale, shift=shift)
+            assert type(out.grad_fn).__name__ == "FusedWindowAttentionBackward"
+        else:
+            out = torch.roll(fused_window_attention(torch.roll(x, (-shift, -shift), (1, 2)), bb, _torch(ids), heads,
+                                                    scale), (shift, shift), (1, 2))
+        out.backward(_torch(cot, dtype))
+        grads.append((out.detach(), x.grad, bb.grad))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+    out, dqkv, dbias = grads[0]
+    np.testing.assert_allclose(_np(out), _np(o_ref), atol=O_TOL[dtype], rtol=O_TOL[dtype])
+    tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(_np(dqkv), _np(dqkv_ref), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(dbias), _np(dbias_ref), atol=DBIAS_TOL[dtype], rtol=DBIAS_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_shift_zero_is_the_call_without_a_shift_bit_for_bit(shape):
+    """Every wrapper and plain version with ``shift=0`` returns the bits of
+    the call that names no shift (a shifted entry's ids with the map rolled
+    by the caller, as before the op took the shift)."""
+    heads, scale = SHAPES[shape][3], SHAPES[shape][7]
+    qkv, bias, cot, ids = (_torch(a) for a in _arrays(SHAPES[shape], 7))
+    _, p = fused_window_attention_fwd_stash(qkv, bias, ids, heads, scale)
+    calls = [
+        (fused_window_attention, (qkv, bias, ids, heads, scale)),
+        (fused_window_attention_fwd, (qkv, bias, ids, heads, scale)),
+        (fused_window_attention_fwd_stash, (qkv, bias, ids, heads, scale)),
+        (fused_window_attention_bwd_from_p, (qkv, p, cot, heads, scale)),
+        (fused_window_attention_bwd_recompute, (qkv, bias, ids, cot, heads, scale)),
+        (fused_window_attention_plain, (qkv, bias, ids, heads, scale)),
+        (W.fused_window_attention_fwd_stash_plain, (qkv, bias, ids, heads, scale)),
+        (fused_window_attention_bwd_from_p_plain, (qkv, p, cot, heads, scale)),
+        (fused_window_attention_bwd_recompute_plain, (qkv, bias, ids, cot, heads, scale)),
+    ]
+    for fn, args in calls:
+        want, got = fn(*args), fn(*args, shift=0)
+        for a, b in zip(*(t if isinstance(t, tuple) else (t,) for t in (want, got))):
+            assert torch.equal(a, b), fn.__name__
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_backward_plain_versions_agree_in_f32(shape):
     """From P and recompute are the same gradient in f32 (the JAX package's
@@ -168,6 +244,18 @@ def test_autograd_function_gradcheck_f64(pcache, shift, monkeypatch):
     bb = (0.5 * torch.randn((2, 4, 4), generator=gen, dtype=torch.float64)).requires_grad_(True)
     ids = torch.from_numpy(window_region_ids(4, 4, 2, shift)) if shift else None
     assert torch.autograd.gradcheck(lambda t, b: FusedWindowAttention.apply(t, b, ids, 2, None), (x, bb))
+
+
+@pytest.mark.parametrize("pcache", [True, False], ids=["from_p", "recompute"])
+def test_autograd_function_gradcheck_f64_with_the_shift_in_the_op(pcache, monkeypatch):
+    """The same, shifted by 1 in the op (the input not rolled): B=2, 4×4, ws
+    2, 2 heads, head dim 3."""
+    _set_pcache(monkeypatch, pcache)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 4, 4, 3 * 2 * 3), generator=gen, dtype=torch.float64, requires_grad=True)
+    bb = (0.5 * torch.randn((2, 4, 4), generator=gen, dtype=torch.float64)).requires_grad_(True)
+    ids = torch.from_numpy(window_region_ids(4, 4, 2, 1))
+    assert torch.autograd.gradcheck(lambda t, b: FusedWindowAttention.apply(t, b, ids, 2, None, 1), (x, bb))
 
 
 @pytest.mark.parametrize("pcache", [True, False], ids=["from_p", "recompute"])
@@ -338,9 +426,15 @@ _N = _WS * _WS
         (lambda z: fused_window_attention_bwd_recompute(z((_B, _H, _W, 3 * _C)), z((_HEADS, _N, _N)), None,
                                                         z((_B, _H, _W, _C)).bfloat16(), _HEADS),
          TypeError),  # dO of another dtype
+        (lambda z: fused_window_attention_fwd(z((_B, _H, _W, 3 * _C)), z((_HEADS, _N, _N)),
+                                              torch.zeros((4, _N), dtype=torch.int32), _HEADS, shift=_WS),
+         ValueError),  # a shift of a whole window
+        (lambda z: fused_window_attention_fwd_stash(z((_B, _H, _W, 3 * _C)), z((_HEADS, _N, _N)), None, _HEADS,
+                                                    shift=1),
+         ValueError),  # a shift without the shifted frame's region ids
     ],
     ids=["qkv_rank", "qkv_width", "h_not_multiple", "n_not_square", "bias_heads", "ids_shape",
-         "p_shape", "do_shape", "p_dtype", "do_dtype"],
+         "p_shape", "do_shape", "p_dtype", "do_dtype", "shift_of_a_window", "shift_without_ids"],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
     with pytest.raises(err):

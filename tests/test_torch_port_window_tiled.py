@@ -101,6 +101,9 @@ SHARED = {
     ("dq", 64, False, False): 140_288, ("dq", 64, True, True): 149_504,
     ("dkv", 32, False, False): 75_776, ("dkv", 32, False, True): 110_592, ("dkv", 32, True, True): 111_616,
     ("dkv", 64, False, False): 112_640, ("dkv", 64, True, True): 152_576,
+    # from P with the shift in the kernel: the unshifted variant's memory (the mask is in P)
+    ("dq", 32, True, False): 103_424, ("dq", 64, True, False): 140_288,
+    ("dkv", 32, True, False): 75_776, ("dkv", 64, True, False): 112_640,
 }
 
 

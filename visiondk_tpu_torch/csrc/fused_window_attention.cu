@@ -11,14 +11,18 @@
 // contract and does the window partition itself: row r of window (wy, wx) is
 // pixel (wy*ws + r / ws, wx*ws + r % ws) of the [B, H, W, 3C] buffer, read by
 // strides (q at column h*d, k at C + h*d, v at 2C + h*d), and O is written
-// back to the same pixel of [B, H, W, C]. No partition or reverse copy ever
-// reaches device memory.
+// back to the same pixel of [B, H, W, C]. Shifted windows (shift s > 0) also
+// do the cyclic shift that the reference's block does with two jnp.rolls
+// around the kernel: row r of window (wy, wx) is then pixel
+// ((wy*ws + r / ws + s) mod H, (wx*ws + r % ws + s) mod W) (window_tc.cuh).
+// No partition, reverse or roll copy ever reaches device memory.
 //
 // Math, per (window, head, batch row), as the reference does it, in f32 from
 // the input dtype's values:
 //   S = (q . k^T) * scale * log2(e) + bias_h * log2(e)      (log2 domain)
 //   S += -100 * log2(e) where the region ids of query and key differ
-//        (shifted windows only; the unshifted variants do no mask work)
+//        (shifted windows only, kShifted; the unshifted variants do no mask
+//        work and no wrap of their addresses)
 //   P = exp2(S - rowmax) * (1 / rowsum), rounded to the input dtype
 //   O = P . v, summed in f32, rounded to the input dtype
 // The reference scales q before the product; the kernels scale the f32 sum
@@ -72,7 +76,8 @@
 //     stores from the fragments would be 32 scattered stores a thread.)
 //   - each thread's pixel offsets (row r of a window is r / ws image rows and
 //     r % ws columns from the window's first pixel) are divided out once per
-//     block, as in the backward.
+//     block, as in the backward; shifted windows wrap them with two compares
+//     a row, once a window.
 // Tried on the card and dropped, none faster at Swin-B's stages 0 and 2: the
 // stash stored straight from the fragments (2-byte stores; far slower), a 3-
 // or 4-stage ring, runs sized for 2, 5 or 8 blocks an SM, the bias held in
@@ -108,10 +113,25 @@ struct Args {
   void* out;          // [B, H, W, C]
   void* p;            // [B, nW, heads, N, N], or NULL (no stash)
   int h_img, w_img, heads, d, ws, n, n_win_x, n_win, total, per_chunk;
+  int shift;    // the cyclic shift s of shifted windows (0 where the caller rolled the map)
   float q_mul;  // scale * log2(e)
   int aligned;  // bf16: qkv and out start on 16 bytes, d and C multiples of 8
   int p_aligned;  // bf16, N > 64: the stash's rows start on 16 bytes
 };
+
+// Window t (batch-row-major) of the call: its first pixel and, shifted, where
+// its rows wrap.
+template <bool kShifted>
+__device__ __forceinline__ wtc::WindowWalk<kShifted> window_at(const Args& a, int t) {
+  return wtc::WindowWalk<kShifted>(t, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img, a.shift);
+}
+
+// Row r of a window, as a row index of [B * H * W] (one division: the f32
+// bodies').
+template <bool kShifted>
+__device__ __forceinline__ int64_t window_row(const Args& a, const wtc::WindowWalk<kShifted>& win, int r) {
+  return win.base + win.at(wtc::row_offset<kShifted>(r, a.ws, a.w_img), a.h_img * a.w_img, a.w_img);
+}
 
 // ---------------------------------------------------------------- float32
 
@@ -141,10 +161,10 @@ __host__ __device__ constexpr size_t smem_bytes(int n) {
   return sizeof(float) * (2 * n * (DP + 1) + n * DP + n * (n + 1)) + sizeof(int) * n;
 }
 
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) {
   extern __shared__ float smem[];
-  const int n = a.n, d = a.d, ws = a.ws;
+  const int n = a.n, d = a.d;
   const int lp = n + 1;
   float* qs = smem;
   float* ks = qs + n * (DP + 1);
@@ -155,14 +175,10 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
   const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int wy = w / a.n_win_x;
-  const int wx = w - wy * a.n_win_x;
   const int c = a.heads * d;
+  const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, b * a.n_win + w);
   // the pixel of window row r, as an index into the [B, H, W] grid
-  auto pixel = [&](int r) -> int64_t {
-    const int ry = r / ws;
-    return (static_cast<int64_t>(b) * a.h_img + wy * ws + ry) * a.w_img + wx * ws + (r - ry * ws);
-  };
+  auto pixel = [&](int r) -> int64_t { return window_row(a, win, r); };
 
   const float* qkv = static_cast<const float*>(a.qkv);
   for (int idx = threadIdx.x; idx < n * DP; idx += kThreads) {
@@ -179,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
     ks[r * (DP + 1) + cc] = kv;
     vs[r * DP + cc] = vv;
   }
-  if (kMasked) {
+  if (kShifted) {
     for (int r = threadIdx.x; r < n; r += kThreads) id_s[r] = a.ids[static_cast<int64_t>(w) * n + r];
   }
   __syncthreads();
@@ -202,14 +218,14 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(Args a) 
     }
   }
   const float* bias_row = a.bias + (static_cast<int64_t>(h) * n + rr) * n;
-  const int my_id = kMasked ? id_s[rr] : 0;
+  const int my_id = kShifted ? id_s[rr] : 0;
   float m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < kColsPerLane; ++j) {
     const int key = g + j * kLanesPerRow;
     if (key < n) {
       float sj = s[j] + bias_row[key] * kLog2e;
-      if (kMasked && id_s[key] != my_id) sj += kMaskValue;
+      if (kShifted && id_s[key] != my_id) sj += kMaskValue;
       s[j] = sj;
       m = fmaxf(m, sj);
     }
@@ -275,7 +291,7 @@ static_assert(kLanesPerRow == 4, "row_max and row_sum also reduce the four lanes
 // rows of the P tile (16 rows of N, shifted by up to 7 to the tile's 16-byte
 // phase); with shift regions, kStages stages of the window's region ids
 // [kNP] int.
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 struct TcSmem {
   static constexpr int kLd = DP + tc::kPad;
   __host__ __device__ static constexpr int ops(int n) { return 3 * n * kLd; }  // bf16 elements of one stage
@@ -284,23 +300,16 @@ struct TcSmem {
   }
   static constexpr size_t bytes(int n) {
     return sizeof(tc::bf16) * (kStages * ops(n) + kTcWarps * strip(n)) +
-           (kMasked ? sizeof(int) * kStages * kNP : 0);
+           (kShifted ? sizeof(int) * kStages * kNP : 0);
   }
 };
 
-// The first pixel (row 0) of window t (batch-row-major), as a row index of [B * H * W].
-__device__ __forceinline__ int64_t window_base(const Args& a, int t) {
-  const int b = t / a.n_win, w = t - b * a.n_win;
-  const int wy = w / a.n_win_x, wx = w - wy * a.n_win_x;
-  return (static_cast<int64_t>(b) * a.h_img + wy * a.ws) * a.w_img + wx * a.ws;
-}
-
 // Blocks an SM: four at head dim 32, three at 64; the wrapper sizes its runs
 // of windows for four.
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention_fwd_tc_kernel(Args a) {
   using namespace tc;
-  using Smem = TcSmem<DP, kMasked, kStash>;
+  using Smem = TcSmem<DP, kShifted, kStash>;
   constexpr int kLd = Smem::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, d = a.d, ws = a.ws, c = a.heads * d;
@@ -316,12 +325,14 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
   bf16* out = static_cast<bf16*>(a.out);
 
   // A window's row r is the pixel `base + (r / ws) * w_img + r % ws` of its
-  // first pixel `base`. The divisions are made once per block: each thread
-  // keeps the offsets of the rows it loads (16-byte column lc of rows lr +
-  // kRowStep k) and of the two fragment rows it stores.
+  // first pixel `base` (shifted: wrapped, window_tc.cuh). The divisions are
+  // made once per block: each thread keeps the offsets of the rows it loads
+  // (16-byte column lc of rows lr + kRowStep k) and of the two fragment rows
+  // it stores.
   constexpr int kChunks = DP / 8, kRowStep = kTcThreads / kChunks, kRowLoads = kNP / kRowStep;
   const int lc = (threadIdx.x % kChunks) * 8, lr = threadIdx.x / kChunks;
-  auto pixel_offset = [&](int r) { return (r / ws) * a.w_img + r % ws; };
+  const int hw = a.h_img * a.w_img;
+  auto pixel_offset = [&](int r) { return wtc::row_offset<kShifted>(r, ws, a.w_img); };
   int load_px[kRowLoads];
 #pragma unroll
   for (int k = 0; k < kRowLoads; ++k) load_px[k] = pixel_offset(lr + kRowStep * k);
@@ -330,13 +341,13 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
   // past d; the region ids.
   auto load = [&](int i) {
     const int t = t0 + i, s = i % kStages;
-    const int64_t base = window_base(a, t);
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
     bf16* dst = ops + s * Smem::ops(n) + lc;
 #pragma unroll
     for (int k = 0; k < kRowLoads; ++k) {
       const int r = lr + kRowStep * k;
       if (r >= n) break;
-      const bf16* row = qkv + (base + load_px[k]) * row_stride + h * d + lc;
+      const bf16* row = qkv + (win.base + win.at(load_px[k], hw, a.w_img)) * row_stride + h * d + lc;
 #pragma unroll
       for (int op = 0; op < 3; ++op) {
         const bf16* src = row + op * c;
@@ -357,10 +368,9 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
         }
       }
     }
-    if (kMasked) {
-      const int w = t % a.n_win;
+    if (kShifted) {
       for (int r = threadIdx.x; r < n; r += kTcThreads) {
-        cp_async4(ids_s + s * kNP + r, a.ids + static_cast<int64_t>(w) * n + r, 4);
+        cp_async4(ids_s + s * kNP + r, a.ids + static_cast<int64_t>(win.w) * n + r, 4);
       }
     }
   };
@@ -406,7 +416,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
     float sc[kNT][4];
     product_nt_rows<DP, kNT>(sc, qs, row0, ks, kLd, n, lane);
     const int* ids = ids_s + s * kNP;
-    const int id_row[2] = {kMasked ? ids[rowc[0]] : 0, kMasked ? ids[rowc[1]] : 0};
+    const int id_row[2] = {kShifted ? ids[rowc[0]] : 0, kShifted ? ids[rowc[1]] : 0};
     float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -414,7 +424,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
       for (int e = 0; e < 4; ++e) {
         float x = sc[j][e] * a.q_mul + bias2[j][e];
         // ids past N hold no window's ids, but x is -inf there whatever is added
-        if (kMasked && ids[j * 8 + 2 * tq + (e & 1)] != id_row[e >> 1]) x += kMaskValue;
+        if (kShifted && ids[j * 8 + 2 * tq + (e & 1)] != id_row[e >> 1]) x += kMaskValue;
         sc[j][e] = x;
         m[e >> 1] = fmaxf(m[e >> 1], x);
       }
@@ -483,11 +493,11 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 ? 4 : 3) window_attention
     for (int kk = 0; kk < kNP / 16; ++kk) {
       if (kk * 16 < n) accumulate_tn_rows<DP, false>(o, pa[kk], pa[kk], vs, kLd, kk, n, lane);
     }
-    const int64_t base = window_base(a, t);
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row0 + g + 8 * r >= n) continue;
-      bf16* dst = out + (base + store_px[r]) * c + h * d;
+      bf16* dst = out + (win.base + win.at(store_px[r], hw, a.w_img)) * c + h * d;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = j * 8 + 2 * tq;
@@ -574,17 +584,11 @@ constexpr int kF32Rows = 32;            // query rows a block (f32)
 constexpr int kF32Tile = 64;            // keys a tile (f32)
 constexpr int kF32Threads = 128;        // four a row
 
-// Row r of window t's first pixel `base`, as a row index of [B * H * W].
-__device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
-  const int ry = r / a.ws;
-  return base + static_cast<int64_t>(ry) * a.w_img + (r - ry * a.ws);
-}
-
 // Shared memory of the bf16 kernel: the bias in fragment order (per warp and
 // group of 32 keys, 2 row halves x 2 pieces x 32 lanes of float4), the q
 // rows [64][DP], K and V [256][DP] in the key order (keys past N zeros), the
-// rows' pixel offsets [N] int, then the window's region ids [N] int
-// (shifted).
+// rows' pixel offsets [N] int (row_offset), then the window's region ids [N]
+// int (shifted).
 template <int DP>
 struct LargeSmem {
   static constexpr size_t bytes(bool masked) {
@@ -593,7 +597,7 @@ struct LargeSmem {
   }
 };
 
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_tc_kernel(Args a) {
   using namespace tc;
   constexpr int kNT = wtc::kNT, kG = wtc::kMaxGroups, kKeys = wtc::kMaxN;
@@ -612,6 +616,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_t
   const bool active = m0 < n;
   const int t0 = blockIdx.x * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
+  const int hw = a.h_img * a.w_img;
   const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
   const wtc::Lanes<DP> lanes(lane);
   // the rows of this thread's fragments; rows past N take row N - 1's bias
@@ -640,34 +645,37 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_t
       }
     }
   }
-  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+  wtc::fill_offsets<kShifted>(off_s, n, a.ws, a.w_img);
   __syncthreads();
 
   // a window's q rows and K (and its region ids), and its V
-  auto load_qk = [&](const wtc::WindowWalk& win_t) {
+  using Walk = wtc::WindowWalk<kShifted>;
+  auto load_qk = [&](const Walk& win_t) {
     const bf16* win = src + win_t.base * row_stride;
-    wtc::stage<DP, wtc::kRows>(qs, win, off_s, row_stride, [&](int r) { return m_block + r; }, n, d, a.aligned);
-    wtc::stage<DP, kKeys>(ks, win + c, off_s, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
-    if (kMasked) {
+    auto offset = [&](int r) { return win_t.at(off_s[r], hw, a.w_img); };
+    wtc::stage<DP, wtc::kRows>(qs, win, offset, row_stride, [&](int r) { return m_block + r; }, n, d, a.aligned);
+    wtc::stage<DP, kKeys>(ks, win + c, offset, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
+    if (kShifted) {
       const int* ids = a.ids + static_cast<int64_t>(win_t.w) * n;
       for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
     }
   };
-  auto load_v = [&](const wtc::WindowWalk& win_t) {
+  auto load_v = [&](const Walk& win_t) {
     const bf16* win = src + win_t.base * row_stride;
-    wtc::stage<DP, kKeys>(vs, win + 2 * c, off_s, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
+    auto offset = [&](int r) { return win_t.at(off_s[r], hw, a.w_img); };
+    wtc::stage<DP, kKeys>(vs, win + 2 * c, offset, row_stride, [](int r) { return wtc::perm(r); }, n, d, a.aligned);
   };
 
   // Two barriers a window: V of window t arrives during its Q . K^T and
   // softmax, q and K of window t + 1 during its P . V.
-  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
+  Walk walk = window_at<kShifted>(a, t0);  // window t
   load_qk(walk);
   cp_async_commit();
   for (int i = 0; i < count; ++i) {
     const int t = t0 + i;
     const int* ids = ids_s;
-    wtc::WindowWalk next = walk;
-    next.next(a.n_win, a.n_win_x, a.ws, a.w_img);
+    Walk next = walk;
+    next.next(a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img, a.shift);
     cp_async_wait<0>();
     __syncthreads();  // q, K and ids of window t have arrived; every warp is done with V of window t - 1
     load_v(walk);
@@ -680,7 +688,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_t
       uint32_t qa[DP / 16][4];
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], qs + lanes.a[kk] + warp * kWarpRows * DP);
-      if (kMasked) {
+      if (kShifted) {
         const int id0 = ids[0];
         bool diff = false;
         for (int r = lane; r < n; r += 32) diff |= ids[r] != id0;
@@ -723,7 +731,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_t
               float& x = s[j + (e >> 1)][2 * r + (e & 1)];
               x = x * a.q_mul + bv[e];
             }
-            if (kMasked && mixed) {
+            if (kShifted && mixed) {
               const int4 v = *reinterpret_cast<const int4*>(ids + m * wtc::kGroup + 8 * tq + 4 * jp);
               const int id[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -814,13 +822,12 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_fwd_large_t
         wtc::accumulate<DP, false>(o[kk & 1], pa[kk], pa[kk], vs, lanes, kk);
         if ((kk & 3) == 3) __syncwarp();
       }
-      const int64_t base = walk.base;
       bf16* out = static_cast<bf16*>(a.out);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = m0 + g + 8 * r;
         if (row >= n) continue;
-        bf16* dst = out + (base + off_s[row]) * c + h * d;
+        bf16* dst = out + (walk.base + walk.at(off_s[row], hw, a.w_img)) * c + h * d;
 #pragma unroll
         for (int j = 0; j < DP / 8; ++j) {
           const int col = j * 8 + 2 * tq;
@@ -863,7 +870,7 @@ struct F32LargeSmem {
 
 // Thread t owns query row t / 4 and, of each key tile, the keys (t % 4) + 4j,
 // j < 16; for P . V the dims (t % 4) + 4i.
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 __global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel(Args a) {
   using S = F32LargeSmem<DP>;
   extern __shared__ float smem[];
@@ -879,11 +886,11 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel
   const int r = threadIdx.x / kLanesPerRow, g = threadIdx.x % kLanesPerRow;
   const int row = m0 + r, rr = min(row, n - 1);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
-  const int64_t base = window_base(a, t);
+  const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
   const float* q_src = static_cast<const float*>(a.qkv) + h * d;
-  auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
+  auto offset = [&](int x) { return window_row(a, win, x) * row_stride; };
 
-  if (kMasked) {
+  if (kShifted) {
     const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
     for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
   }
@@ -902,14 +909,14 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) s[j] = fmaf(q, ks[(g + j * kLanesPerRow) * (DP + 1) + kd], s[j]);
     }
-    const int my_id = kMasked ? ids_s[rr] : 0;
+    const int my_id = kShifted ? ids_s[rr] : 0;
 #pragma unroll
     for (int j = 0; j < kColsPerLane; ++j) {
       const int key = k0 + g + j * kLanesPerRow;
       float x = -INFINITY;
       if (key < n) {
         x = s[j] + bias_row[key] * kLog2e;
-        if (kMasked && ids_s[key] != my_id) x += kMaskValue;
+        if (kShifted && ids_s[key] != my_id) x += kMaskValue;
       }
       s[j] = x;
     }
@@ -967,7 +974,7 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel
     }
   }
   if (row < n) {
-    float* o = static_cast<float*>(a.out) + window_row(a, base, row) * c + h * d;
+    float* o = static_cast<float*>(a.out) + window_row(a, win, row) * c + h * d;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const int dd = g + i * kLanesPerRow;
@@ -978,9 +985,9 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_fwd_large_kernel
 
 // ---------------------------------------------------------------- launches
 
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 cudaError_t launch_f32_large(const Args& a, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_large_kernel<DP, kMasked, kStash>;
+  auto kernel = window_attention_fwd_large_kernel<DP, kShifted, kStash>;
   constexpr size_t bytes = F32LargeSmem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -991,11 +998,11 @@ cudaError_t launch_f32_large(const Args& a, cudaStream_t stream) {
 
 // The bf16 tiled kernel's block: threads and shared-memory bytes, with the
 // attributes that let two blocks share an SM set.
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 cudaError_t prepare_tc_large(int* threads, size_t* bytes) {
-  auto kernel = window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>;
+  auto kernel = window_attention_fwd_large_tc_kernel<DP, kShifted, kStash>;
   *threads = wtc::kThreads;
-  *bytes = LargeSmem<DP>::bytes(kMasked);
+  *bytes = LargeSmem<DP>::bytes(kShifted);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
@@ -1003,21 +1010,21 @@ cudaError_t prepare_tc_large(int* threads, size_t* bytes) {
 }
 
 // A grid of (run of windows, head, run of query rows).
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 cudaError_t launch_tc_large(const Args& a, cudaStream_t stream) {
   int threads;
   size_t bytes;
-  const cudaError_t err = prepare_tc_large<DP, kMasked, kStash>(&threads, &bytes);
+  const cudaError_t err = prepare_tc_large<DP, kShifted, kStash>(&threads, &bytes);
   if (err != cudaSuccess) return err;
   const int n_chunks = (a.total + a.per_chunk - 1) / a.per_chunk;
-  window_attention_fwd_large_tc_kernel<DP, kMasked, kStash>
+  window_attention_fwd_large_tc_kernel<DP, kShifted, kStash>
       <<<dim3(n_chunks, a.heads, (a.n + wtc::kRows - 1) / wtc::kRows), threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_kernel<DP, kMasked, kStash>;
+  auto kernel = window_attention_fwd_kernel<DP, kShifted, kStash>;
   const size_t bytes = smem_bytes<DP>(a.n);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -1027,10 +1034,10 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 }
 
 // A grid of (run of windows, head).
-template <int DP, bool kMasked, bool kStash>
+template <int DP, bool kShifted, bool kStash>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_tc_kernel<DP, kMasked, kStash>;
-  const size_t bytes = TcSmem<DP, kMasked, kStash>::bytes(a.n);
+  auto kernel = window_attention_fwd_tc_kernel<DP, kShifted, kStash>;
+  const size_t bytes = TcSmem<DP, kShifted, kStash>::bytes(a.n);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
@@ -1043,16 +1050,16 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
 
 // float32 -> the CUDA-core kernel, bfloat16 -> the tensor-core kernel; DP is
 // the head-dim bucket, then shift regions or none, stash or none.
-template <int DP, bool kMasked>
+template <int DP, bool kShifted>
 cudaError_t dispatch_stash(const Args& a, int dtype, cudaStream_t s) {
   if (a.n > kMaxN) {  // ws 9 to 16
     if (dtype == 0) {
-      return a.p != nullptr ? launch_f32_large<DP, kMasked, true>(a, s) : launch_f32_large<DP, kMasked, false>(a, s);
+      return a.p != nullptr ? launch_f32_large<DP, kShifted, true>(a, s) : launch_f32_large<DP, kShifted, false>(a, s);
     }
-    return a.p != nullptr ? launch_tc_large<DP, kMasked, true>(a, s) : launch_tc_large<DP, kMasked, false>(a, s);
+    return a.p != nullptr ? launch_tc_large<DP, kShifted, true>(a, s) : launch_tc_large<DP, kShifted, false>(a, s);
   }
-  if (dtype == 0) return a.p != nullptr ? launch_f32<DP, kMasked, true>(a, s) : launch_f32<DP, kMasked, false>(a, s);
-  return a.p != nullptr ? launch_tc<DP, kMasked, true>(a, s) : launch_tc<DP, kMasked, false>(a, s);
+  if (dtype == 0) return a.p != nullptr ? launch_f32<DP, kShifted, true>(a, s) : launch_f32<DP, kShifted, false>(a, s);
+  return a.p != nullptr ? launch_tc<DP, kShifted, true>(a, s) : launch_tc<DP, kShifted, false>(a, s);
 }
 
 template <int DP>
@@ -1066,7 +1073,9 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
 // qkv: [b, h_img, w_img, 3 * heads * head_dim] of `dtype` (0: float32, 1:
 // bfloat16); bias: f32 [heads, ws^2, ws^2]; ids: int32 [nW, ws^2] region ids
 // (nW = (h_img / ws) * (w_img / ws), windows row-major) or NULL for unshifted
-// windows; out: [b, h_img, w_img, heads * head_dim] of `dtype`; p: [b, nW,
+// windows; shift: the cyclic shift of shifted windows, 0 <= shift < ws, which
+// takes ids (0: the caller rolled the map, or unshifted);
+// out: [b, h_img, w_img, heads * head_dim] of `dtype`; p: [b, nW,
 // heads, ws^2, ws^2] of `dtype` or NULL (no stash). All contiguous, on the
 // current device. per_chunk: windows each bf16 block takes, in batch-row-major
 // order, for one head (and, for N > 64, one run of query rows; the f32
@@ -1076,10 +1085,11 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
 // of the launch (0 on success).
 extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias, const int* ids,
                                               void* out, void* p, int b, int h_img, int w_img,
-                                              int heads, int head_dim, int ws, int per_chunk, float q_mul,
-                                              int dtype, void* stream) {
+                                              int heads, int head_dim, int ws, int shift, int per_chunk,
+                                              float q_mul, int dtype, void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || head_dim < 1 || head_dim > 64 ||
       ws < 1 || ws * ws > kLargeMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
+      shift < 0 || shift >= ws || (shift > 0 && ids == nullptr) ||
       per_chunk < 1 || bias == nullptr || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1089,8 +1099,8 @@ extern "C" int vdk_fused_window_attention_fwd(const void* qkv, const float* bias
   const int aligned = reinterpret_cast<uintptr_t>(qkv) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                       head_dim % 8 == 0 && c % 8 == 0;
   const int p_aligned = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ws * ws % 8 == 0;
-  const Args a{qkv,   bias,     ids, out,     p,     h_img,     w_img,     heads, head_dim,
-               ws,    ws * ws,  n_win_x, n_win, b * n_win, per_chunk, q_mul, aligned, p_aligned};
+  const Args a{qkv,   bias,    ids,   out,       p,         h_img, w_img,   heads,     head_dim, ws,
+               ws * ws, n_win_x, n_win, b * n_win, per_chunk, shift, q_mul, aligned, p_aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dtype, s) : dispatch<64>(a, dtype, s);
   return static_cast<int>(err);

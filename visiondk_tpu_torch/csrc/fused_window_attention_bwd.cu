@@ -7,10 +7,13 @@
 // which reads the probabilities the forward stashed) and _wattn_bwd_kernel
 // (:293-347; K2r, the recompute backward, chosen by VDK_ATTN_NO_PCACHE=1).
 // Same layout contract as the forward: row r of window (wy, wx) is pixel
-// (wy*ws + r / ws, wx*ws + r % ws); q, k, v are read by strides out of
-// [B, H, W, 3C], dO out of [B, H, W, C], and dq, dk, dv are written to the
-// same pixel's column blocks of dqkv (q at h*d, k at C + h*d, v at 2C + h*d)
-// in the input dtype.
+// (wy*ws + r / ws, wx*ws + r % ws), or for shifted windows (shift s > 0) the
+// pixel ((wy*ws + r / ws + s) mod H, (wx*ws + r % ws + s) mod W) (window_tc.cuh);
+// q, k, v are read by strides out of [B, H, W, 3C], dO out of [B, H, W, C],
+// and dq, dk, dv are written to the same pixel's column blocks of dqkv (q at
+// h*d, k at C + h*d, v at 2C + h*d) in the input dtype. kShifted marks the
+// shifted windows' variants: recomputing, they mask across shift regions; from
+// P (whose mask is in the stash) they only wrap their addresses.
 //
 // Math, per (window, head, batch row), as the reference does it
 // (window_attention.py:293-396), in f32 from the input dtype's values:
@@ -87,7 +90,8 @@
 //   - each thread's pixel offsets (row r of a window is r / ws rows and
 //     r % ws columns from its first pixel) are divided out once per block:
 //     runtime divisions in every window's loads and stores cost 7% of the
-//     time on the H100.
+//     time on the H100. Shifted windows wrap them with two compares a row,
+//     once a window.
 //
 // float32: the first design's CUDA-core kernel, kept for the f32 bars (dqkv
 // 1e-4, the one-step train comparison at 1e-5 loss); TF32 products would not
@@ -117,18 +121,33 @@ constexpr float kMaskValue = -144.26950408889634f;  // -100 * log2(e), the refer
 struct Args {
   const void* qkv;     // [B, H, W, 3C]
   const float* bias;   // [heads, N, N] (recompute)
-  const int* ids;      // [nW, N] region ids, or NULL (recompute, unshifted)
+  const int* ids;      // [nW, N] region ids, or NULL (from P; recompute, unshifted)
   const void* p;       // [B, nW, heads, N, N] stash, or NULL (recompute)
   const void* dout;    // [B, H, W, C]
   void* dqkv;          // [B, H, W, 3C]
   float* dbias_part;   // [n_chunks, heads, N, N]
   int h_img, w_img, heads, d, ws, n, n_win_x, n_win, total, per_chunk;
+  int shift;    // the cyclic shift s of shifted windows (0 where the caller rolled the map)
   float q_mul;  // scale * log2(e)
   float scale;
   int aligned;  // bf16: qkv, dout and dqkv start on 16 bytes, d and C multiples of 8
   float* stats;   // N > 64: [3][B * nW, heads, N] delta, row max, 1 / row sum (the last two recomputing)
   int p_aligned;  // bf16, N > 64: the stash's rows start on 16 bytes
 };
+
+// Window t (batch-row-major) of the call: its first pixel and, shifted, where
+// its rows wrap.
+template <bool kShifted>
+__device__ __forceinline__ wtc::WindowWalk<kShifted> window_at(const Args& a, int t) {
+  return wtc::WindowWalk<kShifted>(t, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img, a.shift);
+}
+
+// Row r of a window, as a row index of [B * H * W] (one division: the f32
+// bodies' and the tiled bodies' stores).
+template <bool kShifted>
+__device__ __forceinline__ int64_t window_row(const Args& a, const wtc::WindowWalk<kShifted>& win, int r) {
+  return win.base + win.at(wtc::row_offset<kShifted>(r, a.ws, a.w_img), a.h_img * a.w_img, a.w_img);
+}
 
 // ---------------------------------------------------------------- float32
 
@@ -157,11 +176,11 @@ __host__ __device__ constexpr size_t smem_bytes(int n) {
   return sizeof(float) * (4 * n * (DP + 1) + 2 * n * (n + 1)) + sizeof(int) * n;
 }
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(Args a) {
   constexpr int ld = DP + 1;
   extern __shared__ float smem[];
-  const int n = a.n, d = a.d, ws = a.ws;
+  const int n = a.n, d = a.d;
   const int lp = n + 1;
   float* qs = smem;  // q, unscaled
   float* ks = qs + n * ld;
@@ -192,14 +211,9 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(Args a) 
   const int t0 = chunk * a.per_chunk;
   const int t1 = min(t0 + a.per_chunk, a.total);
   for (int t = t0; t < t1; ++t) {
-    const int b = t / a.n_win;
-    const int w = t - b * a.n_win;
-    const int wy = w / a.n_win_x;
-    const int wx = w - wy * a.n_win_x;
-    auto pixel = [&](int row) -> int64_t {
-      const int ry = row / ws;
-      return (static_cast<int64_t>(b) * a.h_img + wy * ws + ry) * a.w_img + wx * ws + (row - ry * ws);
-    };
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
+    const int b = t / a.n_win, w = win.w;
+    auto pixel = [&](int row) -> int64_t { return window_row(a, win, row); };
 
     __syncthreads();  // the previous window's readers are done
     for (int idx = threadIdx.x; idx < n * DP; idx += kThreads) {
@@ -227,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(Args a) 
         ps[pr * lp + idx - pr * n] = p_tile[idx];
       }
     }
-    if (kRecompute && kMasked) {
+    if (kRecompute && kShifted) {
       for (int row = threadIdx.x; row < n; row += kThreads) {
         id_s[row] = a.ids[static_cast<int64_t>(w) * n + row];
       }
@@ -251,14 +265,14 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(Args a) 
     }
     if (kRecompute) {
       const float* bias_row = a.bias + (static_cast<int64_t>(h) * n + rr) * n;
-      const int my_id = kMasked ? id_s[rr] : 0;
+      const int my_id = kShifted ? id_s[rr] : 0;
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) {
         const int key = g + j * kLanesPerRow;
         if (key < n) {
           float sj = s[j] * a.q_mul + bias_row[key] * kLog2e;
-          if (kMasked && id_s[key] != my_id) sj += kMaskValue;
+          if (kShifted && id_s[key] != my_id) sj += kMaskValue;
           s[j] = sj;
           m = fmaxf(m, sj);
         }
@@ -356,9 +370,9 @@ static_assert(kLanesPerRow == 4, "row_max and row_sum also reduce the four lanes
 // stash's values, or the recomputed P's hi) [kNP][kLdT], recomputing its lo
 // [kNP][kLdT], dS hi and lo [kNP][kLdT] (all bf16, rows and keys past N
 // written as 0 every window); two stages of q, k, v, dO [N][DP + 8] bf16;
-// from P, two stages of the raw stash range; with shift regions, two stages
-// of the window's region ids [kNP] int.
-template <int DP, bool kMasked, bool kRecompute>
+// from P, two stages of the raw stash range; recomputing with shift regions,
+// two stages of the window's region ids [kNP] int.
+template <int DP, bool kShifted, bool kRecompute>
 struct TcSmem {
   static constexpr int kLd = DP + tc::kPad;
   static constexpr int kTiles = kRecompute ? 4 : 3;
@@ -367,7 +381,8 @@ struct TcSmem {
   __host__ __device__ static constexpr int ops(int n) { return 4 * n * kLd; }
   __host__ __device__ static constexpr int raw(int n) { return kRecompute ? 0 : (n * n + 7 + 7) / 8 * 8; }
   static constexpr size_t bytes(int n) {
-    return sizeof(tc::bf16) * (kTiles * kNP * kLdT + 2 * (ops(n) + raw(n))) + (kMasked ? sizeof(int) * 2 * kNP : 0);
+    return sizeof(tc::bf16) * (kTiles * kNP * kLdT + 2 * (ops(n) + raw(n))) +
+           (kShifted && kRecompute ? sizeof(int) * 2 * kNP : 0);
   }
 };
 
@@ -376,21 +391,14 @@ __device__ __forceinline__ const tc::bf16* stash_tile(const Args& a, int t, int 
   return static_cast<const tc::bf16*>(a.p) + (static_cast<int64_t>(t) * a.heads + h) * a.n * a.n;
 }
 
-// The first pixel (row 0) of window t, as a row index of [B * H * W].
-__device__ __forceinline__ int64_t window_base(const Args& a, int t) {
-  const int b = t / a.n_win, w = t - b * a.n_win;
-  const int wy = w / a.n_win_x, wx = w - wy * a.n_win_x;
-  return (static_cast<int64_t>(b) * a.h_img + wy * a.ws) * a.w_img + wx * a.ws;
-}
-
 // Blocks an SM: three from P at head dim 32 (161 registers a thread); two
 // recomputing (255; capped for three it spilled and was 4% slower on the
 // H100) and at head dim 64. The wrapper sizes its runs of windows to match.
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
     window_attention_bwd_tc_kernel(Args a) {
   using namespace tc;
-  using Smem = TcSmem<DP, kMasked, kRecompute>;
+  using Smem = TcSmem<DP, kShifted, kRecompute>;
   constexpr int kLd = Smem::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, d = a.d, ws = a.ws, c = a.heads * d;
@@ -412,12 +420,14 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
   const bf16* p_end = kRecompute ? nullptr : stash_tile(a, a.total, 0);
 
   // A window's row r is the pixel `base + (r / ws) * w_img + r % ws` of its
-  // first pixel `base`. The divisions are made once per block: each thread
-  // keeps the offsets of the rows it loads (16-byte column lc of rows lr +
-  // kRowStep k) and of the two fragment rows it stores.
+  // first pixel `base` (shifted: wrapped, window_tc.cuh). The divisions are
+  // made once per block: each thread keeps the offsets of the rows it loads
+  // (16-byte column lc of rows lr + kRowStep k) and of the two fragment rows
+  // it stores.
   constexpr int kChunks = DP / 8, kRowStep = kTcThreads / kChunks, kRowLoads = kNP / kRowStep;
   const int lc = (threadIdx.x % kChunks) * 8, lr = threadIdx.x / kChunks;
-  auto pixel_offset = [&](int r) { return (r / ws) * a.w_img + r % ws; };
+  const int hw = a.h_img * a.w_img;
+  auto pixel_offset = [&](int r) { return wtc::row_offset<kShifted>(r, ws, a.w_img); };
   int load_px[kRowLoads];
 #pragma unroll
   for (int k = 0; k < kRowLoads; ++k) load_px[k] = pixel_offset(lr + kRowStep * k);
@@ -426,13 +436,13 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
   // d; the raw stash range; the region ids.
   auto load = [&](int i) {
     const int t = t0 + i, s = i & 1;
-    const int64_t base = window_base(a, t);
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
     bf16* dst = ops + s * Smem::ops(n) + lc;
 #pragma unroll
     for (int k = 0; k < kRowLoads; ++k) {
       const int r = lr + kRowStep * k;
       if (r >= n) break;
-      const int64_t px = base + load_px[k];
+      const int64_t px = win.base + win.at(load_px[k], hw, a.w_img);
 #pragma unroll
       for (int op = 0; op < 4; ++op) {
         const bf16* src = (op < 3 ? qkv + px * row_stride + op * c : dout + px * c) + h * d + lc;
@@ -453,10 +463,9 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
         }
       }
     }
-    if (kMasked) {
-      const int w = t % a.n_win;
+    if (kShifted && kRecompute) {
       for (int r = threadIdx.x; r < n; r += kTcThreads) {
-        cp_async4(ids_s + s * kNP + r, a.ids + static_cast<int64_t>(w) * n + r, 4);
+        cp_async4(ids_s + s * kNP + r, a.ids + static_cast<int64_t>(win.w) * n + r, 4);
       }
     }
     if (!kRecompute) {  // the 16-byte pieces that hold the tile, none past the stash
@@ -479,11 +488,11 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
 
   // Rows row0 + g and row0 + g + 8 of a warp's 16 x DP C tiles, times mul,
   // into column block blk (0: q, 1: k, 2: v) of their pixels in dqkv.
-  auto store = [&](const float (&acc)[DP / 8][4], float mul, int blk, int64_t base) {
+  auto store = [&](const float (&acc)[DP / 8][4], float mul, int blk, const wtc::WindowWalk<kShifted>& win) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row0 + g + 8 * r >= n) continue;
-      bf16* dst = dqkv + (base + store_px[r]) * row_stride + blk * c + h * d;
+      bf16* dst = dqkv + (win.base + win.at(store_px[r], hw, a.w_img)) * row_stride + blk * c + h * d;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = j * 8 + 2 * tq;
@@ -512,7 +521,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
       cp_async_commit();
     }
     const int t = t0 + i, s = i & 1;
-    const int64_t base = window_base(a, t);
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
     const bf16* qs = ops + s * Smem::ops(n);
     const bf16* ks = qs + n * kLd;
     const bf16* vs = ks + n * kLd;
@@ -529,7 +538,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         rowc[r] = min(row0 + g + 8 * r, n - 1);  // rows past N: row N - 1's scores, then P = 0
-        id_row[r] = kMasked ? ids[rowc[r]] : 0;
+        id_row[r] = kShifted ? ids[rowc[r]] : 0;
       }
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -539,7 +548,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
           float x = -INFINITY;  // keys past N: out of the row
           if (key < n) {
             x = pv[j][e] * a.q_mul + __ldg(bias_h + rowc[r] * n + key) * kLog2e;
-            if (kMasked && ids[key] != id_row[r]) x += kMaskValue;
+            if (kShifted && ids[key] != id_row[r]) x += kMaskValue;
           }
           pv[j][e] = x;
           m[r] = fmaxf(m[r], x);
@@ -627,7 +636,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
       *reinterpret_cast<uint32_t*>(ds_lo + rb + kk * 16 + 8) = lo[3];
       accumulate_tn_rows<DP, true>(dq, hi, lo, ks, kLd, kk, n, lane);
     }
-    store(dq, a.scale, 0, base);
+    store(dq, a.scale, 0, win);
     __syncthreads();  // the P and dS tiles are complete
 
     // Phase B: the warp's 16 keys over all 64 queries.
@@ -649,8 +658,8 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 32 && !kRecompute ? 3 : 2)
         ldmatrix_x4_trans(lo, ds_lo + at);
         accumulate_tn_rows<DP, true>(dk, hi, lo, qs, kLd, kk, n, lane);  // dK += dS^T . q
       }
-      store(dk, a.scale, 1, base);
-      store(dv, 1.f, 2, base);
+      store(dk, a.scale, 1, win);
+      store(dv, 1.f, 2, win);
     }
   }
 
@@ -747,16 +756,10 @@ constexpr int kF32Tile = 64;            // columns a tile (f32)
 constexpr int kF32Threads = 128;        // four a row
 constexpr float kInvLog2e = 0.6931471805599453f;
 
-// Row r of the window whose first pixel is `base`, as a row index of [B * H * W].
-__device__ __forceinline__ int64_t window_row(const Args& a, int64_t base, int r) {
-  const int ry = r / a.ws;
-  return base + static_cast<int64_t>(ry) * a.w_img + (r - ry * a.ws);
-}
-
 // A warp's 16-row C tiles (rows row0 + g, + 8 of a window), times mul, into
 // column block blk (0: q, 1: k, 2: v) of their pixels in dqkv.
-template <int DP>
-__device__ __forceinline__ void store_rows(const Args& a, int64_t base, int row0, int h, int blk,
+template <int DP, bool kShifted>
+__device__ __forceinline__ void store_rows(const Args& a, const wtc::WindowWalk<kShifted>& win, int row0, int h, int blk,
                                            const float (&acc)[DP / 8][4], float mul, int lane) {
   const int g = lane >> 2, tq = lane & 3, c = a.heads * a.d;
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
@@ -764,7 +767,7 @@ __device__ __forceinline__ void store_rows(const Args& a, int64_t base, int row0
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= a.n) continue;
-    tc::bf16* dst = static_cast<tc::bf16*>(a.dqkv) + window_row(a, base, row) * row_stride + blk * c + h * a.d;
+    tc::bf16* dst = static_cast<tc::bf16*>(a.dqkv) + window_row(a, win, row) * row_stride + blk * c + h * a.d;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = j * 8 + 2 * tq;
@@ -782,18 +785,18 @@ __device__ __forceinline__ void store_rows(const Args& a, int64_t base, int row0
 // Shared memory of the bf16 dq kernel: the dbias sum in fragment order (per
 // warp and group of 32 keys, 2 row halves x 2 pieces x 32 lanes of float4),
 // K and V [256][DP] in the key order (keys past N zeros), the block's dO rows
-// and, recomputing, its q rows [64][DP]; the rows' pixel offsets [N] int;
+// and, recomputing, its q rows [64][DP]; the rows' pixel offsets [N] int (row_offset);
 // then (shifted, recomputing) the window's region ids [N] int.
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 struct DqSmem {
   static constexpr size_t bytes() {
     return sizeof(float4) * wtc::kMaxWarps * wtc::kMaxGroups * 128 +
            sizeof(tc::bf16) * (2 * wtc::kMaxN + (kRecompute ? 2 : 1) * wtc::kRows) * DP +
-           sizeof(int) * kLargeMaxN * (kMasked && kRecompute ? 2 : 1);
+           sizeof(int) * kLargeMaxN * (kShifted && kRecompute ? 2 : 1);
   }
 };
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kernel(Args a) {
   using namespace tc;
   constexpr int kNT = wtc::kNT, kG = wtc::kMaxGroups, kKeys = wtc::kMaxN, kRows = wtc::kRows;
@@ -814,6 +817,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
   const int t0 = chunk * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
   const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const int hw = a.h_img * a.w_img;
   const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
   const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
   const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
@@ -830,27 +834,28 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
 #pragma unroll
     for (int i = 0; i < kG * 4; ++i) db_t[i * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+  wtc::fill_offsets<kShifted>(off_s, n, a.ws, a.w_img);
 
-  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
-  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.w_img)) {
+  wtc::WindowWalk<kShifted> walk = window_at<kShifted>(a, t0);  // window t
+  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img, a.shift)) {
     const int t = t0 + i;
     const int64_t base = walk.base;
     const bf16* win = src + base * row_stride;
+    auto offset = [&](int r) { return walk.at(off_s[r], hw, a.w_img); };
     __syncthreads();  // every warp is done with window t - 1's tiles (and the offsets are written)
     // two groups: what the first phase reads (recomputing: K, q and ids for
     // the scores; from P: V for delta), then the rest (V; K), which arrives
     // during it
-    wtc::stage<DP, kRows>(dos, do_src + base * c, off_s, c, own_row, n, d, a.aligned);
-    wtc::stage<DP, kKeys>(kRecompute ? ks : vs, win + (kRecompute ? c : 2 * c), off_s, row_stride, key_row, n, d,
+    wtc::stage<DP, kRows>(dos, do_src + base * c, offset, c, own_row, n, d, a.aligned);
+    wtc::stage<DP, kKeys>(kRecompute ? ks : vs, win + (kRecompute ? c : 2 * c), offset, row_stride, key_row, n, d,
                           a.aligned);
-    if (kRecompute) wtc::stage<DP, kRows>(qs, win, off_s, row_stride, own_row, n, d, a.aligned);
-    if (kRecompute && kMasked) {
+    if (kRecompute) wtc::stage<DP, kRows>(qs, win, offset, row_stride, own_row, n, d, a.aligned);
+    if (kRecompute && kShifted) {
       const int* ids = a.ids + static_cast<int64_t>(walk.w) * n;
       for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
     }
     cp_async_commit();
-    wtc::stage<DP, kKeys>(kRecompute ? vs : ks, win + (kRecompute ? 2 * c : c), off_s, row_stride, key_row, n, d,
+    wtc::stage<DP, kKeys>(kRecompute ? vs : ks, win + (kRecompute ? 2 * c : c), offset, row_stride, key_row, n, d,
                           a.aligned);
     cp_async_commit();
 
@@ -904,7 +909,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
       for (int kk = 0; kk < DP / 16; ++kk) ldmatrix_x4(qa[kk], qs + lanes.a[kk] + warp * kWarpRows * DP);
       bool mixed = false;  // region ids that differ within the window
       int id_row[2] = {0, 0};
-      if (kMasked) {
+      if (kShifted) {
         const int id0 = ids_s[0];
         bool diff = false;
         for (int r = lane; r < n; r += 32) diff |= ids_s[r] != id0;
@@ -949,7 +954,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
               float& x = s[j + (e >> 1)][2 * r + (e & 1)];
               x = x * a.q_mul + bv[e];
             }
-            if (kMasked && mixed) {
+            if (kShifted && mixed) {
               const int4 v = *reinterpret_cast<const int4*>(ids_s + key);
               const int id[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -1093,7 +1098,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
 #pragma unroll
       for (int e = 0; e < 4; ++e) dq[0][j][e] += dq[1][j][e];
     }
-    store_rows<DP>(a, base, m0, h, 0, dq[0], a.scale, lane);
+    store_rows<DP>(a, walk, m0, h, 0, dq[0], a.scale, lane);
   }
 
   if (active) {  // this block's rows of dbias_part [n_chunks, heads, N, N]
@@ -1130,7 +1135,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dq_tc_kerne
 // from P, the stash's columns of the block's keys [256][64 + 8]; the
 // queries' delta (and max and 1 / sum) in f32; the rows' pixel offsets [N]
 // int; then (shifted, recomputing) the window's region ids [N] int.
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 struct DkvSmem {
   static constexpr int kStats = kRecompute ? 3 : 1;
   static constexpr int kLdP = wtc::kRows + tc::kPad;
@@ -1138,14 +1143,14 @@ struct DkvSmem {
     return (kRecompute ? sizeof(float2) * wtc::kMaxWarps * (wtc::kMaxN / 8) * 64 : 0) +
            sizeof(tc::bf16) * ((2 * wtc::kMaxN + (kRecompute ? 2 : 1) * wtc::kRows) * DP +
                                (kRecompute ? 0 : wtc::kMaxN * kLdP)) +
-           sizeof(float) * kStats * wtc::kMaxN + sizeof(int) * kLargeMaxN * (kMasked && kRecompute ? 2 : 1);
+           sizeof(float) * kStats * wtc::kMaxN + sizeof(int) * kLargeMaxN * (kShifted && kRecompute ? 2 : 1);
   }
 };
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kernel(Args a) {
   using namespace tc;
-  using Smem = DkvSmem<DP, kMasked, kRecompute>;
+  using Smem = DkvSmem<DP, kShifted, kRecompute>;
   constexpr int kQ = wtc::kMaxN, kRows = wtc::kRows, kLdP = Smem::kLdP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* bias_s = reinterpret_cast<float2*>(smem_raw);  // recompute: [4][kQ / 8][2][32]
@@ -1166,6 +1171,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
   const int t0 = chunk * a.per_chunk, count = min(a.per_chunk, a.total - t0);
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
   const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
+  const int hw = a.h_img * a.w_img;
   const bf16* src = static_cast<const bf16*>(a.qkv) + h * d;
   const bf16* do_src = static_cast<const bf16*>(a.dout) + h * d;
   const wtc::Lanes<DP> lanes(lane);
@@ -1190,20 +1196,21 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
       }
     }
   }
-  wtc::fill_offsets(off_s, n, a.ws, a.w_img);
+  wtc::fill_offsets<kShifted>(off_s, n, a.ws, a.w_img);
 
-  wtc::WindowWalk walk(t0, a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img);  // window t
-  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.w_img)) {
+  wtc::WindowWalk<kShifted> walk = window_at<kShifted>(a, t0);  // window t
+  for (int i = 0; i < count; ++i, walk.next(a.n_win, a.n_win_x, a.ws, a.h_img, a.w_img, a.shift)) {
     const int t = t0 + i;
     const int64_t base = walk.base;
     const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;  // this (window, head)'s rows
     const bf16* win = src + base * row_stride;
+    auto offset = [&](int r) { return walk.at(off_s[r], hw, a.w_img); };
     __syncthreads();  // every warp is done with window t - 1's tiles (and the offsets are written)
-    wtc::stage<DP, kQ>(qs, win, off_s, row_stride, same_row, n, d, a.aligned);
-    wtc::stage<DP, kQ>(dos, do_src + base * c, off_s, c, same_row, n, d, a.aligned);
-    wtc::stage<DP, kRows>(vs, win + 2 * c, off_s, row_stride, own_row, n, d, a.aligned);
+    wtc::stage<DP, kQ>(qs, win, offset, row_stride, same_row, n, d, a.aligned);
+    wtc::stage<DP, kQ>(dos, do_src + base * c, offset, c, same_row, n, d, a.aligned);
+    wtc::stage<DP, kRows>(vs, win + 2 * c, offset, row_stride, own_row, n, d, a.aligned);
     if (kRecompute) {
-      wtc::stage<DP, kRows>(ks, win + c, off_s, row_stride, own_row, n, d, a.aligned);
+      wtc::stage<DP, kRows>(ks, win + c, offset, row_stride, own_row, n, d, a.aligned);
     } else {  // the stash's columns [n_block, n_block + 64) of every query row, 8 16-byte chunks a row
       const bf16* ptile = stash_tile(a, t, h) + n_block;
       const int ch = threadIdx.x & 7, col = ch * 8, r0 = threadIdx.x >> 3;
@@ -1232,7 +1239,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
       const bool in = q < n;  // 0 past N
       cp_async4(st + idx, in ? a.stats + which * stats_n + stats0 + q : a.stats, in ? 4 : 0);
     }
-    if (kRecompute && kMasked) {
+    if (kRecompute && kShifted) {
       const int* ids = a.ids + static_cast<int64_t>(walk.w) * n;
       for (int r = threadIdx.x; r < n; r += wtc::kThreads) cp_async4(ids_s + r, ids + r, 4);
     }
@@ -1252,7 +1259,7 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
     }
     bool mixed = false;
     int id_key[2] = {0, 0};
-    if (kRecompute && kMasked) {
+    if (kRecompute && kShifted) {
       const int id0 = ids_s[0];
       bool diff = false;
       for (int r = lane; r < n; r += 32) diff |= ids_s[r] != id0;
@@ -1282,14 +1289,14 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
           const int q0 = qc * 16 + 8 * hh + 2 * tq;
           const float2 m2 = *reinterpret_cast<const float2*>(st_m + q0);
           const float2 il2 = *reinterpret_cast<const float2*>(st_il + q0);
-          const int2 id2 = kMasked ? *reinterpret_cast<const int2*>(ids_s + q0) : make_int2(0, 0);
+          const int2 id2 = kShifted ? *reinterpret_cast<const int2*>(ids_s + q0) : make_int2(0, 0);
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const float2 b = bias_t[((2 * qc + hh) * 2 + r) * 32];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               float x = p[hh][2 * r + e] * a.q_mul + (e ? b.y : b.x);
-              if (kMasked && mixed && (e ? id2.y : id2.x) != id_key[r]) x += kMaskValue;
+              if (kShifted && mixed && (e ? id2.y : id2.x) != id_key[r]) x += kMaskValue;
               p[hh][2 * r + e] = q0 + e < n && key_in[r] ? wtc::exp2_ftz(x - (e ? m2.y : m2.x)) * (e ? il2.y : il2.x) : 0.f;
             }
           }
@@ -1333,8 +1340,8 @@ __global__ void __launch_bounds__(wtc::kThreads, 2) window_attention_dkv_tc_kern
         dk[0][j][e] += dk[1][j][e];
       }
     }
-    store_rows<DP>(a, base, n0, h, 1, dk[0], a.scale, lane);
-    store_rows<DP>(a, base, n0, h, 2, dv[0], 1.f, lane);
+    store_rows<DP>(a, walk, n0, h, 1, dk[0], a.scale, lane);
+    store_rows<DP>(a, walk, n0, h, 2, dv[0], 1.f, lane);
   }
 }
 
@@ -1388,7 +1395,7 @@ constexpr size_t dq_f32_bytes(int n) {
 
 // Thread t owns query row t / 4 and, of each key tile, the keys (t % 4) + 4j;
 // for dQ the dims (t % 4) + 4i. Blocks: (run of windows, head, 32 rows).
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(kF32Threads) window_attention_dq_kernel(Args a) {
   constexpr int ld = DP + 1, lw = kF32Tile + 1;
   extern __shared__ float smem[];
@@ -1414,15 +1421,15 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dq_kernel(Args a
 
   for (int i = threadIdx.x; i < kF32Rows * n; i += kF32Threads) db[i] = 0.f;
   for (int t = t0; t < t1; ++t) {
-    const int64_t base = window_base(a, t);
-    auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
-    auto do_offset = [&](int x) { return window_row(a, base, x) * c; };
+    const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
+    auto offset = [&](int x) { return window_row(a, win, x) * row_stride; };
+    auto do_offset = [&](int x) { return window_row(a, win, x) * c; };
     const float* p_rows = kRecompute ? nullptr
                                      : static_cast<const float*>(a.p) + ((static_cast<int64_t>(t) * a.heads + h) * n + m0) * n;
     __syncthreads();  // the previous window's readers are done
     load_rows_f32<DP, kF32Rows>(dos, do_src, do_offset, m0, n, d, 1.f);
-    if (kMasked) {
-      const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+    if (kShifted && kRecompute) {
+      const int* ids = a.ids + static_cast<int64_t>(win.w) * n;
       for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
     }
     float s[kColsPerLane], pv[kColsPerLane], dp[kColsPerLane];
@@ -1430,14 +1437,14 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dq_kernel(Args a
     // log2-domain scores of row r against the keys k0 + g + 4j (-inf past N)
     auto scores = [&](int k0) {
       row_dots<DP>(qs, ks, r, g, s);
-      const int my_id = kMasked ? ids_s[rr] : 0;
+      const int my_id = kShifted ? ids_s[rr] : 0;
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) {
         const int key = k0 + g + j * kLanesPerRow;
         float x = -INFINITY;
         if (key < n) {
           x = s[j] + bias_row[key] * kLog2e;
-          if (kMasked && ids_s[key] != my_id) x += kMaskValue;
+          if (kShifted && ids_s[key] != my_id) x += kMaskValue;
         }
         s[j] = x;
       }
@@ -1526,7 +1533,7 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dq_kernel(Args a
       accumulate_rows<DP>(ws, ks, r, g, min(kF32Tile, n - k0), acc);
     }
     if (row < n) {
-      float* dst = static_cast<float*>(a.dqkv) + window_row(a, base, row) * row_stride + h * d;
+      float* dst = static_cast<float*>(a.dqkv) + window_row(a, win, row) * row_stride + h * d;
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) {
         const int dd = g + i * kLanesPerRow;
@@ -1552,7 +1559,7 @@ constexpr size_t dkv_f32_bytes() {
 
 // Thread t owns key row t / 4 and, of each query tile, the queries (t % 4) +
 // 4j; for dK and dV the dims (t % 4) + 4i. Blocks: (window, head, 32 keys).
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args a) {
   constexpr int ld = DP + 1, lw = kF32Tile + 1;
   extern __shared__ float smem[];
@@ -1574,9 +1581,9 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args 
   const int64_t row_stride = 3 * static_cast<int64_t>(c);
   const int64_t stats_n = static_cast<int64_t>(a.total) * a.heads * n;
   const int64_t stats0 = (static_cast<int64_t>(t) * a.heads + h) * n;
-  const int64_t base = window_base(a, t);
-  auto offset = [&](int x) { return window_row(a, base, x) * row_stride; };
-  auto do_offset = [&](int x) { return window_row(a, base, x) * c; };
+  const wtc::WindowWalk<kShifted> win = window_at<kShifted>(a, t);
+  auto offset = [&](int x) { return window_row(a, win, x) * row_stride; };
+  auto do_offset = [&](int x) { return window_row(a, win, x) * c; };
   const float* q_src = static_cast<const float*>(a.qkv) + h * d;
   const float* do_src = static_cast<const float*>(a.dout) + h * d;
   const float* bias_h = kRecompute ? a.bias + static_cast<int64_t>(h) * n * n : nullptr;
@@ -1584,8 +1591,8 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args 
   // q is the score operand recomputing (scale * log2(e)), else dK's (scale)
   const float q_mul = kRecompute ? a.q_mul : a.scale;
 
-  if (kMasked) {
-    const int* ids = a.ids + static_cast<int64_t>(t % a.n_win) * n;
+  if (kShifted && kRecompute) {
+    const int* ids = a.ids + static_cast<int64_t>(win.w) * n;
     for (int x = threadIdx.x; x < n; x += kF32Threads) ids_s[x] = ids[x];
   }
   if (kRecompute) load_rows_f32<DP, kF32Rows>(ks, q_src + c, offset, n0, n, d, 1.f);
@@ -1617,7 +1624,7 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args 
     __syncthreads();
     row_dots<DP>(vs, dos, r, g, dp);  // dP[query, key] = dO[query] . v[key]
     if (kRecompute) row_dots<DP>(ks, qs, r, g, s);
-    const int my_id = kMasked ? ids_s[kc] : 0;
+    const int my_id = kShifted && kRecompute ? ids_s[kc] : 0;
 #pragma unroll
     for (int j = 0; j < kColsPerLane; ++j) {
       const int qq = g + j * kLanesPerRow;
@@ -1625,7 +1632,7 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args 
       if (kRecompute) {
         const int query = min(q0 + qq, n - 1);
         float x = s[j] + bias_h[static_cast<int64_t>(query) * n + kc] * kLog2e;
-        if (kMasked && ids_s[query] != my_id) x += kMaskValue;
+        if (kShifted && ids_s[query] != my_id) x += kMaskValue;
         p = key < n ? exp2f(x - st_m[qq]) * st_il[qq] : 0.f;
         pt[r * lw + qq] = p;
       } else {
@@ -1639,7 +1646,7 @@ __global__ void __launch_bounds__(kF32Threads) window_attention_dkv_kernel(Args 
     accumulate_rows<DP>(dst, qs, r, g, cols, acc_dk);  // dK[key] += dS[query, key] q'[query]
   }
   if (key < n) {
-    float* out = static_cast<float*>(a.dqkv) + window_row(a, base, key) * row_stride + h * d;
+    float* out = static_cast<float*>(a.dqkv) + window_row(a, win, key) * row_stride + h * d;
     const float dk_mul = kRecompute ? kInvLog2e : 1.f;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
@@ -1682,20 +1689,20 @@ cudaError_t launch(Kernel kernel, int threads, size_t bytes, const Args& a, floa
   return cudaGetLastError();
 }
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 cudaError_t launch_f32(const Args& a, float* dbias, cudaStream_t stream) {
-  return launch(window_attention_bwd_kernel<DP, kMasked, kRecompute>, kThreads, smem_bytes<DP>(a.n), a,
+  return launch(window_attention_bwd_kernel<DP, kShifted, kRecompute>, kThreads, smem_bytes<DP>(a.n), a,
                 dbias, stream);
 }
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 cudaError_t launch_tc(const Args& a, float* dbias, cudaStream_t stream) {
-  auto kernel = window_attention_bwd_tc_kernel<DP, kMasked, kRecompute>;
+  auto kernel = window_attention_bwd_tc_kernel<DP, kShifted, kRecompute>;
   // as much of the SM's memory as shared memory as it takes for three blocks
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  return launch(kernel, kTcThreads, TcSmem<DP, kMasked, kRecompute>::bytes(a.n), a, dbias, stream);
+  return launch(kernel, kTcThreads, TcSmem<DP, kShifted, kRecompute>::bytes(a.n), a, dbias, stream);
 }
 
 // N > 64: the dq and dkv kernels, then the dbias sum. f32: dq on a grid of
@@ -1717,24 +1724,24 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t bytes, cons
   return cudaGetLastError();
 }
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 cudaError_t launch_large(const Args& a, float* dbias, int dtype, cudaStream_t stream) {
   const int n_chunks = (a.total + a.per_chunk - 1) / a.per_chunk;
   cudaError_t err;
   if (dtype == 0) {
     const int blocks = (a.n + kF32Rows - 1) / kF32Rows;
-    err = launch_one(window_attention_dq_kernel<DP, kMasked, kRecompute>, dim3(n_chunks, a.heads, blocks),
+    err = launch_one(window_attention_dq_kernel<DP, kShifted, kRecompute>, dim3(n_chunks, a.heads, blocks),
                      kF32Threads, dq_f32_bytes<DP>(a.n), a, stream);
     if (err != cudaSuccess) return err;
-    err = launch_one(window_attention_dkv_kernel<DP, kMasked, kRecompute>, dim3(a.total, a.heads, blocks),
+    err = launch_one(window_attention_dkv_kernel<DP, kShifted, kRecompute>, dim3(a.total, a.heads, blocks),
                      kF32Threads, dkv_f32_bytes<DP>(), a, stream);
   } else {
     const dim3 grid(n_chunks, a.heads, (a.n + wtc::kRows - 1) / wtc::kRows);
-    err = launch_one(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, grid, wtc::kThreads,
-                     DqSmem<DP, kMasked, kRecompute>::bytes(), a, stream);
+    err = launch_one(window_attention_dq_tc_kernel<DP, kShifted, kRecompute>, grid, wtc::kThreads,
+                     DqSmem<DP, kShifted, kRecompute>::bytes(), a, stream);
     if (err != cudaSuccess) return err;
-    err = launch_one(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, grid, wtc::kThreads,
-                     DkvSmem<DP, kMasked, kRecompute>::bytes(), a, stream);
+    err = launch_one(window_attention_dkv_tc_kernel<DP, kShifted, kRecompute>, grid, wtc::kThreads,
+                     DkvSmem<DP, kShifted, kRecompute>::bytes(), a, stream);
   }
   if (err != cudaSuccess) return err;
   const int count = a.heads * a.n * a.n;
@@ -1752,31 +1759,35 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t bytes, int* blocks_per_
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, bytes);
 }
 
-template <int DP, bool kMasked, bool kRecompute>
+template <int DP, bool kShifted, bool kRecompute>
 cudaError_t tiled_occupancy(int which, int n, int* threads, int* smem_bytes, int* blocks_per_sm) {
   *threads = wtc::kThreads;
-  const size_t bytes = which == 0 ? DqSmem<DP, kMasked, kRecompute>::bytes() : DkvSmem<DP, kMasked, kRecompute>::bytes();
+  const size_t bytes = which == 0 ? DqSmem<DP, kShifted, kRecompute>::bytes() : DkvSmem<DP, kShifted, kRecompute>::bytes();
   *smem_bytes = static_cast<int>(bytes);
-  return which == 0 ? occupancy(window_attention_dq_tc_kernel<DP, kMasked, kRecompute>, *threads, bytes, blocks_per_sm)
-                    : occupancy(window_attention_dkv_tc_kernel<DP, kMasked, kRecompute>, *threads, bytes, blocks_per_sm);
+  return which == 0 ? occupancy(window_attention_dq_tc_kernel<DP, kShifted, kRecompute>, *threads, bytes, blocks_per_sm)
+                    : occupancy(window_attention_dkv_tc_kernel<DP, kShifted, kRecompute>, *threads, bytes, blocks_per_sm);
 }
 
 // float32 -> the CUDA-core kernels, bfloat16 -> the tensor-core kernels; N
 // above 64 -> the tiled ones; DP is the head-dim bucket, then the variant:
-// from P, recompute with shift regions, recompute without.
+// from P unshifted, from P shifted (the stash holds the mask; only the
+// addresses wrap), recompute with shift regions, recompute without.
 template <int DP>
 cudaError_t dispatch(const Args& a, float* dbias, int dtype, cudaStream_t s) {
   if (a.n > kMaxN) {
-    if (a.p != nullptr) return launch_large<DP, false, false>(a, dbias, dtype, s);
+    if (a.p != nullptr) {
+      return a.shift > 0 ? launch_large<DP, true, false>(a, dbias, dtype, s)
+                         : launch_large<DP, false, false>(a, dbias, dtype, s);
+    }
     if (a.ids != nullptr) return launch_large<DP, true, true>(a, dbias, dtype, s);
     return launch_large<DP, false, true>(a, dbias, dtype, s);
   }
   if (dtype == 0) {
-    if (a.p != nullptr) return launch_f32<DP, false, false>(a, dbias, s);
+    if (a.p != nullptr) return a.shift > 0 ? launch_f32<DP, true, false>(a, dbias, s) : launch_f32<DP, false, false>(a, dbias, s);
     if (a.ids != nullptr) return launch_f32<DP, true, true>(a, dbias, s);
     return launch_f32<DP, false, true>(a, dbias, s);
   }
-  if (a.p != nullptr) return launch_tc<DP, false, false>(a, dbias, s);
+  if (a.p != nullptr) return a.shift > 0 ? launch_tc<DP, true, false>(a, dbias, s) : launch_tc<DP, false, false>(a, dbias, s);
   if (a.ids != nullptr) return launch_tc<DP, true, true>(a, dbias, s);
   return launch_tc<DP, false, true>(a, dbias, s);
 }
@@ -1787,7 +1798,9 @@ cudaError_t dispatch(const Args& a, float* dbias, int dtype, cudaStream_t s) {
 // head_dim], dqkv: like qkv, p: [b, nW, heads, ws^2, ws^2] (the forward's
 // stash) or NULL to recompute the probabilities from bias (f32 [heads, ws^2,
 // ws^2]) and ids (int32 [nW, ws^2] region ids, or NULL for unshifted
-// windows); qkv, dout, dqkv and p of `dtype` (0: float32, 1: bfloat16), all
+// windows); shift: the cyclic shift of shifted windows, 0 <= shift < ws,
+// which takes p or ids (0: the caller rolled the map, or unshifted); qkv,
+// dout, dqkv and p of `dtype` (0: float32, 1: bfloat16), all
 // contiguous, on the current device. dbias_part: f32 [ceil(b * nW /
 // per_chunk), heads, ws^2, ws^2] scratch; dbias: f32 [heads, ws^2, ws^2].
 // stats: for ws^2 > 64, f32 [3, b * nW, heads, ws^2] scratch (else NULL).
@@ -1799,11 +1812,12 @@ cudaError_t dispatch(const Args& a, float* dbias, int dtype, cudaStream_t s) {
 extern "C" int vdk_fused_window_attention_bwd(const void* qkv, const float* bias, const int* ids,
                                               const void* p, const void* dout, void* dqkv,
                                               float* dbias_part, float* dbias, float* stats, int b, int h_img,
-                                              int w_img, int heads, int head_dim, int ws,
+                                              int w_img, int heads, int head_dim, int ws, int shift,
                                               int per_chunk, float q_mul, float scale, int dtype,
                                               void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || head_dim < 1 || head_dim > 64 ||
       ws < 1 || ws * ws > kLargeMaxN || h_img < ws || w_img < ws || h_img % ws || w_img % ws ||
+      shift < 0 || shift >= ws || (shift > 0 && p == nullptr && ids == nullptr) ||
       per_chunk < 1 || dbias_part == nullptr || dbias == nullptr || (ws * ws > kMaxN && stats == nullptr) ||
       (p == nullptr && bias == nullptr) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1814,36 +1828,37 @@ extern "C" int vdk_fused_window_attention_bwd(const void* qkv, const float* bias
   const int aligned = reinterpret_cast<uintptr_t>(qkv) % 16 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dqkv) % 16 == 0 && head_dim % 8 == 0 && c % 8 == 0;
   const int p_aligned = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ws * ws % 8 == 0;
-  const Args a{qkv,   bias,  ids,   p,        dout,    dqkv,  dbias_part, h_img,     w_img,
-               heads, head_dim, ws, ws * ws, n_win_x, n_win, b * n_win,  per_chunk, q_mul,
-               scale, aligned, stats, p_aligned};
+  const Args a{qkv,       bias,    ids,   p,         dout,      dqkv,  dbias_part, h_img,   w_img,
+               heads,     head_dim, ws,   ws * ws,   n_win_x,   n_win, b * n_win,  per_chunk, shift,
+               q_mul,     scale,   aligned, stats, p_aligned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = head_dim <= 32 ? dispatch<32>(a, dbias, dtype, s) : dispatch<64>(a, dbias, dtype, s);
   return static_cast<int>(err);
 }
 
 // The bf16 tiled kernel `which` (0: dq, 1: dkv) at head dim `head_dim` in
-// one of its variants (from P; recompute with shift regions; recompute
-// without), for windows of n tokens: its threads a block, dynamic shared
+// one of its variants (shifted windows or not; recompute or from P), for
+// windows of n tokens: its threads a block, dynamic shared
 // memory a block, and blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 // Returns the CUDA error code (0 on success).
 extern "C" int vdk_fused_window_attention_bwd_tiled_occupancy(int which, int head_dim, int masked, int recompute,
                                                               int n, int* threads, int* smem_bytes,
                                                               int* blocks_per_sm) {
-  if ((which != 0 && which != 1) || head_dim < 1 || head_dim > 64 || n <= kMaxN || n > kLargeMaxN ||
-      (masked && !recompute)) {
+  if ((which != 0 && which != 1) || head_dim < 1 || head_dim > 64 || n <= kMaxN || n > kLargeMaxN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
+#define VDK_CASE(DP)                                                                                        \
+  err = masked ? (recompute ? tiled_occupancy<DP, true, true>(which, n, threads, smem_bytes, blocks_per_sm)    \
+                            : tiled_occupancy<DP, true, false>(which, n, threads, smem_bytes, blocks_per_sm))  \
+               : (recompute ? tiled_occupancy<DP, false, true>(which, n, threads, smem_bytes, blocks_per_sm)   \
+                            : tiled_occupancy<DP, false, false>(which, n, threads, smem_bytes, blocks_per_sm));
   if (head_dim <= 32) {
-    err = !recompute ? tiled_occupancy<32, false, false>(which, n, threads, smem_bytes, blocks_per_sm)
-          : masked   ? tiled_occupancy<32, true, true>(which, n, threads, smem_bytes, blocks_per_sm)
-                     : tiled_occupancy<32, false, true>(which, n, threads, smem_bytes, blocks_per_sm);
+    VDK_CASE(32)
   } else {
-    err = !recompute ? tiled_occupancy<64, false, false>(which, n, threads, smem_bytes, blocks_per_sm)
-          : masked   ? tiled_occupancy<64, true, true>(which, n, threads, smem_bytes, blocks_per_sm)
-                     : tiled_occupancy<64, false, true>(which, n, threads, smem_bytes, blocks_per_sm);
+    VDK_CASE(64)
   }
+#undef VDK_CASE
   return static_cast<int>(err);
 }
 

@@ -1,6 +1,23 @@
-// Building blocks of the tiled bfloat16 window-attention kernels (windows of
-// 64 < N <= 256 tokens: fused_window_attention.cu's forward and
-// fused_window_attention_bwd.cu's dq and dkv kernels). Their blocks are 4
+// Building blocks of the window-attention kernels: the shifted windows'
+// addressing, which every body of fused_window_attention.cu and
+// fused_window_attention_bwd.cu uses, and the parts of the tiled bfloat16
+// bodies (windows of 64 < N <= 256 tokens: the forward and the backward's dq
+// and dkv kernels).
+//
+// Shifted windows (Swin's SW-MSA). A shifted block attends over its map
+// rolled by (-s, -s), 0 <= s < ws. The kernels roll nothing: row r of window
+// (wy, wx) is read from, and written to, the pixel
+// ((wy ws + r / ws + s) mod H, (wx ws + r % ws + s) mod W). Since s < ws, only
+// the windows of the last row (column) of windows wrap, and in them only the
+// rows with r / ws >= H - wy ws - s (columns r % ws >= W - wx ws - s). So a
+// window's first pixel moves on by s W + s, and a row's offset from it (r / ws
+// image rows and r % ws columns) drops by H W where its row wraps and by W
+// where its column does: two compares a row, once a window. The kernels keep
+// such offsets packed with their column, (offset << 4) | r % ws (ws <= 16),
+// so that one int says both (row_offset, WindowWalk::at). Each pixel's head
+// slice stays one contiguous run, so the loads and stores keep their width.
+//
+// The tiled bodies' blocks are 4
 // warps of 16 rows (or keys) and every window takes 256 keys, those past N
 // zeros, so that every loop over keys is unrolled with no bound to test.
 //
@@ -106,15 +123,15 @@ __device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4], const uint32
 }
 
 // Stages a swizzled [kRows][DP] tile with the kThreads threads of a block:
-// tile row r holds source row row_of(r), at win + off[row_of(r)] * stride
-// elements (win: the tensor's column of the window's first pixel; off: the
-// rows' pixel offsets); source rows at or past n_rows and columns at or past
+// tile row r holds source row row_of(r), at win + offset(row_of(r)) * stride
+// elements (win: the tensor's column of the window's first pixel; offset: a
+// row's pixel offset from it); source rows at or past n_rows and columns at or past
 // n_cols are zeros. Thread t copies 16-byte chunk t % (DP / 8) of rows
 // t / (DP / 8) + k * (a multiple of 8). Aligned: cp.async (wait with
 // cp_async_wait); otherwise element by element, synchronously, into the same
 // bytes.
-template <int DP, int kRows, typename RowOf>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* win, const int* off, int64_t stride, RowOf row_of,
+template <int DP, int kRows, typename Offset, typename RowOf>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* win, Offset offset, int64_t stride, RowOf row_of,
                                       int n_rows, int n_cols, bool aligned) {
   constexpr int kChunks = DP / 8, kStep = kThreads / kChunks;
   static_assert(kRows % kStep == 0 && kStep % 8 == 0, "whole steps of rows, each keeping the swizzle");
@@ -124,7 +141,7 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* win, const int* off
   for (int k = 0; k < kRows / kStep; ++k) {
     const int sr = row_of(r0 + k * kStep);
     const bool row_in = sr < n_rows;
-    const bf16* s = win + (row_in ? static_cast<int64_t>(off[sr]) * stride : 0) + col;
+    const bf16* s = win + (row_in ? static_cast<int64_t>(offset(sr)) * stride : 0) + col;
     bf16* d = d0 + k * kStep * DP;
     if (aligned) {
       const bool in = row_in && col < n_cols;
@@ -157,11 +174,19 @@ __device__ __forceinline__ void set_p_piece(uint32_t (&p)[KK][4], int m, int hal
   p[2 * m + 1][2 + half] = v.w;
 }
 
-// off[r] = the pixel offset of row r of a window from its first pixel
-// (r / ws image rows and r % ws columns), r < n: the divisions made once a
-// block, not at every staged row. The caller syncs before reading it.
+// The offset of row r of a window from its first pixel (r / ws image rows and
+// r % ws columns); for shifted windows packed with its column (see above).
+template <bool kShift>
+__host__ __device__ __forceinline__ int row_offset(int r, int ws, int w_img) {
+  const int ry = r / ws, rx = r - ry * ws;
+  return kShift ? ((ry * w_img + rx) << 4) | rx : ry * w_img + rx;
+}
+
+// off[r] = row_offset<kShift>(r), r < n: the divisions made once a block, not
+// at every staged row. The caller syncs before reading it.
+template <bool kShift>
 __device__ __forceinline__ void fill_offsets(int* off, int n, int ws, int w_img) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x) off[r] = (r / ws) * w_img + r % ws;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) off[r] = row_offset<kShift>(r, ws, w_img);
 }
 
 // 2^x on the special-function unit (ex2.approx, as exp2f compiles, with
@@ -173,27 +198,54 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// A block's walk over consecutive windows in batch-row-major order: the
-// window's first pixel, as a row index of [B * H * W], and its index among its
-// image's windows, advanced from one window to the next with no division.
+// Window t (batch-row-major) of a call, and a block's walk over consecutive
+// windows: the window's first pixel, as a row index of [B * H * W], and its
+// index among its image's windows, advanced from one window to the next with
+// no division. Shifted (kShift, by s): the first pixel moves on by s W + s, and
+// wrap_row / wrap_col say where the window's rows wrap (see above).
+template <bool kShift>
 struct WindowWalk {
   int64_t base;
   int w, wx;  // the window's index in its image, and its column of windows
-  __device__ __forceinline__ WindowWalk(int t, int n_win, int n_win_x, int ws, int h_img, int w_img) {
+  int wrap_row;  // shifted: offsets at or past (H - wy ws - s) W wrap to the map's top
+  int wrap_col;  // shifted: columns at or past W - wx ws - s wrap to its left edge
+  __device__ __forceinline__ WindowWalk(int t, int n_win, int n_win_x, int ws, int h_img, int w_img, int s) {
     const int b = t / n_win;
     w = t - b * n_win;
     const int wy = w / n_win_x;
     wx = w - wy * n_win_x;
     base = (static_cast<int64_t>(b) * h_img + wy * ws) * w_img + wx * ws;
+    wrap_row = wrap_col = 0;
+    if constexpr (kShift) {
+      base += static_cast<int64_t>(s) * w_img + s;
+      wrap_row = (h_img - wy * ws - s) * w_img;
+      wrap_col = w_img - wx * ws - s;
+    }
   }
   // to the next window: ws pixels right, or from the end of a row of windows
   // to the start of the next (of the next image after the last)
-  __device__ __forceinline__ void next(int n_win, int n_win_x, int ws, int w_img) {
+  __device__ __forceinline__ void next(int n_win, int n_win_x, int ws, int h_img, int w_img, int s) {
     base += ws;
     w = w + 1 == n_win ? 0 : w + 1;
+    if constexpr (kShift) wrap_col -= ws;
     if (++wx == n_win_x) {
       wx = 0;
       base += static_cast<int64_t>(ws - 1) * w_img;
+      if constexpr (kShift) {
+        wrap_col = w_img - s;
+        wrap_row = w == 0 ? (h_img - s) * w_img : wrap_row - ws * w_img;
+      }
+    }
+  }
+  // The offset from base of the pixel of the row whose row_offset<kShift> is
+  // `e` (hw = H W): e itself unshifted; shifted, its offset less H W where its
+  // row wraps and less W where its column does.
+  __device__ __forceinline__ int at(int e, int hw, int w_img) const {
+    if constexpr (!kShift) {
+      return e;
+    } else {
+      const int off = e >> 4;
+      return off - (off >= wrap_row ? hw : 0) - ((e & 15) >= wrap_col ? w_img : 0);
     }
   }
 };

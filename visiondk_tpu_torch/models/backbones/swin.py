@@ -15,11 +15,15 @@ Window attention runs ``ops.window_attention.fused_window_attention`` on the
 QKV projection's [B, H, W, 3C] layout (``use_fused``, the default): the CUDA
 kernels on the card, their plain versions on the CPU. With ``use_fused``
 off it runs the plain forward, differentiated by autograd. There is no
-fallback: a shape the kernels do not take raises. The window partition and
-its reverse, which the plain path uses, live beside the kernels' plain
-versions in ``ops/window_attention.py``. The relative-position index and
-the shift-region ids are static numpy, never buffers (the bridge refuses
-buffers it does not know). The bias gather (``BiasGather``) sums its
+fallback: a shape the kernels do not take raises. A shifted block hands its
+shift to the op, whose kernels read and write the rolled map in place (the
+JAX block rolls before and after it; the plain versions still do): the
+Linears around the op act per token, so they see the map unrolled. The
+window partition and its reverse, which the plain path uses, live beside
+the kernels' plain versions in ``ops/window_attention.py``. The
+relative-position index and the shift-region ids are static numpy, never
+buffers (the bridge refuses buffers it does not know). The bias gather
+(``BiasGather``) sums its
 gradient in a fixed order, so seeded training is bit-reproducible on the
 card. Tokens run in the compute dtype; LayerNorm
 eps is 1e-5 (timm's, not the port's 1e-6 default); the pooled features and
@@ -162,19 +166,32 @@ class WindowAttention(nn.Module):
         return BiasGather.apply(table, idx, readers).reshape(n, n, -1).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
-        """x [B, H, W, C], already cyclically shifted by ``shift`` (0: W-MSA)."""
+        """x [B, H, W, C] (not rolled); the windows tile it rolled by
+        (−shift, −shift) (0: W-MSA), the op's shift."""
         _, hh, ww, _ = x.shape
         qkv = self.qkv(x)
         ids = _region_ids(hh, ww, self.window_size, shift, x.device)
         attend = fused_window_attention if self.use_fused else fused_window_attention_plain
-        return self.proj(attend(qkv, self.bias(), ids, self.num_heads))
+        return self.proj(attend(qkv, self.bias(), ids, self.num_heads, None, shift))
+
+
+def padded_window_attention(attn: nn.Module, y: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
+    """A Swin block's (shifted) window attention on a [B, H, W, C] map: zero-pad
+    bottom and right to window multiples, ``attn(y, shift)`` (the shift is
+    the op's, over the padded map, as the JAX block's roll is), crop (timm)."""
+    _, hh, ww, _ = y.shape
+    pad_b, pad_r = (-hh) % ws, (-ww) % ws
+    if pad_b or pad_r:
+        y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
+    y = attn(y, shift)
+    return y[:, :hh, :ww] if pad_b or pad_r else y
 
 
 class SwinBlock(nn.Module):
-    """Pre-norm Swin block on [B, H·W, C] tokens: LayerNorm → pad to window
-    multiples → roll by −shift → window attention → roll by +shift → crop →
-    DropPath residual; then LayerNorm → Mlp → DropPath residual. The window
-    is ``min(window_size, H, W)``, unshifted when it covers the map."""
+    """Pre-norm Swin block on [B, H·W, C] tokens: LayerNorm → window
+    attention shifted by ``shift`` (``padded_window_attention``) → DropPath
+    residual; then LayerNorm → Mlp → DropPath residual. The window is
+    ``min(window_size, H, W)``, unshifted when it covers the map."""
 
     def __init__(self, dim: int, num_heads: int, input_resolution: Tuple[int, int],
                  window_size: int = 7, shift: int = 0, mlp_ratio: float = 4.0,
@@ -194,18 +211,7 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hh, ww = self.input_resolution
         b, n, c = x.shape
-        ws, shift = self.window_size, self.shift
-        y = self.norm1(x).reshape(b, hh, ww, c)
-        pad_b, pad_r = (-hh) % ws, (-ww) % ws
-        if pad_b or pad_r:  # zero-pad bottom and right before windowing, crop after (timm)
-            y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
-        if shift:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-        y = self.attn(y, shift)
-        if shift:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        if pad_b or pad_r:
-            y = y[:, :hh, :ww]
+        y = padded_window_attention(self.attn, self.norm1(x).reshape(b, hh, ww, c), self.window_size, self.shift)
         x = x + self.drop_path1(y.reshape(b, n, c))
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 

@@ -17,7 +17,8 @@ V2 against V1 (``swin.py``, whose window machinery it reuses):
 Attention runs ``ops.window_attention.fused_window_attention(qkv2, bias,
 ids, heads, 1.0)`` (``use_fused``, the default): the CUDA kernels on the
 card, their plain versions on the CPU; the bias gradient reaches the CPB MLP
-through the kernels' dbias. With ``use_fused`` off it runs
+through the kernels' dbias; a shifted block hands its shift to the op, as
+Swin V1's does. With ``use_fused`` off it runs
 ``fused_window_attention_plain`` on the same folded inputs, differentiated
 by autograd, so both paths compute one function. There is no fallback: a
 window the kernels do not take (swinv2_large's 16×16, N = 256) raises on
@@ -48,7 +49,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from visiondk_tpu_torch.models.backbones import BACKBONES
-from visiondk_tpu_torch.models.backbones.swin import SwinPatchEmbed, SwinStage, _region_ids, _static_tensor
+from visiondk_tpu_torch.models.backbones.swin import (
+    SwinPatchEmbed, SwinStage, _region_ids, _static_tensor, padded_window_attention,
+)
 from visiondk_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp
 from visiondk_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
@@ -106,7 +109,8 @@ class WindowAttentionV2(nn.Module):
         return (16.0 * torch.sigmoid(cpb.permute(2, 0, 1))).contiguous()
 
     def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
-        """x [B, H, W, C], already cyclically shifted by ``shift`` (0: W-MSA)."""
+        """x [B, H, W, C] (not rolled); the windows tile it rolled by
+        (−shift, −shift) (0: W-MSA), the op's shift."""
         b, hh, ww, c = x.shape
         h = self.num_heads
         q, k, v = self.qkv(x).reshape(b, hh, ww, 3, h, c // h).unbind(dim=3)
@@ -115,13 +119,13 @@ class WindowAttentionV2(nn.Module):
         qkv2 = torch.stack([q, _l2_normalize(k), v], dim=3).reshape(b, hh, ww, 3 * c)
         ids = _region_ids(hh, ww, self.window_size, shift, x.device)
         attend = fused_window_attention if self.use_fused else fused_window_attention_plain
-        return self.proj(attend(qkv2, self.bias(), ids, h, 1.0))
+        return self.proj(attend(qkv2, self.bias(), ids, h, 1.0, shift))
 
 
 class SwinV2Block(nn.Module):
-    """Post-norm SwinV2 block on [B, H·W, C] tokens: pad to window
-    multiples → roll by −shift → window attention → roll by +shift → crop →
-    LayerNorm → DropPath residual; then Mlp → LayerNorm → DropPath residual."""
+    """Post-norm SwinV2 block on [B, H·W, C] tokens: window attention shifted
+    by ``shift`` (``padded_window_attention``) → LayerNorm → DropPath
+    residual; then Mlp → LayerNorm → DropPath residual."""
 
     def __init__(self, dim: int, num_heads: int, input_resolution: Tuple[int, int], window_size: int = 8,
                  shift: int = 0, mlp_ratio: float = 4.0, drop_path: float = 0.0, use_fused: bool = True,
@@ -141,18 +145,7 @@ class SwinV2Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hh, ww = self.input_resolution
         b, n, c = x.shape
-        ws, shift = self.window_size, self.shift
-        y = x.reshape(b, hh, ww, c)
-        pad_b, pad_r = (-hh) % ws, (-ww) % ws
-        if pad_b or pad_r:  # zero-pad bottom and right before windowing, crop after (timm)
-            y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
-        if shift:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-        y = self.attn(y, shift)
-        if shift:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        if pad_b or pad_r:
-            y = y[:, :hh, :ww]
+        y = padded_window_attention(self.attn, x.reshape(b, hh, ww, c), self.window_size, self.shift)
         x = x + self.drop_path1(self.norm1(y.reshape(b, n, c)))
         return x + self.drop_path2(self.norm2(self.mlp(x)))
 

@@ -1,20 +1,26 @@
 """Fused window attention (counterpart of ``visiondk_tpu/ops/pallas/window_attention.py``).
 
-``fused_window_attention(qkv, bias, ids, heads, scale=None)`` is Swin's
-attention core: softmax(scale·QKᵀ + bias [+ shift mask])·V over ws×ws
-windows, straight from the QKV projection's layout, with the JAX op's
-contract (``window_attention.py:33-38``):
+``fused_window_attention(qkv, bias, ids, heads, scale=None, shift=0)`` is
+Swin's attention core: softmax(scale·QKᵀ + bias [+ shift mask])·V over
+ws×ws windows, straight from the QKV projection's layout, with the JAX op's
+contract (``window_attention.py:33-38``) and the block's cyclic shift:
 
 - ``qkv``  [B, H, W, 3C] with H % ws == 0 and W % ws == 0;
 - ``bias`` [heads, ws², ws²] f32, the relative-position bias per head;
-- ``ids``  [nH·nW, ws²] int32 shift-region ids (row-major over windows), or
-  None for the unshifted case (W-MSA); tokens of different regions do not
-  attend (mask −100 before the softmax);
+- ``ids``  [nH·nW, ws²] int32 shift-region ids of the shifted frame
+  (row-major over windows), or None for the unshifted case (W-MSA); tokens
+  of different regions do not attend (mask −100 before the softmax);
+- ``shift`` s in [0, ws): the windows tile the map rolled by (−s, −s), as
+  the JAX block rolls it before the op and back after it. The result is
+  ``roll(op(roll(qkv, (−s, −s), (1, 2)), bias, ids, heads, scale), (s, s),
+  (1, 2))``; s > 0 takes the ids. 0 (the default) is the op without a shift;
 - returns [B, H, W, C].
 
 ``scale`` defaults to 1/√head_dim (Swin V1; SwinV2 passes 1.0). The window
-partition and its reverse happen inside the kernels: row r of window
-(wy, wx) is pixel (wy·ws + r // ws, wx·ws + r % ws).
+partition, its reverse and the shift happen inside the kernels: row r of
+window (wy, wx) is pixel ((wy·ws + r // ws + s) mod H, (wx·ws + r % ws + s)
+mod W), so no roll reaches device memory. The plain versions roll qkv (and
+dO) in and O (and dqkv) out, the JAX block's arithmetic.
 
 It is differentiable in qkv and in bias, as the JAX ``custom_vjp`` is: with
 grad mode on and either input requiring grad it runs the autograd Function
@@ -26,9 +32,10 @@ backward. The bias gradient is the sum of dS over every window and batch row.
 Without grad it runs the no-stash forward.
 
 Four kernels, each behind a wrapper with its own launch count
-(``<wrapper>.launches``, counted only where the kernel is launched, and
+(``<wrapper>.launches``, counted only where the kernel is launched;
 ``<wrapper>.large_launches``, the launches on windows of N > 64, which the
-kernels' tiled bodies take):
+kernels' tiled bodies take; ``<wrapper>.shifted_launches``, the launches
+with a shift, whose addresses wrap):
 
 - ``fused_window_attention_fwd``: no-stash forward (``csrc/fused_window_attention.cu``, K2), the
   registered operator ``torch.ops.vdk.fused_window_attention`` (one node of a ``torch.export`` program);
@@ -137,9 +144,12 @@ def _window_size(bias: torch.Tensor, heads: int) -> int:
     return n
 
 
-def _layout(qkv: torch.Tensor, heads: int, n: int, ids: Optional[torch.Tensor] = None):
+def _layout(qkv: torch.Tensor, heads: int, n: int, ids: Optional[torch.Tensor] = None, shift: int = 0,
+            masked: bool = True):
     """(B, H, W, C, head_dim, ws, nW) of a valid call with N = ``n`` tokens
-    per window; raises ValueError on shapes that break the layout contract."""
+    per window, shifted by ``shift``; raises ValueError on shapes that break
+    the layout contract. ``masked``: the call forms P, so a shift takes the
+    region ids (a backward from P finds the mask in P)."""
     if qkv.dim() != 4:
         raise ValueError(f"qkv must be [B, H, W, 3C], got shape {tuple(qkv.shape)}")
     b, hh, ww, c3 = qkv.shape
@@ -153,6 +163,10 @@ def _layout(qkv: torch.Tensor, heads: int, n: int, ids: Optional[torch.Tensor] =
     n_win = (hh // ws) * (ww // ws)
     if ids is not None and tuple(ids.shape) != (n_win, n):
         raise ValueError(f"ids must be [nH·nW={n_win}, ws²={n}], got shape {tuple(ids.shape)}")
+    if not 0 <= shift < ws:
+        raise ValueError(f"shift must be in [0, ws={ws}), got {shift}")
+    if shift and masked and ids is None:
+        raise ValueError("a shifted call takes the region ids of its shifted frame")
     return b, hh, ww, c3 // 3, c3 // (3 * heads), ws, n_win
 
 
@@ -184,6 +198,11 @@ def _split(x: torch.Tensor, ws: int, heads: int, head_dim: int):
     return win.reshape(b, n_win, n, width // (heads * head_dim), heads, head_dim).permute(3, 0, 1, 4, 2, 5)
 
 
+def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """x [B, H, W, K] rolled by (shift, shift) over H and W (x itself at 0)."""
+    return torch.roll(x, (shift, shift), dims=(1, 2)) if shift else x
+
+
 def _merge(parts, ws: int, hh: int, ww: int, dtype: torch.dtype) -> torch.Tensor:
     """m tensors [B, nW, heads, N, d] → [B, H, W, m·heads·d] in ``dtype``."""
     x = torch.stack(parts, dim=3)  # [B, nW, heads, m, N, d]
@@ -208,27 +227,28 @@ def _probs(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, ids: Optional[t
 
 def fused_window_attention_fwd_stash_plain(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O [B, H, W, C], P [B, nW, heads, N, N]) in the input dtype, with the
     Pallas kernel's arithmetic (``_wattn_fwd_kernel``, ``window_attention.py:
-    246-290``): P rounded to the input dtype, then P·V accumulated in f32.
-    Differentiable by autograd."""
-    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, _window_size(bias, heads), ids)
+    246-290``): P rounded to the input dtype, then P·V accumulated in f32; a
+    shift rolls qkv in and O out, as the JAX block does. Differentiable by
+    autograd."""
+    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, _window_size(bias, heads), ids, shift)
     acc = _acc(qkv.dtype)
-    q, k, v = _split(qkv, ws, heads, d)
+    q, k, v = _split(_roll(qkv, -shift), ws, heads, d)
     p = _probs(q.to(acc), k.to(acc), bias, ids, _scale(d, scale) * _LOG2E).to(qkv.dtype)
     o = torch.matmul(p.to(acc), v.to(acc))
-    return _merge([o], ws, hh, ww, qkv.dtype), p
+    return _roll(_merge([o], ws, hh, ww, qkv.dtype), shift), p
 
 
 def fused_window_attention_plain(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> torch.Tensor:
     """The no-stash forward in PyTorch, on any device: O [B, H, W, C] (see
     ``fused_window_attention_fwd_stash_plain``). Differentiable by autograd."""
-    return fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale)[0]
+    return fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale, shift)[0]
 
 
 def _bwd_core(p, q, k, v, do, scale: float):
@@ -245,32 +265,34 @@ def _bwd_core(p, q, k, v, do, scale: float):
 
 def fused_window_attention_bwd_from_p_plain(
     qkv: torch.Tensor, p: torch.Tensor, dout: torch.Tensor, heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dqkv [B, H, W, 3C] in qkv's dtype, dbias [heads, N, N] f32) from the
     stashed P, as ``_wattn_bwd_from_p_kernel`` (``window_attention.py:350-396``):
-    every operand upcast to f32, the region mask implicit in P."""
-    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, p.shape[-1])
+    every operand upcast to f32, the region mask implicit in P; a shift rolls
+    qkv and dO in and dqkv out."""
+    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, p.shape[-1], shift=shift, masked=False)
     acc = _acc(qkv.dtype)
-    q, k, v = (t.to(acc) for t in _split(qkv, ws, heads, d))
-    do = _split(dout, ws, heads, d)[0].to(acc)
+    q, k, v = (t.to(acc) for t in _split(_roll(qkv, -shift), ws, heads, d))
+    do = _split(_roll(dout, -shift), ws, heads, d)[0].to(acc)
     dq, dk, dv, dbias = _bwd_core(p.to(acc), q, k, v, do, _scale(d, scale))
-    return _merge([dq, dk, dv], ws, hh, ww, qkv.dtype), dbias
+    return _roll(_merge([dq, dk, dv], ws, hh, ww, qkv.dtype), shift), dbias
 
 
 def fused_window_attention_bwd_recompute_plain(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], dout: torch.Tensor,
-    heads: int, scale: Optional[float] = None,
+    heads: int, scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dqkv, dbias) with P recomputed in f32 and not rounded, as
-    ``_wattn_bwd_kernel`` (``window_attention.py:293-347``)."""
-    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, _window_size(bias, heads), ids)
+    ``_wattn_bwd_kernel`` (``window_attention.py:293-347``); a shift rolls
+    qkv and dO in and dqkv out."""
+    _, hh, ww, _, d, ws, _ = _layout(qkv, heads, _window_size(bias, heads), ids, shift)
     acc = _acc(qkv.dtype)
-    q, k, v = (t.to(acc) for t in _split(qkv, ws, heads, d))
-    do = _split(dout, ws, heads, d)[0].to(acc)
+    q, k, v = (t.to(acc) for t in _split(_roll(qkv, -shift), ws, heads, d))
+    do = _split(_roll(dout, -shift), ws, heads, d)[0].to(acc)
     sc = _scale(d, scale)
     dq, dk, dv, dbias = _bwd_core(_probs(q, k, bias, ids, sc * _LOG2E), q, k, v, do, sc)
-    return _merge([dq, dk, dv], ws, hh, ww, qkv.dtype), dbias
+    return _roll(_merge([dq, dk, dv], ws, hh, ww, qkv.dtype), shift), dbias
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -304,18 +326,18 @@ def _runs_kernel(qkv: torch.Tensor, heads: int, n: int, bias: Optional[torch.Ten
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _FWD_ARGS = [_P, _P, _P, _P, _P,  # qkv bias ids out p
-             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul dtype stream
+             _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]  # b h w heads d ws shift per_chunk | q_mul dtype stream
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,  # qkv bias ids p dout dqkv dbias_part dbias stats
-             _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]  # b h w heads d ws per_chunk | q_mul scale dtype stream
+             _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]  # b h w heads d ws shift per_chunk | q_mul scale dtype stream
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(qkv, bias, ids, heads, scale, stash: bool):
+def _launch_fwd(qkv, bias, ids, heads, scale, shift: int, stash: bool):
     n = bias.shape[-1]
-    b, hh, ww, c, d, ws, n_win = _layout(qkv, heads, n, ids)
+    b, hh, ww, c, d, ws, n_win = _layout(qkv, heads, n, ids, shift)
     out = torch.empty((b, hh, ww, c), dtype=qkv.dtype, device=qkv.device)
     p = torch.empty((b, n_win, heads, n, n), dtype=qkv.dtype, device=qkv.device) if stash else None
     lib = _lib(_FWD_LIB, "vdk_fused_window_attention_fwd", _FWD_ARGS)
@@ -323,7 +345,7 @@ def _launch_fwd(qkv, bias, ids, heads, scale, stash: bool):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_window_attention_fwd(
             qkv.data_ptr(), bias.data_ptr(), _ptr(ids), out.data_ptr(), _ptr(p),
-            b, hh, ww, heads, d, ws, forward_windows_per_chunk(b, n_win, heads, n, d),
+            b, hh, ww, heads, d, ws, shift, forward_windows_per_chunk(b, n_win, heads, n, d),
             _scale(d, scale) * _LOG2E, _DTYPE_CODES[qkv.dtype], stream,
         )
     _check_err(lib, err, "fused_window_attention forward")
@@ -370,12 +392,12 @@ def backward_plan(batch: int, n_win: int, heads: int, n: int, dtype: torch.dtype
     return per_chunk, (-(-batch * n_win // per_chunk), heads, n, n)
 
 
-def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
+def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale, shift: int):
     """The backward kernels (from P when ``p`` is given, else recomputing it
     from bias and ids), then the fixed-order sum of their dbias partials.
     For N > 64 the row statistics the dq kernel hands the dkv kernel (delta,
     and recomputing the row max and 1 / sum) go through ``stats``."""
-    b, hh, ww, _, d, ws, n_win = _layout(qkv, heads, n, ids)
+    b, hh, ww, _, d, ws, n_win = _layout(qkv, heads, n, ids, shift, masked=p is None)
     per_chunk, part_shape = backward_plan(b, n_win, heads, n, qkv.dtype, p is None, d)
     dqkv = torch.empty_like(qkv)
     dbias_part = torch.empty(part_shape, dtype=torch.float32, device=qkv.device)
@@ -387,48 +409,51 @@ def _launch_bwd(qkv, n, bias, ids, p, dout, heads, scale):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vdk_fused_window_attention_bwd(
             qkv.data_ptr(), _ptr(bias), _ptr(ids), _ptr(p), dout.data_ptr(), dqkv.data_ptr(),
-            dbias_part.data_ptr(), dbias.data_ptr(), _ptr(stats), b, hh, ww, heads, d, ws, per_chunk,
+            dbias_part.data_ptr(), dbias.data_ptr(), _ptr(stats), b, hh, ww, heads, d, ws, shift, per_chunk,
             _scale(d, scale) * _LOG2E, _scale(d, scale), _DTYPE_CODES[qkv.dtype], stream,
         )
     _check_err(lib, err, "fused_window_attention backward")
     return dqkv, dbias
 
 
-def _count(wrapper, n: int) -> None:
-    """One launch of ``wrapper``'s kernel on windows of N tokens."""
+def _count(wrapper, n: int, shift: int) -> None:
+    """One launch of ``wrapper``'s kernel on windows of N tokens, shifted by ``shift``."""
     wrapper.launches += 1
     if n > _SMALL_N:
         wrapper.large_launches += 1
+    if shift:
+        wrapper.shifted_launches += 1
 
 
 def fused_window_attention_fwd(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> torch.Tensor:
-    """No-stash forward: qkv [B, H, W, 3C] → O [B, H, W, C]. CUDA tensors
-    (qkv float32 or bfloat16, bias float32, ids int32, all contiguous, ws ≤ 16,
-    head_dim ≤ 64) launch the kernel, built at first use; CPU tensors run
-    ``fused_window_attention_plain``. Anything else raises. Both go through
-    the registered operator ``torch.ops.vdk.fused_window_attention``, which
-    ``torch.export`` records as one node."""
-    _layout(qkv, heads, _window_size(bias, heads), ids)
-    return torch.ops.vdk.fused_window_attention(qkv, bias, ids, heads, scale)
+    """No-stash forward: qkv [B, H, W, 3C] → O [B, H, W, C], the windows
+    shifted by ``shift``. CUDA tensors (qkv float32 or bfloat16, bias float32,
+    ids int32, all contiguous, ws ≤ 16, head_dim ≤ 64) launch the kernel,
+    built at first use; CPU tensors run ``fused_window_attention_plain``.
+    Anything else raises. Both go through the registered operator
+    ``torch.ops.vdk.fused_window_attention``, which ``torch.export`` records
+    as one node."""
+    _layout(qkv, heads, _window_size(bias, heads), ids, shift)
+    return torch.ops.vdk.fused_window_attention(qkv, bias, ids, heads, scale, shift)
 
 
 @torch.library.custom_op("vdk::fused_window_attention", mutates_args=())
 def _fused_window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-                               scale: Optional[float]) -> torch.Tensor:
+                               scale: Optional[float], shift: int) -> torch.Tensor:
     n = bias.shape[-1]
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_fwd"):
-        return fused_window_attention_plain(qkv, bias, ids, heads, scale)
-    out, _ = _launch_fwd(qkv, bias, ids, heads, scale, stash=False)
-    _count(fused_window_attention_fwd, n)
+        return fused_window_attention_plain(qkv, bias, ids, heads, scale, shift)
+    out, _ = _launch_fwd(qkv, bias, ids, heads, scale, shift, stash=False)
+    _count(fused_window_attention_fwd, n, shift)
     return out
 
 
 @_fused_window_attention_op.register_fake
 def _(qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-      scale: Optional[float]) -> torch.Tensor:
+      scale: Optional[float], shift: int) -> torch.Tensor:
     _runs_kernel(qkv, heads, bias.shape[-1], bias, ids, "fused_window_attention_fwd")  # raises at trace time
     b, hh, ww, c3 = qkv.shape
     return qkv.new_empty((b, hh, ww, c3 // 3))
@@ -436,53 +461,55 @@ def _(qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads:
 
 def fused_window_attention_fwd_stash(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: (O [B, H, W, C], P [B, nW, heads, N, N]) in the input
     dtype. O is bit-for-bit ``fused_window_attention_fwd``'s; P is the rounded
-    value that multiplied V. Same devices and checks."""
+    value that multiplied V, in the windows of the shifted frame. Same
+    devices and checks."""
     n = _window_size(bias, heads)
-    _layout(qkv, heads, n, ids)
+    _layout(qkv, heads, n, ids, shift)
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_fwd_stash"):
-        return fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale)
-    out, p = _launch_fwd(qkv, bias, ids, heads, scale, stash=True)
-    _count(fused_window_attention_fwd_stash, n)
+        return fused_window_attention_fwd_stash_plain(qkv, bias, ids, heads, scale, shift)
+    out, p = _launch_fwd(qkv, bias, ids, heads, scale, shift, stash=True)
+    _count(fused_window_attention_fwd_stash, n, shift)
     return out, p
 
 
 def fused_window_attention_bwd_from_p(
     qkv: torch.Tensor, p: torch.Tensor, dout: torch.Tensor, heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dqkv [B, H, W, 3C], dbias [heads, N, N] f32) from qkv, the forward's
-    stash P [B, nW, heads, N, N] and dO [B, H, W, C], all of qkv's dtype and
-    contiguous. dbias is the same bits on every run. Same devices and checks."""
+    stash P [B, nW, heads, N, N] (shifted by ``shift`` as the forward was) and
+    dO [B, H, W, C], all of qkv's dtype and contiguous. dbias is the same bits
+    on every run. Same devices and checks."""
     if p.dim() != 5:
         raise ValueError(f"P must be [B, nW, heads, N, N], got shape {tuple(p.shape)}")
     n = p.shape[-1]
-    b, hh, ww, c, _, _, n_win = _layout(qkv, heads, n)
+    b, hh, ww, c, _, _, n_win = _layout(qkv, heads, n, shift=shift, masked=False)
     _check_operand(p, qkv, (b, n_win, heads, n, n), "P")
     _check_operand(dout, qkv, (b, hh, ww, c), "dO")
     if not _runs_kernel(qkv, heads, n, None, None, "fused_window_attention_bwd_from_p"):
-        return fused_window_attention_bwd_from_p_plain(qkv, p, dout, heads, scale)
-    dqkv, dbias = _launch_bwd(qkv, n, None, None, p, dout, heads, scale)
-    _count(fused_window_attention_bwd_from_p, n)
+        return fused_window_attention_bwd_from_p_plain(qkv, p, dout, heads, scale, shift)
+    dqkv, dbias = _launch_bwd(qkv, n, None, None, p, dout, heads, scale, shift)
+    _count(fused_window_attention_bwd_from_p, n, shift)
     return dqkv, dbias
 
 
 def fused_window_attention_bwd_recompute(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], dout: torch.Tensor,
-    heads: int, scale: Optional[float] = None,
+    heads: int, scale: Optional[float] = None, shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dqkv, dbias) from qkv, bias, ids and dO, with P recomputed in f32.
     Same devices and checks."""
     n = _window_size(bias, heads)
-    b, hh, ww, c, _, _, _ = _layout(qkv, heads, n, ids)
+    b, hh, ww, c, _, _, _ = _layout(qkv, heads, n, ids, shift)
     _check_operand(dout, qkv, (b, hh, ww, c), "dO")
     if not _runs_kernel(qkv, heads, n, bias, ids, "fused_window_attention_bwd_recompute"):
-        return fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, heads, scale)
-    dqkv, dbias = _launch_bwd(qkv, n, bias, ids, None, dout, heads, scale)
-    _count(fused_window_attention_bwd_recompute, n)
+        return fused_window_attention_bwd_recompute_plain(qkv, bias, ids, dout, heads, scale, shift)
+    dqkv, dbias = _launch_bwd(qkv, n, bias, ids, None, dout, heads, scale, shift)
+    _count(fused_window_attention_bwd_recompute, n, shift)
     return dqkv, dbias
 
 
@@ -493,7 +520,7 @@ KERNELS = (
     fused_window_attention_bwd_recompute,
 )
 for _k in KERNELS:
-    _k.launches = _k.large_launches = 0
+    _k.launches = _k.large_launches = _k.shifted_launches = 0
 
 
 # ---------------------------------------------------------------- the op
@@ -507,15 +534,15 @@ class FusedWindowAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor],
-                heads: int, scale: Optional[float]) -> torch.Tensor:
+                heads: int, scale: Optional[float], shift: int = 0) -> torch.Tensor:
         ctx.stash = _p_cache_enabled()
         if ctx.stash:
-            out, p = fused_window_attention_fwd_stash(qkv, bias, ids, heads, scale)
+            out, p = fused_window_attention_fwd_stash(qkv, bias, ids, heads, scale, shift)
             ctx.save_for_backward(qkv, p)
         else:
-            out = fused_window_attention_fwd(qkv, bias, ids, heads, scale)
+            out = fused_window_attention_fwd(qkv, bias, ids, heads, scale, shift)
             ctx.save_for_backward(qkv, bias)
-        ctx.ids, ctx.heads, ctx.scale, ctx.bias_dtype = ids, heads, scale, bias.dtype
+        ctx.ids, ctx.heads, ctx.scale, ctx.shift, ctx.bias_dtype = ids, heads, scale, shift, bias.dtype
         return out
 
     @staticmethod
@@ -525,25 +552,26 @@ class FusedWindowAttention(torch.autograd.Function):
         with span("vdk.attention.backward"):
             dout = dout.to(qkv.dtype).contiguous()  # F.linear's backward may hand over f32 or strided
             if ctx.stash:
-                dqkv, dbias = fused_window_attention_bwd_from_p(qkv, saved, dout, ctx.heads, ctx.scale)
+                dqkv, dbias = fused_window_attention_bwd_from_p(qkv, saved, dout, ctx.heads, ctx.scale, ctx.shift)
             else:
                 dqkv, dbias = fused_window_attention_bwd_recompute(
-                    qkv, saved, ctx.ids, dout, ctx.heads, ctx.scale)
+                    qkv, saved, ctx.ids, dout, ctx.heads, ctx.scale, ctx.shift)
             return (dqkv if ctx.needs_input_grad[0] else None,
-                    dbias.to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None, None, None, None)
+                    dbias.to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None, None, None, None, None)
 
 
 def fused_window_attention(
     qkv: torch.Tensor, bias: torch.Tensor, ids: Optional[torch.Tensor], heads: int,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, shift: int = 0,
 ) -> torch.Tensor:
     """Window attention straight from the QKV projection: [B, H, W, 3C] →
-    [B, H, W, C], differentiable in qkv and bias. With grad mode on and qkv
-    or bias requiring grad it runs ``FusedWindowAttention``; otherwise
+    [B, H, W, C], over windows shifted by ``shift`` (see module doc),
+    differentiable in qkv and bias. With grad mode on and qkv or bias
+    requiring grad it runs ``FusedWindowAttention``; otherwise
     ``fused_window_attention_fwd``. Kernels on CUDA tensors, their plain
-    versions on CPU tensors (see module doc)."""
-    _layout(qkv, heads, _window_size(bias, heads), ids)
+    versions on CPU tensors."""
+    _layout(qkv, heads, _window_size(bias, heads), ids, shift)
     with span("vdk.attention"):
         if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
-            return FusedWindowAttention.apply(qkv, bias, ids, heads, scale)
-        return fused_window_attention_fwd(qkv, bias, ids, heads, scale)
+            return FusedWindowAttention.apply(qkv, bias, ids, heads, scale, shift)
+        return fused_window_attention_fwd(qkv, bias, ids, heads, scale, shift)
