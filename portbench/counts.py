@@ -1,5 +1,9 @@
 """The yardstick's arithmetic: the H100's peaks, a call's least time, and the
 operations and bytes of the models and their attention, from shapes alone.
+What is particular to an architecture kind (its blocks, the products of its
+forward, its attention calls) is in ``portbench/shapes/<kind>.py``, found by
+the configuration's ``arch["kind"]``; this module holds what every kind
+shares.
 
 Peaks are NVIDIA's data sheet for the H100 SXM at its 700 W limit: 3.35 TB/s
 of HBM and 989 TFLOP/s of dense bf16 tensor-core products. A bound is
@@ -20,12 +24,15 @@ moves fewer bytes for the same op, and a yardstick that counted the stash
 would read that change as a loss of roofline share where the op got faster.
 
 Model FLOPs count the products only (linear layers, convolutions, attention),
-2 per multiply-add. A train step is 3× the forward (the backward twice the
-forward's products); recomputation is not counted.
+2 per multiply-add, of one image. A train step is 3× the forward (the
+backward twice the forward's products); recomputation is not counted, nor
+is other work that does not grow with the batch.
 """
 
 from __future__ import annotations
 
+import importlib
+from types import ModuleType
 from typing import Dict, Iterator, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
@@ -72,16 +79,7 @@ def window_attention(b: int, hh: int, ww: int, heads: int, d: int, ws: int, shif
 
 def attention_calls(arch: Dict, b: int, train: bool) -> List[Tuple[float, float]]:
     """(bytes, FLOPs) of each attention call of one step of ``arch`` at batch ``b``."""
-    if arch["kind"] == "vit":
-        n = (arch["img_size"] // arch["patch_size"]) ** 2 + 1
-        d = arch["embed_dim"] // arch["num_heads"]
-        return [qkv_attention(b, n, arch["num_heads"], d, train)] * arch["depth"]
-    if arch["kind"] == "swin":
-        calls = []
-        for hh, dim, heads, ws, shift in swin_blocks(arch):
-            calls.append(window_attention(b, hh, hh, heads, dim // heads, ws, shift > 0, train))
-        return calls
-    raise ValueError(f"no attention count for arch kind {arch['kind']!r}")
+    return shapes(arch).attention_calls(arch, b, train)
 
 
 def attention_bound_s(arch: Dict, b: int, train: bool) -> float:
@@ -92,54 +90,31 @@ def attention_bound_s(arch: Dict, b: int, train: bool) -> float:
 # ------------------------------------------------------------------ models
 
 
-def swin_blocks(arch: Dict) -> Iterator[Tuple[int, int, int, int, int]]:
-    """(side, dim, heads, window, shift) of each Swin block in order."""
-    side = arch["img_size"] // arch["patch_size"]
-    dim = arch["embed_dim"]
-    for s, (depth, heads) in enumerate(zip(arch["depths"], arch["num_heads"])):
-        ws = min(arch["window_size"], side)
-        for i in range(depth):
-            shift = arch["window_size"] // 2 if i % 2 and ws < side else 0
-            yield side, dim, heads, ws, shift
-        if s < len(arch["depths"]) - 1:
-            side, dim = -(-side // 2), dim * 2
+def shapes(arch: Dict) -> ModuleType:
+    """``portbench/shapes/<kind>.py``: the counts of ``arch``'s kind, found by name."""
+    module = f"portbench.shapes.{arch['kind']}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ValueError(f"no counts for arch kind {arch['kind']!r}: "
+                         f"portbench/shapes/{arch['kind']}.py is missing") from None
 
 
-def _linear(tokens: int, fan_in: int, fan_out: int) -> float:
+def linear(tokens: int, fan_in: int, fan_out: int) -> float:
+    """Products of a dense layer over ``tokens`` rows, 2 a multiply-add."""
     return 2.0 * tokens * fan_in * fan_out
 
 
 def forward_flops(arch: Dict) -> float:
     """Products of one image's forward through ``arch``, FLOPs."""
-    p, img = arch["patch_size"], arch["img_size"]
-    patches = (img // p) ** 2
-    flops = _linear(patches, 3 * p * p, arch["embed_dim"])
-    if arch["kind"] == "vit":
-        c, n = arch["embed_dim"], patches + 1
-        hidden = int(c * arch["mlp_ratio"])
-        per_block = (_linear(n, c, 3 * c) + 4.0 * n * n * c + _linear(n, c, c)
-                     + _linear(n, c, hidden) + _linear(n, hidden, c))
-        flops += arch["depth"] * per_block
-        flops += _linear(1, c, arch["num_classes"])
-        return flops
-    if arch["kind"] == "swin":
-        blocks = list(swin_blocks(arch))
-        for side, c, heads, ws, _ in blocks:
-            n = side * side
-            hidden = int(c * arch["mlp_ratio"])
-            flops += (_linear(n, c, 3 * c) + 4.0 * n * ws * ws * c + _linear(n, c, c)
-                      + _linear(n, c, hidden) + _linear(n, hidden, c))
-        side, dim = arch["img_size"] // p, arch["embed_dim"]
-        for s in range(len(arch["depths"]) - 1):
-            side = -(-side // 2)
-            flops += _linear(side * side, 4 * dim, 2 * dim)
-            dim *= 2
-        neck = arch.get("neck")
-        if neck:
-            flops += _linear(1, side * side * dim, neck["feat_dim"])
-            flops += _linear(1, neck["feat_dim"], neck["num_class"])
-        return flops
-    raise ValueError(f"no FLOP count for arch kind {arch['kind']!r}")
+    return shapes(arch).forward_flops(arch)
+
+
+def swin_blocks(arch: Dict) -> Iterator[Tuple[int, int, int, int, int]]:
+    """``blocks`` of ``arch``'s kind (``shapes/swin.py``), under its former name."""
+    return shapes(arch).blocks(arch)
 
 
 def step_flops(arch: Dict, images: int, train: bool) -> float:

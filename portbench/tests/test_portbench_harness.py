@@ -1,8 +1,9 @@
 """The harness on the CPU, past its look for a card: small cells added to a
-copy of the benchmark as files run and come out correct; each fault planted
-under the timed path, and the fp8 control in the program's place, comes out
-not correct; the last line's keys; the import check; and a checkout with
-nothing but the benchmark fails without a result."""
+copy of the benchmark as files run and come out correct; an architecture
+kind added as files is counted, and one without its counts' file fails by
+naming it; each fault planted under the timed path, and the fp8 control in
+the program's place, comes out not correct; the last line's keys; the import
+check; and a checkout with nothing but the benchmark fails without a result."""
 
 import json
 import os
@@ -12,7 +13,7 @@ import types
 
 import pytest
 
-from portbench import compare, run
+from portbench import compare, counts, run
 from portbench.tests import tiny
 
 RESULT_KEYS = {"correct", "attempted", "failed", "metrics", "checks"}
@@ -58,6 +59,48 @@ def test_a_metric_added_as_a_file_is_read(copy, tmp_path):
     assert result["metrics"]["calls_per_s"]["value"] > 0
     # the device readers find no device trace on the CPU and are left out, never 0
     assert "attn_roofline.embed" not in result["metrics"] and "idle_share.embed" not in result["metrics"]
+
+
+NEW_KIND = "vit_as_files"
+
+
+@pytest.mark.parametrize("with_shapes", [True, False], ids=["counted", "no_shapes_file"])
+def test_an_architecture_kind_added_as_files_is_counted(tmp_path, with_shapes):
+    # a kind that is ViT under another name: its reference and its counts re-export ViT's
+    tiny.copy_benchmark(tmp_path)
+    pb = tmp_path / "portbench"
+    (pb / f"reference/{NEW_KIND}.py").write_text("from portbench.reference.vit import *  # noqa: F401,F403\n")
+    if with_shapes:
+        (pb / f"shapes/{NEW_KIND}.py").write_text(
+            "from portbench.shapes.vit import attention_calls, forward_flops  # noqa: F401\n")
+    cell = "tiny_as_files.train"
+    cfg = {**tiny.VIT_S, "name": "tiny_as_files", "arch": {**tiny.VIT_S["arch"], "kind": NEW_KIND}}
+    tiny.write_json(pb / "configs/tiny_as_files.json", cfg)
+    tiny.write_json(pb / "traffic/tiny_train.json", tiny.TRAIN)
+    tiny.write_json(pb / f"workloads/{cell}.json", {"limits": tiny.LIMITS_TRAIN})
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": cell, "config": "tiny_as_files", "traffic": "tiny_train", "chips": 1,
+                               "why": "a small cell of a kind added as files"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("train_img_per_s", "mfu.train"):
+            m["workloads"].append(cell)
+    for probe in ("images", "window_s"):  # what mfu.train is worked out from
+        (pb / f"metrics/probe_{probe}.py").write_text(f"def read(cell):\n    return cell.{probe}\n")
+        bench["per_layer"].append({"name": f"probe_{probe}", "unit": "1", "better": "higher",
+                                   "source": "host_clock", "layer": "train step", "moves": "train_img_per_s",
+                                   "workloads": [cell]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    if not with_shapes:
+        with pytest.raises(RuntimeError, match=f"ValueError: .*portbench/shapes/{NEW_KIND}.py is missing"):
+            tiny.run_on_cpu(tmp_path, cell, trace=True)
+        return
+    result = tiny.run_on_cpu(tmp_path, cell, trace=True)
+    assert result["correct"] is True
+    metrics = {k: v["value"] for k, v in result["metrics"].items()}
+    images, window = metrics["probe_images"], metrics["probe_window_s"]
+    assert images > 0 and window > 0 and metrics["mfu.train"] > 0
+    flops = counts.step_flops({**cfg["arch"], "kind": "vit"}, images, train=True)
+    assert metrics["mfu.train"] == pytest.approx(100.0 * flops / window / counts.PEAK_BF16_FLOP_PER_S, rel=1e-12)
 
 
 CONTROL = """
